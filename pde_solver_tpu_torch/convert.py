@@ -13,6 +13,8 @@ from typing import Mapping, Sequence
 import numpy as np
 import torch
 
+from pde_solver_tpu_torch.ops.cs_kernels import (CSFlatStencilOperator,
+                                                 _masks_np)
 from pde_solver_tpu_torch.ops.linsolve import ScaledSystem
 from pde_solver_tpu_torch.ops.multigrid import (MGHierarchy, _ShapeOnlyMesh,
                                                 _to_level,
@@ -64,3 +66,45 @@ def hierarchy_from_numpy(levels: Sequence[Mapping], grid_dim: int, vdim: int,
                                      device)
     return MGHierarchy(tuple(out), grid_dim, vdim, pre_smooth, post_smooth,
                        coarse_iters)
+
+
+def _descs_from_masks(masks: np.ndarray, node_shape) -> list:
+    """Class descriptors of the reference's mask planes (its validity plane,
+    the last, dropped): each plane equals the plane of exactly one layer
+    ("ax", axis, c) or edge line ("pair", ay, az, cy, cz) of the two minor
+    axes."""
+    d = len(node_shape)
+    N = int(np.prod(node_shape))
+    planes = np.asarray(masks).reshape(np.shape(masks)[0], -1)[:-1, :N]
+    fold = list(range(max(0, d - 2), d))
+    layers = {ax: sorted({0, 1, int(node_shape[ax]) - 2,
+                          int(node_shape[ax]) - 1}) for ax in fold}
+    cands = [("ax", ax, c) for ax in fold for c in layers[ax]]
+    if len(fold) == 2:
+        ay, az = fold
+        cands += [("pair", ay, az, cy, cz)
+                  for cy in layers[ay] for cz in layers[az]]
+    cand_planes = _masks_np(cands, node_shape, N)
+    descs = []
+    for plane in planes:
+        hits = [c for c, cp in zip(cands, cand_planes)
+                if np.array_equal(cp, plane)]
+        if len(hits) != 1:
+            raise ValueError("a mask plane matches no single boundary class")
+        descs.append(hits[0])
+    return descs
+
+
+def cs_operator_from_reference(sets, win_octs, Wwin, masks, offsets,
+                               node_shape, vdim: int,
+                               device="cuda") -> CSFlatStencilOperator:
+    """Operator from a JAX-package ``CSFlatStencilOperator``'s artifacts:
+    its scalar ``sets``, octet list ``win_octs``, residual weights ``Wwin``
+    (``[n_off·v², n_win·8, 128]``) and class ``masks`` (``[n_sets, n_rows,
+    128]``, validity plane last).  An octet is one of this port's 1024-node
+    windows, so the list and the weights carry over unchanged."""
+    nw = len(offsets) * vdim * vdim
+    return CSFlatStencilOperator(
+        offsets, node_shape, vdim, sets, _descs_from_masks(masks, node_shape),
+        np.asarray(win_octs, np.int64),
+        np.asarray(Wwin, np.float32).reshape(nw, -1), device=device)

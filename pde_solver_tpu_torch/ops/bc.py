@@ -1,14 +1,14 @@
 """Dirichlet boundary conditions as host numpy masks.
 
-Counterpart of ``pde_solver_tpu.ops.bc`` (``from_masks`` and
-``all_boundary``).  Masks stay host numpy arrays: they feed the host-side
+Counterpart of ``pde_solver_tpu.ops.bc`` (``from_masks``,
+``apply_values`` and the mask builders).  Masks stay host numpy arrays: they feed the host-side
 system preparation, which bakes symmetric elimination into the weights.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -43,6 +43,35 @@ class DirichletBC:
             values=np.asarray(values, dtype=np_dtype),
         )
 
+    def apply_values(self, x: np.ndarray) -> np.ndarray:
+        """Force boundary values onto a field (initial conditions)."""
+        return self.free_mask * x + (1.0 - self.free_mask) * self.values
+
 
 def all_boundary(mesh: StructuredMesh) -> np.ndarray:
     return mesh.boundary_mask()
+
+
+def boundary_except_faces(mesh: StructuredMesh, axis: int) -> np.ndarray:
+    """Boundary nodes excluding the two faces normal to ``axis`` (the
+    'other faces' / 'side' predicate of solve_heat_3D)."""
+    m = mesh.boundary_mask().copy()
+    m &= ~mesh.face_mask(axis, 0)
+    m &= ~mesh.face_mask(axis, 1)
+    return m
+
+
+def radius_shell(mesh: StructuredMesh, axes: Sequence[int], radius: float,
+                 exclude_axis_faces: Optional[int] = None,
+                 rtol: float = 1e-9) -> np.ndarray:
+    """Boundary nodes at distance ``radius`` from the axis spanned by the
+    remaining coordinate (the cylinder side wall on the box-embedding
+    mesh)."""
+    coords = mesh.node_coords
+    r = np.sqrt(sum(coords[..., a] ** 2 for a in axes))
+    m = mesh.boundary_mask() & (np.abs(r - radius)
+                                <= rtol * max(abs(radius), 1.0) + 1e-12)
+    if exclude_axis_faces is not None:
+        m &= ~mesh.face_mask(exclude_axis_faces, 0)
+        m &= ~mesh.face_mask(exclude_axis_faces, 1)
+    return m

@@ -31,6 +31,8 @@ from pde_solver_tpu_torch.config import SolverConfig, get_config
 from pde_solver_tpu_torch.mesh import StructuredMesh
 from pde_solver_tpu_torch.ops.bc import DirichletBC
 from pde_solver_tpu_torch.ops.cg import SolveStats
+from pde_solver_tpu_torch.ops.cs_kernels import (CSFlatStencilOperator,
+                                                 cs_enabled)
 from pde_solver_tpu_torch.ops.stencil_kernels import (FlatStencilOperator,
                                                       kernel_wins)
 
@@ -215,12 +217,18 @@ def _pad1(x: torch.Tensor, grid_dim: int) -> torch.Tensor:
     return xp
 
 
+def _is_flat_op(w) -> bool:
+    """A kernel-backed operator (dense or constant-interior) that works in
+    the flat ``[v, N]`` layout."""
+    return isinstance(w, (FlatStencilOperator, CSFlatStencilOperator))
+
+
 def _stencil_apply(offsets: Tuple[Offset, ...], weights, x: torch.Tensor,
                    grid_dim: int, vdim: int) -> torch.Tensor:
     """Grid-layout apply: the kernel-backed operator when given one, else
     plain shifted slices over per-offset weight tensors.  Per-node v×v
     blocks multiply as broadcast + sum (no batched GEMM, no TF32 path)."""
-    if isinstance(weights, FlatStencilOperator):
+    if _is_flat_op(weights):
         return weights.apply(x)
     xp = _pad1(x, grid_dim)
     shape = x.shape[:grid_dim]
@@ -240,11 +248,11 @@ def _dot(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 def _cg_unit_diag(offsets, weights, b, x0, tol, maxiter, grid_dim, vdim):
     """CG on the scaled (identity-diagonal) system — no preconditioner.
 
-    With a :class:`FlatStencilOperator` the whole iteration runs in the
-    kernel's flat layout: one conversion per solve instead of two per
-    iteration.  The convergence test reads ‖r‖² on the host each iteration
-    (one device sync per iteration)."""
-    flat = isinstance(weights, FlatStencilOperator)
+    With a flat operator (dense or constant-interior) the whole iteration
+    runs in the kernel's flat layout: one conversion per solve instead of
+    two per iteration.  The convergence test reads ‖r‖² on the host each
+    iteration (one device sync per iteration)."""
+    flat = _is_flat_op(weights)
     if flat:
         b = weights.to_flat(b)
         x0 = weights.to_flat(x0)
@@ -280,12 +288,20 @@ def _cg_unit_diag(offsets, weights, b, x0, tol, maxiter, grid_dim, vdim):
 
 def _static_flat_op(sysm: ScaledSystem, mesh: StructuredMesh, vdim: int,
                     device):
-    """Kernel-backed flat operator for the static f32 CG path, or None when
-    plain shifted slices are the right call (below ``KERNEL_MIN_DOF``).
+    """Kernel-backed flat operator for the f32 CG paths (static, and the
+    transient step without multigrid), or None when plain shifted slices
+    are the right call (below ``KERNEL_MIN_DOF``).  With ``PDE_TPU_CS`` on
+    it is the constant-interior operator where the stencil allows one.
     _cg_unit_diag then iterates in the flat layout."""
     n = int(np.prod(mesh.node_shape)) * vdim
     if not kernel_wins(n):
         return None
+    if cs_enabled():
+        op = CSFlatStencilOperator.try_build(
+            sysm.offsets, sysm.weights, mesh.node_shape, vdim=vdim,
+            device=device, cache_key=sysm.ckey)
+        if op is not None:
+            return op
     return FlatStencilOperator(sysm.offsets, sysm.weights, mesh.node_shape,
                                vdim=vdim, device=device)
 

@@ -9,7 +9,9 @@ exact dense coarsest inverse, a Chebyshev-smoothed V-cycle, flexible MG-PCG
 Every level applies through :class:`FlatStencilOperator` (the CUDA kernel
 on the card, its plain torch version on the CPU) while its DOF count is at
 least ``KERNEL_MIN_DOF``: float32 weights for true residuals and a bfloat16
-copy for the smoother.  Smoothing and the PCG state live in the flat
+copy for the smoother.  With ``PDE_TPU_CS`` on, a level whose stencil is
+constant-interior applies through :class:`CSFlatStencilOperator` instead,
+as the reference routes it.  Smoothing and the PCG state live in the flat
 ``[v, N]`` layout; grid layout only at the transfer boundary.
 
 Scaling-aware transfers: with x = S x̂ per level (S = diag(s), or S = C^{-T}
@@ -31,7 +33,10 @@ import torch
 
 from pde_solver_tpu_torch.mesh import StructuredMesh
 from pde_solver_tpu_torch.ops.bc import DirichletBC
-from pde_solver_tpu_torch.ops.linsolve import (ScaledSystem, _dot, _pad1,
+from pde_solver_tpu_torch.ops.cs_kernels import (CSFlatStencilOperator,
+                                                 cs_enabled, cs_mode)
+from pde_solver_tpu_torch.ops.linsolve import (ScaledSystem, _dot,
+                                               _is_flat_op, _pad1,
                                                _stencil_apply, prepare_system)
 from pde_solver_tpu_torch.ops.stencil_kernels import (FlatStencilOperator,
                                                       kernel_wins)
@@ -104,9 +109,10 @@ def _matvec_t(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 class MGLevel(NamedTuple):
     offsets: Tuple[Offset, ...]
-    weights: object                      # FlatStencilOperator (f32) or a
-                                         # tuple of per-offset tensors — the
-                                         # true operator (outer residuals)
+    weights: object                      # FlatStencilOperator (f32),
+                                         # CSFlatStencilOperator or a tuple
+                                         # of per-offset tensors — the true
+                                         # operator (outer residuals)
     free: torch.Tensor                   # f32 mask over DOFs (grid layout)
     omega: float                         # 4/(3 λmax)
     s: Optional[torch.Tensor]            # scalar 1/sqrt(diag); None for block
@@ -191,15 +197,36 @@ def _to_level(sysm: ScaledSystem, mesh, vdim: int, device,
               omega: Optional[float] = None) -> MGLevel:
     """One MG level's device operators from a scaled system: the
     kernel-backed f32 operator plus its bf16 smoother copy (cast on the
-    device), or plain per-offset tensors below ``KERNEL_MIN_DOF``."""
+    device), or plain per-offset tensors below ``KERNEL_MIN_DOF``.
+
+    ``PDE_TPU_CS`` as the reference reads it: "1" applies a
+    constant-interior level through the CS operator for both residuals and
+    smoothing (it streams no weights, so a bf16 copy buys nothing);
+    "hybrid" keeps the dense bf16 operator for smoothing.  A level that is
+    not CS-representable stays dense."""
     host_w = [np.asarray(W, dtype=np.float64) for W in sysm.weights]
     free = torch.as_tensor(sysm.free, dtype=torch.float32, device=device)
     n_dof = int(np.prod(mesh.node_shape)) * vdim
     w_lo = None
     if kernel_wins(n_dof):
-        w = FlatStencilOperator(sysm.offsets, sysm.weights, mesh.node_shape,
-                                vdim=vdim, device=device)
-        w_lo = w.as_weight_dtype(torch.bfloat16)
+        mode = cs_mode()
+        cs = None
+        if cs_enabled(mode):
+            cs = CSFlatStencilOperator.try_build(
+                sysm.offsets, sysm.weights, mesh.node_shape, vdim=vdim,
+                device=device, cache_key=sysm.ckey)
+        if cs is not None and mode == "hybrid":
+            w = cs
+            w_lo = FlatStencilOperator(sysm.offsets, sysm.weights,
+                                       mesh.node_shape, vdim=vdim,
+                                       device=device,
+                                       weight_dtype=torch.bfloat16)
+        elif cs is not None:
+            w = w_lo = cs
+        else:
+            w = FlatStencilOperator(sysm.offsets, sysm.weights,
+                                    mesh.node_shape, vdim=vdim, device=device)
+            w_lo = w.as_weight_dtype(torch.bfloat16)
     else:
         w = tuple(torch.as_tensor(W, dtype=torch.float32, device=device)
                   for W in sysm.weights)
@@ -358,7 +385,7 @@ def v_cycle(h: MGHierarchy, r_hat: torch.Tensor, level: int = 0,
         return cheb
 
     lvc = h.levels[level + 1]
-    if isinstance(lv.w_smooth, FlatStencilOperator):
+    if _is_flat_op(lv.w_smooth):
         op = lv.w_smooth
         cheb = make_cheb(op.apply_flat)
         rf = r_hat if flat_io else op.to_flat(r_hat)
@@ -379,18 +406,21 @@ def v_cycle(h: MGHierarchy, r_hat: torch.Tensor, level: int = 0,
     return cheb(x, r_hat, h.post_smooth)
 
 
-def mg_pcg(h: MGHierarchy, b: torch.Tensor, x0: torch.Tensor, tol, maxiter):
+def mg_pcg(h: MGHierarchy, b: torch.Tensor, x0: torch.Tensor, tol, maxiter,
+           resync_every: int = 16):
     """Flexible PCG on the finest scaled system, one V-cycle per application.
 
     Flexible (Polak-Ribière β = z·(r−r_prev)/rz_prev), robust to a V-cycle
     that is not an exactly fixed linear operator.  Convergence is checked on
-    the recurrence residual ‖r‖, resynced to b − A x every 16 iterations.
+    the recurrence residual ‖r‖, resynced to b − A x every ``resync_every``
+    iterations (0: never — warm-started transient steps take a handful of
+    iterations and do not drift, so the extra apply would be wasted).
     With a kernel-backed finest level the whole CG state lives in the flat
     layout.  Returns (x, iterations, relres)."""
     lv = h.levels[0]
     d, vdim = h.grid_dim, h.vdim
 
-    if isinstance(lv.weights, FlatStencilOperator):
+    if _is_flat_op(lv.weights):
         op = lv.weights
         free = op.to_flat(lv.free)
         b = op.to_flat(b)
@@ -427,7 +457,7 @@ def mg_pcg(h: MGHierarchy, b: torch.Tensor, x0: torch.Tensor, tol, maxiter):
         alpha = rz / torch.where(pAp == 0, torch.ones_like(pAp), pAp)
         x = x + alpha * p
         r_new = r - alpha * Ap
-        if k % 16 == 15:
+        if resync_every > 0 and k % resync_every == resync_every - 1:
             # true-residual resync: the recurrence drifts from b − A x in
             # f32 once conjugacy degrades
             r_new = b - A(x)

@@ -1,13 +1,14 @@
 """L2 projection onto P1 — consistent-mass solve.
 
-Counterpart of ``pde_solver_tpu.ops.projection`` (``project_cellwise``):
-solve M p = b with b_i = ∫ expr φ_i dx and the consistent (not lumped) mass
-matrix, as FEniCS ``project`` does for the stress / von Mises fields.
+Counterpart of ``pde_solver_tpu.ops.projection``: solve M p = b with
+b_i = ∫ expr φ_i dx and the consistent (not lumped) mass matrix, as FEniCS
+``project`` does for the stress / von Mises fields (``project_cellwise``)
+and the cosine/sine initial conditions (``project_function``).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 
@@ -22,6 +23,17 @@ def _no_bc(mesh: StructuredMesh) -> DirichletBC:
     shape = mesh.node_shape
     return DirichletBC(free_mask=np.ones(shape, np.float64),
                        values=np.zeros(shape, np.float64))
+
+
+def project_function(mesh: StructuredMesh,
+                     fn: Callable[[np.ndarray], np.ndarray],
+                     quad_degree: int = 4,
+                     config: Optional[SolverConfig] = None) -> np.ndarray:
+    """Project a pointwise function of coordinates onto P1 nodes."""
+    M = assembly.assemble_scalar_stencil(mesh, "mass", quad_degree=2)
+    b = assembly.assemble_load(mesh, source_fn=fn, quad_degree=quad_degree)
+    x, _ = solve_stencil_system(M, mesh, _no_bc(mesh), b, config=config)
+    return x
 
 
 def project_cellwise(mesh: StructuredMesh, cell_values: np.ndarray,

@@ -14,28 +14,19 @@ are component-major ``[v, N]`` float32.
 takes it only for CPU tensors; a CUDA tensor launches the kernel in
 ``csrc/flat_stencil_spmv.cu`` or raises.  The kernel is compiled with
 ``nvcc`` for ``sm_90a`` at first use into ``build/`` (rebuilt when the
-source changes) and bound with ``ctypes``.
+source changes, see ``ops.cuda_build``) and bound with ``ctypes``.
 """
 
 from __future__ import annotations
 
 import copy
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "flat_stencil_spmv.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from pde_solver_tpu_torch.ops import cuda_build
 
 # Below this DOF count a level would apply through plain torch shifted
 # slices instead of the kernel.  0 routes every level through the kernel:
@@ -44,13 +35,14 @@ _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # is what may raise it.
 KERNEL_MIN_DOF = 0
 
-# Launches of the CUDA kernel in this process, by variant
-# ("v3_f32", "v3_bf16", "v1_f32").  Only a kernel launch counts: the CPU
-# plain path never does.
+# Launches of the port's CUDA kernels in this process, by variant: this
+# module's "v3_f32", "v3_bf16", "v1_f32", "v1_bf16", and the
+# constant-interior pair of ``ops.cs_kernels`` ("cs_main_v1",
+# "cs_window_v1", ...).  Only a kernel launch counts: the CPU plain path
+# never does.
 KERNEL_LAUNCHES: Dict[str, int] = {}
 
 _LIB: Optional[ctypes.CDLL] = None
-BUILD_INFO: Dict[str, object] = {}
 
 
 def kernel_wins(n_dof: int) -> bool:
@@ -62,48 +54,22 @@ def reset_launch_counts() -> None:
     KERNEL_LAUNCHES.clear()
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
-        or "/usr/local/cuda"
-    return os.path.join(home, "bin", "nvcc")
+def count_launch(variant: str) -> None:
+    KERNEL_LAUNCHES[variant] = KERNEL_LAUNCHES.get(variant, 0) + 1
 
 
 def build_library() -> ctypes.CDLL:
-    """Compile (if the source hash is new) and load the kernel library.
-
-    The ``.so`` name carries a hash of the source and flags, so an edited
-    source builds anew; the build goes to a temporary name and is renamed
-    into place, so concurrent builders never load a half-written file."""
+    """Compile (if the source hash is new) and load the kernel library."""
     global _LIB
-    if _LIB is not None:
-        return _LIB
-    src = _SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()
-    so_path = _BUILD_DIR / f"flat_stencil_spmv-{digest[:16]}.so"
-    t0 = time.perf_counter()
-    log = ""
-    if not so_path.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so_path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, so_path)
-    lib = ctypes.CDLL(str(so_path))
-    fn = lib.flat_stencil_spmv
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    BUILD_INFO.update(path=str(so_path), seconds=time.perf_counter() - t0,
-                      log=log)
-    _LIB = lib
-    return lib
+    if _LIB is None:
+        lib = cuda_build.library("flat_stencil_spmv")
+        fn = lib.flat_stencil_spmv
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                       ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
 
 
 def spmv_plain(W: torch.Tensor, x: torch.Tensor, deltas: Sequence[int],
@@ -234,5 +200,5 @@ class FlatStencilOperator:
                                f"{rc} (vdim={self.vdim}, N={self.N}, "
                                f"{W.dtype})")
         self.launches += 1
-        KERNEL_LAUNCHES[self.variant] = KERNEL_LAUNCHES.get(self.variant, 0) + 1
+        count_launch(self.variant)
         return y

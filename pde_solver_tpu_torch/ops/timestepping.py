@@ -1,0 +1,250 @@
+"""Implicit θ-scheme time stepping, eager torch.
+
+Counterpart of ``pde_solver_tpu.ops.timestepping`` (``run_transient`` with
+its plain and snapshot-thinned scans) on one device:
+
+    (M + θ Δt K) u^{n+1} = (M − (1−θ) Δt K) u^n + Δt b
+
+θ=1 is backward Euler, θ=1/2 Crank-Nicolson.  The implicit operator gets
+Dirichlet masking and symmetric Jacobi scaling baked into its weights on
+the host (``ops.linsolve.prepare_system``); each step solves the scaled
+unit-diagonal system from a warm start — by MG-PCG when the system has at
+least ``resolved_transient_mg_threshold()`` DOF and a level builder, else
+by plain CG on the flat operator (dense, or constant-interior with
+``PDE_TPU_CS``).  The reference's ``lax.scan`` becomes a Python loop; the
+kept frames stack on the device and come back to the host once, whole and
+at float32.
+
+Like the reference, "mixed" precision runs the scan in float32 (implicit
+stepping is contractive and every step is solved to
+``transient_inner_tol`` from a warm start).  Not ported, each raising
+``NotImplementedError``: float64 scans, periodic driving (``time_mod``),
+IMEX convection (``C_np``), checkpointing and sharding.  The reference
+thins large trajectory pulls to bfloat16 frames for its slow host link;
+the port pulls everything at float32 (ROADMAP queue 3).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from pde_solver_tpu_torch.config import SolverConfig, get_config
+from pde_solver_tpu_torch.mesh import StructuredMesh
+from pde_solver_tpu_torch.ops.bc import DirichletBC
+from pde_solver_tpu_torch.ops.linsolve import (_cg_unit_diag, _static_flat_op,
+                                               _stencil_apply,
+                                               np_stencil_apply,
+                                               prepare_system)
+from pde_solver_tpu_torch.utils.observability import get_logger
+
+
+class TransientResult(NamedTuple):
+    values: np.ndarray        # [frames, *node_shape(, v)] float64 — u0 first
+    times: np.ndarray         # [frames]
+    total_cg_iterations: int
+    max_relative_residual: float
+    setup_seconds: float = 0.0  # host system prep + MG hierarchy + staging
+    scan_seconds: float = 0.0   # the stepping loop (throughput =
+                                # num_steps / scan_seconds)
+    fetch_seconds: float = 0.0  # trajectory device → host
+
+
+def _combine(K: Dict, M: Dict, alpha: float, beta: float) -> Dict:
+    """beta*M + alpha*K as a numpy stencil."""
+    out = {}
+    for o, W in M.items():
+        out[o] = beta * np.asarray(W, dtype=np.float64)
+    for o, W in K.items():
+        out[o] = out.get(o, 0.0) + alpha * np.asarray(W, dtype=np.float64)
+    return out
+
+
+def _make_scale_ops(s, Ct, CinvT):
+    """Scaled-system coordinate changes, scalar (s) or block (Ct/CinvT).
+
+    Scalar Jacobi: Â = S A S with S = diag(s) ⇒ b̂ = S b, x̂ = x/s, x = S x̂.
+    Block Cholesky: Â = C⁻¹ A C⁻ᵀ ⇒ b̂ = C⁻¹ b, x̂ = Cᵀ x, x = C⁻ᵀ x̂.
+    Per-node blocks multiply as broadcast + sum (no batched GEMM)."""
+    if s is not None:
+        return (lambda v: s * v), (lambda v: v / s), (lambda v: s * v)
+
+    def to_hat_b(v):
+        return (CinvT * v[..., :, None]).sum(-2)
+
+    def to_hat_x(v):
+        return (Ct * v[..., None, :]).sum(-1)
+
+    def from_hat_x(v):
+        return (CinvT * v[..., None, :]).sum(-1)
+
+    return to_hat_b, to_hat_x, from_hat_x
+
+
+def _snapshot_every(cfg: SolverConfig, num_steps: int, snap_bytes: int) -> int:
+    """Keep every k-th frame: under ``snapshot_max_frames``, or when the
+    whole trajectory would exceed ``snapshot_budget_bytes`` (the
+    reference's rule)."""
+    if cfg.snapshot_max_frames > 0:
+        return max(1, -(-int(num_steps) // cfg.snapshot_max_frames))
+    if num_steps * snap_bytes > cfg.snapshot_budget_bytes:
+        return -(-(num_steps * snap_bytes) // cfg.snapshot_budget_bytes)
+    return 1
+
+
+def run_transient(
+    K_np: Dict,
+    M_np: Dict,
+    mesh: StructuredMesh,
+    bc: DirichletBC,
+    b_source_np: np.ndarray,
+    u0_np: np.ndarray,
+    dt: float,
+    num_steps: int,
+    theta: float = 1.0,
+    vdim: int = 1,
+    config: Optional[SolverConfig] = None,
+    mg_level_builder=None,
+    C_np: Optional[Dict] = None,
+    time_mod: Optional[Dict] = None,
+    convection_scheme: str = "ab1",
+) -> TransientResult:
+    """``mg_level_builder(mesh_c) -> (K_c, M_c, bc_c)`` (optional) enables
+    MG-PCG step solves: the implicit operator M + θΔtK is re-assembled per
+    coarse level and each step runs a V-cycle-preconditioned CG."""
+    if C_np:
+        raise NotImplementedError("IMEX convection (C_np) is not ported yet "
+                                  "(ROADMAP queue 1, item 8)")
+    if time_mod:
+        raise NotImplementedError("periodic driving (time_mod) is not ported "
+                                  "yet (ROADMAP queue 1, item 8)")
+    if convection_scheme not in ("ab1", "cnab2"):
+        raise ValueError(f"unknown convection_scheme {convection_scheme!r}")
+    cfg = config or get_config()
+    cfg.resolved_shard_devices()  # raises when sharding is requested
+    if cfg.transient_checkpoint_every > 0:
+        raise NotImplementedError("checkpointed transients are not ported "
+                                  "yet (ROADMAP queue 1, item 8)")
+    prec = cfg.resolve_precision()
+    if prec == "mixed":
+        prec = "f32"   # the reference's rule: no f64 inside the scan
+    if prec != "f32":
+        raise NotImplementedError(f"precision {prec!r} transient scans are not "
+                                  "ported yet; only 'f32' and 'mixed' are "
+                                  "(ROADMAP queue 1, item 2)")
+    t_setup = time.perf_counter()
+    device = torch.device(cfg.device)
+    d = mesh.dim
+    n = int(np.prod(mesh.node_shape)) * vdim
+    maxiter = cfg.resolved_maxiter(n)
+    num_steps = int(num_steps)
+
+    A_np = _combine(K_np, M_np, alpha=theta * dt, beta=1.0)
+    B_np = _combine(K_np, M_np, alpha=-(1.0 - theta) * dt, beta=1.0)
+    # scaled, masked implicit operator (zero rhs: only the weights are
+    # needed, the per-step lift uses the precomputed A g)
+    sysm = prepare_system(A_np, mesh, bc, np.zeros(u0_np.shape), vdim)
+    offsets, scaled, gvals = sysm.offsets, sysm.weights, sysm.gvals
+    Ag_np = np_stencil_apply(A_np, gvals, d, vdim)
+    free_np = np.asarray(bc.free_mask, dtype=np.float64)
+    B_list = [np.asarray(B_np.get(o, np.zeros_like(scaled[i])), np.float64)
+              for i, o in enumerate(offsets)]
+
+    h = None
+    if (mg_level_builder is not None and cfg.use_multigrid
+            and n >= cfg.resolved_transient_mg_threshold()):
+        from pde_solver_tpu_torch.ops import multigrid as mg
+
+        def A_builder(mesh_c):
+            K_c, M_c, bc_c = mg_level_builder(mesh_c)
+            return _combine(K_c, M_c, alpha=theta * dt, beta=1.0), bc_c
+
+        h = mg.build_hierarchy(mesh, sysm, A_builder, vdim=vdim,
+                               device=device)
+    A32 = None
+    if h is None:
+        # The reference builds this operator on the MG branch too and never
+        # reads it there; the port builds it only for the plain-CG step.
+        A32 = _static_flat_op(sysm, mesh, vdim, device) or tuple(
+            torch.as_tensor(W, dtype=torch.float32, device=device)
+            for W in scaled)
+
+    def dev(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                               device=device)
+
+    B_w = tuple(dev(W) for W in B_list)
+    free, g, Ag = dev(free_np), dev(gvals), dev(Ag_np)
+    b_src = dev(dt * np.asarray(b_source_np, np.float64))
+    if sysm.scale_kind == "scalar":
+        scale_ops = _make_scale_ops(dev(sysm.s), None, None)
+    else:
+        scale_ops = _make_scale_ops(None, dev(sysm.Ct), dev(sysm.CinvT))
+    to_hat_b, to_hat_x, from_hat_x = scale_ops
+    inner_tol = cfg.transient_inner_tol
+
+    def step(u):
+        rhs = _stencil_apply(offsets, B_w, u, d, vdim) + b_src
+        b_hat = to_hat_b(free * (rhs - Ag) + g)
+        x0_hat = to_hat_x(u)
+        if h is not None:
+            # resync_every=0: warm-started step solves take a handful of
+            # iterations and do not drift (the reference's choice)
+            xh, k, relres = mg.mg_pcg(h, b_hat, x0_hat, inner_tol, maxiter,
+                                      resync_every=0)
+        else:
+            xh, k, relres = _cg_unit_diag(offsets, A32, b_hat, x0_hat,
+                                          inner_tol, maxiter, d, vdim)
+        return from_hat_x(xh), k, relres
+
+    # the frames kept: every snap_every-th step, and the final state always
+    snap_every = _snapshot_every(cfg, num_steps, n * 4)
+    main = (num_steps // snap_every) * snap_every
+    kept = list(range(snap_every, main + 1, snap_every))
+    if snap_every > 1:
+        times = [0.0] + [dt * snap_every * (j + 1)
+                         for j in range(main // snap_every)]
+        if main < num_steps:
+            kept.append(num_steps)
+            times.append(dt * num_steps)
+        times = np.asarray(times, np.float64)
+    else:
+        times = dt * np.arange(num_steps + 1, dtype=np.float64)
+    u = dev(u0_np)
+    snaps = torch.empty((len(kept),) + tuple(u.shape), dtype=torch.float32,
+                        device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    setup_s = time.perf_counter() - t_setup
+
+    t_scan = time.perf_counter()
+    iters, res = 0, 0.0
+    frame = 0
+    for j in range(1, num_steps + 1):
+        u, k, relres = step(u)
+        iters += int(k)
+        res = max(res, float(relres))
+        if frame < len(kept) and kept[frame] == j:
+            snaps[frame] = u
+            frame += 1
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    scan_s = time.perf_counter() - t_scan
+
+    t_fetch = time.perf_counter()
+    traj = snaps.cpu().numpy().astype(np.float64)
+    values = np.concatenate([np.asarray(u0_np, np.float64)[None], traj],
+                            axis=0)
+    fetch_s = time.perf_counter() - t_fetch
+    get_logger().info("transient: %d steps, %d CG iterations, max relres "
+                      "%.3e, setup %.3fs, scan %.3fs, fetch %.3fs (%d DOF, "
+                      "%s step solves)", num_steps, iters, res, setup_s,
+                      scan_s, fetch_s, n, "MG-PCG" if h is not None else "CG")
+    return TransientResult(values=values, times=times,
+                           total_cg_iterations=iters,
+                           max_relative_residual=res,
+                           setup_seconds=setup_s, scan_seconds=scan_s,
+                           fetch_seconds=fetch_s)

@@ -1,4 +1,6 @@
-"""CUDA kernel of the port against its plain PyTorch version, on the card.
+"""CUDA kernels of the port against their plain PyTorch versions, on the
+card: the dense flat-stencil SpMV (every variant ``chip_smoke.py`` launches,
+v1_bf16 included) and the constant-interior pair K3/K4.
 
 A CUDA kernel has no CPU mode, so every test here is marked ``cuda`` and
 skips without a card.  The file imports neither JAX nor the JAX package, so
@@ -16,7 +18,9 @@ from pde_solver_tpu_torch.ops import assembly
 from pde_solver_tpu_torch.ops.bc import DirichletBC, all_boundary
 from pde_solver_tpu_torch.ops.linsolve import (_cg_unit_diag, np_stencil_apply,
                                                prepare_system)
+from pde_solver_tpu_torch.ops import cs_kernels as ck
 from pde_solver_tpu_torch.ops import stencil_kernels as sk
+from pde_solver_tpu_torch.ops.timestepping import _combine
 
 pytestmark = pytest.mark.cuda
 
@@ -100,6 +104,112 @@ def test_flat_cg_through_kernel_matches_cpu(card):
     x_cpu, k_cpu, rr_cpu, n_cpu = out["cpu"]
     x_gpu, k_gpu, rr_gpu, n_gpu = out["cuda"]
     assert n_cpu == 0 and n_gpu >= k_gpu > 0
+    assert rr_cpu <= 1e-6 and rr_gpu <= 1e-6
+    assert abs(k_gpu - k_cpu) <= 2
+    assert _rel(x_gpu, x_cpu) <= 1e-5
+
+
+# ---- constant-interior pair (cs_main K3, cs_window K4) ----------------------
+
+def _cs_system(vdim, cells):
+    """v=1: the scaled backward-Euler heat operator with all-boundary
+    Dirichlet (the heat slice's operator); v=3: a clamped elastic bar."""
+    mesh = box_mesh(*cells, (0, 0, 0), (1.0, 0.25, 0.25))
+    if vdim == 1:
+        K = assembly.assemble_scalar_stencil(mesh, "stiffness")
+        M = assembly.assemble_scalar_stencil(mesh, "mass")
+        bc = DirichletBC.from_masks([(all_boundary(mesh), 0.0)],
+                                    mesh.node_shape)
+        sysm = prepare_system(_combine(K, M, 0.01, 1.0), mesh, bc,
+                              np.zeros(mesh.node_shape), 1)
+    else:
+        K = assembly.assemble_elasticity_stencil(mesh, 1.3, 0.7)
+        bc = DirichletBC.from_masks([(mesh.face_mask(0, 0), 0.0)],
+                                    mesh.node_shape, vdim=3)
+        sysm = prepare_system(K, mesh, bc, np.zeros(mesh.node_shape + (3,)),
+                              3)
+    return mesh, sysm
+
+
+def _cs_op(vdim, cells, device):
+    mesh, sysm = _cs_system(vdim, cells)
+    op = ck.CSFlatStencilOperator.try_build(
+        sysm.offsets, sysm.weights, mesh.node_shape, vdim=vdim, device=device)
+    assert op is not None, f"{cells} must be CS-representable"
+    return mesh, sysm, op
+
+
+@pytest.mark.parametrize("vdim,cells", [(1, (40, 6, 6)), (1, (48, 20, 24)),
+                                        (1, (64, 64, 64)), (3, (100, 6, 6)),
+                                        (3, (60, 8, 8))])
+def test_cs_kernels_match_plain(card, vdim, cells):
+    _, _, op = _cs_op(vdim, cells, card)
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (vdim, op.N)).astype(np.float32)).to(card)
+    before = dict(sk.KERNEL_LAUNCHES)
+    y_main = op.launch_main(x)
+    torch.cuda.synchronize()
+    y_main_plain = ck.cs_main_plain(op, x)
+    scale = y_main_plain.abs().max()
+    assert (y_main - y_main_plain).abs().max() <= 2e-6 * scale
+    y = op.launch_window(x, y_main.clone())
+    torch.cuda.synchronize()
+    y_plain = ck.cs_window_plain(op, x, y_main)
+    assert (y - y_plain).abs().max() <= 2e-6 * y_plain.abs().max()
+    y_apply = op.apply_flat(x)
+    torch.cuda.synchronize()
+    assert (y_apply - ck.cs_apply_plain(op, x)).abs().max() <= \
+        2e-6 * y_plain.abs().max()
+    assert op.launches == 4
+    for name in (f"cs_main_v{vdim}", f"cs_window_v{vdim}"):
+        assert sk.KERNEL_LAUNCHES[name] == before.get(name, 0) + 2
+
+
+@pytest.mark.parametrize("vdim,cells", [(1, (48, 20, 24)), (3, (60, 8, 8))])
+def test_cs_kernels_match_dense_kernel(card, vdim, cells):
+    mesh, sysm, op = _cs_op(vdim, cells, card)
+    dense = sk.FlatStencilOperator(sysm.offsets, sysm.weights,
+                                   mesh.node_shape, vdim=vdim, device=card)
+    x = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (vdim, op.N)).astype(np.float32)).to(card)
+    y_cs, y_dense = op.apply_flat(x), dense.apply_flat(x)
+    torch.cuda.synchronize()
+    assert (y_cs - y_dense).abs().max() <= 2e-6 * y_dense.abs().max()
+    y64 = np_stencil_apply(dict(zip(sysm.offsets, sysm.weights)),
+                           op.from_flat(x).cpu().numpy().astype(np.float64),
+                           mesh.dim, vdim)
+    assert _rel(op.from_flat(y_cs).cpu(), y64) <= 1e-5
+
+
+def test_cs_kernels_reject_what_they_do_not_take(card):
+    _, _, op = _cs_op(3, (60, 8, 8), card)
+    with pytest.raises(ValueError):
+        op.apply_flat(torch.zeros((3, op.N), dtype=torch.float64, device=card))
+    with pytest.raises(ValueError):
+        op.apply_flat(torch.zeros((op.N, 3), device=card).t())
+    with pytest.raises(ValueError):
+        op.launch_main(torch.zeros((3, op.N)))
+    with pytest.raises(ValueError):
+        op.launch_window(torch.zeros((3, op.N), device=card),
+                         torch.zeros((3, op.N + 1), device=card))
+    assert op.launches == 0
+
+
+def test_flat_cg_through_cs_kernels_matches_cpu(card):
+    mesh, sysm = _cs_system(1, (40, 12, 12))
+    b = np.asarray(np.random.default_rng(9).standard_normal(
+        mesh.node_shape), np.float32)
+    out = {}
+    for dev in ("cpu", card):
+        op = ck.CSFlatStencilOperator.try_build(
+            sysm.offsets, sysm.weights, mesh.node_shape, vdim=1, device=dev)
+        bt = torch.from_numpy(b).to(dev)
+        x, k, relres = _cg_unit_diag(sysm.offsets, op, bt,
+                                     torch.zeros_like(bt), 1e-6, 500, 3, 1)
+        out[str(dev)] = (x.cpu().numpy(), k, relres, op.launches)
+    x_cpu, k_cpu, rr_cpu, n_cpu = out["cpu"]
+    x_gpu, k_gpu, rr_gpu, n_gpu = out["cuda"]
+    assert n_cpu == 0 and n_gpu >= 2 * k_gpu > 0
     assert rr_cpu <= 1e-6 and rr_gpu <= 1e-6
     assert abs(k_gpu - k_cpu) <= 2
     assert _rel(x_gpu, x_cpu) <= 1e-5

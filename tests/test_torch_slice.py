@@ -103,7 +103,11 @@ def test_host_direct_branch_matches_reference(tmp_path):
 
 
 def test_port_never_imports_jax():
-    code = ("import sys, pde_solver_tpu_torch.api, pde_solver_tpu_torch.convert;"
+    code = ("import sys, pde_solver_tpu_torch.api, pde_solver_tpu_torch.convert,"
+            " pde_solver_tpu_torch.ops.timestepping,"
+            " pde_solver_tpu_torch.ops.cs_kernels,"
+            " pde_solver_tpu_torch.models.heat;"
+            "from pde_solver_tpu_torch.api import solve_heat_3D;"
             "assert 'jax' not in sys.modules, 'jax imported';"
             "assert not any(m.startswith('pde_solver_tpu.') or "
             "m == 'pde_solver_tpu' for m in sys.modules)")
