@@ -7,7 +7,7 @@
 2. Builds both kernel sources from ``pde_solver_tpu_torch/csrc`` with nvcc
    for sm_90a, in parallel, and prints the build seconds and every
    kernel's ptxas report.
-3. Dense SpMV (``flat_stencil_spmv``): holds each variant (vdim=3 f32,
+3. Dense SpMV (``flat_stencil_spmv``): holds each 3D variant (vdim=3 f32,
    vdim=3 bf16, vdim=1 f32, vdim=1 bf16) against its plain PyTorch version
    at the flagship fine level (161×65×65 nodes) and a small level
    (21×9×9), relative max error ≤ 1e-5, and times both (CUDA events).
@@ -32,11 +32,37 @@
    - the heat slice, ``solve_heat_3D(nx=ny=nz=128)`` (20 backward-Euler
      steps on 2,146,689 DOF), with ``PDE_TPU_CS`` 0 and 1.
    Checks convergence, finite fields of the expected shape, that the two
-   routes agree, and that each run launched its kernels.  Every
-   constant-interior operator a run built (each MG level, the projection)
+   routes agree, and that each run launched its kernels.  Every dense
+   operator a run launched and every constant-interior operator it built
+   (each MG level and weight dtype, each step operator, the projection)
    is then held against its plain version at its own shape.  Both heat
    trajectories are held against a float64 backward Euler of the same
    system, solved on the card with sparse Jacobi-PCG to 1e-12.
+7. The 1D/2D, curvilinear and ``_loaded`` tools through the public API,
+   each a main path of its own (counts 0 before, read after):
+   - BASELINE config 1, ``solve_heat_1D`` (256 nodes, 400 backward-Euler
+     steps): last frame against the steady line 20(1 − x/2), trajectory
+     against a host float64 backward Euler;
+   - config 2, ``solve_elasticity_1D_static`` (256 nodes): host sparse LU,
+     never on the card (checked: no launch); interior stress against
+     σ = b(L − x)/A;
+   - config 3, ``solve_heat_2D`` (128², 50 Crank-Nicolson steps) against a
+     host float64 Crank-Nicolson;
+   - config 4, ``solve_elasticity_2D_static`` (256², plane stress) against
+     host sparse LU, and the full-width plate at 1024² (2,101,250 DOF),
+     whose relative residual is recomputed on the host in float64;
+   - the ``_loaded`` tools: 2D at 256² and 3D at 16×8×8 against host
+     sparse LU, the 1D bar against σ = P/A;
+   - the curvilinear heat tools: steady 1D cylindrical and spherical
+     against their closed forms and a host float64 solve; 2D cylindrical,
+     2D spherical and 3D spherical at their default sizes, steady and
+     transient, without and with a source, against host float64 solves.
+   Each of these runs, too, has every dense operator it launched held
+   against plain (relative max error ≤ 1e-5).  Before them, K1 at vdim=2
+   (f32, bf16) is held against its plain version on the scaled
+   plane-stress operators at 257² and 1025² nodes on four inputs
+   (relative max error ≤ 1e-5, where two planted faults must read > 10×
+   that) and timed.
 
 Fails loudly at the first failed check (non-zero exit, no result line).
 Prints, before the last line, the card line and a JSON line with each
@@ -72,6 +98,38 @@ VARIANTS = (("v3_f32", 3, "float32"), ("v3_bf16", 3, "bfloat16"),
             ("v1_f32", 1, "float32"), ("v1_bf16", 1, "bfloat16"))
 SHAPES = ((161, 65, 65), (21, 9, 9))   # flagship fine level, a small level
 REL_TOL = 1e-5
+# K1 at vdim=2 on the plane-stress fine levels of BASELINE config 4 and of
+# the full-width plate
+V2_VARIANTS = (("v2_f32", "float32"), ("v2_bf16", "bfloat16"))
+V2_CELLS = ((256, 256), (1024, 1024))
+V2_INPUTS = 4
+# BASELINE configs 1-4 (BASELINE.md; bench.py bench_heat1d, bench_bar1d,
+# bench_heat2d_cn, bench_elast2d) through the port's API
+HEAT1D = dict(length=2.0, nx=255, T_left=20.0, T_right=0.0, T_initial=0.0,
+              dt=0.05, num_steps=400)
+BAR = dict(L=2.0, nx=255, E=70e9, area=0.01, body_force=500.0)
+HEAT2D = dict(nx=128, ny=128, T_boundary=0.0, T_initial=20.0, dt=0.001,
+              num_steps=50)                  # run at θ = 0.5
+PLATE = dict(nx=256, ny=256, body_fy=-7.65e4)           # plane stress
+PLATE_FULL = dict(nx=1024, ny=1024, body_fy=-7.65e4)    # 2,101,250 DOF
+LOADED_3D = dict(Lx=1.0, Ly=0.2, Lz=0.2, nx=16, ny=8, nz=8,
+                 loads={"right": {"type": "force", "vector": [0.0, 0.0, -1e4]},
+                        "top": {"type": "pressure", "value": 1e5}})
+LOADED_1D = dict(L=2.0, nx=255, E=70e9, area=0.01, end_load=1e4)
+ELAST_LU_TOL = 1e-6
+# float32 transients against float64 (max|ΔT|/max|T|) at the tools' default
+# transient_inner_tol = 1e-6; CPU readings of the port's plain path: config
+# 1 1.9e-4 (2.2e-4 from the steady line, relL2), config 3 3.3e-5, the
+# curvilinear tools with a source up to 5.1e-4.  Config 1 and 3 sit on the
+# float32 floor (the same at transient_inner_tol = 1e-8), the curvilinear
+# ones on the step tolerance (2D spherical 3.3e-6 at 1e-8).  PERF.md has the
+# card's readings.
+HEAT1D_TOL = 1e-3
+HEAT2D_CN_TOL = 2e-4
+CURV_TRANSIENT_TOL = 2e-3
+# steady 1D cylindrical/spherical against a·ln r + b and a/r + b: the P1
+# discretisation error at nr = 50 (2.1e-4 and 1.07e-3 of 100 °C)
+CLOSED_FORM_TOL = 1.5e-3
 CS_TOL = 2e-6
 # the heat slice (max|ΔT|/max|T|): its two routes against each other, and
 # each against the float64 trajectory, where float32 weights and state,
@@ -354,59 +412,104 @@ def field(result):
             np.asarray(f.times, dtype=np.float64))
 
 
-def heat_matrices(cells, extent, dt):
-    """The heat transient's float64 matrices as scipy CSR: the masked
-    M + Δt·K (identity rows on the boundary, which holds T = 0) and M."""
+def heat_matrices(mesh, pairs, dt=None, theta=1.0, weight_fn=None,
+                  quad_degree=4):
+    """A heat problem's float64 matrices as scipy CSR, assembled as
+    ``models.heat.solve_heat_problem`` assembles them (κ = 1): the implicit
+    operator A = M + θΔt·K masked (Dirichlet rows and columns zeroed, 1 on
+    their diagonal), the explicit B = M − (1−θ)Δt·K, the free mask, the
+    Dirichlet values g and the lift A·g with A unmasked.  ``dt=None`` gives
+    the steady system: A = K, no B."""
     import numpy as np
     import scipy.sparse as sp
 
-    from pde_solver_tpu_torch.mesh import box_mesh
     from pde_solver_tpu_torch.ops import assembly
+    from pde_solver_tpu_torch.ops.bc import DirichletBC
 
-    mesh = box_mesh(*cells, (0.0, 0.0, 0.0), extent)
+    weighted = weight_fn is not None
+    K = assembly.assemble_scalar_stencil(
+        mesh, "stiffness", weight_fn=weight_fn,
+        quad_degree=quad_degree if weighted else 2)
+    M = assembly.assemble_scalar_stencil(
+        mesh, "mass", weight_fn=weight_fn,
+        quad_degree=max(quad_degree, 2) if weighted else 2)
     shape = mesh.node_shape
     N = int(np.prod(shape))
     strides = np.cumprod((1,) + tuple(shape[::-1]))[:-1][::-1]
     node = np.arange(N)
-    K = assembly.assemble_scalar_stencil(mesh, "stiffness")
-    M = assembly.assemble_scalar_stencil(mesh, "mass")
-    free = (~mesh.boundary_mask()).reshape(-1).astype(np.float64)
-    rows, cols, a_vals, m_vals = [], [], [], []
-    for off in K:
-        c = node + int(np.dot(off, strides))
-        ok = (c >= 0) & (c < N)
-        rows.append(node[ok])
-        cols.append(c[ok])
-        a_vals.append((np.asarray(M[off]) + dt * np.asarray(K[off]))
-                      .reshape(-1)[ok])
-        m_vals.append(np.asarray(M[off]).reshape(-1)[ok])
-    rows, cols = np.concatenate(rows), np.concatenate(cols)
-    a_vals = np.concatenate(a_vals) * free[rows] * free[cols]
-    A = sp.csr_matrix((a_vals, (rows, cols)), shape=(N, N)) \
-        + sp.diags(1.0 - free)
-    Mm = sp.csr_matrix((np.concatenate(m_vals), (rows, cols)), shape=(N, N))
-    return mesh, A.tocsr(), Mm, free
+
+    def csr(stencil):
+        rows, cols, vals = [], [], []
+        for off, W in stencil.items():
+            c = node + int(np.dot(off, strides))
+            ok = (c >= 0) & (c < N)
+            rows.append(node[ok])
+            cols.append(c[ok])
+            vals.append(np.asarray(W, np.float64).reshape(-1)[ok])
+        return sp.csr_matrix((np.concatenate(vals), (np.concatenate(rows),
+                                                     np.concatenate(cols))),
+                             shape=(N, N))
+
+    Kc = csr(K)
+    if dt is None:
+        A, B = Kc, None
+    else:
+        Mc = csr(M)
+        A = Mc + (theta * dt) * Kc
+        B = (Mc - ((1.0 - theta) * dt) * Kc).tocsr()
+    bc = DirichletBC.from_masks(pairs, shape)
+    free = np.asarray(bc.free_mask, np.float64).reshape(-1)
+    g = (np.asarray(bc.values, np.float64) * (1.0 - bc.free_mask)).reshape(-1)
+    P = sp.diags(free)
+    A_masked = (P @ A @ P + sp.diags(1.0 - free)).tocsr()
+    return A_masked, B, free, g, A @ g
 
 
-def backward_euler_f64(cells, extent, dt, num_steps, T_initial=20.0,
-                       device=None):
-    """Float64 backward Euler of the heat transient: per step, solve the
-    masked M + Δt·K with the right side free ⊙ (M uⁿ).  On the host (no
-    ``device``) by scipy sparse LU; on ``device`` by Jacobi-PCG on torch
-    sparse CSR, warm-started, to a true relative residual ≤ 1e-12.
+def heat_load(mesh, source, weight_fn=None, quad_degree=4):
+    """Flat float64 load of a constant source, as the heat tools assemble
+    it."""
+    from pde_solver_tpu_torch.ops import assembly
+
+    return source * assembly.assemble_load(
+        mesh, weight_fn=weight_fn, quad_degree=quad_degree).reshape(-1)
+
+
+def heat_steady_f64(mesh, pairs, source=0.0, weight_fn=None, quad_degree=4):
+    """Float64 steady heat solve on the host (sparse LU); flat [N]."""
+    import scipy.sparse.linalg as spla
+
+    from pde_solver_tpu_torch.mesh import flatten_values
+
+    A, _, free, g, Ag = heat_matrices(mesh, pairs, None,
+                                      weight_fn=weight_fn,
+                                      quad_degree=quad_degree)
+    b = heat_load(mesh, source, weight_fn, quad_degree)
+    u = spla.spsolve(A.tocsc(), free * (b - Ag) + g)
+    return flatten_values(u.reshape(mesh.node_shape), mesh.dim)
+
+
+def theta_scheme_f64(mesh, pairs, dt, num_steps, theta=1.0, T_initial=20.0,
+                     source=0.0, weight_fn=None, quad_degree=4, device=None):
+    """Float64 θ-scheme of a heat transient: per step, solve the masked
+    M + θΔt·K with the right side free ⊙ (B uⁿ + Δt·b − A g) + g.  On the
+    host (no ``device``) by scipy sparse LU; on ``device`` by Jacobi-PCG on
+    torch sparse CSR, warm-started, to a true relative residual ≤ 1e-12.
     Returns the flat trajectory [num_steps + 1, N]."""
     import numpy as np
     import scipy.sparse.linalg as spla
 
     from pde_solver_tpu_torch.mesh import flatten_values
 
-    mesh, A, Mm, free = heat_matrices(cells, extent, dt)
-    u = T_initial * free
+    A, B, free, g, Ag = heat_matrices(mesh, pairs, dt, theta, weight_fn,
+                                      quad_degree)
+    b = dt * heat_load(mesh, source, weight_fn, quad_degree)
+    lift = b - Ag
+    u = T_initial * free + g
     frames = [u]
     if device is None:
         lu = spla.splu(A.tocsc())
         for _ in range(num_steps):
-            u = lu.solve(free * (Mm @ u))
+            u = lu.solve(free * (B @ u + lift) + g)
             frames.append(u)
     else:
         import torch
@@ -418,9 +521,9 @@ def backward_euler_f64(cells, extent, dt, num_steps, T_initial=20.0,
                 torch.from_numpy(S.data), size=S.shape,
                 dtype=torch.float64).to(device)
 
-        Ad, Md = dev_csr(A), dev_csr(Mm)
+        Ad, Bd = dev_csr(A), dev_csr(B)
         dinv = torch.from_numpy(1.0 / A.diagonal()).to(device)
-        fr = torch.from_numpy(free).to(device)
+        fr, gd, ld = (torch.from_numpy(a).to(device) for a in (free, g, lift))
 
         def mv(S, v):
             return (S @ v[:, None])[:, 0]
@@ -428,7 +531,7 @@ def backward_euler_f64(cells, extent, dt, num_steps, T_initial=20.0,
         x = torch.from_numpy(u).to(device)
         iters = 0
         for _ in range(num_steps):
-            b = fr * mv(Md, x)
+            b = fr * (mv(Bd, x) + ld) + gd
             bn = float(torch.linalg.vector_norm(b))
             r = b - mv(Ad, x)
             z = dinv * r
@@ -449,10 +552,10 @@ def backward_euler_f64(cells, extent, dt, num_steps, T_initial=20.0,
                   f"{relres:.3e} after {it} iterations")
             iters += it
             frames.append(x.cpu().numpy())
-        print(f"float64 reference {tuple(cells)} cells: {iters} PCG "
+        print(f"float64 reference {mesh.n_cells} cells: {iters} PCG "
               f"iterations over {num_steps} steps", flush=True)
-        del Ad, Md
-    return np.stack([flatten_values(f.reshape(mesh.node_shape), 3)
+        del Ad, Bd
+    return np.stack([flatten_values(f.reshape(mesh.node_shape), mesh.dim)
                      for f in frames])
 
 
@@ -469,6 +572,389 @@ def spy_cs_builds(ck):
 
     ck.CSFlatStencilOperator.try_build = classmethod(spy)
     return built
+
+
+def spy_flat_launches(sk):
+    """Record every FlatStencilOperator that launches its kernel, once
+    each; returns the dict (id -> operator) it fills."""
+    launched = {}
+    orig = sk.FlatStencilOperator._launch
+
+    def spy(self, x):
+        launched.setdefault(id(self), self)
+        return orig(self, x)
+
+    sk.FlatStencilOperator._launch = spy
+    return launched
+
+
+def check_launched(sk, launched, label: str, results) -> None:
+    """Every dense operator a main-path run launched (each MG level and
+    weight dtype, each step operator, the projection), held against its
+    plain version at its own shape on a random input, relative max error
+    ≤ REL_TOL; the worst absolute errors go into ``results``.  Empties
+    ``launched``."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    seen = {}
+    for op in launched.values():
+        x = torch.randn((op.vdim, op.N), generator=gen, device="cuda")
+        y = op.apply_flat(x)
+        y_plain = sk.spmv_plain(op.W, x, op.deltas, op.vdim)
+        rel = rel_err(y, y_plain)
+        check(rel <= REL_TOL, f"{label}: {op.variant} at {op.node_shape} "
+              f"({op.n_off} offsets) vs plain relative max error {rel:.3e}")
+        res = results.setdefault(op.variant, {"max_abs_err": 0.0})
+        res["max_abs_err"] = max(res["max_abs_err"],
+                                 float((y - y_plain).abs().max()))
+        worst, shapes = seen.get(op.variant, (0.0, []))
+        seen[op.variant] = (max(worst, rel), shapes + [op.node_shape])
+        del x, y, y_plain
+    launched.clear()
+    torch.cuda.empty_cache()
+    print(f"{label}: launched dense operators held against plain: "
+          + ("; ".join(f"{v} worst rel {w:.3e} at {sorted(set(sh))}"
+                       for v, (w, sh) in sorted(seen.items())) or "none"),
+          flush=True)
+
+
+def plane_operator(cells, E=210e9, nu=0.3):
+    """The scaled plane-stress elasticity operator (vdim=2, 7 offsets) of a
+    unit plate on ``cells``, clamped at x = 0: the fine level of BASELINE
+    config 4 and of the full-width plate."""
+    import numpy as np
+
+    from pde_solver_tpu_torch.mesh import rectangle_mesh
+    from pde_solver_tpu_torch.models.elasticity import lame_parameters
+    from pde_solver_tpu_torch.ops import assembly
+    from pde_solver_tpu_torch.ops.bc import DirichletBC
+    from pde_solver_tpu_torch.ops.linsolve import prepare_system
+
+    mesh = rectangle_mesh(*cells, (0.0, 0.0), (1.0, 1.0))
+    lam, mu = lame_parameters(E, nu, "plane_stress")
+    K = assembly.assemble_elasticity_stencil(mesh, lam, mu)
+    bc = DirichletBC.from_masks([(mesh.face_mask(0, 0), 0.0)],
+                                mesh.node_shape, vdim=2)
+    return mesh, prepare_system(K, mesh, bc,
+                                np.zeros(mesh.node_shape + (2,)), 2)
+
+
+def plane_kernel_phase(sk):
+    """K1 at vdim=2 (f32 and bf16 weights) against its plain version on the
+    scaled plane-stress operators of 257² and 1025² nodes, on V2_INPUTS
+    random inputs, relative max error ≤ REL_TOL; the times are those at
+    1025².  Also prints, and requires to lie above 10·REL_TOL, what two
+    planted faults read: the plain version with one offset's weights
+    dropped, and with the weights in the other precision (f32 <-> bf16)."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    results = {name: {"max_abs_err": 0.0} for name, _ in V2_VARIANTS}
+    for cells in V2_CELLS:
+        mesh, sysm = plane_operator(cells)
+        check(len(sysm.offsets) == 7, f"plane stencil has "
+              f"{len(sysm.offsets)} offsets, expected 7")
+        op32 = sk.FlatStencilOperator(sysm.offsets, sysm.weights,
+                                      mesh.node_shape, vdim=2, device="cuda")
+        xs = [torch.randn((2, op32.N), generator=gen, device="cuda")
+              for _ in range(V2_INPUTS)]
+        x = xs[0]
+        for name, wdt in V2_VARIANTS:
+            op = op32.as_weight_dtype(getattr(torch, wdt))
+            y = op.apply_flat(x)
+            torch.cuda.synchronize()
+            check(op.launches == 1 and op.variant == name,
+                  f"{name}: {op.launches} launches of {op.variant}")
+            y_plain = sk.spmv_plain(op.W, x, op.deltas, 2)
+            err = float((y - y_plain).abs().max())
+            rels = [rel_err(y, y_plain)] + [
+                rel_err(op.apply_flat(xi), sk.spmv_plain(op.W, xi, op.deltas, 2))
+                for xi in xs[1:]]
+            rel = max(rels)
+            W_drop = op.W.clone()
+            W_drop[:4] = 0.0                   # offset 0's v² weight planes
+            W_other = op32.W.to(torch.bfloat16) if wdt == "float32" \
+                else op32.W
+            faults = (rel_err(y, sk.spmv_plain(W_drop, x, op.deltas, 2)),
+                      rel_err(y, sk.spmv_plain(W_other, x, op.deltas, 2)))
+            print(f"kernel {name} plane-stress nodes={mesh.node_shape}: rel "
+                  f"err on {V2_INPUTS} inputs "
+                  f"{' '.join(f'{r:.3e}' for r in rels)}; planted faults: "
+                  f"offset 0 dropped {faults[0]:.3e}, weights in the other "
+                  f"precision {faults[1]:.3e}", flush=True)
+            check(rel <= REL_TOL, f"{name} at {mesh.node_shape}: kernel vs "
+                  f"plain relative max error {rel:.3e} > {REL_TOL}")
+            check(min(faults) > 10 * REL_TOL, f"{name}: a planted fault "
+                  f"reads {min(faults):.3e}, within 10x the bound {REL_TOL}")
+            del W_drop, W_other
+            results[name]["max_abs_err"] = max(results[name]["max_abs_err"],
+                                               err)
+            ms, plain_ms = turns(lambda: op.apply_flat(x),
+                                 lambda: sk.spmv_plain(op.W, x, op.deltas, 2),
+                                 50, 10)
+            w_bytes = op.W.numel() * op.W.element_size()
+            print(f"kernel {name} plane-stress nodes={mesh.node_shape} "
+                  f"N={op.N}: rel_err={rel:.3e} abs_err={err:.3e} "
+                  f"ms={ms:.4f} plain_ms={plain_ms:.4f} W={w_bytes / 1e6:.1f}"
+                  f" MB -> {w_bytes / ms / 1e6:.1f} GB/s", flush=True)
+            results[name].update(ms=ms, plain_ms=plain_ms)
+            del op, y, y_plain
+        del op32, x, xs, mesh, sysm
+        torch.cuda.empty_cache()
+    return results
+
+
+def spy_solves(elast):
+    """Record (stencil, mesh, bc, rhs, vdim, x) of every solve the
+    elasticity model makes; returns the list and the function that
+    removes the spy."""
+    calls = []
+    orig = elast.solve_stencil_system
+
+    def spy(K, mesh, bc, b, vdim=1, **kw):
+        x, stats = orig(K, mesh, bc, b, vdim=vdim, **kw)
+        calls.append((K, mesh, bc, b, vdim, x))
+        return x, stats
+
+    elast.solve_stencil_system = spy
+    return calls, lambda: setattr(elast, "solve_stencil_system", orig)
+
+
+def host_relres(call) -> float:
+    """‖b̂ − Â x̂‖/‖b̂‖ of a recorded solve, recomputed on the host in
+    float64 on the scaled system the solver iterates on."""
+    import numpy as np
+
+    from pde_solver_tpu_torch.ops.linsolve import (np_stencil_apply,
+                                                   prepare_system)
+
+    K, mesh, bc, b, vdim, x = call
+    sysm = prepare_system(K, mesh, bc, b, vdim)
+    r = sysm.b_hat - np_stencil_apply(dict(zip(sysm.offsets, sysm.weights)),
+                                      sysm.to_hat_x(x), mesh.dim, vdim)
+    return float(np.linalg.norm(r.reshape(-1))
+                 / np.linalg.norm(sysm.b_hat.reshape(-1)))
+
+
+def against_host_lu(api, drive, label, tool, kw, data_dir, wanted):
+    """Run an elasticity tool on the card, then the same call by host
+    sparse LU (float64, exact); returns max|Δ|/max of the two fields and
+    the card run's stats."""
+    import numpy as np
+
+    from pde_solver_tpu_torch.config import config_overrides
+
+    res, st, launches = drive(label, lambda: getattr(api, tool)(
+        **kw, data_dir=data_dir))
+    with config_overrides(device="cpu", host_direct_threshold=10 ** 9):
+        r_lu = getattr(api, tool)(**kw, data_dir=data_dir)
+    v, v_lu = field(res)[0], field(r_lu)[0]
+    gap = float(np.abs(v - v_lu).max() / np.abs(v_lu).max())
+    print(f"{label}: vs host sparse LU max|Δ|/max={gap:.3e}", flush=True)
+    check(bool(st["converged"]), f"{label} did not converge: {st}")
+    check(bool(np.all(np.isfinite(v))), f"{label}: non-finite values")
+    check(gap <= ELAST_LU_TOL, f"{label} off host sparse LU by {gap:.3e}")
+    for name in wanted:
+        check(launches.get(name, 0) > 0, f"{label} launched no {name}")
+    return gap, st
+
+
+def baseline_phase(api, drive, data_dir, plate_full=PLATE_FULL):
+    """BASELINE configs 1-4 and the full-width plate through the API, each
+    held against its analytic or float64 host reference."""
+    import numpy as np
+
+    from pde_solver_tpu_torch.config import config_overrides
+    from pde_solver_tpu_torch.mesh import interval_mesh, rectangle_mesh
+    from pde_solver_tpu_torch.models import elasticity as elast
+
+    # config 1: 2 m rod, 256 nodes, 20 -> 0 °C, 400 backward-Euler steps
+    res, st, launches = drive("BASELINE 1 heat 1D", lambda: api.solve_heat_1D(
+        **HEAT1D, data_dir=data_dir))
+    T, times = field(res)
+    x = np.linspace(0.0, 2.0, 256)
+    line = 20.0 * (1.0 - x / 2.0)
+    err_line = float(np.linalg.norm(T[-1] - line) / np.linalg.norm(line))
+    mesh = interval_mesh(255, 0.0, 2.0)
+    T_ref = theta_scheme_f64(mesh, [(mesh.face_mask(0, 0), 20.0),
+                                    (mesh.face_mask(0, 1), 0.0)],
+                             0.05, 400, T_initial=0.0)
+    gap = float(np.abs(T - T_ref).max() / np.abs(T_ref).max())
+    print(f"BASELINE 1 heat 1D: steps/s={400 / st['scan_seconds']:.3f} "
+          f"CG iterations/step={st['cg_iterations'] / 400:.2f} steady-limit "
+          f"relL2={err_line:.3e} vs host f64 backward Euler max|ΔT|/max|T|="
+          f"{gap:.3e}", flush=True)
+    check(T.shape == (401, 256) and times.shape == (401,),
+          f"heat 1D field {T.shape}")
+    check(bool(st["converged"]), f"heat 1D did not converge: {st}")
+    check(err_line <= HEAT1D_TOL, f"heat 1D steady limit {err_line:.3e}")
+    check(gap <= HEAT1D_TOL, f"heat 1D off float64 by {gap:.3e}")
+    check(launches.get("v1_f32", 0) > 0, "heat 1D launched no v1_f32")
+
+    # config 2: 2 m aluminium bar, host sparse LU (never touches the card)
+    res, st, launches = drive("BASELINE 2 bar 1D (host sparse LU, no card)",
+                              lambda: api.solve_elasticity_1D_static(
+                                  **BAR, data_dir=data_dir))
+    sig = field(res)[0][0]
+    x = np.linspace(0.0, 2.0, 256)
+    exact = 500.0 * (2.0 - x) / 0.01
+    err = float(np.abs(sig[10:-10] - exact[10:-10]).max() / exact.max())
+    print(f"BASELINE 2 bar 1D: solve_seconds={st['solve_seconds']:.6f} "
+          f"interior stress error {err:.3e} (host sparse LU, no card: "
+          f"launches={launches})", flush=True)
+    check(bool(st["converged"]) and err <= 1e-6,
+          f"bar 1D interior stress error {err:.3e}")
+    check(not launches, f"bar 1D launched kernels: {launches}")
+
+    # config 3: 1 m² plate, 128², 50 Crank-Nicolson steps
+    with config_overrides(theta=0.5):
+        res, st, launches = drive("BASELINE 3 heat 2D CN",
+                                  lambda: api.solve_heat_2D(
+                                      **HEAT2D, data_dir=data_dir))
+    T, _ = field(res)
+    mesh = rectangle_mesh(128, 128, (0.0, 0.0), (1.0, 1.0))
+    T_ref = theta_scheme_f64(mesh, [(mesh.boundary_mask(), 0.0)], 0.001, 50,
+                             theta=0.5, T_initial=20.0)
+    gap = float(np.abs(T - T_ref).max() / np.abs(T_ref).max())
+    print(f"BASELINE 3 heat 2D CN: steps/s={50 / st['scan_seconds']:.3f} "
+          f"CG iterations/step={st['cg_iterations'] / 50:.2f} vs host f64 "
+          f"Crank-Nicolson max|ΔT|/max|T|={gap:.3e}", flush=True)
+    check(T.shape == (51, 129 * 129), f"heat 2D field {T.shape}")
+    check(bool(st["converged"]), f"heat 2D did not converge: {st}")
+    check(gap <= HEAT2D_CN_TOL, f"heat 2D off float64 by {gap:.3e}")
+    check(launches.get("v1_f32", 0) > 0, "heat 2D launched no v1_f32")
+
+    # config 4 and the full-width plate, the second held by its relres
+    calls, unspy = spy_solves(elast)
+    try:
+        against_host_lu(api, drive, "BASELINE 4 plane stress 256^2",
+                        "solve_elasticity_2D_static", PLATE, data_dir,
+                        ("v2_f32", "v2_bf16", "v1_f32"))
+        rr4 = host_relres(calls[0])
+        del calls[:]
+        res, st, launches = drive(
+            f"plane stress {plate_full['nx']}^2", lambda:
+            api.solve_elasticity_2D_static(**plate_full, data_dir=data_dir))
+        t0 = time.perf_counter()
+        rr = host_relres(calls[0])
+        n = (plate_full["nx"] + 1) * (plate_full["ny"] + 1)
+    finally:
+        unspy()
+    vm = field(res)[0]
+    print(f"plane stress {plate_full['nx']}^2: relres recomputed on the host "
+          f"in f64 {rr:.3e} ({time.perf_counter() - t0:.3f} s; BASELINE 4: "
+          f"{rr4:.3e}); max_von_mises={np.abs(vm).max():.6e} Pa", flush=True)
+    check(st["num_dofs"] == 2 * n, f"plate dof count {st['num_dofs']}")
+    check(bool(st["converged"]) and rr <= 1e-6 and rr4 <= 1e-6,
+          f"plate relres {rr:.3e}, BASELINE 4 {rr4:.3e}: {st}")
+    check(vm.shape == (1, n) and bool(np.all(np.isfinite(vm))),
+          f"plate field {vm.shape}")
+    for name in ("v2_f32", "v2_bf16", "v1_f32"):
+        check(launches.get(name, 0) > 0, f"the plate launched no {name}")
+
+
+def loaded_phase(api, drive, data_dir):
+    """The three _loaded tools: 2D and 3D against host sparse LU, the bar
+    against σ = P/A."""
+    import numpy as np
+
+    against_host_lu(api, drive, "loaded 2D 256^2",
+                    "solve_elasticity_2D_loaded",
+                    dict(PLATE, loads={"right": {"type": "traction",
+                                                 "vector": [0.0, -1e6]}}),
+                    data_dir, ("v2_f32", "v2_bf16"))
+    against_host_lu(api, drive, "loaded 3D 16x8x8",
+                    "solve_elasticity_3D_loaded", LOADED_3D, data_dir,
+                    ("v3_f32",))
+    res, st, launches = drive("loaded 1D (host sparse LU, no card)",
+                              lambda: api.solve_elasticity_1D_loaded(
+                                  **LOADED_1D, data_dir=data_dir))
+    sig = field(res)[0]
+    want = LOADED_1D["end_load"] / LOADED_1D["area"]
+    err = float(np.abs(sig - want).max() / want)
+    print(f"loaded 1D: max|σ - P/A|/(P/A)={err:.3e}", flush=True)
+    check(bool(st["converged"]) and err <= 1e-9, f"loaded 1D error {err:.3e}")
+
+
+def curvilinear_phase(api, drive, data_dir):
+    """The five curvilinear heat tools on the card: the steady 1D ones
+    against their closed forms, the 2D and 3D ones at their sizes by
+    default, steady and transient, against a float64 host solve of the same
+    system, once at their defaults (T_boundary = T_initial, so the answer is
+    the constant 20) and once with a constant source."""
+    import numpy as np
+
+    from pde_solver_tpu_torch.config import config_overrides
+    from pde_solver_tpu_torch.mesh import (box_mesh, interval_mesh,
+                                           rectangle_mesh)
+    from pde_solver_tpu_torch.models import heat
+
+    # host_direct_threshold=0: the steady solves run on the card too
+    with config_overrides(host_direct_threshold=0):
+        mesh = interval_mesh(50, 0.1, 1.0)
+        r = mesh.axis_nodes(0)
+        pairs = [(mesh.face_mask(0, 0), 100.0), (mesh.face_mask(0, 1), 20.0)]
+        for tool, exact, wfn, deg in (
+                ("solve_heat_1D_cylindrical",
+                 20.0 + (20.0 - 100.0) / np.log(10.0) * np.log(r),
+                 heat.weight_r, 3),
+                ("solve_heat_1D_spherical",
+                 20.0 - 80.0 / 9.0 + (80.0 / 9.0) / r, heat.weight_r2, 4)):
+            res, st, launches = drive(f"{tool} steady", lambda: getattr(
+                api, tool)(steady=True, data_dir=data_dir))
+            T = field(res)[0][0]
+            err = float(np.abs(T - exact).max() / 100.0)
+            gap = float(np.abs(T - heat_steady_f64(mesh, pairs, 0.0, wfn, deg))
+                        .max() / 100.0)
+            print(f"{tool} steady: vs closed form {err:.3e} (P1 "
+                  f"discretisation), vs host f64 {gap:.3e}", flush=True)
+            check(bool(st["converged"]) and gap <= 1e-6,
+                  f"{tool} off the float64 solve by {gap:.3e}")
+            check(err <= CLOSED_FORM_TOL,
+                  f"{tool} off its closed form by {err:.3e}")
+            check(launches.get("v1_f32", 0) > 0, f"{tool}: no v1_f32")
+        cases = (
+            ("solve_heat_2D_cylindrical",
+             rectangle_mesh(30, 30, (0.1, 0.0), (1.0, 2.0)), heat.weight_r, 3),
+            ("solve_heat_2D_spherical",
+             rectangle_mesh(30, 30, (0.1, 0.0), (1.0, np.pi)),
+             heat.weight_r2_sin_theta, 6),
+            ("solve_heat_3D_spherical",
+             box_mesh(20, 20, 20, (0.1, 0.0, 0.0), (1.0, np.pi, 2 * np.pi)),
+             heat.weight_r2_sin_theta, 6))
+        for tool, mesh, wfn, deg in cases:
+            pairs = [(mesh.boundary_mask(), 20.0)]
+            for source in (0.0, 100.0):
+                kw = dict(source_type="constant", source_value=source) \
+                    if source else {}
+                res, st, launches = drive(
+                    f"{tool} steady source={source}", lambda: getattr(
+                        api, tool)(steady=True, **kw, data_dir=data_dir))
+                T = field(res)[0][0]
+                T_ref = heat_steady_f64(mesh, pairs, source, wfn, deg)
+                gap_s = float(np.abs(T - T_ref).max() / np.abs(T_ref).max())
+                res, st_t, launches_t = drive(
+                    f"{tool} transient source={source}", lambda: getattr(
+                        api, tool)(**kw, data_dir=data_dir))
+                Tt = field(res)[0]
+                Tt_ref = theta_scheme_f64(mesh, pairs, 0.01, 50,
+                                          T_initial=20.0, source=source,
+                                          weight_fn=wfn, quad_degree=deg)
+                gap_t = float(np.abs(Tt - Tt_ref).max()
+                              / np.abs(Tt_ref).max())
+                print(f"{tool} source={source}: steady vs host f64 "
+                      f"{gap_s:.3e}, transient (50 steps) vs host f64 "
+                      f"{gap_t:.3e}", flush=True)
+                check(bool(st["converged"]) and gap_s <= 1e-6,
+                      f"{tool} steady off float64 by {gap_s:.3e}")
+                check(bool(st_t["converged"]) and gap_t <= CURV_TRANSIENT_TOL,
+                      f"{tool} transient off float64 by {gap_t:.3e}")
+                check(Tt.shape == (51, mesh.num_nodes), f"{tool} {Tt.shape}")
+                for lc in (launches, launches_t):
+                    check(lc.get("v1_f32", 0) > 0, f"{tool}: no v1_f32")
 
 
 def main() -> int:
@@ -526,6 +1012,9 @@ def main() -> int:
     kernels = kernel_phase(sk, offsets)
     torch.cuda.empty_cache()
     print(f"phase kernels: {time.perf_counter() - t0:.3f} s", flush=True)
+    t0 = time.perf_counter()
+    kernels.update(plane_kernel_phase(sk))
+    print(f"phase plane-kernels: {time.perf_counter() - t0:.3f} s", flush=True)
 
     # -- constant-interior pair against plain and dense ----------------------
     t0 = time.perf_counter()
@@ -565,8 +1054,9 @@ def main() -> int:
         r_heat = api.solve_heat_3D(**SMALL_HEAT, data_dir=data_dir)
     os.environ["PDE_TPU_CS"] = "0"
     T_dev = field(r_heat)[0]
-    T_host = backward_euler_f64(SMALL_HEAT_CELLS, (1.0, 0.2, 0.2), 0.01,
-                                SMALL_HEAT["num_steps"])
+    small_mesh = box_mesh(*SMALL_HEAT_CELLS, (0.0, 0.0, 0.0), (1.0, 0.2, 0.2))
+    T_host = theta_scheme_f64(small_mesh, [(small_mesh.boundary_mask(), 0.0)],
+                              0.01, SMALL_HEAT["num_steps"])
     gap = float(np.abs(T_dev - T_host).max() / np.abs(T_host).max())
     st = r_heat.meta["solver_stats"]
     small_launches = dict(sk.KERNEL_LAUNCHES)
@@ -586,11 +1076,14 @@ def main() -> int:
 
     # -- main paths through the API ------------------------------------------
     main_launches = {}
+    launched = spy_flat_launches(sk)
 
     def main_path(label, cs, fn):
-        """One main-path run: counts 0 just before, read just after."""
+        """One main-path run: counts 0 just before, read just after; then
+        every dense operator it launched is held against plain."""
         os.environ["PDE_TPU_CS"] = cs
         del built[:]
+        launched.clear()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         sk.reset_launch_counts()
@@ -612,6 +1105,7 @@ def main() -> int:
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
               f"cs_builds={[(s, op is not None) for s, op in built]} "
               f"launches={launches}", flush=True)
+        check_launched(sk, launched, label, kernels)
         cs_built = list(built)
         del built[:]
         return res, st, launches, cs_built
@@ -684,8 +1178,9 @@ def main() -> int:
                   "the dense heat run launched CS kernels")
         del cs_built
     t0 = time.perf_counter()
-    T_ref = backward_euler_f64((128, 128, 128), (1.0, 1.0, 1.0), 0.01,
-                               HEAT_STEPS, device="cuda")
+    heat_mesh = box_mesh(128, 128, 128, (0.0, 0.0, 0.0), (1.0, 1.0, 1.0))
+    T_ref = theta_scheme_f64(heat_mesh, [(heat_mesh.boundary_mask(), 0.0)],
+                             0.01, HEAT_STEPS, device="cuda")
     torch.cuda.empty_cache()
     gaps = {cs: float(np.abs(T - T_ref).max() / np.abs(T_ref).max())
             for cs, T in T_runs.items()}
@@ -700,10 +1195,26 @@ def main() -> int:
         check(g <= HEAT_F64_TOL, f"heat (PDE_TPU_CS={cs}) off the float64 "
               f"trajectory by {g:.3e}")
 
+    # -- the 1D/2D, curvilinear and _loaded tools ----------------------------
+    def drive(label, fn):
+        res, st, launches, _ = main_path(label, "0", fn)
+        return res, st, launches
+
+    with config_overrides(device="cuda"):
+        for name, phase in (("baselines", baseline_phase),
+                            ("loaded", loaded_phase),
+                            ("curvilinear", curvilinear_phase)):
+            t0 = time.perf_counter()
+            phase(api, drive, data_dir)
+            print(f"phase {name}: {time.perf_counter() - t0:.3f} s",
+                  flush=True)
+
     print(f"total: {time.perf_counter() - t_start:.3f} s", flush=True)
     print(card_line)
     entries = [(f"flat_stencil_spmv[{name}]", name, FLAT_SOURCE,
-                REPLACES["flat"]) for name, _, _ in VARIANTS]
+                REPLACES["flat"])
+               for name in ("v3_f32", "v3_bf16", "v2_f32", "v2_bf16",
+                            "v1_f32", "v1_bf16")]
     for v in (1, 3):
         for part in ("cs_main", "cs_window"):
             entries.append((f"{part}[v{v}]", f"{part}_v{v}", CS_SOURCE,

@@ -1,4 +1,6 @@
-"""Public solver API of the port — the tools ported so far.
+"""Public solver API of the port — the tools ported so far: heat 1D, 2D
+and 3D, the five curvilinear heat tools, static elasticity 1D, 2D and 3D,
+and the three ``_loaded`` elasticity tools.
 
 Names, signatures, defaults, artifact layout and result metadata match
 ``pde_solver_tpu.api`` exactly (tests compare ``inspect.signature``).  Every
@@ -16,10 +18,14 @@ from typing import Optional
 import numpy as np
 
 from pde_solver_tpu_torch.fields import SolveResult, TimeSeriesField, save_field
-from pde_solver_tpu_torch.mesh import StructuredMesh, box_mesh
+from pde_solver_tpu_torch.mesh import (StructuredMesh, box_mesh,
+                                       interval_mesh, rectangle_mesh)
 from pde_solver_tpu_torch.models import elasticity as elast
 from pde_solver_tpu_torch.models import heat
-from pde_solver_tpu_torch.models.heat import embed_identity3, weight_r_yz
+from pde_solver_tpu_torch.models.heat import (
+    embed_identity3, embed_line, embed_plane, embed_rtheta, embed_rz,
+    embed_spherical, weight_r, weight_r2, weight_r2_sin_theta, weight_r_yz,
+)
 
 
 def _pack(mesh: StructuredMesh, embed, times, values, dim, meta, stats) -> TimeSeriesField:
@@ -33,6 +39,133 @@ def _pack(mesh: StructuredMesh, embed, times, values, dim, meta, stats) -> TimeS
 def _result(field: TimeSeriesField, data_dir: str, prefix: str) -> SolveResult:
     path = save_field(field, data_dir, prefix)
     return SolveResult(data_file=path, dim=field.dim, meta=field.meta)
+
+
+def _bar_result(x, values, meta, data_dir: str, prefix: str) -> SolveResult:
+    """A 1D bar's single frame on its axis coordinates (meta as given)."""
+    coords = np.zeros((len(x), 3))
+    coords[:, 0] = x
+    field = TimeSeriesField(coords=coords, values=values[None, :],
+                            times=np.array([0.0]), dim=1, meta=meta)
+    return _result(field, data_dir, prefix)
+
+
+def _bar_name_unit(quantity: str):
+    if quantity == "displacement":
+        # extension: the axial displacement itself (unit m) — the
+        # reference clamps quantity to stress|strain
+        return "axial_displacement", "m"
+    if quantity == "strain":
+        return "axial_strain", "-"
+    return "axial_stress", "Pa"
+
+
+def _von_mises_name_unit(quantity: str):
+    if quantity == "displacement":
+        # extension: |u| per node (unit m) — the reference clamps
+        # quantity to stress|strain
+        return "displacement_magnitude", "m"
+    if quantity == "strain":
+        return "von_mises_strain", "-"
+    return "von_mises_stress", "Pa"
+
+
+def _radial_bcs(r_inner: float, T_inner: float, T_outer: float):
+    """Dirichlet ends of a 1D radial tool; no inner condition on a solid
+    cylinder or sphere (r_inner = 0)."""
+    def bc_builder(m):
+        pairs = []
+        if r_inner > 1e-10:
+            pairs.append((m.face_mask(0, 0), T_inner))
+        pairs.append((m.face_mask(0, 1), T_outer))
+        return pairs
+    return bc_builder
+
+
+# ======================================================================
+# Heat — Cartesian
+# ======================================================================
+
+def solve_heat_1D(
+    length: float = 2.0,
+    nx: int = 50,
+    diffusivity: float = 1.0,
+    T_left: float = 20.0,
+    T_right: float = 0.0,
+    T_initial: float = 0.0,
+    dt: float = 0.01,
+    num_steps: int = 50,
+    data_dir: str = "data",
+    steady: bool = False,
+    source_type: str = "none",
+    source_value: float = 0.0,
+    initial_type: str = "constant",
+    initial_amplitude: float = 1.0,
+    initial_wavenumber: float = 1.0,
+) -> SolveResult:
+    """1D heat equation u_t − k u_xx = f on (0, length); Dirichlet ends.
+
+    Reference tool: fenics_mcp_server.py:1902-1974 (same defaults/meta).
+    """
+    mesh = interval_mesh(nx, 0.0, length)
+    p = heat.HeatProblem(
+        mesh=mesh, diffusivity=diffusivity,
+        bc_builder=lambda m: [(m.face_mask(0, 0), T_left),
+                              (m.face_mask(0, 1), T_right)],
+        source_type=source_type, source_value=source_value, steady=steady,
+        T_initial=T_initial, initial_type=initial_type,
+        initial_amplitude=initial_amplitude, initial_wavenumber=initial_wavenumber,
+        dt=dt, num_steps=num_steps,
+    )
+    times, values, stats = heat.solve_heat_problem(p)
+    meta = {
+        "name": "temperature", "unit": "°C", "pde": "heat",
+        "coordinate_system": "cartesian", "length": length,
+        "source_type": source_type, "source_value": source_value, "steady": steady,
+    }
+    field = _pack(mesh, embed_line, times, values, 1, meta, stats)
+    return _result(field, data_dir, "heat_1d")
+
+
+def solve_heat_2D(
+    Lx: float = 1.0,
+    Ly: float = 1.0,
+    nx: int = 30,
+    ny: int = 30,
+    diffusivity: float = 1.0,
+    T_boundary: float = 0.0,
+    T_initial: float = 20.0,
+    dt: float = 0.01,
+    num_steps: int = 50,
+    data_dir: str = "data",
+    steady: bool = False,
+    source_type: str = "none",
+    source_value: float = 0.0,
+    initial_type: str = "constant",
+    initial_amplitude: float = 1.0,
+    initial_wavenumber: float = 1.0,
+) -> SolveResult:
+    """2D heat on [0,Lx]×[0,Ly], uniform Dirichlet boundary.
+
+    Reference tool: fenics_mcp_server.py:1977-2041.
+    """
+    mesh = rectangle_mesh(nx, ny, (0.0, 0.0), (Lx, Ly))
+    p = heat.HeatProblem(
+        mesh=mesh, diffusivity=diffusivity,
+        bc_builder=lambda m: [(m.boundary_mask(), T_boundary)],
+        source_type=source_type, source_value=source_value, steady=steady,
+        T_initial=T_initial, initial_type=initial_type,
+        initial_amplitude=initial_amplitude, initial_wavenumber=initial_wavenumber,
+        dt=dt, num_steps=num_steps,
+    )
+    times, values, stats = heat.solve_heat_problem(p)
+    meta = {
+        "name": "temperature", "unit": "°C", "pde": "heat",
+        "coordinate_system": "cartesian", "Lx": Lx, "Ly": Ly,
+        "source_type": source_type, "source_value": source_value, "steady": steady,
+    }
+    field = _pack(mesh, embed_plane, times, values, 2, meta, stats)
+    return _result(field, data_dir, "heat_2d")
 
 
 def solve_heat_3D(
@@ -152,6 +285,285 @@ def solve_heat_3D(
     return _result(field, data_dir, "heat_3d")
 
 
+# ======================================================================
+# Heat — curvilinear
+# ======================================================================
+
+def solve_heat_1D_cylindrical(
+    r_inner: float = 0.1,
+    r_outer: float = 1.0,
+    nr: int = 50,
+    diffusivity: float = 1.0,
+    T_inner: float = 100.0,
+    T_outer: float = 20.0,
+    T_initial: float = 20.0,
+    dt: float = 0.01,
+    num_steps: int = 50,
+    data_dir: str = "data",
+    steady: bool = False,
+    source_type: str = "none",
+    source_value: float = 0.0,
+    initial_type: str = "constant",
+    initial_amplitude: float = 1.0,
+) -> SolveResult:
+    """1D radial cylindrical heat: u_t = k (1/r) ∂_r(r ∂_r u), r-weighted form.
+
+    Reference tool: fenics_mcp_server.py:2220-2292; raw solver :769-923.
+    """
+    mesh = interval_mesh(nr, r_inner, r_outer)
+    p = heat.HeatProblem(
+        mesh=mesh, diffusivity=diffusivity, weight_fn=weight_r, weight_quad_degree=3,
+        bc_builder=_radial_bcs(r_inner, T_inner, T_outer),
+        source_type=source_type, source_value=source_value,
+        steady=steady, T_initial=T_initial, initial_type=initial_type,
+        initial_amplitude=initial_amplitude, curvilinear_ic=True,
+        dt=dt, num_steps=num_steps,
+    )
+    times, values, stats = heat.solve_heat_problem(p)
+    meta = {
+        "name": "temperature", "unit": "°C", "pde": "heat",
+        "coordinate_system": "cylindrical",
+        "geometry_type": "cylinder" if r_inner < 1e-10 else "annulus",
+        "r_inner": r_inner, "r_outer": r_outer,
+        "source_type": source_type, "source_value": source_value, "steady": steady,
+    }
+    field = _pack(mesh, embed_line, times, values, 1, meta, stats)
+    return _result(field, data_dir, "heat_1d_cylindrical")
+
+
+def solve_heat_1D_spherical(
+    r_inner: float = 0.1,
+    r_outer: float = 1.0,
+    nr: int = 50,
+    diffusivity: float = 1.0,
+    T_inner: float = 100.0,
+    T_outer: float = 20.0,
+    T_initial: float = 20.0,
+    dt: float = 0.01,
+    num_steps: int = 50,
+    data_dir: str = "data",
+    steady: bool = False,
+    source_type: str = "none",
+    source_value: float = 0.0,
+    initial_type: str = "constant",
+    initial_amplitude: float = 1.0,
+) -> SolveResult:
+    """1D radial spherical heat: u_t = k (1/r²) ∂_r(r² ∂_r u), r²-weighted form.
+
+    Reference tool: fenics_mcp_server.py:2295-2367; raw solver :926-1060.
+    """
+    mesh = interval_mesh(nr, r_inner, r_outer)
+    p = heat.HeatProblem(
+        mesh=mesh, diffusivity=diffusivity, weight_fn=weight_r2, weight_quad_degree=4,
+        bc_builder=_radial_bcs(r_inner, T_inner, T_outer),
+        source_type=source_type, source_value=source_value,
+        steady=steady, T_initial=T_initial, initial_type=initial_type,
+        initial_amplitude=initial_amplitude, curvilinear_ic=True,
+        dt=dt, num_steps=num_steps,
+    )
+    times, values, stats = heat.solve_heat_problem(p)
+    meta = {
+        "name": "temperature", "unit": "°C", "pde": "heat",
+        "coordinate_system": "spherical",
+        "geometry_type": "sphere" if r_inner < 1e-10 else "spherical_shell",
+        "r_inner": r_inner, "r_outer": r_outer,
+        "source_type": source_type, "source_value": source_value, "steady": steady,
+    }
+    field = _pack(mesh, embed_line, times, values, 1, meta, stats)
+    return _result(field, data_dir, "heat_1d_spherical")
+
+
+def solve_heat_2D_cylindrical(
+    r_inner: float = 0.1,
+    r_outer: float = 1.0,
+    z_length: float = 2.0,
+    nr: int = 30,
+    nz: int = 30,
+    diffusivity: float = 1.0,
+    T_boundary: float = 20.0,
+    T_initial: float = 20.0,
+    dt: float = 0.01,
+    num_steps: int = 50,
+    data_dir: str = "data",
+    steady: bool = False,
+    source_type: str = "none",
+    source_value: float = 0.0,
+    initial_type: str = "constant",
+    initial_amplitude: float = 1.0,
+) -> SolveResult:
+    """Axisymmetric cylindrical heat in the (r, z) plane, r-weighted form.
+
+    Reference tool: fenics_mcp_server.py:2370-2445; raw solver :1063-1188.
+    """
+    mesh = rectangle_mesh(nr, nz, (r_inner, 0.0), (r_outer, z_length))
+    p = heat.HeatProblem(
+        mesh=mesh, diffusivity=diffusivity, weight_fn=weight_r, weight_quad_degree=3,
+        bc_builder=lambda m: [(m.boundary_mask(), T_boundary)],
+        source_type=source_type, source_value=source_value,
+        steady=steady, T_initial=T_initial, initial_type=initial_type,
+        initial_amplitude=initial_amplitude, curvilinear_ic=True,
+        dt=dt, num_steps=num_steps,
+    )
+    times, values, stats = heat.solve_heat_problem(p)
+    meta = {
+        "name": "temperature", "unit": "°C", "pde": "heat",
+        "coordinate_system": "cylindrical",
+        "geometry_type": "cylinder" if r_inner < 1e-10 else "annular_cylinder",
+        "r_inner": r_inner, "r_outer": r_outer, "z_length": z_length,
+        "source_type": source_type, "source_value": source_value, "steady": steady,
+    }
+    field = _pack(mesh, embed_rz, times, values, 2, meta, stats)
+    return _result(field, data_dir, "heat_2d_cylindrical")
+
+
+def solve_heat_2D_spherical(
+    r_inner: float = 0.1,
+    r_outer: float = 1.0,
+    nr: int = 30,
+    ntheta: int = 30,
+    diffusivity: float = 1.0,
+    T_boundary: float = 20.0,
+    T_initial: float = 20.0,
+    dt: float = 0.01,
+    num_steps: int = 50,
+    data_dir: str = "data",
+    steady: bool = False,
+    source_type: str = "none",
+    source_value: float = 0.0,
+    initial_type: str = "constant",
+    initial_amplitude: float = 1.0,
+) -> SolveResult:
+    """Axisymmetric spherical heat in the (r, θ) plane, r² sinθ-weighted form.
+
+    Reference tool: fenics_mcp_server.py:2448-2520; raw solver :1191-1323.
+    """
+    mesh = rectangle_mesh(nr, ntheta, (r_inner, 0.0), (r_outer, np.pi))
+    p = heat.HeatProblem(
+        mesh=mesh, diffusivity=diffusivity, weight_fn=weight_r2_sin_theta,
+        weight_quad_degree=6,
+        bc_builder=lambda m: [(m.boundary_mask(), T_boundary)],
+        source_type=source_type, source_value=source_value,
+        steady=steady, T_initial=T_initial, initial_type=initial_type,
+        initial_amplitude=initial_amplitude, curvilinear_ic=True,
+        dt=dt, num_steps=num_steps,
+    )
+    times, values, stats = heat.solve_heat_problem(p)
+    meta = {
+        "name": "temperature", "unit": "°C", "pde": "heat",
+        "coordinate_system": "spherical",
+        "geometry_type": "sphere" if r_inner < 1e-10 else "spherical_shell",
+        "r_inner": r_inner, "r_outer": r_outer,
+        "source_type": source_type, "source_value": source_value, "steady": steady,
+    }
+    field = _pack(mesh, embed_rtheta, times, values, 2, meta, stats)
+    return _result(field, data_dir, "heat_2d_spherical")
+
+
+def solve_heat_3D_spherical(
+    r_inner: float = 0.1,
+    r_outer: float = 1.0,
+    nr: int = 20,
+    ntheta: int = 20,
+    nphi: int = 20,
+    diffusivity: float = 1.0,
+    T_boundary: float = 20.0,
+    T_initial: float = 20.0,
+    dt: float = 0.01,
+    num_steps: int = 50,
+    data_dir: str = "data",
+    steady: bool = False,
+    source_type: str = "none",
+    source_value: float = 0.0,
+    initial_type: str = "constant",
+    initial_amplitude: float = 1.0,
+) -> SolveResult:
+    """Full 3D spherical heat on (r, θ, φ) parameter space, r² sinθ weight.
+
+    Reference tool: fenics_mcp_server.py:2044-2119; raw solver :1326-1464.
+    """
+    mesh = box_mesh(nr, ntheta, nphi, (r_inner, 0.0, 0.0),
+                    (r_outer, np.pi, 2.0 * np.pi))
+    p = heat.HeatProblem(
+        mesh=mesh, diffusivity=diffusivity, weight_fn=weight_r2_sin_theta,
+        weight_quad_degree=6,
+        bc_builder=lambda m: [(m.boundary_mask(), T_boundary)],
+        source_type=source_type, source_value=source_value,
+        steady=steady, T_initial=T_initial, initial_type=initial_type,
+        initial_amplitude=initial_amplitude, curvilinear_ic=True,
+        dt=dt, num_steps=num_steps,
+    )
+    times, values, stats = heat.solve_heat_problem(p)
+    meta = {
+        "name": "temperature", "unit": "°C", "pde": "heat",
+        "coordinate_system": "spherical",
+        "geometry_type": "sphere" if r_inner < 1e-10 else "spherical_shell",
+        "r_inner": r_inner, "r_outer": r_outer,
+        "source_type": source_type, "source_value": source_value, "steady": steady,
+    }
+    field = _pack(mesh, embed_spherical, times, values, 3, meta, stats)
+    return _result(field, data_dir, "heat_3d_spherical")
+
+
+# ======================================================================
+# Elasticity
+# ======================================================================
+
+def solve_elasticity_1D_static(
+    L: float = 1.0,
+    nx: int = 50,
+    E: float = 210e9,
+    area: float = 1.0,
+    body_force: float = 0.0,
+    quantity: str = "stress",
+    data_dir: str = "data",
+) -> SolveResult:
+    """1D axial bar −(EA u′)′ = f, fixed-free; axial stress/strain output
+    (quantity="displacement" additionally returns u itself — extension).
+
+    Reference tool: fenics_mcp_server.py:2523-2588; raw solver :1470-1587.
+    """
+    x, values, stats = elast.solve_bar_1d(L, nx, E, area, body_force, quantity)
+    field_name, unit = _bar_name_unit(quantity)
+    meta = {
+        "name": field_name, "unit": unit, "pde": "elasticity_1d",
+        "L": L, "E": E, "area": area, "body_force": body_force,
+        "quantity": quantity, "solver_stats": stats,
+    }
+    return _bar_result(x, values, meta, data_dir, f"elasticity_1d_{quantity}")
+
+
+def solve_elasticity_2D_static(
+    Lx: float = 1.0,
+    Ly: float = 1.0,
+    nx: int = 30,
+    ny: int = 30,
+    E: float = 210e9,
+    nu: float = 0.3,
+    body_fx: float = 0.0,
+    body_fy: float = 0.0,
+    quantity: str = "stress",
+    plane_stress: bool = True,
+    data_dir: str = "data",
+) -> SolveResult:
+    """2D static elasticity (plane stress/strain), clamped left edge,
+    von Mises output (quantity="displacement" returns |u| — extension).
+    Reference tool: fenics_mcp_server.py:2590-2678."""
+    mesh = rectangle_mesh(nx, ny, (0.0, 0.0), (Lx, Ly))
+    mode = "plane_stress" if plane_stress else "plane_strain"
+    values, stats = elast.solve_elasticity_nd(
+        mesh, E, nu, np.array([body_fx, body_fy]), mode, quantity)
+    field_name, unit = _von_mises_name_unit(quantity)
+    meta = {
+        "name": field_name, "unit": unit, "pde": "elasticity_2d",
+        "Lx": Lx, "Ly": Ly, "E": E, "nu": nu,
+        "body_fx": body_fx, "body_fy": body_fy,
+        "quantity": quantity, "plane_stress": plane_stress,
+    }
+    field = _pack(mesh, embed_plane, np.array([0.0]), values[None, :], 2,
+                  meta, stats)
+    return _result(field, data_dir, f"elasticity_2d_{quantity}")
+
+
 def solve_elasticity_3D_static(
     Lx: float = 1.0,
     Ly: float = 1.0,
@@ -175,12 +587,7 @@ def solve_elasticity_3D_static(
     mesh = box_mesh(nx, ny, nz, (0.0, 0.0, 0.0), (Lx, Ly, Lz))
     values, stats = elast.solve_elasticity_nd(
         mesh, E, nu, np.array([body_fx, body_fy, body_fz]), "3d", quantity)
-    if quantity == "displacement":
-        field_name, unit = "displacement_magnitude", "m"
-    elif quantity == "strain":
-        field_name, unit = "von_mises_strain", "-"
-    else:
-        field_name, unit = "von_mises_stress", "Pa"
+    field_name, unit = _von_mises_name_unit(quantity)
     meta = {
         "name": field_name, "unit": unit, "pde": "elasticity_3d",
         "Lx": Lx, "Ly": Ly, "Lz": Lz, "E": E, "nu": nu,
@@ -190,3 +597,143 @@ def solve_elasticity_3D_static(
     field = _pack(mesh, embed_identity3, np.array([0.0]), values[None, :], 3,
                   meta, stats)
     return _result(field, data_dir, f"elasticity_3d_{quantity}")
+
+
+# ----------------------------------------------------------------------
+# Elasticity with surface loads (extension tools)
+# ----------------------------------------------------------------------
+# Beyond the reference surface: its elasticity tools accept body forces
+# only (fenics_mcp_server.py:1670-1674, :1820-1824); end loads, surface
+# tractions and pressures are the textbook cantilever/plate queries.
+
+def _mixed_bc_meta(boundary_conditions):
+    out = {}
+    for face, spec in (boundary_conditions or {}).items():
+        out[str(face)] = spec if isinstance(spec, dict) else float(spec)
+    return out
+
+
+def _resolve_face_loads(loads: Optional[dict], mesh) -> list:
+    """Per-face load specs → (axis, side, traction_vector) list.
+
+    Spec per face (faces named as in ``models.heat._FACE_NAMES``):
+    {"type": "traction", "vector": [..]}  N/m² applied as-is;
+    {"type": "force",    "vector": [..]}  total N, divided by face area;
+    {"type": "pressure", "value": p}      t = −p·n̂ (positive = pushing in).
+    """
+    d = mesh.dim
+    out = []
+    for face, spec in (loads or {}).items():
+        for axis, side in heat._face_keys(d, face):
+            area = 1.0
+            for a in range(d):
+                if a != axis:
+                    area *= mesh.extent[a]
+            kind = str(spec.get("type", "traction")).strip().lower()
+            if kind == "traction":
+                t = np.asarray(spec.get("vector", [0.0] * d), np.float64)
+            elif kind == "force":
+                t = np.asarray(spec.get("vector", [0.0] * d),
+                               np.float64) / area
+            elif kind == "pressure":
+                n = np.zeros(d)
+                n[axis] = 1.0 if side else -1.0
+                t = -float(spec.get("value", 0.0)) * n
+            else:
+                raise ValueError(f"unknown load type {kind!r} for {face!r}")
+            out.append((axis, side, t))
+    return out
+
+
+def solve_elasticity_1D_loaded(
+    L: float = 1.0,
+    nx: int = 50,
+    E: float = 210e9,
+    area: float = 1.0,
+    end_load: float = 0.0,
+    body_force: float = 0.0,
+    quantity: str = "stress",
+    data_dir: str = "data",
+) -> SolveResult:
+    """1D axial bar with an end point-load P at the free end (extension
+    tool): EA u′(L) = P, so σ = P/A and u = P x/(EA) exactly."""
+    x, values, stats = elast.solve_bar_1d(L, nx, E, area, body_force,
+                                          quantity, end_load=end_load)
+    field_name, unit = _bar_name_unit(quantity)
+    meta = {
+        "name": field_name, "unit": unit, "pde": "elasticity_1d",
+        "L": L, "E": E, "area": area, "body_force": body_force,
+        "end_load": end_load, "quantity": quantity, "solver_stats": stats,
+    }
+    return _bar_result(x, values, meta, data_dir,
+                       f"elasticity_1d_loaded_{quantity}")
+
+
+def solve_elasticity_2D_loaded(
+    Lx: float = 1.0,
+    Ly: float = 1.0,
+    nx: int = 30,
+    ny: int = 30,
+    E: float = 210e9,
+    nu: float = 0.3,
+    loads: Optional[dict] = None,
+    body_fx: float = 0.0,
+    body_fy: float = 0.0,
+    quantity: str = "stress",
+    plane_stress: bool = True,
+    data_dir: str = "data",
+) -> SolveResult:
+    """2D static elasticity with per-face surface loads (extension tool);
+    clamped left edge, von Mises output.  See :func:`_resolve_face_loads`
+    for the loads spec."""
+    mesh = rectangle_mesh(nx, ny, (0.0, 0.0), (Lx, Ly))
+    mode = "plane_stress" if plane_stress else "plane_strain"
+    values, stats = elast.solve_elasticity_nd(
+        mesh, E, nu, np.array([body_fx, body_fy]), mode, quantity,
+        traction_faces=_resolve_face_loads(loads, mesh))
+    field_name, unit = _von_mises_name_unit(quantity)
+    meta = {
+        "name": field_name, "unit": unit, "pde": "elasticity_2d",
+        "Lx": Lx, "Ly": Ly, "E": E, "nu": nu,
+        "body_fx": body_fx, "body_fy": body_fy,
+        "loads": _mixed_bc_meta(loads),
+        "quantity": quantity, "plane_stress": plane_stress,
+    }
+    field = _pack(mesh, embed_plane, np.array([0.0]), values[None, :], 2,
+                  meta, stats)
+    return _result(field, data_dir, f"elasticity_2d_loaded_{quantity}")
+
+
+def solve_elasticity_3D_loaded(
+    Lx: float = 1.0,
+    Ly: float = 1.0,
+    Lz: float = 1.0,
+    nx: int = 10,
+    ny: int = 10,
+    nz: int = 10,
+    E: float = 210e9,
+    nu: float = 0.3,
+    loads: Optional[dict] = None,
+    body_fx: float = 0.0,
+    body_fy: float = 0.0,
+    body_fz: float = 0.0,
+    quantity: str = "stress",
+    data_dir: str = "data",
+) -> SolveResult:
+    """3D static elasticity with per-face surface loads (extension tool);
+    clamped x=0 face, von Mises output."""
+    mesh = box_mesh(nx, ny, nz, (0.0, 0.0, 0.0), (Lx, Ly, Lz))
+    values, stats = elast.solve_elasticity_nd(
+        mesh, E, nu, np.array([body_fx, body_fy, body_fz]), "3d", quantity,
+        traction_faces=_resolve_face_loads(loads, mesh))
+    field_name, unit = _von_mises_name_unit(quantity)
+    meta = {
+        "name": field_name, "unit": unit, "pde": "elasticity_3d",
+        "Lx": Lx, "Ly": Ly, "Lz": Lz, "E": E, "nu": nu,
+        "body_fx": body_fx, "body_fy": body_fy, "body_fz": body_fz,
+        "loads": _mixed_bc_meta(loads), "quantity": quantity,
+    }
+    field = _pack(mesh, embed_identity3, np.array([0.0]), values[None, :], 3,
+                  meta, stats)
+    return _result(field, data_dir, f"elasticity_3d_loaded_{quantity}")
+

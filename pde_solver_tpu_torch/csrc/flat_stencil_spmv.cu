@@ -20,13 +20,20 @@
 // row, so flat addressing is exact, and the bounds check below keeps every
 // read inside x.
 //
+// Built for the v listed in FLAT_STENCIL_VDIMS (scalar problems, 2-D and
+// 3-D elasticity) with f32 and bf16 weights; any other v is refused
+// (cudaErrorInvalidValue).  ops/stencil_kernels.py reads that line as
+// KERNEL_VDIMS, so FlatStencilOperator refuses any other v on a CUDA device
+// at construction, and a new v is added there and nowhere else.
+//
 // What bounds it: W bytes.  Each node streams n_off·v² weights once —
 // 15·9·4 = 540 B/node at f32 and 270 B/node at bf16 for 3-D elasticity,
-// about 367 MB per vdim=3 f32 apply at the flagship — against 12 B/node of
-// x and y.  The design streams W exactly once with coalesced loads (one
-// thread per node: neighbouring threads read neighbouring W addresses in
-// every plane), keeps the v accumulators in registers, and leaves the
-// x re-reads (n_off per node) to L1/L2.
+// about 367 MB per vdim=3 f32 apply at the flagship, and 7·4·4 = 112 B/node
+// at f32 for 2-D elasticity — against 8·v B/node of x and y.  The design
+// streams W exactly once with coalesced loads (one thread per node:
+// neighbouring threads read neighbouring W addresses in every plane), keeps
+// the v accumulators in registers, and leaves the x re-reads (n_off per
+// node) to L1/L2.
 //
 // Accumulation runs in the reference's (o, b, a) order; nvcc contracts
 // each multiply-add into an FMA, so results differ from the unfused plain
@@ -39,6 +46,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#define FLAT_STENCIL_VDIMS 1, 2, 3
 
 namespace {
 
@@ -96,6 +105,28 @@ void launch(const void* W, const void* x, void* y, int64_t N,
       static_cast<float*>(y), N, deltas, n_off);
 }
 
+// Launches the VDIM instantiation if vdim == VDIM; false otherwise.
+template <int VDIM>
+bool launch_if(int vdim, int w_is_bf16, const void* W, const void* x,
+               void* y, int64_t N, const Deltas& deltas, int n_off,
+               cudaStream_t stream) {
+  if (vdim != VDIM) return false;
+  if (w_is_bf16) {
+    launch<VDIM, __nv_bfloat16>(W, x, y, N, deltas, n_off, stream);
+  } else {
+    launch<VDIM, float>(W, x, y, N, deltas, n_off, stream);
+  }
+  return true;
+}
+
+template <int... VDIMS>
+bool dispatch(int vdim, int w_is_bf16, const void* W, const void* x, void* y,
+              int64_t N, const Deltas& deltas, int n_off,
+              cudaStream_t stream) {
+  return (launch_if<VDIMS>(vdim, w_is_bf16, W, x, y, N, deltas, n_off,
+                           stream) || ...);
+}
+
 }  // namespace
 
 extern "C" int flat_stencil_spmv(const void* W, int w_is_bf16, int vdim,
@@ -109,15 +140,8 @@ extern "C" int flat_stencil_spmv(const void* W, int w_is_bf16, int vdim,
   Deltas d = {};
   for (int i = 0; i < n_off; ++i) d.d[i] = deltas[i];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vdim == 3 && !w_is_bf16) {
-    launch<3, float>(W, x, y, N, d, n_off, s);
-  } else if (vdim == 3 && w_is_bf16) {
-    launch<3, __nv_bfloat16>(W, x, y, N, d, n_off, s);
-  } else if (vdim == 1 && !w_is_bf16) {
-    launch<1, float>(W, x, y, N, d, n_off, s);
-  } else if (vdim == 1 && w_is_bf16) {
-    launch<1, __nv_bfloat16>(W, x, y, N, d, n_off, s);
-  } else {
+  if (!dispatch<FLAT_STENCIL_VDIMS>(vdim, w_is_bf16, W, x, y, N, d, n_off,
+                                    s)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

@@ -1,21 +1,24 @@
-"""Static linear elasticity (2D plane stress/strain, 3D).
+"""Static linear elasticity (1D bar, 2D plane stress/strain, 3D).
 
-Counterpart of ``pde_solver_tpu.models.elasticity`` for the static solve:
-the clamped-x=0 body-force problem as a matrix-free block-stencil solve,
-then per-element von Mises from constant P1 gradients (host numpy, float64)
-and an L2 projection onto P1 — the discrete operation FEniCS' ``project``
-performs.  Surface tractions and thermal coupling are not ported yet.
+Counterpart of ``pde_solver_tpu.models.elasticity`` for the static solves:
+the 1D axial bar (end load, thermal expansion, fixed-fixed), and the
+clamped-x=0 2D/3D problem under body forces, surface tractions and thermal
+prestress as a matrix-free block-stencil solve, then per-element von Mises
+from constant P1 gradients (host numpy, float64) and an L2 projection onto
+P1 — the discrete operation FEniCS' ``project`` performs.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
 from pde_solver_tpu_torch.config import SolverConfig, get_config
-from pde_solver_tpu_torch.mesh import StructuredMesh, flatten_values
-from pde_solver_tpu_torch.ops import assembly
+from pde_solver_tpu_torch.mesh import (StructuredMesh, flatten_values,
+                                       interval_mesh)
+from pde_solver_tpu_torch.ops import assembly, surface
 from pde_solver_tpu_torch.ops.bc import DirichletBC
 from pde_solver_tpu_torch.ops.elements import subelem_geometry
 from pde_solver_tpu_torch.ops.linsolve import solve_stencil_system
@@ -31,6 +34,19 @@ def lame_parameters(E: float, nu: float, mode: str) -> Tuple[float, float]:
     else:  # plane_strain and 3d share the same λ
         lam = E * nu / ((1.0 + nu) * (1.0 - 2.0 * nu))
     return lam, mu
+
+
+def thermal_stress_coefficient(E: float, nu: float, alpha: float,
+                               mode: str) -> float:
+    """β such that the thermal prestress is σ_th = −β ΔT I.
+
+    3D / plane strain: β = E α / (1 − 2ν) = (3λ+2μ) α (plane strain keeps
+    the 3D relation because ε_zz = 0 leaves tr₃ε = tr₂ε); plane stress
+    reduces to β = E α / (1 − ν) = (2λ_ps + 2μ) α after eliminating σ_zz.
+    """
+    if mode == "plane_stress":
+        return E * alpha / (1.0 - nu)
+    return E * alpha / (1.0 - 2.0 * nu)  # plane_strain and 3d
 
 
 def _element_gradients(mesh: StructuredMesh, u_grid: np.ndarray) -> np.ndarray:
@@ -77,6 +93,65 @@ def von_mises_fields(mesh: StructuredMesh, u_grid: np.ndarray, lam: float,
     return _vm_from_gradients(G, np, mesh.dim, lam, mu, iso=iso)
 
 
+def solve_bar_1d(L: float, nx: int, E: float, area: float, body_force: float,
+                 quantity: str = "stress", end_load: float = 0.0,
+                 alpha: float = 0.0, delta_T: float = 0.0,
+                 clamp_both: bool = False,
+                 config: Optional[SolverConfig] = None
+                 ) -> Tuple[np.ndarray, np.ndarray, Dict]:
+    """1D axial bar: −(EA u′)′ = f, u(0)=0, free at x=L.
+
+    Returns (x coords [N], field values [N], stats).  ``quantity`` selects
+    the P1-projected axial strain ε=u′ or stress σ=Eε, or the displacement
+    u itself.  ``end_load``: axial point force P [N] at the free end, giving
+    σ = P/A and u = P x/(EA) exactly.  ``alpha``/``delta_T``: uniform
+    thermal expansion — load ∫ EAαΔT v′ dx, stress σ = E(ε − αΔT); with
+    ``clamp_both`` (fixed-fixed) the stress is −EαΔT exactly.
+    """
+    if clamp_both and end_load:
+        # the x=L node is Dirichlet-constrained: a point load added there
+        # would be silently discarded by the masking
+        raise ValueError("end_load cannot be applied with clamp_both=True: "
+                         "the x=L end is displacement-constrained, so the "
+                         "point load would be silently ignored")
+    cfg = config or get_config()
+    mesh = interval_mesh(nx, 0.0, L)
+    t0 = time.perf_counter()
+    K = assembly.assemble_scalar_stencil(mesh, "stiffness")
+    K = {o: (E * area) * W for o, W in K.items()}
+    b = body_force * assembly.assemble_load(mesh, quad_degree=1)
+    if end_load:
+        b = b.copy()
+        b[-1] += float(end_load)
+    if alpha and delta_T:
+        b = b + assembly.assemble_thermal_load(
+            mesh, E * area * alpha, float(delta_T))[..., 0]
+    clamp_masks = [(mesh.face_mask(0, 0), 0.0)]
+    if clamp_both:
+        clamp_masks.append((mesh.face_mask(0, 1), 0.0))
+    bc = DirichletBC.from_masks(clamp_masks, mesh.node_shape)
+    u, stats = solve_stencil_system(K, mesh, bc, b, config=cfg)
+
+    # ε per element (piecewise constant), projected to P1 like FEniCS project
+    h = mesh.spacing[0]
+    eps_cells = ((u[1:] - u[:-1]) / h)[None]  # [1, nx]
+    if quantity == "displacement":
+        field = np.asarray(u, dtype=np.float64)
+    elif quantity == "strain":
+        field = project_cellwise(mesh, eps_cells, config=cfg)
+    else:
+        field_cells = E * (eps_cells - float(alpha) * float(delta_T))
+        field = project_cellwise(mesh, field_cells, config=cfg)
+    info = {
+        "num_dofs": mesh.num_nodes,
+        "cg_iterations": int(stats.iterations),
+        "relative_residual": float(stats.relative_residual),
+        "converged": bool(stats.converged),
+        "solve_seconds": time.perf_counter() - t0,
+    }
+    return mesh.axis_nodes(0), field, info
+
+
 def solve_elasticity_nd(mesh: StructuredMesh, E: float, nu: float,
                         body_force: np.ndarray, mode: str,
                         quantity: str = "stress",
@@ -87,21 +162,38 @@ def solve_elasticity_nd(mesh: StructuredMesh, E: float, nu: float,
                         ) -> Tuple[np.ndarray, Dict]:
     """2D/3D static elasticity with the x=0 face clamped; returns the flat
     von Mises scalar field [N] plus stats.  ``mode``: plane_stress /
-    plane_strain / 3d.  ``clamp_both`` additionally clamps the x=L face."""
-    if len(traction_faces):
-        raise NotImplementedError("surface tractions are not ported yet "
-                                  "(ROADMAP queue 1, item 7)")
-    if thermal is not None:
-        raise NotImplementedError("thermal coupling is not ported yet "
-                                  "(ROADMAP queue 1, item 7)")
+    plane_strain / 3d.
+
+    ``traction_faces``: (axis, side, t_vec) surface tractions [N/m² per
+    component], entering the load as the consistent P1 boundary term
+    ∫_Γ t·v ds.  ``thermal``: optional (alpha, dT) thermoelastic coupling —
+    ``dT`` a nodal temperature-rise grid [*node_shape] or a uniform scalar;
+    adds the load ∫ β ΔT div(v) dx and evaluates stresses from
+    σ = C:ε − β ΔT I (β per ``mode``, :func:`thermal_stress_coefficient`).
+    ``clamp_both`` additionally clamps the x=L face."""
     cfg = config or get_config()
     d = mesh.dim
     lam, mu = lame_parameters(E, nu, mode)
     phases: Dict[str, float] = {}
+    iso_cells = None
     with phase_timer(phases, "assembly"):
         K = assembly.assemble_elasticity_stencil(mesh, lam, mu)
         b = assembly.assemble_vector_load(mesh,
                                           np.asarray(body_force, dtype=np.float64))
+        for axis, side, tvec in traction_faces:
+            bsurf = surface.assemble_face_load(mesh, int(axis), int(side))
+            b = b + bsurf[..., None] * np.asarray(tvec, dtype=np.float64)
+        if thermal is not None:
+            alpha, dT = thermal
+            beta = thermal_stress_coefficient(E, nu, float(alpha), mode)
+            b = b + assembly.assemble_thermal_load(mesh, beta, dT)
+            if np.isscalar(dT) or np.asarray(dT).ndim == 0:
+                iso_cells = beta * float(dT)
+            else:
+                # the thermal load's own per-sub-element mean, so the
+                # load-side and stress-side ΔT̄ agree
+                iso_cells = beta * assembly.subelem_vertex_mean(
+                    mesh, np.asarray(dT))
         clamp_masks = [(mesh.face_mask(0, 0), 0.0)]
         if clamp_both:
             clamp_masks.append((mesh.face_mask(0, 1), 0.0))
@@ -125,7 +217,8 @@ def solve_elasticity_nd(mesh: StructuredMesh, E: float, nu: float,
             field = np.linalg.norm(np.asarray(u_grid, dtype=np.float64),
                                    axis=-1)
         else:
-            vm_stress, vm_strain = von_mises_fields(mesh, u_grid, lam, mu)
+            vm_stress, vm_strain = von_mises_fields(mesh, u_grid, lam, mu,
+                                                    iso=iso_cells)
             vm = vm_strain if quantity == "strain" else vm_stress
             field = project_cellwise(mesh, vm, config=cfg)
     info = {

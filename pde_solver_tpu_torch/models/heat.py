@@ -1,12 +1,14 @@
-"""Heat-equation solver family: what the Cartesian 3D tool solves with.
+"""Heat-equation solver family: what the Cartesian and curvilinear heat
+tools solve with.
 
-Counterpart of ``pde_solver_tpu.models.heat`` for what ``solve_heat_3D``
-runs: ``HeatProblem``, the initial field, the generic entry point
+Counterpart of ``pde_solver_tpu.models.heat`` for the Dirichlet tools:
+``HeatProblem``, the initial field, the generic entry point
 ``solve_heat_problem`` (steady through the linear-solve facade, transient
-through ``ops.timestepping.run_transient``), the coordinate weights and 3D
-embeddings, and the composite-core diffusivity marking.  Robin and flux
-faces (``ops/surface.py``), the nonlinear Picard solve and the per-face BC
-parser are not ported yet (ROADMAP queue 1, item 7).
+through ``ops.timestepping.run_transient``), the coordinate weights and
+embeddings, the composite-core diffusivity marking, and the face names the
+``_loaded`` elasticity tools resolve.  Robin and flux faces, the nonlinear
+Picard solve and the per-face BC parser are not ported yet (ROADMAP queue 1,
+item 7).
 """
 
 from __future__ import annotations
@@ -291,3 +293,47 @@ def composite_kappa_cells(mesh: StructuredMesh, core_radius: float,
             inside = ok if inside is None else (inside & ok)
         out[t] = np.where(inside, core, base)
     return out
+
+
+# ----------------------------------------------------------------------
+# Face names (the per-face load specs of the _loaded elasticity tools)
+# ----------------------------------------------------------------------
+
+# face name → (axis, side) per dimension; x is the "length" axis, matching
+# the reference's directional T_left/T_right convention
+# (fenics_mcp_server.py:580-623)
+_FACE_NAMES = {
+    1: {"left": (0, 0), "right": (0, 1)},
+    2: {"left": (0, 0), "right": (0, 1), "bottom": (1, 0), "top": (1, 1)},
+    3: {"left": (0, 0), "right": (0, 1), "front": (1, 0), "back": (1, 1),
+        "bottom": (2, 0), "top": (2, 1)},
+}
+_FACE_ALIASES = {"x_min": "left", "x_max": "right", "y_min": "bottom",
+                 "y_max": "top", "z_min": "bottom", "z_max": "top",
+                 "start": "left", "end": "right",
+                 # wall/slab phrasing on Cartesian domains: inside → the
+                 # x-low face, outside → the x-high face
+                 "inner": "left", "inside": "left",
+                 "outer": "right", "outside": "right"}
+
+
+def _face_keys(dim: int, name: str):
+    """Resolve a face name (or group: all/sides) to [(axis, side), ...]."""
+    name = str(name).strip().lower()
+    table = _FACE_NAMES[dim]
+    if name in ("all", "boundary", "everywhere"):
+        return list(table.values())
+    if name in ("sides", "side", "lateral", "walls"):
+        # every face except the two x faces (the reference's "side" notion)
+        return [v for k, v in table.items() if k not in ("left", "right")]
+    alias = _FACE_ALIASES.get(name, name)
+    if dim == 2 and alias in ("front", "back"):  # tolerate 3D words in 2D
+        alias = {"front": "bottom", "back": "top"}[alias]
+    if dim == 3 and name == "y_min":
+        alias = "front"
+    if dim == 3 and name == "y_max":
+        alias = "back"
+    if alias not in table:
+        raise ValueError(f"unknown face {name!r} for dim={dim}; "
+                         f"expected one of {sorted(table)}")
+    return [table[alias]]

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import copy
 import ctypes
+import re
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -35,9 +36,22 @@ from pde_solver_tpu_torch.ops import cuda_build
 # is what may raise it.
 KERNEL_MIN_DOF = 0
 
+
+def _built_vdims() -> Tuple[int, ...]:
+    """The vdims ``flat_stencil_spmv.cu`` is built for, read from its
+    ``#define FLAT_STENCIL_VDIMS`` line (the one place they are listed)."""
+    src = (cuda_build.CSRC / "flat_stencil_spmv.cu").read_text()
+    m = re.search(r"^#define FLAT_STENCIL_VDIMS ([0-9, ]+)$", src, re.M)
+    return tuple(int(v) for v in m.group(1).split(","))
+
+
+# A FlatStencilOperator on a CUDA device with a vdim outside these is
+# refused when it is constructed.
+KERNEL_VDIMS = _built_vdims()
+
 # Launches of the port's CUDA kernels in this process, by variant: this
-# module's "v3_f32", "v3_bf16", "v1_f32", "v1_bf16", and the
-# constant-interior pair of ``ops.cs_kernels`` ("cs_main_v1",
+# module's "v3_f32", "v3_bf16", "v2_f32", "v2_bf16", "v1_f32", "v1_bf16",
+# and the constant-interior pair of ``ops.cs_kernels`` ("cs_main_v1",
 # "cs_window_v1", ...).  Only a kernel launch counts: the CPU plain path
 # never does.
 KERNEL_LAUNCHES: Dict[str, int] = {}
@@ -88,6 +102,14 @@ def spmv_plain(W: torch.Tensor, x: torch.Tensor, deltas: Sequence[int],
     return y
 
 
+def _check_vdim(vdim: int, device) -> None:
+    """A CUDA operator must have a vdim the kernel is built for: refuse
+    any other here, not at the first launch."""
+    if torch.device(device).type == "cuda" and vdim not in KERNEL_VDIMS:
+        raise ValueError(f"flat_stencil_spmv is built for vdim in "
+                         f"{KERNEL_VDIMS}, not {vdim}")
+
+
 class FlatStencilOperator:
     """Stencil operator in flat layout backed by the CUDA kernel.
 
@@ -101,6 +123,7 @@ class FlatStencilOperator:
     def __init__(self, offsets, weights_np: Sequence[np.ndarray],
                  node_shape: Tuple[int, ...], vdim: int = 1,
                  device="cuda", weight_dtype=torch.float32):
+        _check_vdim(vdim, device)
         self._init_meta(offsets, node_shape, vdim)
         Wmat = np.empty((self.n_off, vdim, vdim, self.N), np.float32)
         for o, W in enumerate(weights_np):
@@ -113,6 +136,7 @@ class FlatStencilOperator:
     def from_packed(cls, W: torch.Tensor, offsets, node_shape,
                     vdim: int) -> "FlatStencilOperator":
         """Operator over already packed ``[n_off·v·v, N]`` weights."""
+        _check_vdim(vdim, W.device)
         op = cls.__new__(cls)
         op._init_meta(offsets, node_shape, vdim)
         if tuple(W.shape) != (op.n_off * vdim * vdim, op.N):

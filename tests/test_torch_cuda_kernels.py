@@ -33,6 +33,8 @@ def card():
 
 
 def _system(vdim, cells=(10, 6, 6)):
+    """vdim 1: scalar stiffness; vdim = mesh dimension: elasticity (2D
+    plane elasticity has 7 offsets, 3D 15)."""
     mesh = box_mesh(*cells, (0, 0, 0), (1.0, 0.5, 0.5)) if len(cells) == 3 \
         else rectangle_mesh(*cells, (0, 0), (1.0, 1.0))
     if vdim == 1:
@@ -43,8 +45,9 @@ def _system(vdim, cells=(10, 6, 6)):
     else:
         K = assembly.assemble_elasticity_stencil(mesh, 1.3, 0.7)
         bc = DirichletBC.from_masks([(mesh.face_mask(0, 0), 0.0)],
-                                    mesh.node_shape, vdim=3)
-        rhs = assembly.assemble_vector_load(mesh, np.array([0.0, 1.0, -2.0]))
+                                    mesh.node_shape, vdim=vdim)
+        rhs = assembly.assemble_vector_load(
+            mesh, np.array([0.0, 1.0, -2.0][:vdim]))
     return mesh, prepare_system(K, mesh, bc, rhs, vdim)
 
 
@@ -53,12 +56,12 @@ def _rel(a, b):
     return np.abs(a - b).max() / max(np.abs(b).max(), 1e-30)
 
 
-@pytest.mark.parametrize("cells", [(10, 6, 6), (12, 9), (33, 7, 5)])
 @pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("vdim", [1, 3])
+@pytest.mark.parametrize("vdim,cells", [
+    (1, (10, 6, 6)), (1, (12, 9)), (1, (33, 7, 5)),
+    (2, (12, 9)), (2, (64, 33)),          # 2D plane elasticity, 7 offsets
+    (3, (10, 6, 6)), (3, (33, 7, 5))])
 def test_kernel_matches_plain(card, vdim, bf16, cells):
-    if vdim == 3 and len(cells) == 2:
-        pytest.skip("vdim=3 elasticity needs a 3-D mesh")
     mesh, sysm = _system(vdim, cells)
     dt = torch.bfloat16 if bf16 else torch.float32
     op = sk.FlatStencilOperator(sysm.offsets, sysm.weights, mesh.node_shape,
@@ -88,6 +91,11 @@ def test_kernel_rejects_what_it_does_not_take(card):
     with pytest.raises(ValueError):
         op.apply_flat(torch.zeros((op.N, 3), device=card).t())
     assert op.launches == 0
+    # a vdim the kernel is not built for is refused at construction
+    with pytest.raises(ValueError, match="vdim"):
+        sk.FlatStencilOperator.from_packed(
+            torch.zeros((15 * 16, op.N), device=card), sysm.offsets,
+            mesh.node_shape, 4)
 
 
 def test_flat_cg_through_kernel_matches_cpu(card):

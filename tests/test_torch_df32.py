@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 import torch
 
-from pde_solver_tpu.mesh import box_mesh
+from pde_solver_tpu.mesh import box_mesh, rectangle_mesh
 from pde_solver_tpu.ops import assembly, df32 as ref_df
 from pde_solver_tpu.ops.bc import DirichletBC
 from pde_solver_tpu.ops.linsolve import np_stencil_apply, prepare_system
@@ -61,9 +61,10 @@ def test_df_split_and_scale_add():
                   ).max() <= 1e-13 * np.abs(want).max()
 
 
-@pytest.mark.parametrize("vdim", [1, 3])
+@pytest.mark.parametrize("vdim", [1, 2, 3])
 def test_df_stencil_residual_matches_reference(vdim):
-    mesh = box_mesh(10, 6, 6, (0, 0, 0), (1.0, 0.2, 0.2))
+    mesh = (rectangle_mesh(16, 8, (0, 0), (1.0, 0.5)) if vdim == 2
+            else box_mesh(10, 6, 6, (0, 0, 0), (1.0, 0.2, 0.2)))
     if vdim == 1:
         K = assembly.assemble_scalar_stencil(mesh, "stiffness")
         bc = DirichletBC.from_masks([(mesh.face_mask(0, 0), 0.0)],
@@ -72,8 +73,9 @@ def test_df_stencil_residual_matches_reference(vdim):
     else:
         K = assembly.assemble_elasticity_stencil(mesh, 1.21e11, 8.08e10)
         bc = DirichletBC.from_masks([(mesh.face_mask(0, 0), 0.0)],
-                                    mesh.node_shape, vdim=3)
-        rhs = assembly.assemble_vector_load(mesh, np.array([0, 0, -7.65e4]))
+                                    mesh.node_shape, vdim=vdim)
+        rhs = assembly.assemble_vector_load(
+            mesh, np.array([0, 0, -7.65e4])[-vdim:])
     sysm = prepare_system(K, mesh, bc, rhs, vdim)
     rng = np.random.default_rng(4)
     x64 = rng.standard_normal(sysm.b_hat.shape)

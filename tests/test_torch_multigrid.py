@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 import torch
 
-from pde_solver_tpu.mesh import box_mesh
+from pde_solver_tpu.mesh import box_mesh, rectangle_mesh
 from pde_solver_tpu.ops import assembly, pallas_kernels
 from pde_solver_tpu.ops import multigrid as ref_mg
 from pde_solver_tpu.ops.bc import DirichletBC
@@ -20,17 +20,24 @@ LAM, MU = 1.2115384615384616e11, 8.076923076923077e10  # E=210e9, ν=0.3
 
 
 def _cantilever(cells=(16, 8, 8)):
-    mesh = box_mesh(*cells, (0, 0, 0), (1.0, 0.2, 0.2))
+    """A gravity-loaded cantilever clamped at x = 0: a 3D bar, or with two
+    cell counts a plane-strain plate (vdim=2, the 2D elasticity path)."""
+    d = len(cells)
+    if d == 3:
+        mesh = box_mesh(*cells, (0, 0, 0), (1.0, 0.2, 0.2))
+    else:
+        mesh = rectangle_mesh(*cells, (0, 0), (1.0, 0.5))
     K = assembly.assemble_elasticity_stencil(mesh, LAM, MU)
     bc = DirichletBC.from_masks([(mesh.face_mask(0, 0), 0.0)],
-                                mesh.node_shape, vdim=3)
-    b = assembly.assemble_vector_load(mesh, np.array([0.0, 0.0, -9.81 * 7800]))
-    sysm = prepare_system(K, mesh, bc, b, 3)
+                                mesh.node_shape, vdim=d)
+    b = assembly.assemble_vector_load(
+        mesh, np.array([0.0, 0.0, -9.81 * 7800])[-d:])
+    sysm = prepare_system(K, mesh, bc, b, d)
 
     def builder(mc):
         return (assembly.assemble_elasticity_stencil(mc, LAM, MU),
                 DirichletBC.from_masks([(mc.face_mask(0, 0), 0.0)],
-                                       mc.node_shape, vdim=3))
+                                       mc.node_shape, vdim=d))
     return mesh, sysm, builder
 
 
@@ -159,3 +166,59 @@ def test_fcycle_df2_matches_reference_iterations():
     # roundoff
     for lv, lr in zip(h.levels, h_ref.levels):
         assert abs(lv.omega - lr.omega) <= 1e-5 * lr.omega
+
+
+# ---- the 2D plate (vdim=2, K1/K2 v2 on the card) ----------------------------
+
+def test_hat_transfers_2d_match_reference_f64():
+    mesh, sysm, builder = _cantilever((16, 8))
+    h = ref_mg.build_hierarchy(mesh, sysm, builder, vdim=2,
+                               dtype=jnp.float64)
+    fine, coarse = h.levels[0], h.levels[1]
+
+    def t(a):
+        return torch.from_numpy(np.array(a))
+
+    def port_level(lv):
+        C, Cinv = lv.host_scale
+        return mg.MGLevel(lv.offsets, None, t(np.asarray(lv.free)), 1.0,
+                          None, t(C), t(Cinv))
+
+    pf, pc = port_level(fine), port_level(coarse)
+    rng = np.random.default_rng(1)
+    r = rng.standard_normal(np.asarray(fine.free).shape)
+    e = rng.standard_normal(np.asarray(coarse.free).shape)
+    assert _rel(mg._restrict_hat(pf, pc, t(r), 2, 2),
+                ref_mg._restrict_hat(fine, coarse, jnp.asarray(r), 2, 2)) <= 1e-12
+    assert _rel(mg._prolong_hat(pf, pc, t(e), 2, 2),
+                ref_mg._prolong_hat(fine, coarse, jnp.asarray(e), 2, 2)) <= 1e-12
+
+
+def test_v_cycle_2d_matches_reference_on_carried_hierarchy(monkeypatch):
+    """One V-cycle on the plate with every level on the kernel route (bf16
+    smoother weights) in both packages.  With the reference's default
+    threshold of 100 DOF its 90-DOF coarse level would smooth with f32
+    weights where the port (KERNEL_MIN_DOF = 0) takes bf16, and the two
+    V-cycles differ by ~1.4e-3, the size of the bf16 smoothing itself."""
+    monkeypatch.setenv("PDE_TPU_PALLAS", "1")
+    monkeypatch.setattr(pallas_kernels, "PALLAS_MIN_DOF", 1)
+    mesh, sysm, builder = _cantilever((16, 8))
+    h_ref = ref_mg.build_hierarchy(mesh, sysm, builder, vdim=2,
+                                   dtype=jnp.float32)
+    assert all(isinstance(lv.w_lo, pallas_kernels.FlatStencilOperator)
+               for lv in h_ref.levels)
+    h = _carry(h_ref)
+    assert h.grid_dim == 2 and h.vdim == 2
+    assert [lv.omega for lv in h.levels] == [lv.omega for lv in h_ref.levels]
+    r = np.random.default_rng(2).standard_normal(
+        sysm.b_hat.shape).astype(np.float32)
+    z_ref = np.asarray(ref_mg.v_cycle(h_ref, jnp.asarray(r)))
+    z = mg.v_cycle(h, torch.from_numpy(r))
+    assert _rel(z, z_ref) <= 1e-5  # f32, sums in another order
+    b = torch.from_numpy(sysm.b_hat.astype(np.float32))
+    x, k, relres = mg.mg_pcg(h, b, torch.zeros_like(b), 1e-5, 200)
+    xr, kr, rr = ref_mg.mg_pcg(h_ref, jnp.asarray(sysm.b_hat, jnp.float32),
+                               jnp.zeros(sysm.b_hat.shape, jnp.float32),
+                               1e-5, 200)
+    assert relres <= 1e-5 and abs(k - int(kr)) <= max(1, int(0.1 * int(kr)))
+    assert _rel(x, xr) <= 1e-4  # both solved to 1e-5 relres

@@ -81,12 +81,6 @@ def test_config_device_drives_precision_and_unported_paths_raise(tmp_path):
         with pytest.raises(NotImplementedError):
             api.solve_elasticity_3D_static(**FLAGSHIP,
                                            data_dir=str(tmp_path))
-    from pde_solver_tpu_torch.models.elasticity import solve_elasticity_nd
-    from pde_solver_tpu_torch.mesh import box_mesh
-    mesh = box_mesh(4, 2, 2, (0, 0, 0), (1.0, 0.2, 0.2))
-    with pytest.raises(NotImplementedError):
-        solve_elasticity_nd(mesh, 210e9, 0.3, np.zeros(3), "3d",
-                            thermal=(1e-5, 10.0))
 
 
 def test_host_direct_branch_matches_reference(tmp_path):
@@ -106,8 +100,15 @@ def test_port_never_imports_jax():
     code = ("import sys, pde_solver_tpu_torch.api, pde_solver_tpu_torch.convert,"
             " pde_solver_tpu_torch.ops.timestepping,"
             " pde_solver_tpu_torch.ops.cs_kernels,"
+            " pde_solver_tpu_torch.ops.surface,"
             " pde_solver_tpu_torch.models.heat;"
-            "from pde_solver_tpu_torch.api import solve_heat_3D;"
+            "from pde_solver_tpu_torch.api import (solve_heat_3D,"
+            " solve_heat_1D, solve_heat_2D, solve_heat_1D_cylindrical,"
+            " solve_heat_1D_spherical, solve_heat_2D_cylindrical,"
+            " solve_heat_2D_spherical, solve_heat_3D_spherical,"
+            " solve_elasticity_1D_static, solve_elasticity_2D_static,"
+            " solve_elasticity_1D_loaded, solve_elasticity_2D_loaded,"
+            " solve_elasticity_3D_loaded);"
             "assert 'jax' not in sys.modules, 'jax imported';"
             "assert not any(m.startswith('pde_solver_tpu.') or "
             "m == 'pde_solver_tpu' for m in sys.modules)")

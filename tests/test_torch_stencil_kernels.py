@@ -21,7 +21,10 @@ from pde_solver_tpu_torch.ops import stencil_kernels as sk
 
 
 def _system(vdim, mesh=None):
-    mesh = mesh or ref_box(10, 6, 6, (0, 0, 0), (1.0, 0.5, 0.5))
+    """vdim 1: scalar stiffness on a box; 2: plane elasticity on a
+    rectangle (7 offsets); 3: elasticity on a box (15 offsets)."""
+    mesh = mesh or (ref_rect(12, 9, (0, 0), (1.0, 0.75)) if vdim == 2
+                    else ref_box(10, 6, 6, (0, 0, 0), (1.0, 0.5, 0.5)))
     if vdim == 1:
         K = ref_asm.assemble_scalar_stencil(mesh, "stiffness")
         bc = RefBC.from_masks([(all_boundary(mesh), 2.0)], mesh.node_shape)
@@ -29,8 +32,9 @@ def _system(vdim, mesh=None):
     else:
         K = ref_asm.assemble_elasticity_stencil(mesh, 1.3, 0.7)
         bc = RefBC.from_masks([(mesh.face_mask(0, 0), 0.0)],
-                              mesh.node_shape, vdim=3)
-        rhs = ref_asm.assemble_vector_load(mesh, np.array([0.0, 1.0, -2.0]))
+                              mesh.node_shape, vdim=vdim)
+        rhs = ref_asm.assemble_vector_load(
+            mesh, np.array([0.0, 1.0, -2.0][:vdim]))
     return mesh, prepare_system(K, mesh, bc, rhs, vdim)
 
 
@@ -40,7 +44,7 @@ def _rel(a, b):
 
 
 @pytest.mark.parametrize("resident", [True, False])
-@pytest.mark.parametrize("vdim", [1, 3])
+@pytest.mark.parametrize("vdim", [1, 2, 3])
 def test_plain_spmv_matches_pallas_interpret(vdim, resident):
     mesh, sysm = _system(vdim)
     ref = RefFlat(sysm.offsets, sysm.weights, mesh.node_shape, vdim=vdim,
@@ -60,7 +64,7 @@ def test_plain_spmv_matches_pallas_interpret(vdim, resident):
 
 
 @pytest.mark.parametrize("resident", [True, False])
-@pytest.mark.parametrize("vdim", [1, 3])
+@pytest.mark.parametrize("vdim", [1, 2, 3])
 def test_bf16_weights_match_pallas_interpret(vdim, resident):
     mesh, sysm = _system(vdim)
     ref = RefFlat(sysm.offsets, sysm.weights, mesh.node_shape, vdim=vdim,
@@ -77,7 +81,7 @@ def test_bf16_weights_match_pallas_interpret(vdim, resident):
     assert _rel(y, y_ref) <= 1e-5  # same bf16 weights, f32 products
 
 
-@pytest.mark.parametrize("vdim", [1, 3])
+@pytest.mark.parametrize("vdim", [1, 2, 3])
 def test_packed_weights_carry_over_bit_equal(vdim):
     mesh, sysm = _system(vdim)
     ref = RefFlat(sysm.offsets, sysm.weights, mesh.node_shape, vdim=vdim,
@@ -94,7 +98,7 @@ def test_packed_weights_carry_over_bit_equal(vdim):
     assert np.array_equal(port_bits.numpy().view(np.uint16), ref_bits)
 
 
-@pytest.mark.parametrize("vdim", [1, 3])
+@pytest.mark.parametrize("vdim", [1, 2, 3])
 def test_flat_layout_matches_reference_order(vdim):
     mesh, sysm = _system(vdim)
     ref = RefFlat(sysm.offsets, sysm.weights, mesh.node_shape, vdim=vdim,
@@ -148,6 +152,20 @@ def test_non_cpu_tensor_never_falls_back_to_plain():
     with pytest.raises(ValueError):
         port.apply_flat(x)
     assert port.launches == 0 and not sk.KERNEL_LAUNCHES
+
+
+def test_cuda_operator_refuses_unbuilt_vdim():
+    """A vdim the CUDA kernel is not built for is refused when a CUDA
+    operator is constructed (before any device work), never at launch; the
+    CPU plain version takes any vdim."""
+    assert sk.KERNEL_VDIMS == (1, 2, 3)
+    offsets = ((-1,), (0,), (1,))
+    weights = [np.ones((6, 4, 4))] * 3
+    with pytest.raises(ValueError, match="vdim"):
+        sk.FlatStencilOperator(offsets, weights, (6,), vdim=4, device="cuda")
+    op = sk.FlatStencilOperator(offsets, weights, (6,), vdim=4, device="cpu")
+    y = op.apply_flat(torch.ones((4, 6)))
+    assert torch.equal(y[:, 2], torch.full((4,), 12.0))
 
 
 def test_kernel_routing_threshold():
