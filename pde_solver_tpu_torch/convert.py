@@ -19,16 +19,18 @@ from pde_solver_tpu_torch.ops.linsolve import ScaledSystem
 from pde_solver_tpu_torch.ops.multigrid import (MGHierarchy, _ShapeOnlyMesh,
                                                 _to_level,
                                                 _with_coarsest_inverse)
-from pde_solver_tpu_torch.ops.stencil_kernels import FlatStencilOperator
+from pde_solver_tpu_torch.ops.stencil_kernels import (FlatStencilOperator,
+                                                      padded_length)
 
 
 def flat_operator_from_packed(Wf_np: np.ndarray, offsets, node_shape,
                               vdim: int, device) -> FlatStencilOperator:
     """Operator from the JAX package's packed ``FlatStencilOperator.Wf``
-    (``[n_off·v·v, n_rows, 128]``, zero tail past N): the first N entries of
-    each plane are exactly this port's plane-major ``[n_off·v·v, N]``."""
-    N = int(np.prod(node_shape))
-    planes = np.asarray(Wf_np).reshape(Wf_np.shape[0], -1)[:, :N]
+    (``[n_off·v·v, n_rows, 128]``, zero tail past N): the first N_pad
+    entries of each plane, zero tail included, are exactly this port's
+    plane-major ``[n_off·v·v, N_pad]``."""
+    N_pad = padded_length(int(np.prod(node_shape)))
+    planes = np.asarray(Wf_np).reshape(Wf_np.shape[0], -1)[:, :N_pad]
     W = torch.from_numpy(np.ascontiguousarray(planes, dtype=np.float32))
     return FlatStencilOperator.from_packed(W.to(device), offsets, node_shape,
                                            vdim)

@@ -7,8 +7,11 @@ The stencil operator is applied thousands of times per solve (CG iterations
 Layout: operands live in *flat* node order — assembled weights carry exact
 zeros wherever a flat shift would wrap across a grid row, so a stencil
 offset is one flat-index delta.  Weights are plane-major
-``[n_off·v·v, N]`` (float32, or bfloat16 for the MG smoother) and vectors
-are component-major ``[v, N]`` float32.
+``[n_off·v·v, N_pad]`` (float32, or bfloat16 for the MG smoother), with
+``N_pad`` = N rounded up to ``PLANE_ALIGN`` and zero weights in the tail:
+the reference's ``[n_off·v·v, n_rows, 128]`` packing, which keeps every
+plane 16-byte aligned for the kernel's vector loads.  Vectors are
+component-major ``[v, N]`` float32.
 
 :func:`spmv_plain` is the same function in plain torch.  ``apply_flat``
 takes it only for CPU tensors; a CUDA tensor launches the kernel in
@@ -37,17 +40,21 @@ from pde_solver_tpu_torch.ops import cuda_build
 KERNEL_MIN_DOF = 0
 
 
-def _built_vdims() -> Tuple[int, ...]:
-    """The vdims ``flat_stencil_spmv.cu`` is built for, read from its
-    ``#define FLAT_STENCIL_VDIMS`` line (the one place they are listed)."""
+def _built(name: str) -> Tuple[int, ...]:
+    """A list ``flat_stencil_spmv.cu`` is built for, read from its
+    ``#define FLAT_STENCIL_<name>`` line (the one place it is listed)."""
     src = (cuda_build.CSRC / "flat_stencil_spmv.cu").read_text()
-    m = re.search(r"^#define FLAT_STENCIL_VDIMS ([0-9, ]+)$", src, re.M)
+    m = re.search(rf"^#define FLAT_STENCIL_{name} ([0-9, ]+)$", src, re.M)
     return tuple(int(v) for v in m.group(1).split(","))
 
 
-# A FlatStencilOperator on a CUDA device with a vdim outside these is
-# refused when it is constructed.
-KERNEL_VDIMS = _built_vdims()
+# A FlatStencilOperator on a CUDA device with a vdim or an offset count
+# outside these is refused when it is constructed.
+KERNEL_VDIMS = _built("VDIMS")
+KERNEL_NOFFS = _built("NOFFS")
+
+# The weight planes' stride N_pad is N rounded up to this.
+PLANE_ALIGN = 128
 
 # Launches of the port's CUDA kernels in this process, by variant: this
 # module's "v3_f32", "v3_bf16", "v2_f32", "v2_bf16", "v1_f32", "v1_bf16",
@@ -80,21 +87,27 @@ def build_library() -> ctypes.CDLL:
         fn = lib.flat_stencil_spmv
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+                       ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
 
+def padded_length(N: int) -> int:
+    return -(-N // PLANE_ALIGN) * PLANE_ALIGN
+
+
 def spmv_plain(W: torch.Tensor, x: torch.Tensor, deltas: Sequence[int],
                vdim: int) -> torch.Tensor:
     """Plain torch flat SpMV: y[a] = Σ_{o,b} W[o,a,b] ⊙ x[b] shifted by δ_o,
-    zero outside [0, N).  W [n_off·v·v, N] (f32 or bf16), x [v, N] f32."""
+    zero outside [0, N).  W [n_off·v·v, N_pad] (f32 or bf16; the tail past
+    N is never read), x [v, N] f32."""
     N = x.shape[1]
     n_off = len(deltas)
     P = max(abs(int(d)) for d in deltas)
     xp = torch.nn.functional.pad(x, (P, P))
-    Wv = W.view(n_off, vdim, vdim, N)
+    Wv = W.view(n_off, vdim, vdim, W.shape[1])[..., :N]
     y = torch.zeros((vdim, N), dtype=torch.float32, device=x.device)
     for o, d in enumerate(deltas):
         xs = xp[:, P + d:P + d + N]                   # [v(b), N]
@@ -102,12 +115,33 @@ def spmv_plain(W: torch.Tensor, x: torch.Tensor, deltas: Sequence[int],
     return y
 
 
-def _check_vdim(vdim: int, device) -> None:
-    """A CUDA operator must have a vdim the kernel is built for: refuse
-    any other here, not at the first launch."""
-    if torch.device(device).type == "cuda" and vdim not in KERNEL_VDIMS:
+def row_groups(n_off: int) -> Tuple[Tuple[int, int], ...]:
+    """(first offset, size) of each row group the kernel reads x by: the
+    sorted P1 stencil of n_off = 4P + 3 offsets is P pairs, the
+    (−1, 0, +1) triple along the last grid axis, then P pairs; a group's
+    deltas are consecutive."""
+    P = (n_off - 3) // 4
+    return tuple((2 * g + (g > P), 3 if g == P else 2)
+                 for g in range(2 * P + 1))
+
+
+def _check_kernel_shape(vdim: int, deltas: Sequence[int], device) -> None:
+    """A CUDA operator must have a vdim and an offset count the kernel is
+    built for, and the row groups it reads x by: refuse any other here,
+    not at the first launch."""
+    if torch.device(device).type != "cuda":
+        return
+    if vdim not in KERNEL_VDIMS:
         raise ValueError(f"flat_stencil_spmv is built for vdim in "
                          f"{KERNEL_VDIMS}, not {vdim}")
+    if len(deltas) not in KERNEL_NOFFS:
+        raise ValueError(f"flat_stencil_spmv is built for offset counts in "
+                         f"{KERNEL_NOFFS}, not {len(deltas)}")
+    for first, size in row_groups(len(deltas)):
+        if any(deltas[first + s] != deltas[first] + s for s in range(size)):
+            raise ValueError(f"offsets {first}..{first + size - 1} (deltas "
+                             f"{deltas[first:first + size]}) are not the "
+                             f"consecutive row group of a sorted P1 stencil")
 
 
 class FlatStencilOperator:
@@ -123,25 +157,26 @@ class FlatStencilOperator:
     def __init__(self, offsets, weights_np: Sequence[np.ndarray],
                  node_shape: Tuple[int, ...], vdim: int = 1,
                  device="cuda", weight_dtype=torch.float32):
-        _check_vdim(vdim, device)
         self._init_meta(offsets, node_shape, vdim)
-        Wmat = np.empty((self.n_off, vdim, vdim, self.N), np.float32)
+        _check_kernel_shape(vdim, self.deltas, device)
+        Wmat = np.zeros((self.n_off, vdim, vdim, self.N_pad), np.float32)
         for o, W in enumerate(weights_np):
-            Wmat[o] = np.asarray(W, np.float32).reshape(
+            Wmat[o, ..., :self.N] = np.asarray(W, np.float32).reshape(
                 self.N, vdim, vdim).transpose(1, 2, 0)
-        self.W = torch.from_numpy(Wmat.reshape(-1, self.N)).to(
+        self.W = torch.from_numpy(Wmat.reshape(-1, self.N_pad)).to(
             device=device, dtype=weight_dtype)
 
     @classmethod
     def from_packed(cls, W: torch.Tensor, offsets, node_shape,
                     vdim: int) -> "FlatStencilOperator":
-        """Operator over already packed ``[n_off·v·v, N]`` weights."""
-        _check_vdim(vdim, W.device)
+        """Operator over already packed ``[n_off·v·v, N_pad]`` weights."""
         op = cls.__new__(cls)
         op._init_meta(offsets, node_shape, vdim)
-        if tuple(W.shape) != (op.n_off * vdim * vdim, op.N):
+        _check_kernel_shape(vdim, op.deltas, W.device)
+        if tuple(W.shape) != (op.n_off * vdim * vdim, op.N_pad):
             raise ValueError(f"packed weights {tuple(W.shape)} do not match "
-                             f"{op.n_off} offsets × v²={vdim * vdim} × N={op.N}")
+                             f"{op.n_off} offsets × v²={vdim * vdim} × "
+                             f"N_pad={op.N_pad} (N={op.N})")
         op.W = W
         return op
 
@@ -155,6 +190,7 @@ class FlatStencilOperator:
             acc *= s
         strides = list(reversed(strides))
         self.N = int(np.prod(self.node_shape))
+        self.N_pad = padded_length(self.N)
         self.deltas = tuple(int(sum(o * st for o, st in zip(off, strides)))
                             for off in offsets)
         self.n_off = len(self.deltas)
@@ -208,17 +244,19 @@ class FlatStencilOperator:
             raise ValueError(f"x must be contiguous float32 [{self.vdim}, "
                              f"{self.N}], got {x.dtype} {tuple(x.shape)}")
         if W.dtype not in (torch.float32, torch.bfloat16) \
-                or not W.is_contiguous():
-            raise ValueError(f"weights must be contiguous f32/bf16, "
-                             f"got {W.dtype}")
+                or not W.is_contiguous() or W.data_ptr() % 16 \
+                or W.shape[1] != self.N_pad:
+            raise ValueError(f"weights must be contiguous, 16-byte aligned "
+                             f"f32/bf16 [*, {self.N_pad}], got {W.dtype} "
+                             f"{tuple(W.shape)}")
         lib = build_library()
         if self._deltas_c is None:
             self._deltas_c = (ctypes.c_int * self.n_off)(*self.deltas)
         y = torch.empty_like(x)
         rc = lib.flat_stencil_spmv(
             W.data_ptr(), int(W.dtype == torch.bfloat16), self.vdim,
-            x.data_ptr(), y.data_ptr(), self.N, self._deltas_c, self.n_off,
-            torch.cuda.current_stream(x.device).cuda_stream)
+            x.data_ptr(), y.data_ptr(), self.N, self.N_pad, self._deltas_c,
+            self.n_off, torch.cuda.current_stream(x.device).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"flat_stencil_spmv launch failed: CUDA error "
                                f"{rc} (vdim={self.vdim}, N={self.N}, "

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from pde_solver_tpu_torch.mesh import box_mesh, rectangle_mesh
+from pde_solver_tpu_torch.mesh import box_mesh, interval_mesh, rectangle_mesh
 from pde_solver_tpu_torch.ops import assembly
 from pde_solver_tpu_torch.ops.bc import DirichletBC, all_boundary
 from pde_solver_tpu_torch.ops.linsolve import (_cg_unit_diag, np_stencil_apply,
@@ -33,10 +33,11 @@ def card():
 
 
 def _system(vdim, cells=(10, 6, 6)):
-    """vdim 1: scalar stiffness; vdim = mesh dimension: elasticity (2D
-    plane elasticity has 7 offsets, 3D 15)."""
-    mesh = box_mesh(*cells, (0, 0, 0), (1.0, 0.5, 0.5)) if len(cells) == 3 \
-        else rectangle_mesh(*cells, (0, 0), (1.0, 1.0))
+    """vdim 1: scalar stiffness (1D 3 offsets, 2D 7, 3D 15); vdim = mesh
+    dimension: elasticity (2D plane elasticity has 7 offsets, 3D 15)."""
+    mesh = (box_mesh(*cells, (0, 0, 0), (1.0, 0.5, 0.5)) if len(cells) == 3
+            else rectangle_mesh(*cells, (0, 0), (1.0, 1.0)) if len(cells) == 2
+            else interval_mesh(cells[0], 0.0, 1.0))
     if vdim == 1:
         K = assembly.assemble_scalar_stencil(mesh, "stiffness")
         bc = DirichletBC.from_masks([(all_boundary(mesh), 2.0)],
@@ -60,7 +61,15 @@ def _rel(a, b):
 @pytest.mark.parametrize("vdim,cells", [
     (1, (10, 6, 6)), (1, (12, 9)), (1, (33, 7, 5)),
     (2, (12, 9)), (2, (64, 33)),          # 2D plane elasticity, 7 offsets
-    (3, (10, 6, 6)), (3, (33, 7, 5))])
+    (3, (10, 6, 6)), (3, (33, 7, 5)),
+    (1, (12,)), (1, (5000,)),             # 1D, 3 offsets
+    # ragged tails, N mod 8 = 1, 3, 7, each with blocks clear of both ends
+    # of x (a bf16 block spans 1024 nodes)
+    (1, (4002,)), (1, (4006,)), (1, (40, 12, 12)),
+    (2, (68, 44)), (2, (66, 40)), (2, (70, 40)),
+    (3, (40, 12, 12)), (3, (18, 8, 8)), (3, (22, 8, 8)),
+    # every node's shifts cross both ends of x
+    (1, (1, 1, 1)), (2, (1, 1)), (3, (1, 1, 1))])
 def test_kernel_matches_plain(card, vdim, bf16, cells):
     mesh, sysm = _system(vdim, cells)
     dt = torch.bfloat16 if bf16 else torch.float32
@@ -82,6 +91,42 @@ def test_kernel_matches_plain(card, vdim, bf16, cells):
         assert _rel(op.from_flat(y).cpu(), y64) <= 1e-5
 
 
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("vdim,shape", [
+    (1, (300003,)), (1, (515, 517)), (1, (69, 65, 61)),
+    (2, (513, 513)), (2, (521, 515)), (2, (515, 517)),
+    (3, (69, 65, 61)), (3, (71, 65, 61)), (3, (65, 65, 63))])
+def test_wide_path_ragged_tail_matches_plain(card, vdim, bf16, shape):
+    """Grids of ≥ 2^18 nodes take 4 (f32) or 8 (bf16) nodes a thread; here
+    N mod 8 is 1, 3 or 7, so the last thread's group is partial.  Random
+    weights on the sorted P1 stencil; then the last node's weights zeroed
+    in every plane must zero y there and change nothing else."""
+    dim = len(shape)
+    tiny = (box_mesh(2, 2, 2, (0, 0, 0), (1, 1, 1)) if dim == 3
+            else rectangle_mesh(2, 2, (0, 0), (1, 1)) if dim == 2
+            else interval_mesh(2, 0.0, 1.0))
+    offsets = tuple(sorted(assembly.assemble_scalar_stencil(tiny, "mass")))
+    N = int(np.prod(shape))
+    rng = np.random.default_rng(6)
+    W = np.zeros((len(offsets) * vdim * vdim, sk.padded_length(N)),
+                 np.float32)
+    W[:, :N] = rng.standard_normal((W.shape[0], N))
+    op = sk.FlatStencilOperator.from_packed(torch.from_numpy(W).to(card),
+                                            offsets, shape, vdim)
+    op = op.as_weight_dtype(torch.bfloat16 if bf16 else torch.float32)
+    x = torch.from_numpy(rng.standard_normal((vdim, N)).astype(
+        np.float32)).to(card)
+    y = op.apply_flat(x)
+    torch.cuda.synchronize()
+    assert _rel(y.cpu(), sk.spmv_plain(op.W, x, op.deltas, vdim).cpu()) \
+        <= 1e-5
+    op.W[:, N - 1] = 0
+    y_cut = op.apply_flat(x)
+    torch.cuda.synchronize()
+    assert torch.equal(y_cut[:, :-1], y[:, :-1])
+    assert not y_cut[:, -1].any() and y[:, -1].abs().min() > 0
+
+
 def test_kernel_rejects_what_it_does_not_take(card):
     mesh, sysm = _system(3)
     op = sk.FlatStencilOperator(sysm.offsets, sysm.weights, mesh.node_shape,
@@ -94,7 +139,7 @@ def test_kernel_rejects_what_it_does_not_take(card):
     # a vdim the kernel is not built for is refused at construction
     with pytest.raises(ValueError, match="vdim"):
         sk.FlatStencilOperator.from_packed(
-            torch.zeros((15 * 16, op.N), device=card), sysm.offsets,
+            torch.zeros((15 * 16, op.N_pad), device=card), sysm.offsets,
             mesh.node_shape, 4)
 
 

@@ -10,7 +10,9 @@ import numpy as np
 import pytest
 import torch
 
-from pde_solver_tpu.mesh import box_mesh as ref_box, rectangle_mesh as ref_rect
+from pde_solver_tpu.mesh import (box_mesh as ref_box,
+                                 interval_mesh as ref_interval,
+                                 rectangle_mesh as ref_rect)
 from pde_solver_tpu.ops import assembly as ref_asm
 from pde_solver_tpu.ops.bc import DirichletBC as RefBC, all_boundary
 from pde_solver_tpu.ops.linsolve import np_stencil_apply, prepare_system
@@ -91,11 +93,47 @@ def test_packed_weights_carry_over_bit_equal(vdim):
     conv = convert.flat_operator_from_packed(np.asarray(ref.Wf), sysm.offsets,
                                              mesh.node_shape, vdim, "cpu")
     assert conv.deltas == port.deltas == tuple(ref.deltas)
+    # planes padded to N_pad, a multiple of 128, with a tail past N
+    assert port.N_pad % 128 == 0 and port.N < port.N_pad < port.N + 128
+    assert tuple(port.W.shape) == (port.n_off * vdim * vdim, port.N_pad)
     assert torch.equal(conv.W, port.W)
+    ref_planes = np.asarray(ref.Wf).reshape(ref.Wf.shape[0], -1)
+    assert np.array_equal(port.W.numpy(), ref_planes[:, :port.N_pad])
+    assert not ref_planes[:, port.N:].any()   # the zero tail, both packs
     ref_bf = np.asarray(ref.as_weight_dtype(jnp.bfloat16).Wf)
-    ref_bits = ref_bf.view(np.uint16).reshape(ref_bf.shape[0], -1)[:, :port.N]
+    ref_bits = ref_bf.view(np.uint16).reshape(ref_bf.shape[0], -1)
     port_bits = port.as_weight_dtype(torch.bfloat16).W.view(torch.int16)
-    assert np.array_equal(port_bits.numpy().view(np.uint16), ref_bits)
+    assert port_bits.shape[1] == port.N_pad
+    assert np.array_equal(port_bits.numpy().view(np.uint16),
+                          ref_bits[:, :port.N_pad])
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("vdim", [1, 2, 3])
+def test_padded_planes_give_the_unpadded_result_bit_equal(vdim, bf16):
+    """``spmv_plain`` on the padded pack equals it on the same planes cut
+    to N (the layout before padding), bit for bit; ``from_packed`` takes
+    the padded pack only."""
+    mesh, sysm = _system(vdim)
+    port = sk.FlatStencilOperator(sysm.offsets, sysm.weights, mesh.node_shape,
+                                  vdim=vdim, device="cpu")
+    if bf16:
+        port = port.as_weight_dtype(torch.bfloat16)
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (vdim, port.N)).astype(np.float32))
+    unpadded = port.W[:, :port.N].contiguous()
+    y = sk.spmv_plain(port.W, x, port.deltas, vdim)
+    assert torch.equal(y, sk.spmv_plain(unpadded, x, port.deltas, vdim))
+    assert not port.W[:, port.N:].any()
+    repacked = sk.FlatStencilOperator.from_packed(
+        torch.nn.functional.pad(unpadded, (0, port.N_pad - port.N)),
+        sysm.offsets, mesh.node_shape, vdim)
+    assert torch.equal(repacked.W, port.W)
+    assert torch.equal(repacked.apply_flat(x), y)
+    for bad in (unpadded, port.W[:, 1:]):
+        with pytest.raises(ValueError, match="N_pad"):
+            sk.FlatStencilOperator.from_packed(bad, sysm.offsets,
+                                               mesh.node_shape, vdim)
 
 
 @pytest.mark.parametrize("vdim", [1, 2, 3])
@@ -166,6 +204,43 @@ def test_cuda_operator_refuses_unbuilt_vdim():
     op = sk.FlatStencilOperator(offsets, weights, (6,), vdim=4, device="cpu")
     y = op.apply_flat(torch.ones((4, 6)))
     assert torch.equal(y[:, 2], torch.full((4,), 12.0))
+
+
+def test_cuda_operator_refuses_unbuilt_offset_count():
+    """An offset count the CUDA kernel is not built for, or offsets that do
+    not form its row groups, are refused when a CUDA operator is
+    constructed; the CPU plain version takes any."""
+    assert sk.KERNEL_NOFFS == (3, 7, 15)
+    five = ((-2,), (-1,), (0,), (1,), (2,))
+    with pytest.raises(ValueError, match="offset counts"):
+        sk.FlatStencilOperator(five, [np.ones(6)] * 5, (6,), device="cuda")
+    with pytest.raises(ValueError, match="row group"):
+        sk.FlatStencilOperator(((-2,), (0,), (2,)), [np.ones(6)] * 3, (6,),
+                               device="cuda")
+    op = sk.FlatStencilOperator(five, [np.ones(6)] * 5, (6,), device="cpu")
+    assert torch.equal(op.apply_flat(torch.ones((1, 6)))[0],
+                       torch.tensor([3.0, 4.0, 5.0, 5.0, 4.0, 3.0]))
+
+
+@pytest.mark.parametrize("cells", [(8,), (1,), (5, 4), (5, 1), (1, 1),
+                                   (4, 3, 2), (3, 1, 1), (1, 1, 1)])
+def test_p1_stencils_form_the_kernels_row_groups(cells):
+    """The sorted P1 stencil of every mesh, thin ones included (where runs
+    of consecutive deltas merge across groups), has one of the built offset
+    counts and the kernel's row groups."""
+    mesh = (ref_box(*cells, (0, 0, 0), (1.0, 1.0, 1.0)) if len(cells) == 3
+            else ref_rect(*cells, (0, 0), (1.0, 1.0)) if len(cells) == 2
+            else ref_interval(cells[0], 0.0, 1.0))
+    offsets = tuple(sorted(ref_asm.assemble_scalar_stencil(mesh, "mass")))
+    op = sk.FlatStencilOperator.__new__(sk.FlatStencilOperator)
+    op._init_meta(offsets, mesh.node_shape, 1)
+    assert op.n_off == 2 ** (len(cells) + 1) - 1
+    sk._check_kernel_shape(1, op.deltas, "cuda")
+    groups = sk.row_groups(op.n_off)
+    assert [f for f, _ in groups] == sorted(f for f, _ in groups)
+    assert sum(size for _, size in groups) == op.n_off
+    assert all(offsets[f + s][:-1] == offsets[f][:-1]
+               for f, size in groups for s in range(size))
 
 
 def test_kernel_routing_threshold():
