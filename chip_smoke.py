@@ -21,20 +21,27 @@
    ``A @ x`` of the same operator, int32 indices, held against plain
    first); prints the bound (bytes of W, x, y once over 3.35 TB/s, or
    float32 operations over 67 TFLOP/s) and the share.
-4. Constant-interior pair (``cs_stencil``: cs_main, cs_window) on the
-   real assembled fine-level operators of the main paths: the heat slice's
-   scaled backward-Euler operator M + Δt·K at 129³ nodes (vdim=1), and the
-   flagship's scaled elasticity operator (vdim=3) and P1 mass operator of
-   its stress projection (vdim=1), both at 161×65×65 nodes.  Each must be
-   CS-representable; each kernel must match its plain version, and the
-   pair the dense kernel, within 2e-6·max|y|; the dense kernel in f32 and
-   bf16 must match its own plain version there within 1e-5 (relative).
-   Times the pair, each kernel, the plain versions, the dense kernel and
-   the library yardsticks (cs_main's operator as one CSR matrix, ``A @
-   x``; cs_window's residual on the window rows as one, ``torch.addmv(y,
-   A, x)``; each held against plain first), and prints each CS kernel's
-   bound (x, y, scalar and class tables for cs_main; residual weights,
-   window list, x and y at the window nodes for cs_window).
+4. Constant-interior operator (``cs_stencil``: one fused kernel for K3
+   and K4) on the real assembled fine-level operators of the main paths:
+   the heat slice's scaled backward-Euler operator M + Δt·K at 129³ nodes
+   (vdim=1), and the flagship's scaled elasticity operator (vdim=3) and P1
+   mass operator of its stress projection (vdim=1), both at 161×65×65
+   nodes; then ragged tails (N not a multiple of 4, of the 128-node block
+   or of the 1024-node window; small grids and grids of ≥ 2^18 nodes),
+   each with the grid's last, partial window listed.  Each must be CS-representable;
+   the kernel must equal ``cs_apply_plain`` and, without its slot map,
+   ``cs_main_plain`` (bit for bit, up to the sign of zero), and match the
+   dense kernel within 2e-6·max|y|; the dense kernel in f32 and bf16 must
+   match its own plain version there within 1e-5 (relative).  Three
+   planted faults in the kernel's tables (one residual weight, one class
+   scalar, one interior scalar) must each read > 1e-4.  Times the kernel
+   (with and without windows), the plain version, the dense kernel and the
+   library yardstick (the whole operator as one CSR matrix, ``A @ x``, held
+   against plain first), and prints the bound (x, y, the class term table,
+   the slot map and the window nodes' residual weights) and the share.
+   Those bytes fit the 50 MB L2, so the kernel and the dense kernel are
+   also timed with 128 MB written between launches (profiler device ms of
+   the kernel alone), where the share is one of HBM.
 5. Small checks on the card against host solves: a 16×8×8 cantilever
    against sparse LU (von Mises within 1e-6 of its max), and a 40×6×6
    heat transient (5 steps, MG-PCG, constant-interior operator) against a
@@ -50,7 +57,12 @@
    routes agree, and that each run launched its kernels.  Every dense
    operator a run launched and every constant-interior operator it built
    (each MG level and weight dtype, each step operator, the projection)
-   is then held against its plain version at its own shape.  Both heat
+   is then held against its plain version at its own shape (each CS
+   operator also against the dense kernel of the same weights, and timed
+   beside that dense kernel in f32 and bf16: profiler device ms over 20
+   launches, with its bound and its launches in the run).  From the
+   per-level device times and launches, each run's SpMV device time is
+   estimated (Σ launches × device ms).  Both heat
    trajectories are held against a float64 backward Euler of the same
    system, solved on the card with sparse Jacobi-PCG to 1e-12.
 7. The 1D/2D, curvilinear and ``_loaded`` tools through the public API,
@@ -89,8 +101,10 @@ kernel: its launches on the main paths (in all and by run), its worst
 error against plain, and at its main-path shape ``ms`` (events),
 ``device_ms`` (profiler), ``plain_ms``, ``bound_ms`` and ``bound_by``,
 ``share`` = bound_ms / ms, ``library_ms`` (or null and ``library_note``
-saying why: bf16 weights), ``shape`` and ``l2_resident`` (W under the 50
-MB L2, where the share is not one of HBM).  The last line is ``{"ok":
+saying why: bf16 weights), ``shape`` and ``l2_resident`` (the streamed
+bytes under the 50 MB L2, where the share is not one of HBM); for the CS
+kernels also ``cold_device_ms`` and ``cold_share``, with the L2 emptied
+between launches (null for the dense ones).  The last line is ``{"ok":
 true, "device": {...}}``.  Needs no network; writes only under
 ``build/``.
 """
@@ -117,8 +131,8 @@ FLAGSHIP_EXTENT = (1.0, 0.2, 0.2)
 FLAT_SOURCE = "pde_solver_tpu_torch/csrc/flat_stencil_spmv.cu"
 CS_SOURCE = "pde_solver_tpu_torch/csrc/cs_stencil.cu"
 REPLACES = {"flat": "pde_solver_tpu/ops/pallas_kernels.py:123",
-            "cs_main": "pde_solver_tpu/ops/pallas_kernels.py:704",
-            "cs_window": "pde_solver_tpu/ops/pallas_kernels.py:764"}
+            "cs_apply": "pde_solver_tpu/ops/pallas_kernels.py:704, "
+                        "pde_solver_tpu/ops/pallas_kernels.py:764"}
 VARIANTS = (("v3_f32", 3, "float32"), ("v3_bf16", 3, "bfloat16"),
             ("v1_f32", 1, "float32"), ("v1_bf16", 1, "bfloat16"))
 # Per vdim, the main-path fine level first (its times go into the result
@@ -153,6 +167,8 @@ V2_INPUTS = 4
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 L2_BYTES = 50e6
+# written between timed launches to empty the L2 of a kernel's data
+FLUSH_BYTES = 128 << 20
 BF16_NO_LIBRARY = ("no single PyTorch call takes bf16 weights with float32 "
                    "x and float32 sums")
 # BASELINE configs 1-4 (BASELINE.md; bench.py bench_heat1d, bench_bar1d,
@@ -183,6 +199,13 @@ CURV_TRANSIENT_TOL = 2e-3
 # discretisation error at nr = 50 (2.1e-4 and 1.07e-3 of 100 °C)
 CLOSED_FORM_TOL = 1.5e-3
 CS_TOL = 2e-6
+# the fused CS kernel's ragged tails, (vdim, cells): N mod 4 = 3 on two
+# small grids, then 3, 1 and 3 at ≥ 2^18 nodes; no N is a multiple of the
+# 128-node block, and every grid ends in a partial window that is listed.
+# v1 the heat operator on a unit box, v3 the flagship's material clamped
+# at x = 0.
+CS_RAGGED = ((1, (40, 12, 14)), (3, (44, 10, 12)), (1, (64, 64, 66)),
+             (3, (80, 56, 56)), (3, (82, 56, 56)))
 # the heat slice (max|ΔT|/max|T|): its two routes against each other, and
 # each against the float64 trajectory, where float32 weights and state,
 # amplified by the step operator's conditioning, leave ~9e-5; PERF.md has
@@ -225,27 +248,29 @@ def turns(kernel, plain, reps_k: int, reps_p: int, library=None,
     return (k1 + k2) / 2, (p1 + p2) / 2, library and (l1 + l2) / 2
 
 
-def device_ms(fn, kernel: str, reps: int = 50, tries: int = 4) -> float:
+def device_ms(fn, kernel: str, reps: int = 50, tries: int = 8) -> float:
     """Mean device time per launch of the kernels whose name holds
     ``kernel``, from torch.profiler over ``reps`` calls of fn, averaged
     over the launches the trace holds.  A trace started cold missed the
-    first launches (8–19 of 20 held on the H100), so ``reps`` calls run
-    first as the profiler's warm-up step and are not kept.  A trace that
-    holds none is taken again, up to ``tries`` times, and the run fails if
-    none holds them.  Below the wrapper's host cost per call (about 0.015
-    ms) the event time of ``time_ms`` measures the host, this the
-    kernel."""
+    first launches (8–19 of 20 held on the H100), so the calls run first
+    as the profiler's warm-up step and are not kept.  Traces there drop
+    launches, now and then all of them, several in a row: a trace that
+    holds none is taken again after a pause, with more calls each time,
+    up to ``tries`` times, and the run fails if none holds them.  Below
+    the wrapper's host cost per call (about 0.015 ms) the event time of
+    ``time_ms`` measures the host, this the kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
     for attempt in range(1, tries + 1):
+        n = reps * min(attempt, 4)
         kept = []
         with profile(activities=[ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1),
                      on_trace_ready=lambda p: kept.extend(p.key_averages())
                      ) as prof:
             for _ in range(2):          # the warm-up step, then the kept one
-                for _ in range(reps):
+                for _ in range(n):
                     fn()
                 torch.cuda.synchronize()
                 prof.step()
@@ -253,12 +278,13 @@ def device_ms(fn, kernel: str, reps: int = 50, tries: int = 4) -> float:
         count = sum(ev.count for ev in events)
         total = sum(getattr(ev, "device_time_total", 0.0) for ev in events)
         if count and total > 0:
-            if count != reps or attempt > 1:
+            if count != n or attempt > 1:
                 print(f"  device_ms {kernel}: trace {attempt} holds {count} "
-                      f"of {reps} launches", flush=True)
+                      f"of {n} launches", flush=True)
             return total / 1e3 / count
-    check(False, f"{tries} profiler traces of {reps} calls hold no "
-          f"{kernel} launch")
+        time.sleep(0.5)
+    check(False, f"{tries} profiler traces of {reps}–{4 * reps} calls hold "
+          f"no {kernel} launch")
 
 
 def bound(n_bytes: float, flops: float):
@@ -278,76 +304,51 @@ def flat_cost(op):
     return w_bytes + 2 * op.vdim * op.N * 4, 2.0 * nw * op.N, w_bytes
 
 
-def cs_cost(op, part: str):
-    """Bytes and operations of cs_main or cs_window on this operator's
-    data.  cs_main: x and y once, the scalar table and the class list; a
-    multiply and an add per nonzero scalar of every set a node is in.
-    cs_window: the residual weights, the window list, and x, y read and y
-    written at the window nodes; a multiply and an add per weight."""
+def cs_cost(op, windows: bool = True):
+    """Bytes and float32 operations of one fused CS apply on this
+    operator's data: x read and y written once and the class term table;
+    with windows also the slot map and the residual weights of the window
+    nodes below N.  A multiply and an add per nonzero scalar of every set
+    a node is in, and per residual weight of a window node."""
+    import numpy as np
+
+    from pde_solver_tpu_torch.ops.cs_kernels import WINDOW
+
     nw = op.n_off * op.vdim * op.vdim
-    if part == "cs_main":
-        sizes = [op.N] + ([int(m.sum()) for m in op.masks()]
-                          if len(op.sets) > 1 else [])
-        flops = sum(2.0 * n * sum(v != 0 for v in sv)
-                    for n, sv in zip(sizes, op.sets))
-        return (2 * op.vdim * op.N * 4 + op.scalars.numel() * 4
-                + op.classes.numel() * op.classes.element_size(), flops)
-    L = op.n_win * 1024
-    return (nw * L * 4 + op.n_win * 4 + 3 * op.vdim * L * 4,
-            2.0 * nw * L)
+    sizes = [op.N] + [int(m.sum()) for m in op.masks()[:len(op.descs)]]
+    flops = sum(2.0 * n * np.count_nonzero(sv)
+                for n, sv in zip(sizes, op.sets))
+    nbytes = 2 * op.vdim * op.N * 4 + op.cls_terms.numel() * 4
+    if windows:
+        win_nodes = int(np.minimum(op.N - op.windows * WINDOW, WINDOW).sum())
+        nbytes += op.slots.numel() * 4 + nw * win_nodes * 4
+        flops += 2.0 * nw * win_nodes
+    return nbytes, flops
 
 
-def csr_of(W, deltas, vdim: int, N: int, nodes=None):
-    """Float32 weight planes ``W`` [n_off·v·v, ≥ L] as one CSR matrix
-    [v·N, v·N] on the card, int32 indices.  Column j of the planes belongs
-    to node ``nodes[j]`` (ascending; all N nodes by default): rows
-    a·N + node, columns b·N + node + δ; exact zeros and reads outside x
-    dropped, the columns of a row ascending (offsets taken in δ order).
-    The library yardstick only: the port never calls it."""
+def csr_of(W, deltas, vdim: int, N: int):
+    """Float32 weight planes ``W`` [n_off·v·v, ≥ N] as one CSR matrix
+    [v·N, v·N] on the card, int32 indices: rows a·N + n, columns b·N + n +
+    δ; exact zeros and reads outside x dropped, the columns of a row
+    ascending (offsets taken in δ order).  The library yardstick only: the
+    port never calls it."""
     import torch
 
     v, n_off, dev = vdim, len(deltas), W.device
-    if nodes is None:
-        nodes = torch.arange(N, device=dev)
-    L = nodes.numel()
     order = sorted(range(n_off), key=lambda o: deltas[o])
     d = torch.tensor([deltas[o] for o in order], device=dev)
-    vals = W[:, :L].reshape(n_off, v, v, L)[order].permute(1, 3, 2, 0)
-    m = nodes[:, None] + d[None, :]                                 # [j, o]
+    vals = W[:, :N].reshape(n_off, v, v, N)[order].permute(1, 3, 2, 0)
+    m = torch.arange(N, device=dev)[:, None] + d[None, :]           # [n, o]
     cols = (torch.arange(v, device=dev)[:, None, None] * N
-            + m[None]).permute(1, 0, 2)                            # [j, b, o]
-    keep = (vals != 0) & ((m >= 0) & (m < N))[None, :, None, :]  # [a, j, b, o]
-    per_row = torch.zeros((v, N), dtype=torch.int64, device=dev)
-    per_row[:, nodes] = keep.reshape(v, L, -1).sum(2)
+            + m[None]).permute(1, 0, 2)                            # [n, b, o]
+    keep = (vals != 0) & ((m >= 0) & (m < N))[None, :, None, :]  # [a, n, b, o]
     crow = torch.zeros(v * N + 1, dtype=torch.int64, device=dev)
-    crow[1:] = per_row.reshape(-1).cumsum(0)
-    col = cols.unsqueeze(0).expand(v, L, v, n_off)[keep]
+    crow[1:] = keep.reshape(v * N, -1).sum(1).cumsum(0)
+    col = cols.unsqueeze(0).expand(v, N, v, n_off)[keep]
     A = torch.sparse_csr_tensor(crow.int(), col.int(), vals[keep],
                                 size=(v * N, v * N))
-    del vals, cols, keep, col, per_row
+    del vals, cols, keep, col
     return A
-
-
-def cs_main_planes(op):
-    """K3's operator as dense float32 planes [n_off·v·v, N]: the interior
-    scalars everywhere, plus each class set's scalars on its mask."""
-    masks = op.masks() if len(op.sets) > 1 else None
-    W = op.scalars[0][:, None].expand(-1, op.N).clone()
-    for s in range(1, len(op.sets)):
-        W += op.scalars[s][:, None] * masks[s - 1][None, :]
-    return W
-
-
-def cs_window_csr(ck, op):
-    """K4's residual R on the window nodes as one CSR matrix (``csr_of``),
-    so that ``torch.addmv(y, A, x)`` is K4's y += R·shift(x)."""
-    import torch
-
-    nodes = (op.win_idx.to(torch.int64)[:, None] * ck.WINDOW
-             + torch.arange(ck.WINDOW, device=op.device)[None, :]).reshape(-1)
-    pos = torch.nonzero(nodes < op.N).reshape(-1)
-    nodes, perm = nodes[pos].sort()
-    return csr_of(op.Wwin[:, pos[perm]], op.deltas, op.vdim, op.N, nodes)
 
 
 def planted_tail(sk, op, x, y_plain) -> float:
@@ -468,9 +469,9 @@ def heat_operator(cells, dt=0.01):
                                 np.zeros(mesh.node_shape), 1)
 
 
-def elasticity_operator():
+def elasticity_operator(cells=FLAGSHIP_CELLS):
     """The flagship's scaled fine-level elasticity operator (vdim=3):
-    160×64×64 cells, clamped at x = 0."""
+    160×64×64 cells by default, clamped at x = 0."""
     import numpy as np
 
     from pde_solver_tpu_torch.mesh import box_mesh
@@ -479,7 +480,7 @@ def elasticity_operator():
     from pde_solver_tpu_torch.ops.bc import DirichletBC
     from pde_solver_tpu_torch.ops.linsolve import prepare_system
 
-    mesh = box_mesh(*FLAGSHIP_CELLS, (0.0, 0.0, 0.0), FLAGSHIP_EXTENT)
+    mesh = box_mesh(*cells, (0.0, 0.0, 0.0), FLAGSHIP_EXTENT)
     lam, mu = lame_parameters(FLAGSHIP["E"], FLAGSHIP["nu"], "3d")
     K = assembly.assemble_elasticity_stencil(mesh, lam, mu)
     bc = DirichletBC.from_masks([(mesh.face_mask(0, 0), 0.0)],
@@ -510,30 +511,183 @@ def rel_err(y, y_ref) -> float:
 
 
 def cs_against_plain(ck, op, x, label: str):
-    """K3 and K3+K4 against their plain versions on ``x``; returns the
-    kernel outputs and the absolute errors."""
+    """The fused kernel through ``apply_flat`` against ``cs_apply_plain``,
+    and without its slot map against ``cs_main_plain``: equal up to the
+    sign of zero, one launch each.  Returns the kernel's output and the
+    windowless one."""
     import torch
 
-    y_main = op.launch_main(x)
-    y_pair = op.launch_window(x, y_main.clone())
+    n0 = op.launches
+    counted = sk_launches(f"cs_apply_v{op.vdim}")
+    y = op.apply_flat(x)
+    y_sets = op.launch(x, windows=False)
     torch.cuda.synchronize()
-    y_main_plain = ck.cs_main_plain(op, x)
-    y_pair_plain = ck.cs_window_plain(op, x, y_main)
-    err_main = float((y_main - y_main_plain).abs().max())
-    err_win = float((y_pair - y_pair_plain).abs().max())
-    check(err_main <= CS_TOL * float(y_main_plain.abs().max()),
-          f"{label}: cs_main vs plain {err_main:.3e}")
-    check(err_win <= CS_TOL * float(y_pair_plain.abs().max()),
-          f"{label}: cs pair vs plain {err_win:.3e} "
-          f"(max|y| {float(y_pair_plain.abs().max()):.3e})")
-    return y_main, y_pair, err_main, err_win
+    check(op.launches == n0 + 2 and sk_launches(f"cs_apply_v{op.vdim}")
+          == counted + 2, f"{label}: {op.launches - n0} launches for two "
+          f"applies")
+    err = float((y - ck.cs_apply_plain(op, x)).abs().max())
+    err_sets = float((y_sets - ck.cs_main_plain(op, x)).abs().max())
+    check(err == 0.0 and err_sets == 0.0,
+          f"{label}: fused kernel vs cs_apply_plain {err:.3e}, windowless "
+          f"vs cs_main_plain {err_sets:.3e} (bit-equal expected)")
+    return y, y_sets
+
+
+def sk_launches(name: str) -> int:
+    from pde_solver_tpu_torch.ops import stencil_kernels as sk
+
+    return sk.KERNEL_LAUNCHES.get(name, 0)
+
+
+def planted_cs_faults(ck, op, x, y_plain):
+    """The kernel with one residual weight, one class scalar and one
+    interior scalar of its tables changed, each held against plain on the
+    unchanged operator: {fault: relative max error}, which must be large.
+    The residual weight is the centre offset's (a = b = 0) at the window
+    node where |x[0]| is largest; the class scalar the same term of the
+    first class set; the interior scalar that term of set 0, times 1.01."""
+    import torch
+
+    v = op.vdim
+    scale = float(abs(op.terms[0]).max())
+    centre = op.deltas.index(0) * v * v            # term (o, b = 0, a = 0)
+    nodes = (op.win_idx.long()[:, None] * ck.WINDOW
+             + torch.arange(ck.WINDOW, device=x.device)[None, :]).reshape(-1)
+    t = int(torch.where(nodes < op.N, x[0, nodes.clamp(max=op.N - 1)].abs(),
+                        torch.zeros((), device=x.device)).argmax())
+    faults = {}
+    bad = copy.copy(op)
+    bad.Wwin = op.Wwin.clone()
+    bad.Wwin[centre, t] += scale
+    faults["residual weight"] = bad
+    if len(op.descs):
+        bad = copy.copy(op)
+        bad.cls_terms = op.cls_terms.clone()
+        bad.cls_terms[0, centre] += scale
+        faults["class scalar"] = bad
+    bad = copy.copy(op)
+    bad.terms = op.terms.copy()
+    bad.terms[0, centre] *= 1.01
+    bad._params = None
+    faults["interior scalar"] = bad
+    return {what: rel_err(bad.launch(x), y_plain)
+            for what, bad in faults.items()}
+
+
+def cs_operator_phase(ck, sk, label, vdim, mesh, sysm, gen, timed,
+                      ragged=False):
+    """One CS operator: the fused kernel against plain (bit-equal), against
+    the dense kernel of the same weights (itself held against its plain
+    version in f32 and bf16), and with planted faults; with ``timed`` also
+    the times.  A ``ragged`` grid must have N mod 4 ≠ 0 and end in a
+    partial window that is listed.  Returns (max_abs_err, the result-line
+    fields or None)."""
+    import torch
+
+    op = ck.CSFlatStencilOperator.try_build(
+        sysm.offsets, sysm.weights, mesh.node_shape, vdim=vdim,
+        device="cuda")
+    check(op is not None, f"{label}: CS build refused")
+    if ragged:
+        check(op.N % 4 and op.N % ck.WINDOW
+              and op.windows[-1] == (op.N - 1) // ck.WINDOW,
+              f"{label}: N={op.N} is not a ragged tail with its last, "
+              f"partial window listed")
+    dense = sk.FlatStencilOperator(sysm.offsets, sysm.weights,
+                                   mesh.node_shape, vdim=vdim, device="cuda")
+    dense_bf16 = dense.as_weight_dtype(torch.bfloat16)
+    x = torch.randn((vdim, op.N), generator=gen, device="cuda")
+    y, y_sets = cs_against_plain(ck, op, x, label)
+    y_dense = dense.apply_flat(x)
+    y_bf16 = dense_bf16.apply_flat(x)
+    torch.cuda.synchronize()
+    err_dense = float((y - y_dense).abs().max())
+    dscale = float(y_dense.abs().max())
+    check(err_dense <= CS_TOL * dscale, f"{label}: fused CS kernel vs dense "
+          f"kernel {err_dense:.3e} (max|y| {dscale:.3e})")
+    dense_rel = {}
+    for name, dop, yd in (("f32", dense, y_dense), ("bf16", dense_bf16, y_bf16)):
+        rel = rel_err(yd, sk.spmv_plain(dop.W, x, dop.deltas, vdim))
+        check(rel <= REL_TOL, f"{label}: dense {name} kernel vs plain "
+              f"relative max error {rel:.3e} > {REL_TOL}")
+        dense_rel[name] = rel
+    faults = planted_cs_faults(ck, op, x, y)
+    last = (op.N - 1) // ck.WINDOW
+    print(f"cs {label}: N={op.N} (N mod 4 = {op.N % 4}, mod 128 = "
+          f"{op.N % 128}, mod 1024 = {op.N % ck.WINDOW}) "
+          f"n_win={op.n_win} ({op.n_win * ck.WINDOW / op.N:.4f} of the "
+          f"nodes; last, partial window listed: "
+          f"{bool(op.N % ck.WINDOW) and last in set(op.windows.tolist())}) "
+          f"sets={len(op.sets)} eff_sweeps={op.eff_sweeps:.4f}; fused and "
+          f"windowless kernels bit-equal to plain; vs dense kernel rel "
+          f"{err_dense / dscale:.3e} (windowless vs dense "
+          f"{rel_err(y_sets, y_dense):.3e}); dense kernel vs plain f32 "
+          f"{dense_rel['f32']:.3e} bf16 {dense_rel['bf16']:.3e}; planted "
+          + ", ".join(f"{k} {v:.3e}" for k, v in faults.items()),
+          flush=True)
+    check(min(faults.values()) > FAULT_MIN, f"{label}: a planted fault "
+          f"reads {min(faults.values()):.3e}, not above {FAULT_MIN}")
+    fields = None
+    if timed:
+        # the library yardstick: the whole operator as one CSR matrix (the
+        # dense f32 weights), held against plain before it is timed
+        A = csr_of(dense.W, dense.deltas, vdim, op.N)
+        xf = x.reshape(-1)
+        lib_rel = rel_err((A @ xf).view_as(y), y)
+        check(lib_rel <= REL_TOL, f"{label}: whole-operator CSR vs plain "
+              f"relative max error {lib_rel:.3e}")
+        reps_p = 5 if vdim == 1 else 3
+        ms, plain_ms, lib_ms = turns(lambda: op.apply_flat(x),
+                                     lambda: ck.cs_apply_plain(op, x), 50,
+                                     reps_p, library=lambda: A @ xf)
+        del A
+        sets_ms, _, _ = turns(lambda: op.launch(x, windows=False),
+                              lambda: None, 50, 1)
+        dense_ms, bf16_ms, _ = turns(lambda: dense.apply_flat(x),
+                                     lambda: dense_bf16.apply_flat(x), 50, 50)
+        dev = device_ms(lambda: op.apply_flat(x), "cs_apply_kernel")
+        dev_sets = device_ms(lambda: op.launch(x, windows=False),
+                             "cs_apply_kernel")
+        dev_dense = device_ms(lambda: dense.apply_flat(x),
+                              "flat_stencil_spmv_kernel")
+        # x, y and R fit the L2, so launches back to back read them there:
+        # the HBM bound holds only with the L2 emptied between launches
+        flush = torch.empty(FLUSH_BYTES // 4, device="cuda")
+        cold = device_ms(lambda: (flush.zero_(), op.apply_flat(x)),
+                         "cs_apply_kernel")
+        cold_dense = device_ms(lambda: (flush.zero_(), dense.apply_flat(x)),
+                               "flat_stencil_spmv_kernel")
+        del flush
+        nbytes, flops = cs_cost(op)
+        bound_ms, bound_by = bound(nbytes, flops)
+        bound_sets = bound(*cs_cost(op, windows=False))[0]
+        l2 = nbytes < L2_BYTES
+        print(f"cs {label} ms: fused={ms:.4f} (device {dev:.4f}) windowless="
+              f"{sets_ms:.4f} (device {dev_sets:.4f}) | plain={plain_ms:.4f} "
+              f"| dense K1 f32={dense_ms:.4f} (device {dev_dense:.4f}) bf16="
+              f"{bf16_ms:.4f} | bound_ms={bound_ms:.4f} ({bound_by}; "
+              f"windowless {bound_sets:.4f}; {nbytes / 1e6:.1f} MB) share="
+              f"{bound_ms / ms:.3f}"
+              f"{' (fits L2: not a share of HBM)' if l2 else ''} | L2 "
+              f"emptied between launches: device {cold:.4f}, share of HBM "
+              f"{bound_ms / cold:.3f}; dense K1 f32 device {cold_dense:.4f} "
+              f"| library (whole-operator CSR A @ x) {lib_ms:.4f} (rel "
+              f"{lib_rel:.3e})", flush=True)
+        fields = dict(ms=ms, device_ms=dev, plain_ms=plain_ms,
+                      library_ms=lib_ms, library_note=None,
+                      bound_ms=bound_ms, bound_by=bound_by,
+                      share=bound_ms / ms, shape=label, l2_resident=l2,
+                      cold_device_ms=cold, cold_share=bound_ms / cold)
+    err = float((y - ck.cs_apply_plain(op, x)).abs().max())
+    del op, dense, dense_bf16, x, y, y_sets, y_dense, y_bf16
+    torch.cuda.empty_cache()
+    return err, fields
 
 
 def cs_phase(ck, sk):
-    """Both CS kernels against their plain versions and against the dense
-    kernel (itself held against its plain version), on the main paths'
-    fine-level operators; returns per-variant results.  The first operator
-    of each vdim gives the variant's times."""
+    """The fused CS kernel on the main paths' fine-level operators (the
+    first of each vdim gives the variant's times) and on CS_RAGGED;
+    returns per-variant results."""
     import torch
 
     from pde_solver_tpu_torch.ops import linsolve
@@ -541,138 +695,77 @@ def cs_phase(ck, sk):
     results = {}
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
-    for label, vdim, build in (
-            ("heat 129^3", 1, lambda: heat_operator((128, 128, 128))),
-            ("flagship elasticity 161x65x65", 3, elasticity_operator),
-            ("flagship P1 mass 161x65x65", 1, mass_operator)):
-        t0 = time.perf_counter()
+    cases = [("heat 129^3", 1, lambda: heat_operator((128, 128, 128))),
+             ("flagship elasticity 161x65x65", 3, elasticity_operator),
+             ("flagship P1 mass 161x65x65", 1, mass_operator)]
+    for vdim, cells in CS_RAGGED:
+        make = (lambda c=cells: heat_operator(c)) if vdim == 1 else \
+            (lambda c=cells: elasticity_operator(c))
+        cases.append((f"ragged {'x'.join(str(c + 1) for c in cells)} v{vdim}",
+                      vdim, make))
+    for label, vdim, build in cases:
         mesh, sysm = build()
-        t1 = time.perf_counter()
-        op = ck.CSFlatStencilOperator.try_build(
-            sysm.offsets, sysm.weights, mesh.node_shape, vdim=vdim,
-            device="cuda")
-        t2 = time.perf_counter()
-        check(op is not None, f"{label}: CS build refused")
-        dense = sk.FlatStencilOperator(sysm.offsets, sysm.weights,
-                                       mesh.node_shape, vdim=vdim,
-                                       device="cuda")
-        dense_bf16 = dense.as_weight_dtype(torch.bfloat16)
-        x = torch.randn((vdim, op.N), generator=gen, device="cuda")
-        y_main, y_pair, err_main, err_win = cs_against_plain(ck, op, x, label)
-        y_dense = dense.apply_flat(x)
-        y_bf16 = dense_bf16.apply_flat(x)
-        torch.cuda.synchronize()
-        err_dense = float((y_pair - y_dense).abs().max())
-        dscale = float(y_dense.abs().max())
-        check(err_dense <= CS_TOL * dscale, f"{label}: cs pair vs dense "
-              f"kernel {err_dense:.3e} (max|y| {dscale:.3e})")
-        dense_errs = {}
-        for name, dop, y in (("f32", dense, y_dense),
-                             ("bf16", dense_bf16, y_bf16)):
-            y_plain = sk.spmv_plain(dop.W, x, dop.deltas, vdim)
-            rel = rel_err(y, y_plain)
-            check(rel <= REL_TOL, f"{label}: dense {name} kernel vs plain "
-                  f"relative max error {rel:.3e} > {REL_TOL}")
-            dense_errs[name] = (float((y - y_plain).abs().max()), rel)
-            del y_plain
-        print(f"cs {label}: N={op.N} n_win={op.n_win} "
-              f"({op.n_win * ck.WINDOW / op.N:.4f} of the nodes) "
-              f"sets={len(op.sets)} eff_sweeps={op.eff_sweeps:.4f} "
-              f"operator {t1 - t0:.3f} s, host analysis {t2 - t1:.3f} s; "
-              f"abs_err cs_main={err_main:.3e} pair={err_win:.3e} "
-              f"pair-vs-dense={err_dense:.3e} (rel {err_dense / dscale:.3e})"
-              f"; cs_main alone (no window pass) vs dense: rel "
-              f"{rel_err(y_main, y_dense):.3e}; dense kernel vs plain: f32 "
-              f"{dense_errs['f32'][1]:.3e}, bf16 {dense_errs['bf16'][1]:.3e}"
-              f" (rel)", flush=True)
-        # the library yardsticks: K3's operator and K4's window residual,
-        # each one CSR matrix, held against plain before they are timed
-        A_main = csr_of(cs_main_planes(op), op.deltas, vdim, op.N)
-        A_win = cs_window_csr(ck, op)
-        xf, ymf = x.reshape(-1), y_main.reshape(-1)
-        lib_rel = {
-            "cs_main": rel_err(A_main @ xf, ck.cs_main_plain(op, x).reshape(-1)),
-            "cs_window": rel_err(torch.addmv(ymf, A_win, xf),
-                                 ck.cs_window_plain(op, x, y_main).reshape(-1))}
-        for part, rel in lib_rel.items():
-            check(rel <= REL_TOL, f"{label}: {part} CSR yardstick vs plain "
-                  f"relative max error {rel:.3e}")
-        reps_p = 5 if vdim == 1 else 3
-        y_scratch = y_main.clone()
-        main_ms, main_plain_ms, main_lib_ms = turns(
-            lambda: op.launch_main(x), lambda: ck.cs_main_plain(op, x),
-            50, reps_p, library=lambda: A_main @ xf)
-        win_ms, win_plain_ms, win_lib_ms = turns(
-            lambda: op.launch_window(x, y_scratch),
-            lambda: ck.cs_window_plain(op, x, y_main), 50, reps_p,
-            library=lambda: torch.addmv(ymf, A_win, xf))
-        del A_main, A_win
-        pair_ms, pair_plain_ms, _ = turns(lambda: op.apply_flat(x),
-                                          lambda: ck.cs_apply_plain(op, x),
-                                          50, reps_p)
-        dense_ms, bf16_ms, _ = turns(lambda: dense.apply_flat(x),
-                                     lambda: dense_bf16.apply_flat(x), 50, 50)
-        bounds = {part: bound(*cs_cost(op, part))
-                  for part in ("cs_main", "cs_window")}
-        dev = {"cs_main": device_ms(lambda: op.launch_main(x),
-                                    "cs_main_kernel"),
-               "cs_window": device_ms(lambda: op.launch_window(x, y_scratch),
-                                      "cs_window_kernel")}
-        print(f"cs {label} ms: pair={pair_ms:.4f} cs_main={main_ms:.4f} "
-              f"cs_window={win_ms:.4f} | plain pair={pair_plain_ms:.4f} "
-              f"cs_main={main_plain_ms:.4f} cs_window={win_plain_ms:.4f} | "
-              f"dense K1 f32={dense_ms:.4f} bf16={bf16_ms:.4f} | bound_ms "
-              f"cs_main={bounds['cs_main'][0]:.4f} ({bounds['cs_main'][1]}, "
-              f"share {bounds['cs_main'][0] / main_ms:.3f}) cs_window="
-              f"{bounds['cs_window'][0]:.4f} ({bounds['cs_window'][1]}, "
-              f"share {bounds['cs_window'][0] / win_ms:.3f}) | device_ms "
-              f"cs_main={dev['cs_main']:.4f} cs_window="
-              f"{dev['cs_window']:.4f} | library (CSR) cs_main "
-              f"{main_lib_ms:.4f} (rel {lib_rel['cs_main']:.3e}) cs_window "
-              f"addmv {win_lib_ms:.4f} (rel {lib_rel['cs_window']:.3e})",
-              flush=True)
-        for key, err, ms, plain_ms, lib_ms, part in (
-                (f"cs_main_v{vdim}", err_main, main_ms, main_plain_ms,
-                 main_lib_ms, "cs_main"),
-                (f"cs_window_v{vdim}", err_win, win_ms, win_plain_ms,
-                 win_lib_ms, "cs_window"),
-                (f"v{vdim}_f32", dense_errs["f32"][0], None, None, None, None),
-                (f"v{vdim}_bf16", dense_errs["bf16"][0], None, None, None,
-                 None)):
-            res = results.setdefault(key, {"max_abs_err": 0.0})
-            res["max_abs_err"] = max(res["max_abs_err"], err)
-            if ms is not None and "ms" not in res:
-                res.update(ms=ms, device_ms=dev[part], plain_ms=plain_ms,
-                           library_ms=lib_ms, library_note=None,
-                           bound_ms=bounds[part][0],
-                           bound_by=bounds[part][1],
-                           share=bounds[part][0] / ms, shape=label,
-                           l2_resident=False)
-        del op, dense, dense_bf16, x, y_main, y_pair, y_dense, y_bf16
-        del y_scratch, mesh, sysm
-        torch.cuda.empty_cache()
+        res = results.setdefault(f"cs_apply_v{vdim}", {"max_abs_err": 0.0})
+        err, fields = cs_operator_phase(ck, sk, label, vdim, mesh, sysm, gen,
+                                        timed="ms" not in res,
+                                        ragged=label.startswith("ragged"))
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        if fields is not None:
+            res.update(fields)
+        del mesh, sysm
     # the main paths start cold, as a user's first solve does
     linsolve._PREP_CACHE.clear()
     return results
 
 
-def check_built(ck, built, label: str) -> None:
+def check_built(ck, sk, built, label: str, cs_level_ms) -> None:
     """Every CS operator a main-path run built (each MG level, the
-    projection), held against its plain version at its own shape."""
+    projection): against its plain versions (bit-equal) and against the
+    dense kernel of the same weights (≤ CS_TOL of max|y|) at its own shape,
+    and timed beside that dense kernel in f32 and bf16: profiler device ms
+    over 20 launches, its bound and the run's launches of it, into
+    ``cs_level_ms[(label, shape, vdim)]``."""
     import torch
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
     worst = 0.0
-    for shape, op in built:
+    for shape, op, offsets, weights in built:
         if op is None:
             continue
+        key = (label, shape, op.vdim)
+        launches = op.launches + cs_level_ms.get(key, {}).get("launches", 0)
+        what = f"{label} CS operator at {shape} (v{op.vdim})"
         x = torch.randn((op.vdim, op.N), generator=gen, device="cuda")
-        _, y_pair, _, err_win = cs_against_plain(
-            ck, op, x, f"{label} CS operator at {shape} (v{op.vdim})")
-        worst = max(worst, err_win / float(y_pair.abs().max()))
-    print(f"{label}: {sum(op is not None for _, op in built)} CS operators "
-          f"held against plain, worst relative error {worst:.3e}",
+        y, _ = cs_against_plain(ck, op, x, what)
+        dense = sk.FlatStencilOperator(offsets, weights, shape, vdim=op.vdim,
+                                       device="cuda")
+        dense_bf16 = dense.as_weight_dtype(torch.bfloat16)
+        rel = rel_err(y, dense.apply_flat(x))
+        check(rel <= CS_TOL, f"{what}: vs dense kernel relative max error "
+              f"{rel:.3e}")
+        worst = max(worst, rel)
+        nbytes, flops = cs_cost(op)
+        cs_level_ms[key] = dict(
+            ms=device_ms(lambda: op.apply_flat(x), "cs_apply_kernel", reps=20),
+            bound=bound(nbytes, flops)[0], l2=nbytes < L2_BYTES,
+            launches=launches,
+            f32=device_ms(lambda: dense.apply_flat(x),
+                          "flat_stencil_spmv_kernel", reps=20),
+            bf16=device_ms(lambda: dense_bf16.apply_flat(x),
+                           "flat_stencil_spmv_kernel", reps=20))
+        del x, y, dense, dense_bf16
+    torch.cuda.empty_cache()
+    print(f"{label}: {sum(op is not None for _, op, _, _ in built)} CS "
+          f"operators bit-equal to plain, worst relative error vs the dense "
+          f"kernel {worst:.3e}; device ms of the CS kernel (share of bound; "
+          f"L2: the bytes fit the L2, not a share of HBM) | the dense kernel "
+          f"on the same weights, f32 / bf16 | the run's CS launches: "
+          + "; ".join(
+              f"{shape} v{v} {t['ms']:.4f} ({t['bound'] / t['ms']:.3f}"
+              f"{' L2' if t['l2'] else ''}) | {t['f32']:.4f} / "
+              f"{t['bf16']:.4f} | {t['launches']}"
+              for (lb, shape, v), t in cs_level_ms.items() if lb == label),
           flush=True)
 
 
@@ -834,14 +927,15 @@ def theta_scheme_f64(mesh, pairs, dt, num_steps, theta=1.0, T_initial=20.0,
 
 
 def spy_cs_builds(ck):
-    """Record (node_shape, operator or None) of every CS build; returns
-    the list."""
+    """Record (node_shape, operator or None, offsets, weights) of every CS
+    build; returns the list."""
     built = []
     orig = ck.CSFlatStencilOperator.try_build.__func__
 
     def spy(cls, offsets, weights_np, node_shape, *a, **kw):
         op = orig(cls, offsets, weights_np, node_shape, *a, **kw)
-        built.append((tuple(int(s) for s in node_shape), op))
+        built.append((tuple(int(s) for s in node_shape), op, offsets,
+                      weights_np if op is not None else None))
         return op
 
     ck.CSFlatStencilOperator.try_build = classmethod(spy)
@@ -1305,7 +1399,7 @@ def main() -> int:
     kernels.update(plane_kernel_phase(sk))
     print(f"phase plane-kernels: {time.perf_counter() - t0:.3f} s", flush=True)
 
-    # -- constant-interior pair against plain and dense ----------------------
+    # -- the fused constant-interior kernel against plain and dense ----------
     t0 = time.perf_counter()
     for key, res in cs_phase(ck, sk).items():
         if key in kernels:     # the dense variants keep their times
@@ -1353,21 +1447,21 @@ def main() -> int:
           f"5 steps, MG-PCG + CS on the card vs host f64 backward Euler: "
           f"max|ΔT|/max|T|={gap:.3e}, iterations={st['cg_iterations']}, "
           f"relres={st['relative_residual']:.3e}, CS builds="
-          f"{[(s, op is not None) for s, op in built]}, "
+          f"{[(s, op is not None) for s, op, *_ in built]}, "
           f"launches={small_launches}", flush=True)
     check(st["converged"], f"small heat did not converge: {st}")
     check(gap <= 1e-6, f"small heat off the host solve by {gap:.3e}")
-    check((41, 7, 7) in {s for s, op in built if op is not None},
+    check((41, 7, 7) in {s for s, op, *_ in built if op is not None},
           "small heat: no CS operator at the fine level")
-    check(small_launches.get("cs_main_v1", 0) > 0
-          and small_launches.get("cs_window_v1", 0) > 0,
-          "small heat launched no CS kernels")
+    check(small_launches.get("cs_apply_v1", 0) > 0,
+          "small heat launched no CS kernel")
 
     # -- main paths through the API ------------------------------------------
     main_launches = {}
     path_launches = {}
     by_operator = {}
     level_ms = {}
+    cs_level_ms = {}
     launched = spy_flat_launches(sk)
 
     def main_path(label, cs, fn):
@@ -1396,7 +1490,7 @@ def main() -> int:
               f" relres={st['relative_residual']:.3e} "
               f"converged={st['converged']} peak_device_mem="
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
-              f"cs_builds={[(s, op is not None) for s, op in built]} "
+              f"cs_builds={[(s, op is not None) for s, op, *_ in built]} "
               f"launches={launches}", flush=True)
         check_launched(sk, launched, label, kernels, by_operator, level_ms)
         cs_built = list(built)
@@ -1420,15 +1514,17 @@ def main() -> int:
               f"flagship relres {st['relative_residual']:.3e} > 1e-6")
         check(vm.shape == (1, 161 * 65 * 65), f"field shape {vm.shape}")
         check(bool(np.all(np.isfinite(vm))), "non-finite von Mises values")
-        wanted = (("cs_main_v3", "cs_window_v3") if cs == "1"
+        wanted = (("cs_apply_v3",) if cs == "1"
                   else ("v3_f32", "v3_bf16", "v1_f32"))
         for name in wanted:
             check(launches.get(name, 0) > 0,
                   f"the flagship (PDE_TPU_CS={cs}) launched no {name} kernel")
         if cs == "1":
-            check((161, 65, 65) in {s for s, op in cs_built if op is not None},
+            check((161, 65, 65) in {s for s, op, *_ in cs_built
+                                    if op is not None},
                   "flagship: no CS operator at the fine level")
-            check_built(ck, cs_built, "flagship")
+            check_built(ck, sk, cs_built, f"flagship PDE_TPU_CS={cs}",
+                        cs_level_ms)
         del cs_built
     gap = float(np.abs(vm_runs["1"] - vm_runs["0"]).max()
                 / np.abs(vm_runs["0"]).max())
@@ -1450,22 +1546,24 @@ def main() -> int:
               f"{HEAT_STEPS / st['scan_seconds']:.3f} CG iterations/step="
               f"{st['cg_iterations'] / HEAT_STEPS:.2f} max|T|_final="
               f"{np.abs(T[-1]).max():.6e} CS levels="
-              f"{[s for s, op in cs_built if op is not None]}", flush=True)
+              f"{[s for s, op, *_ in cs_built if op is not None]}", flush=True)
         check(st["num_dofs"] == HEAT_DOF, f"heat dof count {st['num_dofs']}")
         check(bool(st["converged"]) and st["relative_residual"] <= target,
               f"heat (PDE_TPU_CS={cs}) did not converge: {st}")
         check(T.shape == (HEAT_STEPS + 1, HEAT_DOF), f"heat field {T.shape}")
         check(bool(np.all(np.isfinite(T))), "non-finite temperatures")
         check(times.shape == (HEAT_STEPS + 1,), f"heat times {times.shape}")
-        wanted = (("cs_main_v1", "cs_window_v1") if cs == "1"
+        wanted = (("cs_apply_v1",) if cs == "1"
                   else ("v1_f32", "v1_bf16"))
         for name in wanted:
             check(launches.get(name, 0) > 0,
                   f"the heat slice (PDE_TPU_CS={cs}) launched no {name}")
         if cs == "1":
-            check((129, 129, 129) in {s for s, op in cs_built if op is not None},
+            check((129, 129, 129) in {s for s, op, *_ in cs_built
+                                      if op is not None},
                   "heat: no CS operator at the 129^3 fine level")
-            check_built(ck, cs_built, "heat")
+            check_built(ck, sk, cs_built, f"heat PDE_TPU_CS={cs}",
+                        cs_level_ms)
         else:
             check(not any(k.startswith("cs_") for k in launches),
                   "the dense heat run launched CS kernels")
@@ -1521,25 +1619,40 @@ def main() -> int:
                   f"{shape} n_off={n_off} {ms:.4f} ({bnd / ms:.3f}"
                   f"{' L2' if l2 else ''})"
                   for shape, n_off, (ms, bnd, l2) in levels), flush=True)
+    for run in ("flagship", "heat"):
+        parts = []
+        for cs in ("0", "1"):
+            label = f"{run} PDE_TPU_CS={cs}"
+            dense = [(n, level_ms[(v, sh, no)][0])
+                     for (lb, v, sh, no), n in by_operator.items()
+                     if lb == label]
+            cs_ops = [(t["launches"], t["ms"])
+                      for (lb, _, _), t in cs_level_ms.items() if lb == label]
+            parts.append(
+                f"PDE_TPU_CS={cs} {sum(n * ms for n, ms in dense + cs_ops):.2f}"
+                f" ms (dense {sum(n for n, _ in dense)} launches "
+                f"{sum(n * ms for n, ms in dense):.2f} ms, CS "
+                f"{sum(n for n, _ in cs_ops)} launches "
+                f"{sum(n * ms for n, ms in cs_ops):.2f} ms)")
+        print(f"{run}: SpMV device time of the run, estimated as Σ launches "
+              f"× per-level device ms: " + "; ".join(parts), flush=True)
     print(f"total: {time.perf_counter() - t_start:.3f} s", flush=True)
     print(card_line)
     entries = [(f"flat_stencil_spmv[{name}]", name, FLAT_SOURCE,
                 REPLACES["flat"])
                for name in ("v3_f32", "v3_bf16", "v2_f32", "v2_bf16",
                             "v1_f32", "v1_bf16")]
-    for v in (1, 3):
-        for part in ("cs_main", "cs_window"):
-            entries.append((f"{part}[v{v}]", f"{part}_v{v}", CS_SOURCE,
-                            REPLACES[part]))
+    entries += [(f"cs_apply[v{v}]", f"cs_apply_v{v}", CS_SOURCE,
+                 REPLACES["cs_apply"]) for v in (1, 3)]
     keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
             "bound_by", "share", "library_ms", "library_note", "shape",
-            "l2_resident")
+            "l2_resident", "cold_device_ms", "cold_share")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": repl,
          "launches": main_launches.get(key, 0),
          "launches_by_path": {label: n[key] for label, n in
                               path_launches.items() if n.get(key)},
-         **{k: kernels[key][k] for k in keys}}
+         **{k: kernels[key].get(k) for k in keys}}
         for name, key, source, repl in entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -32,12 +32,16 @@ order.  A window is 1024 consecutive flat nodes, the TPU kernel's 8-row ×
 (``convert.cs_operator_from_reference``), and the disk-cache entry keeps the
 reference's format.
 
-``apply_flat`` launches the two kernels of ``csrc/cs_stencil.cu`` (K3
-``cs_main``, then K4 ``cs_window`` in place on its output) for a CUDA
-tensor, or raises.  Only a CPU tensor takes the plain torch version
-(:func:`cs_apply_plain`), which keeps explicit 0/1 class mask planes, as
-the reference's ``_masks_np`` builds them, so it checks the kernels'
-coordinate tests independently.
+``apply_flat`` launches the one kernel of ``csrc/cs_stencil.cu``, which
+computes K3's pass and K4's window residual together, for a CUDA tensor,
+or raises.  The kernel reads host-built tables: the scalar sets as term
+lists in (o, b, a) order (:func:`term_lists`; set 0 goes into the kernel's
+parameter block), the 5 × 5 code-pair → class-set mask table
+(:func:`set_mask_table`), the window slot map (:func:`slot_map`) and magic
+numbers for its divisions (:func:`fast_divisor`).  Only a CPU tensor takes
+the plain torch version (:func:`cs_apply_plain`), which keeps explicit 0/1
+class mask planes, as the reference's ``_masks_np`` builds them, so it
+checks the kernel's coordinate tests independently.
 
 Routing: ``PDE_TPU_CS`` selects this operator wherever the reference does
 (``cs_mode``): "0" (default) dense, "1" CS for every flat operator,
@@ -55,12 +59,20 @@ import torch
 
 from pde_solver_tpu_torch.ops import cuda_build
 from pde_solver_tpu_torch.ops.stencil_kernels import (FlatStencilOperator,
+                                                      check_row_groups,
                                                       count_launch)
 
 LANE, SUB = 128, 8
 WINDOW = LANE * SUB          # flat nodes per window (one TPU octet)
-MAX_OFFSETS = 15             # the kernel's register budget (3-D P1 stencil)
+MAX_OFFSETS = 15             # the 3-D P1 stencil
 MAX_SETS = 25                # interior + 8 layers + 16 edge lines
+# minor-axis coordinate codes: 0, 1, 2 (inner), 3 (n − 2), 4 (n − 1)
+CODES = 5
+INNER = 2
+# a CUDA operator with a vdim or an offset count outside these is refused
+# when it is constructed (the ``#define CS_STENCIL_*`` lines of the source)
+KERNEL_VDIMS = cuda_build.defined_list("cs_stencil", "CS_STENCIL_VDIMS")
+KERNEL_NOFFS = cuda_build.defined_list("cs_stencil", "CS_STENCIL_NOFFS")
 
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -84,10 +96,12 @@ def build_library() -> ctypes.CDLL:
     if _LIB is None:
         lib = cuda_build.library("cs_stencil")
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.cs_stencil_main.argtypes = [i, p, p, ll, p, i, i, i, p, i, p, p]
-        lib.cs_stencil_main.restype = i
-        lib.cs_stencil_window.argtypes = [i, p, p, ll, p, i, p, p, i, p]
-        lib.cs_stencil_window.restype = i
+        lib.cs_stencil_params_size.argtypes = []
+        lib.cs_stencil_params_size.restype = i
+        lib.cs_stencil_prepare.argtypes = [p, i, ll, p, i, i, i, p, p, i, p, i]
+        lib.cs_stencil_prepare.restype = i
+        lib.cs_stencil_apply.argtypes = [p, p, p, p, p, p, p]
+        lib.cs_stencil_apply.restype = i
         _LIB = lib
     return _LIB
 
@@ -109,7 +123,7 @@ def _masks_np(descs, node_shape, N: int) -> np.ndarray:
 
 def _class_table(descs, node_shape) -> np.ndarray:
     """Per class, the required coordinate on each of the two minor axes
-    (-1: any) — what ``cs_main`` tests instead of a mask plane."""
+    (-1: any), each checked to lie within two nodes of a boundary."""
     d = len(node_shape)
     lead = d - 2                       # first of the two minor axes
     n_minor = [int(node_shape[lead]), int(node_shape[lead + 1])]
@@ -129,19 +143,67 @@ def _class_table(descs, node_shape) -> np.ndarray:
     return table
 
 
+def term_lists(sets, n_off: int, vdim: int) -> np.ndarray:
+    """Every scalar set in the kernel's term order, float32 ``[n_sets,
+    n_off·v²]``: term (o·v + b)·v + a is the set's plane (o·v + a)·v + b."""
+    S = np.asarray(sets, np.float64).astype(np.float32)
+    S = S.reshape(len(S), n_off, vdim, vdim)                  # [s, o, a, b]
+    return np.ascontiguousarray(S.transpose(0, 1, 3, 2).reshape(len(S), -1))
+
+
+def minor_code(i, n: int):
+    """Code of minor-axis coordinate(s) ``i`` on an axis of ``n`` ≥ 5 nodes:
+    0, 1, INNER (2 ≤ i < n − 2), 3 (n − 2), 4 (n − 1)."""
+    i = np.asarray(i)
+    return np.where(i < 2, i, np.where(i >= n - 2, i - n + CODES, INNER))
+
+
+def set_mask_table(classes: np.ndarray, minor: Tuple[int, int]) -> np.ndarray:
+    """uint32 ``[CODES·CODES]``: for the pair of minor-axis codes (c1, c2)
+    at index c1·CODES + c2, bit s − 1 is set when a node with those codes
+    lies in class set s (``classes`` row s − 1, from :func:`_class_table`).
+    The inner pair's entry is 0: every class lies near a boundary."""
+    table = np.zeros(CODES * CODES, np.uint32)
+    for s, req in enumerate(classes):
+        ok = [np.ones(CODES, bool) if c < 0
+              else np.arange(CODES) == minor_code(c, n)
+              for c, n in zip(req, minor)]
+        table |= (np.outer(ok[0], ok[1]).reshape(-1)
+                  * np.uint32(1 << s)).astype(np.uint32)
+    return table
+
+
+def slot_map(windows, N: int) -> np.ndarray:
+    """int32 ``[ceil(N / WINDOW)]``: each window's slot in the residual
+    weights (its place in ``windows``), −1 where it is not listed."""
+    slots = np.full(-(-N // WINDOW), -1, np.int32)
+    slots[np.asarray(windows, np.int64)] = np.arange(len(windows))
+    return slots
+
+
+def fast_divisor(d: int) -> Tuple[int, int]:
+    """(m, s) with floor(n / d) = (n·m >> 32) >> s for 0 ≤ n < 2^31, d ≥ 2:
+    m = ceil(2^p / d), p = 31 + ceil(log2 d), s = p − 32.  With e = m·d −
+    2^p < d ≤ 2^ceil(log2 d), n·e < 2^p, so the quotient is exact."""
+    if d < 2:
+        raise ValueError(f"divisor {d} < 2")
+    p = 31 + (d - 1).bit_length()
+    return -(-(1 << p) // d), p - 32
+
+
 class CSFlatStencilOperator:
     """Constant-interior stencil operator in flat layout.
 
     Build via :meth:`try_build` (``None`` when the stencil is not
     CS-representable).  Interface mirrors :class:`FlatStencilOperator`:
     ``to_flat`` / ``from_flat`` / ``apply_flat`` / ``apply``.  ``launches``
-    counts this operator's kernel launches (K3 and K4 each count one).
+    counts this operator's kernel launches: one per apply on the card.
     """
 
     # give up when the window pass would cover most of the grid anyway
     MAX_WINDOW_FRAC = 0.5
     # cap on the effective scalar sweep count (sets weighted by their
-    # nonzero fraction — the kernel skips zero scalars)
+    # nonzero fraction, as the reference reckons it)
     MAX_EFF_SWEEPS = 13.0
 
     def __init__(self, offsets, node_shape, vdim: int, sets, descs,
@@ -164,17 +226,31 @@ class CSFlatStencilOperator:
             raise ValueError(f"{len(self.sets)} sets × {self.n_off} offsets "
                              f"exceed the kernel's {MAX_SETS} × {MAX_OFFSETS}")
         dev = torch.device(device)
+        if dev.type == "cuda":
+            if vdim not in KERNEL_VDIMS or self.n_off not in KERNEL_NOFFS:
+                raise ValueError(f"cs_stencil is built for vdim in "
+                                 f"{KERNEL_VDIMS} and offset counts in "
+                                 f"{KERNEL_NOFFS}, not {vdim} and "
+                                 f"{self.n_off}")
+            check_row_groups(self.deltas)
+        # the plain version's tables: scalars in plane order, window list
         self.scalars = torch.as_tensor(
             np.asarray(self.sets, np.float64).astype(np.float32)).to(dev)
-        self.classes = torch.as_tensor(
-            _class_table(self.descs, self.node_shape)).to(dev)
         self.win_idx = torch.as_tensor(self.windows.astype(np.int32)).to(dev)
         self.Wwin = torch.tensor(
             np.asarray(Wwin, np.float32).reshape(nw, self.n_win * WINDOW),
             device=dev)
+        # the kernel's: term lists (set 0 goes into its parameter block),
+        # the code-pair mask table, the slot map
+        classes = _class_table(self.descs, self.node_shape)
+        self.terms = term_lists(self.sets, self.n_off, vdim)
+        self.cls_terms = torch.as_tensor(self.terms[1:]).to(dev)
+        self.set_masks = set_mask_table(classes[:len(self.descs)],
+                                        self.node_shape[-2:])
+        self.slots = torch.as_tensor(slot_map(self.windows, self.N)).to(dev)
         self.launches = 0
         self._masks = None
-        self._deltas_c = None
+        self._params = None
 
     # ------------------------------------------------------------------
     @classmethod
@@ -331,13 +407,12 @@ class CSFlatStencilOperator:
     def apply_flat(self, x_flat: torch.Tensor) -> torch.Tensor:
         """x_flat: [v, N] f32 → y [v, N] f32."""
         if x_flat.is_cuda:
-            y = self.launch_main(x_flat)
-            return self.launch_window(x_flat, y)
+            return self.launch(x_flat)
         if x_flat.device.type == "cpu" and self.device.type == "cpu":
             return cs_apply_plain(self, x_flat)
         raise ValueError(f"x on {x_flat.device}, operator on {self.device}")
 
-    # -- kernel launches ---------------------------------------------------
+    # -- kernel launch -------------------------------------------------------
     def _check(self, t: torch.Tensor, what: str) -> None:
         if t.device != self.device:
             raise ValueError(f"{what} on {t.device}, operator on {self.device}")
@@ -346,45 +421,45 @@ class CSFlatStencilOperator:
             raise ValueError(f"{what} must be contiguous float32 [{self.vdim}, "
                              f"{self.N}], got {t.dtype} {tuple(t.shape)}")
 
-    def _deltas(self):
-        if self._deltas_c is None:
-            self._deltas_c = (ctypes.c_int * self.n_off)(*self.deltas)
-        return self._deltas_c
+    def kernel_params(self) -> ctypes.Array:
+        """The kernel's parameter block (set 0's term list, the mask table,
+        the geometry and its magic divisors), built once per operator."""
+        if self._params is None:
+            lib = build_library()
+            n1, n2 = self.node_shape[-2:]
+            per_slice = 4 * n2 + 4 * (n1 - 4)
+            divs = [v for d in (n2, n1, per_slice) for v in fast_divisor(d)]
+            params = ctypes.create_string_buffer(lib.cs_stencil_params_size())
+            rc = lib.cs_stencil_prepare(
+                params, self.vdim, self.N,
+                (ctypes.c_int * self.n_off)(*self.deltas), self.n_off, n1, n2,
+                self.terms[0].ctypes.data_as(ctypes.c_void_p),
+                self.set_masks.ctypes.data_as(ctypes.c_void_p),
+                len(self.descs), (ctypes.c_uint * 6)(*divs), self.n_win)
+            if rc != 0:
+                raise ValueError(f"cs_stencil_prepare refused the operator: "
+                                 f"CUDA error {rc} (vdim={self.vdim}, "
+                                 f"N={self.N}, node shape {self.node_shape})")
+            self._params = params
+        return self._params
 
-    def launch_main(self, x: torch.Tensor) -> torch.Tensor:
-        """K3 ``cs_main``: the interior model plus the class corrections."""
+    def launch(self, x: torch.Tensor, windows: bool = True) -> torch.Tensor:
+        """The fused kernel: the scalar sets and, with ``windows``, the
+        window residuals (``cs_apply_plain``'s function); without, the sets
+        alone (``cs_main_plain``'s).  Either counts one launch."""
         self._check(x, "x")
-        lib = build_library()
+        params = self.kernel_params()
         y = torch.empty_like(x)
-        n1, n2 = self.node_shape[-2:]
-        rc = lib.cs_stencil_main(
-            self.vdim, x.data_ptr(), y.data_ptr(), self.N, self._deltas(),
-            self.n_off, n1, n2, self.scalars.data_ptr(),
-            len(self.sets), self.classes.data_ptr(),
+        rc = build_library().cs_stencil_apply(
+            params, x.data_ptr(), y.data_ptr(), self.cls_terms.data_ptr(),
+            self.slots.data_ptr() if windows else None, self.Wwin.data_ptr(),
             torch.cuda.current_stream(x.device).cuda_stream)
         if rc != 0:
-            raise RuntimeError(f"cs_stencil_main launch failed: CUDA error {rc}"
-                               f" (vdim={self.vdim}, N={self.N}, "
-                               f"{len(self.sets)} sets)")
-        self.launches += 1
-        count_launch(f"cs_main_v{self.vdim}")
-        return y
-
-    def launch_window(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        """K4 ``cs_window``: adds the window residuals into ``y`` in place."""
-        self._check(x, "x")
-        self._check(y, "y")
-        lib = build_library()
-        rc = lib.cs_stencil_window(
-            self.vdim, x.data_ptr(), y.data_ptr(), self.N, self._deltas(),
-            self.n_off, self.Wwin.data_ptr(), self.win_idx.data_ptr(),
-            self.n_win, torch.cuda.current_stream(x.device).cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"cs_stencil_window launch failed: CUDA error "
+            raise RuntimeError(f"cs_stencil_apply launch failed: CUDA error "
                                f"{rc} (vdim={self.vdim}, N={self.N}, "
-                               f"{self.n_win} windows)")
+                               f"{len(self.sets)} sets, {self.n_win} windows)")
         self.launches += 1
-        count_launch(f"cs_window_v{self.vdim}")
+        count_launch(f"cs_apply_v{self.vdim}")
         return y
 
     def masks(self) -> torch.Tensor:
@@ -397,7 +472,7 @@ class CSFlatStencilOperator:
 
 
 # ----------------------------------------------------------------------
-# Plain torch version (the CPU path, and the kernels' check on the card)
+# Plain torch version (the CPU path, and the kernel's check on the card)
 # ----------------------------------------------------------------------
 
 def _shifted(x: torch.Tensor, deltas) -> list:

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled with
 ``nvcc`` for ``sm_90a`` into ``build/<name>-<hash>.so`` at first use.  The
-hash covers the source and the flags, so an edited source builds anew.
+hash covers the source, the shared headers ``csrc/*.cuh`` and the flags,
+so an edited source or header builds anew.
 :func:`build` starts one ``nvcc`` per source that still needs it, all at
 once, and waits for them together; each build goes to a temporary name and
 is renamed into place, so concurrent builders never load a half-written
@@ -14,11 +15,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
@@ -42,7 +44,9 @@ def _nvcc() -> str:
 
 def _so_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
@@ -72,6 +76,14 @@ def build(*names: str) -> None:
                             "seconds": time.perf_counter() - t0, "log": log}
     if failed:
         raise RuntimeError("\n".join(failed))
+
+
+def defined_list(name: str, macro: str) -> Tuple[int, ...]:
+    """The integers of a ``#define <macro> 1, 2, 3`` line of
+    ``csrc/<name>.cu``: what that source is built for, listed once."""
+    src = (CSRC / f"{name}.cu").read_text()
+    m = re.search(rf"^#define {macro} ([0-9, ]+)$", src, re.M)
+    return tuple(int(v) for v in m.group(1).split(","))
 
 
 def library(name: str) -> ctypes.CDLL:

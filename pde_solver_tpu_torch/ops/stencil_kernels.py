@@ -24,7 +24,6 @@ from __future__ import annotations
 
 import copy
 import ctypes
-import re
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -40,26 +39,22 @@ from pde_solver_tpu_torch.ops import cuda_build
 KERNEL_MIN_DOF = 0
 
 
-def _built(name: str) -> Tuple[int, ...]:
-    """A list ``flat_stencil_spmv.cu`` is built for, read from its
-    ``#define FLAT_STENCIL_<name>`` line (the one place it is listed)."""
-    src = (cuda_build.CSRC / "flat_stencil_spmv.cu").read_text()
-    m = re.search(rf"^#define FLAT_STENCIL_{name} ([0-9, ]+)$", src, re.M)
-    return tuple(int(v) for v in m.group(1).split(","))
-
-
 # A FlatStencilOperator on a CUDA device with a vdim or an offset count
-# outside these is refused when it is constructed.
-KERNEL_VDIMS = _built("VDIMS")
-KERNEL_NOFFS = _built("NOFFS")
+# outside these is refused when it is constructed.  Read from the
+# ``#define FLAT_STENCIL_*`` lines of ``flat_stencil_spmv.cu``, the one
+# place they are listed.
+KERNEL_VDIMS = cuda_build.defined_list("flat_stencil_spmv",
+                                       "FLAT_STENCIL_VDIMS")
+KERNEL_NOFFS = cuda_build.defined_list("flat_stencil_spmv",
+                                       "FLAT_STENCIL_NOFFS")
 
 # The weight planes' stride N_pad is N rounded up to this.
 PLANE_ALIGN = 128
 
 # Launches of the port's CUDA kernels in this process, by variant: this
 # module's "v3_f32", "v3_bf16", "v2_f32", "v2_bf16", "v1_f32", "v1_bf16",
-# and the constant-interior pair of ``ops.cs_kernels`` ("cs_main_v1",
-# "cs_window_v1", ...).  Only a kernel launch counts: the CPU plain path
+# and the constant-interior kernel of ``ops.cs_kernels`` ("cs_apply_v1",
+# "cs_apply_v3").  Only a kernel launch counts: the CPU plain path
 # never does.
 KERNEL_LAUNCHES: Dict[str, int] = {}
 
@@ -137,6 +132,11 @@ def _check_kernel_shape(vdim: int, deltas: Sequence[int], device) -> None:
     if len(deltas) not in KERNEL_NOFFS:
         raise ValueError(f"flat_stencil_spmv is built for offset counts in "
                          f"{KERNEL_NOFFS}, not {len(deltas)}")
+    check_row_groups(deltas)
+
+
+def check_row_groups(deltas: Sequence[int]) -> None:
+    """Raise unless the deltas form the row groups the kernels read x by."""
     for first, size in row_groups(len(deltas)):
         if any(deltas[first + s] != deltas[first] + s for s in range(size)):
             raise ValueError(f"offsets {first}..{first + size - 1} (deltas "

@@ -4,9 +4,10 @@ The host analysis is numpy float64 on both sides, so the build artifacts
 (scalar sets, classes, window list, residual weights) must agree bit for
 bit.  On the CPU the port applies through its plain torch version
 (``cs_apply_plain``); the JAX operator runs its Pallas kernels K3/K4 in
-interpret mode.  The CUDA kernels themselves are checked against
-``cs_apply_plain`` on the card by ``test_torch_cuda_kernels.py`` and
-``chip_smoke.py``."""
+interpret mode.  The fused CUDA kernel's host tables are decoded here with
+numpy and must reproduce the plain version bit for bit; the kernel itself
+is checked against ``cs_apply_plain`` on the card by
+``test_torch_cuda_kernels.py`` and ``chip_smoke.py``."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -131,23 +132,158 @@ def test_operator_from_reference_artifacts_is_bit_equal(vdim):
 
 
 def test_kernel_class_test_selects_exactly_the_mask_planes():
-    """What ``cs_main`` computes per node (the coordinate test against the
-    class table, run only near a minor-axis boundary), emulated in numpy,
-    selects exactly the nodes of the plain version's mask planes."""
+    """What the kernel computes per node (the minor-axis codes, taken with
+    its magic divisors, looked up in the code-pair mask table) selects
+    exactly the nodes of the plain version's mask planes, and only nodes
+    the near-boundary threads write."""
     mesh = box_mesh(12, 7, 9, (0, 0, 0), (1, 1, 1))
     sysm = _heat_be_system(mesh)
     op = ck.CSFlatStencilOperator.try_build(
         sysm.offsets, sysm.weights, mesh.node_shape, vdim=1, device="cpu")
     assert op is not None and len(op.descs) > 0
-    n = np.arange(op.N)
+    i1, i2 = _minor_coords(op, np.arange(op.N))
     n1, n2 = op.node_shape[-2:]
-    i2, i1 = n % n2, (n // n2) % n1
-    near = (i1 < 2) | (i1 >= n1 - 2) | (i2 < 2) | (i2 >= n2 - 2)
-    table = op.classes.numpy()
-    masks = op.masks().numpy()
-    for (c1, c2), plane in zip(table, masks):
-        member = near & ((c1 < 0) | (i1 == c1)) & ((c2 < 0) | (i2 == c2))
+    codes = ck.minor_code(i1, n1) * ck.CODES + ck.minor_code(i2, n2)
+    bits = op.set_masks[codes]
+    near = np.zeros(op.N, bool)
+    near[_near_nodes(op.node_shape)] = True
+    for s, plane in enumerate(op.masks().numpy()):
+        member = (bits >> s) & 1 == 1
         assert np.array_equal(member, plane.astype(bool))
+        assert not np.any(member & ~near)
+
+
+def _near_nodes(node_shape) -> np.ndarray:
+    """The nodes with a boundary code on either minor axis, in the order of
+    the kernel's near-boundary threads: per slice of the major axes, the
+    four boundary rows of the first minor axis whole, then the two first and
+    two last nodes of every other row."""
+    n1, n2 = int(node_shape[-2]), int(node_shape[-1])
+    slices = int(np.prod(node_shape[:-2], dtype=np.int64))
+    rows = np.array([0, 1, n1 - 2, n1 - 1])
+    ends = np.array([0, 1, n2 - 2, n2 - 1])
+    per_slice = np.concatenate([
+        (rows[:, None] * n2 + np.arange(n2)[None, :]).reshape(-1),
+        (np.arange(2, n1 - 2)[:, None] * n2 + ends[None, :]).reshape(-1)])
+    return (np.arange(slices)[:, None] * (n1 * n2)
+            + per_slice[None, :]).reshape(-1)
+
+
+def _fdiv(n, d):
+    """floor(n / d) as the kernel takes it: umulhi(n, m) >> s."""
+    m, s = ck.fast_divisor(d)
+    return ((np.asarray(n, np.uint64) * np.uint64(m)) >> np.uint64(32 + s)
+            ).astype(np.int64)
+
+
+def _minor_coords(op, n):
+    n1, n2 = op.node_shape[-2:]
+    q = _fdiv(n, n2)
+    return q - _fdiv(q, n1) * n1, n - q * n2
+
+
+def _near_thread_nodes(op):
+    """The node of every near-boundary thread, as the kernel maps it."""
+    n1, n2 = op.node_shape[-2:]
+    per_slice = 4 * n2 + 4 * (n1 - 4)
+    t = np.arange(op.N // (n1 * n2) * per_slice)
+    i0 = _fdiv(t, per_slice)
+    r = t - i0 * per_slice
+    j = _fdiv(np.minimum(r, 4 * n2 - 1), n2)
+    r2 = r - 4 * n2
+    e = r2 & 3
+    rows = r < 4 * n2
+    i1 = np.where(rows, np.where(j < 2, j, n1 - 4 + j), 2 + (r2 >> 2))
+    i2 = np.where(rows, r - j * n2, np.where(e < 2, e, n2 - 4 + e))
+    return (i0 * n1 + i1) * n2 + i2
+
+
+def _decode_apply(op, x, windows=True):
+    """The kernel's function read from its host tables alone (the term
+    lists, the code-pair mask table, the slot map, the magic divisors) in
+    numpy float32, in the kernel's order: set 0's terms, the class sets of
+    each node's mask, then its window's residual terms per output component
+    over (o, b)."""
+    v, N = op.vdim, op.N
+    xn = x.numpy()
+    n = np.arange(N)
+    xs = []
+    for d in op.deltas:
+        m = n + d
+        inside = (m >= 0) & (m < N)
+        xs.append(np.where(inside, xn[:, np.clip(m, 0, N - 1)],
+                           np.float32(0)))
+
+    def set_sum(terms):
+        acc = np.zeros((v, N), np.float32)
+        for o in range(op.n_off):
+            for b in range(v):
+                for a in range(v):
+                    acc[a] = acc[a] + terms[(o * v + b) * v + a] * xs[o][b]
+        return acc
+
+    i1, i2 = _minor_coords(op, n)
+    n1, n2 = op.node_shape[-2:]
+    bits = op.set_masks[ck.minor_code(i1, n1) * ck.CODES
+                        + ck.minor_code(i2, n2)]
+    y = set_sum(op.terms[0])
+    for s in range(len(op.descs)):
+        member = (bits >> s) & 1 == 1
+        y[:, member] = y[:, member] + set_sum(op.terms[1 + s])[:, member]
+    if windows:
+        slot = op.slots.numpy()[n >> 10]
+        win = slot >= 0
+        t = slot[win].astype(np.int64) * ck.WINDOW + (n[win] & (ck.WINDOW - 1))
+        R = op.Wwin.numpy()
+        for o in range(op.n_off):
+            for b in range(v):
+                for a in range(v):
+                    y[a, win] = (y[a, win]
+                                 + R[(o * v + a) * v + b, t] * xs[o][b][win])
+    return y
+
+
+@pytest.mark.parametrize("vdim,cells", [(1, (40, 6, 6)), (3, (60, 8, 8))])
+def test_kernel_tables_reproduce_the_plain_apply_bit_for_bit(vdim, cells):
+    """The fused kernel's host tables, decoded with numpy, give
+    ``cs_apply_plain`` (with the slot map) and ``cs_main_plain`` (without)
+    exactly; every node is written once, by the node mapping (inner nodes)
+    or by a near-boundary thread.  N is not a multiple of 1024 and the
+    grid's last, partial window is listed."""
+    mesh = box_mesh(*cells, (0, 0, 0), (1.0, 0.25, 0.25))
+    sysm = (_heat_be_system(mesh) if vdim == 1 else _system(3, cells)[1])
+    op = ck.CSFlatStencilOperator.try_build(
+        sysm.offsets, sysm.weights, mesh.node_shape, vdim=vdim, device="cpu")
+    assert op is not None and op.N % ck.WINDOW != 0
+    assert op.windows[-1] == (op.N - 1) // ck.WINDOW
+    x = torch.from_numpy(np.random.default_rng(11).standard_normal(
+        (vdim, op.N)).astype(np.float32))
+    assert np.array_equal(_decode_apply(op, x), ck.cs_apply_plain(op, x))
+    assert np.array_equal(_decode_apply(op, x, windows=False),
+                          ck.cs_main_plain(op, x))
+    near = _near_thread_nodes(op)
+    assert np.array_equal(near, _near_nodes(op.node_shape))
+    i1, i2 = _minor_coords(op, np.arange(op.N))
+    n1, n2 = op.node_shape[-2:]
+    inner = (i1 >= 2) & (i1 < n1 - 2) & (i2 >= 2) & (i2 < n2 - 2)
+    written = np.bincount(near, minlength=op.N) + inner
+    assert np.array_equal(written, np.ones(op.N))
+    assert op.set_masks[ck.INNER * ck.CODES + ck.INNER] == 0
+    assert np.array_equal(
+        op.terms, np.asarray(op.sets, np.float32).reshape(
+            -1, op.n_off, vdim, vdim).transpose(0, 1, 3, 2).reshape(
+                len(op.sets), -1))
+
+
+def test_fast_divisor_gives_the_exact_quotient():
+    rng = np.random.default_rng(12)
+    n = np.concatenate([np.arange(1 << 16), rng.integers(0, 1 << 31, 1 << 16),
+                        [(1 << 31) - 1]])
+    for d in (2, 3, 5, 7, 9, 41, 65, 129, 504, 1016, 1 << 10, 4097, 65537,
+              (1 << 30) + 3):
+        m, s = ck.fast_divisor(d)
+        assert 0 < m < 1 << 32 and 0 <= s < 32
+        assert np.array_equal(_fdiv(n, d), n // d)
 
 
 def test_heat_operator_sets_and_windows_match_reference():
@@ -251,6 +387,7 @@ def test_wrapper_rejects_a_mismatched_device_and_launches_nothing_on_cpu():
     op.apply_flat(torch.zeros((1, op.N)))
     assert op.launches == 0 and not sk.KERNEL_LAUNCHES
     with pytest.raises(ValueError):
-        op.launch_main(torch.zeros((1, op.N), dtype=torch.float64))
+        op.launch(torch.zeros((1, op.N), dtype=torch.float64))
     with pytest.raises(ValueError):
-        op.launch_window(torch.zeros((1, op.N)), torch.zeros((1, op.N + 1)))
+        op.launch(torch.zeros((1, op.N + 1)), windows=False)
+    assert op.launches == 0 and not sk.KERNEL_LAUNCHES
