@@ -44,17 +44,21 @@
    the kernel alone), where the share is one of HBM.
 5. Small checks on the card against host solves: a 16×8×8 cantilever
    against sparse LU (von Mises within 1e-6 of its max), and a 40×6×6
-   heat transient (5 steps, MG-PCG, constant-interior operator) against a
-   float64 backward Euler with scipy (within 1e-6·max|T|).
+   heat transient (5 steps, MG-PCG, constant-interior operator, the CS
+   route's size gate ``cs_kernels.CS_MIN_DOF`` lowered for this check)
+   against a float64 backward Euler with scipy (within 1e-6·max|T|).
 6. The main paths through the public API, each with the launch counts set
    to 0 just before and read just after:
    - the flagship, 3D static elasticity of a 1 m × 0.2 m × 0.2 m
      cantilever under gravity on 160×64×64 cells (2,040,675 DOF), with
-     ``PDE_TPU_CS`` 0 (dense kernels) and 1 (constant-interior kernels);
+     ``PDE_TPU_CS`` 0 (dense kernels), 1 (constant-interior kernels) and
+     "hybrid" (constant-interior residuals, dense bf16 smoothing);
    - the heat slice, ``solve_heat_3D(nx=ny=nz=128)`` (20 backward-Euler
      steps on 2,146,689 DOF), with ``PDE_TPU_CS`` 0 and 1.
-   Checks convergence, finite fields of the expected shape, that the two
-   routes agree, and that each run launched its kernels.  Every dense
+   Checks convergence, finite fields of the expected shape, that the
+   routes agree, that each run launched its kernels, and that the CS
+   routes built their operator on the two levels of at least 65,536 DOF
+   and no other.  Every dense
    operator a run launched and every constant-interior operator it built
    (each MG level and weight dtype, each step operator, the projection)
    is then held against its plain version at its own shape (each CS
@@ -91,6 +95,28 @@
    521×515, 513×517 and 515×517 nodes (wide path, N mod 8 = 3, 5, 7) on
    four inputs (relative max error ≤ 1e-5, where three planted faults must
    read > 1e-4), and timed at 257² and 1025² as in 3.
+8. The ``_mixed``, nonlinear and advection tools, each run a main path of
+   its own:
+   - full width, ``solve_heat_3D_mixed(nx=ny=nz=128)``: 20 steps with a
+     sinusoidally driven Dirichlet face, a Robin face and a flux face,
+     MG-PCG per step (counted), ``PDE_TPU_CS`` 0 and 1 (a refusal of the CS
+     build is printed and the run then must have stayed on the dense
+     kernel); both trajectories against a float64 θ-scheme written from
+     the weak form (face mass, surface load, g(t) at the new time level),
+     solved on the card; ``solve_heat_2D_mixed`` at 256² against the same
+     stepping on the host;
+   - full width, ``solve_advection_3D(nx=ny=nz=128)``: 20 CNAB2 steps, flat
+     CG on K1 at 15 offsets, ``PDE_TPU_CS`` 0 and 1, against a float64
+     CNAB2 stepping on the card; one ``scheme="ab1"`` run at 64³ the same
+     way; ``solve_advection_2D`` at 256² against the host stepping;
+   - closed forms within the bounds of the JAX package's own tests: the 1D
+     Dirichlet–Robin and Dirichlet–flux lines and the sphere's A + B/r
+     (by host sparse LU as a default call takes them, and on the card with
+     ``host_direct_threshold=0``), the thermal wave (1,024 Crank–Nicolson
+     steps), the Kirchhoff profile of κ(T) = κ0(1 + βT), the advected
+     Gaussian; ``solve_heat_2D_nonlinear`` at 256² (66,049 DOF, f32 CG on
+     K1 with float64 refinement) against a float64 Picard iteration with
+     sparse LU on the host.
    Every dense operator a main-path run launched has its offset count
    recorded (all must be built ones: 3, 7, 15), and each shape and
    variant is timed once (profiler device ms, share of its bound).
@@ -212,6 +238,43 @@ CS_RAGGED = ((1, (40, 12, 14)), (3, (44, 10, 12)), (1, (64, 64, 66)),
 # the readings and what a wrong route gives
 HEAT_ROUTE_TOL = 1e-5
 HEAT_F64_TOL = 3e-4
+# the _mixed slice at full width: solve_heat_3D_mixed on 128³ cells, all
+# three face kinds and the driving at once (every face not named insulated)
+MIXED_3D = dict(nx=128, ny=128, nz=128, num_steps=20, dt=0.01,
+                boundary_conditions={
+                    "left": {"type": "dirichlet", "value": 100.0,
+                             "amplitude": 20.0, "period": 0.1},
+                    "right": {"type": "robin", "h": 5.0, "T_ambient": 20.0},
+                    "top": {"type": "neumann", "flux": 50.0}})
+# the advection slice at full width: solve_advection_3D on 128³ cells, CNAB2
+# (CFL 0.64, cell Péclet 0.39), and one "ab1" run at 64³
+ADVECTION_3D = dict(nx=128, ny=128, nz=128, dt=0.005, num_steps=20)
+ADVECTION_AB1 = dict(nx=64, ny=64, nz=64, dt=0.005, num_steps=20,
+                     scheme="ab1")
+MIXED_2D = dict(nx=256, ny=256)               # 50 steps of Δt = 0.01
+ADVECTION_2D = dict(nx=256, ny=256)           # 200 CNAB2 steps of Δt = 0.002
+NONLINEAR_2D = dict(nx=256, ny=256, T_left=100.0, beta=0.01)
+# float32 scans against float64 at Δt/h² = 655 (2D _mixed, backward Euler;
+# BASELINE 1 reads 1.9e-4 at 813).  Advection's step operator is M + ½ΔtκK,
+# close to the mass matrix, so float32 costs little; each step is solved to
+# 1e-6 of ‖b̂‖ and the errors are carried along, not damped, so n steps may
+# add up to n·1e-6 (H100: 4.0e-6 after 20 steps at 129³, 1.6e-5 after 200
+# at 257²)
+MIXED_2D_TOL = 1e-3
+# A step of the _mixed tools stops at ‖r‖ ≤ transient_inner_tol·‖b̂‖, and b̂
+# holds the Dirichlet values themselves on the constrained rows (unit
+# diagonal): at 129³ with a face at 100 °C those rows carry ‖b̂‖ (14,190
+# against 20 for all free rows), so the default 1e-6 is an effective 7e-4
+# on the free rows, in both packages.  The default-tolerance runs are held
+# to MIXED_DEFAULT_TOL (H100: 2.6e-3 from float64 at 129³, routes 2.2e-3
+# apart); the runs at MIXED_TIGHT_TOL to the heat slice's bounds.
+MIXED_DEFAULT_TOL = 1e-2
+MIXED_TIGHT_TOL = 1e-9
+# the two routes at MIXED_TIGHT_TOL: both float32 trajectories lie 2.2e-4
+# from float64 at 129³ (temperatures to 120 °C, a Robin face), 1.4e-5 from
+# each other (H100), where the heat slice's stay within HEAT_ROUTE_TOL
+MIXED_ROUTE_TOL = 5e-5
+ADVECTION_F64_TOL = 1e-4
 
 
 def check(ok: bool, msg: str) -> None:
@@ -779,18 +842,42 @@ def field(result):
             np.asarray(f.times, dtype=np.float64))
 
 
-def heat_matrices(mesh, pairs, dt=None, theta=1.0, weight_fn=None,
-                  quad_degree=4):
-    """A heat problem's float64 matrices as scipy CSR, assembled as
-    ``models.heat.solve_heat_problem`` assembles them (κ = 1): the implicit
-    operator A = M + θΔt·K masked (Dirichlet rows and columns zeroed, 1 on
-    their diagonal), the explicit B = M − (1−θ)Δt·K, the free mask, the
-    Dirichlet values g and the lift A·g with A unmasked.  ``dt=None`` gives
-    the steady system: A = K, no B."""
+def stencil_csr(stencil, shape):
+    """A scalar numpy stencil {offset: weights} on a grid of ``shape`` as a
+    float64 scipy CSR matrix, nodes in C order."""
     import numpy as np
     import scipy.sparse as sp
 
-    from pde_solver_tpu_torch.ops import assembly
+    N = int(np.prod(shape))
+    strides = np.cumprod((1,) + tuple(shape[::-1]))[:-1][::-1]
+    node = np.arange(N)
+    rows, cols, vals = [], [], []
+    for off, W in stencil.items():
+        c = node + int(np.dot(off, strides))
+        ok = (c >= 0) & (c < N)
+        rows.append(node[ok])
+        cols.append(c[ok])
+        vals.append(np.asarray(W, np.float64).reshape(-1)[ok])
+    return sp.csr_matrix((np.concatenate(vals), (np.concatenate(rows),
+                                                 np.concatenate(cols))),
+                         shape=(N, N))
+
+
+def heat_matrices(mesh, pairs, dt=None, theta=1.0, weight_fn=None,
+                  quad_degree=4, kappa=1.0, robin=(), velocity=None):
+    """A heat problem's float64 matrices as scipy CSR, from the weak form:
+    stiffness K = ∫ κ w ∇u·∇v plus the Robin face mass Σ_Γ ∫_Γ h w u v ds,
+    mass M = ∫ w u v.  Returns the implicit operator A = M + θΔt·K masked
+    (Dirichlet rows and columns zeroed, 1 on their diagonal), the explicit
+    B = M − (1−θ)Δt·K, the free mask, the Dirichlet values g, the lift A·g
+    with A unmasked, that unmasked A, and, with a ``velocity``, the
+    convection matrix C = ∫ (v·∇u) w (else None).  ``dt=None`` gives the
+    steady system: A = K, no B.  ``robin``: (axis, side, h, T_inf) per
+    face."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    from pde_solver_tpu_torch.ops import assembly, surface
     from pde_solver_tpu_torch.ops.bc import DirichletBC
 
     weighted = weight_fn is not None
@@ -801,44 +888,46 @@ def heat_matrices(mesh, pairs, dt=None, theta=1.0, weight_fn=None,
         mesh, "mass", weight_fn=weight_fn,
         quad_degree=max(quad_degree, 2) if weighted else 2)
     shape = mesh.node_shape
-    N = int(np.prod(shape))
-    strides = np.cumprod((1,) + tuple(shape[::-1]))[:-1][::-1]
-    node = np.arange(N)
 
     def csr(stencil):
-        rows, cols, vals = [], [], []
-        for off, W in stencil.items():
-            c = node + int(np.dot(off, strides))
-            ok = (c >= 0) & (c < N)
-            rows.append(node[ok])
-            cols.append(c[ok])
-            vals.append(np.asarray(W, np.float64).reshape(-1)[ok])
-        return sp.csr_matrix((np.concatenate(vals), (np.concatenate(rows),
-                                                     np.concatenate(cols))),
-                             shape=(N, N))
+        return stencil_csr(stencil, shape)
 
-    Kc = csr(K)
+    Kc = kappa * csr(K)
+    for axis, side, h, _ in robin:
+        Kc = Kc + csr(surface.assemble_face_mass(mesh, axis, side, coeff=h,
+                                                 weight_fn=weight_fn))
+    Kc = Kc.tocsr()
     if dt is None:
         A, B = Kc, None
     else:
         Mc = csr(M)
-        A = Mc + (theta * dt) * Kc
+        A = (Mc + (theta * dt) * Kc).tocsr()
         B = (Mc - ((1.0 - theta) * dt) * Kc).tocsr()
     bc = DirichletBC.from_masks(pairs, shape)
     free = np.asarray(bc.free_mask, np.float64).reshape(-1)
     g = (np.asarray(bc.values, np.float64) * (1.0 - bc.free_mask)).reshape(-1)
     P = sp.diags(free)
     A_masked = (P @ A @ P + sp.diags(1.0 - free)).tocsr()
-    return A_masked, B, free, g, A @ g
+    C = None if velocity is None else csr(
+        assembly.assemble_convection_stencil(
+            mesh, np.asarray(velocity, np.float64)))
+    return A_masked, B, free, g, A @ g, A, C
 
 
-def heat_load(mesh, source, weight_fn=None, quad_degree=4):
-    """Flat float64 load of a constant source, as the heat tools assemble
-    it."""
-    from pde_solver_tpu_torch.ops import assembly
+def heat_load(mesh, source, weight_fn=None, quad_degree=4, robin=(), flux=()):
+    """Flat float64 load: a constant source ∫ w f v, the Robin faces'
+    ∫_Γ h T_inf w v ds and the flux faces' ∫_Γ q_in w v ds."""
+    from pde_solver_tpu_torch.ops import assembly, surface
 
-    return source * assembly.assemble_load(
-        mesh, weight_fn=weight_fn, quad_degree=quad_degree).reshape(-1)
+    b = source * assembly.assemble_load(mesh, weight_fn=weight_fn,
+                                        quad_degree=quad_degree)
+    for axis, side, coeff in ([(a, s, h * t_inf) for a, s, h, t_inf in robin]
+                              + list(flux)):
+        if coeff:
+            b = b + surface.assemble_face_load(
+                mesh, axis, side, coeff=coeff, weight_fn=weight_fn,
+                quad_degree=quad_degree)
+    return b.reshape(-1)
 
 
 def heat_steady_f64(mesh, pairs, source=0.0, weight_fn=None, quad_degree=4):
@@ -847,36 +936,65 @@ def heat_steady_f64(mesh, pairs, source=0.0, weight_fn=None, quad_degree=4):
 
     from pde_solver_tpu_torch.mesh import flatten_values
 
-    A, _, free, g, Ag = heat_matrices(mesh, pairs, None,
-                                      weight_fn=weight_fn,
-                                      quad_degree=quad_degree)
+    A, _, free, g, Ag, _, _ = heat_matrices(mesh, pairs, None,
+                                            weight_fn=weight_fn,
+                                            quad_degree=quad_degree)
     b = heat_load(mesh, source, weight_fn, quad_degree)
     u = spla.spsolve(A.tocsc(), free * (b - Ag) + g)
     return flatten_values(u.reshape(mesh.node_shape), mesh.dim)
 
 
 def theta_scheme_f64(mesh, pairs, dt, num_steps, theta=1.0, T_initial=20.0,
-                     source=0.0, weight_fn=None, quad_degree=4, device=None):
-    """Float64 θ-scheme of a heat transient: per step, solve the masked
-    M + θΔt·K with the right side free ⊙ (B uⁿ + Δt·b − A g) + g.  On the
-    host (no ``device``) by scipy sparse LU; on ``device`` by Jacobi-PCG on
-    torch sparse CSR, warm-started, to a true relative residual ≤ 1e-12.
-    Returns the flat trajectory [num_steps + 1, N]."""
+                     source=0.0, weight_fn=None, quad_degree=4, device=None,
+                     kappa=1.0, robin=(), flux=(), amp_pairs=(), omega=0.0,
+                     phase=0.0, velocity=None, scheme="cnab2", u0=None):
+    """Float64 θ-scheme of a heat or advection-diffusion transient, written
+    from the weak form: per step, solve the masked M + θΔt·K with the right
+    side free ⊙ (B uⁿ + Δt·b − c − A g(t_{n+1})) + g(t_{n+1}).  Dirichlet
+    data g(t) = g + sin(ωt + φ)·g₁ on the faces of ``amp_pairs`` (mask,
+    amplitude); c the explicit convection Δt·C uⁿ ("ab1") or its
+    Adams-Bashforth-2 extrapolation Δt·(3/2 C uⁿ − 1/2 C uⁿ⁻¹) with u⁻¹ = u⁰
+    ("cnab2").  ``u0`` (node-shaped) replaces the constant initial field.
+    On the host (no ``device``) by scipy sparse LU; on ``device`` by
+    Jacobi-PCG on torch sparse CSR, warm-started, to a true relative
+    residual ≤ 1e-12.  Returns the flat trajectory [num_steps + 1, N]."""
+    import math
+
     import numpy as np
     import scipy.sparse.linalg as spla
 
     from pde_solver_tpu_torch.mesh import flatten_values
 
-    A, B, free, g, Ag = heat_matrices(mesh, pairs, dt, theta, weight_fn,
-                                      quad_degree)
-    b = dt * heat_load(mesh, source, weight_fn, quad_degree)
-    lift = b - Ag
-    u = T_initial * free + g
+    A, B, free, g, Ag, A_full, C = heat_matrices(
+        mesh, pairs, dt, theta, weight_fn, quad_degree, kappa, robin,
+        velocity)
+    b = dt * heat_load(mesh, source, weight_fn, quad_degree, robin, flux)
+    g1 = np.zeros_like(g)
+    for mask, amp in amp_pairs:
+        g1 = np.where(np.asarray(mask).reshape(-1), amp, g1)
+    g1 = g1 * (1.0 - free)
+    Ag1 = A_full @ g1
+    driven = bool(len(amp_pairs)) and omega != 0.0
+    ab2 = scheme == "cnab2"
+    start = (np.full(g.shape, float(T_initial)) if u0 is None
+             else np.asarray(u0, np.float64).reshape(-1))
+    u = start * free + g
     frames = [u]
+
+    def sin_at(step):
+        return math.sin(omega * (step * dt) + phase) if driven else 0.0
+
     if device is None:
         lu = spla.splu(A.tocsc())
-        for _ in range(num_steps):
-            u = lu.solve(free * (B @ u + lift) + g)
+        u_prev = u
+        for n in range(num_steps):
+            s1 = sin_at(n + 1)
+            rhs = B @ u + b - (Ag + s1 * Ag1)
+            if C is not None:
+                Cu = C @ u
+                rhs = rhs - dt * ((1.5 * Cu - 0.5 * (C @ u_prev)) if ab2
+                                  else Cu)
+            u_prev, u = u, lu.solve(free * rhs + g + s1 * g1)
             frames.append(u)
     else:
         import torch
@@ -889,18 +1007,28 @@ def theta_scheme_f64(mesh, pairs, dt, num_steps, theta=1.0, T_initial=20.0,
                 dtype=torch.float64).to(device)
 
         Ad, Bd = dev_csr(A), dev_csr(B)
+        Cd = None if C is None else dev_csr(C.tocsr())
         dinv = torch.from_numpy(1.0 / A.diagonal()).to(device)
-        fr, gd, ld = (torch.from_numpy(a).to(device) for a in (free, g, lift))
+        fr, gd, bd, Agd, g1d, Ag1d = (torch.from_numpy(a).to(device)
+                                      for a in (free, g, b, Ag, g1, Ag1))
 
         def mv(S, v):
             return (S @ v[:, None])[:, 0]
 
         x = torch.from_numpy(u).to(device)
+        x_prev = x
         iters = 0
-        for _ in range(num_steps):
-            b = fr * (mv(Bd, x) + ld) + gd
-            bn = float(torch.linalg.vector_norm(b))
-            r = b - mv(Ad, x)
+        for n in range(num_steps):
+            s1 = sin_at(n + 1)
+            rhs = mv(Bd, x) + bd - (Agd + s1 * Ag1d)
+            if Cd is not None:
+                Cx = mv(Cd, x)
+                rhs = rhs - dt * ((1.5 * Cx - 0.5 * mv(Cd, x_prev)) if ab2
+                                  else Cx)
+            rhs = fr * rhs + gd + s1 * g1d
+            x_prev = x
+            bn = float(torch.linalg.vector_norm(rhs))
+            r = rhs - mv(Ad, x)
             z = dinv * r
             p, rz = z, torch.dot(r, z)
             for it in range(1, 20001):
@@ -909,19 +1037,19 @@ def theta_scheme_f64(mesh, pairs, dt, num_steps, theta=1.0, T_initial=20.0,
                 x = x + alpha * p
                 r = r - alpha * Ap
                 if it % 25 == 0 and float(torch.linalg.vector_norm(
-                        b - mv(Ad, x))) <= 1e-12 * bn:
+                        rhs - mv(Ad, x))) <= 1e-12 * bn:
                     break
                 z = dinv * r
                 rz_new = torch.dot(r, z)
                 p, rz = z + (rz_new / rz) * p, rz_new
-            relres = float(torch.linalg.vector_norm(b - mv(Ad, x))) / bn
+            relres = float(torch.linalg.vector_norm(rhs - mv(Ad, x))) / bn
             check(relres <= 1e-12, f"float64 reference step: relres "
                   f"{relres:.3e} after {it} iterations")
             iters += it
             frames.append(x.cpu().numpy())
         print(f"float64 reference {mesh.n_cells} cells: {iters} PCG "
               f"iterations over {num_steps} steps", flush=True)
-        del Ad, Bd
+        del Ad, Bd, Cd
     return np.stack([flatten_values(f.reshape(mesh.node_shape), mesh.dim)
                      for f in frames])
 
@@ -1340,6 +1468,494 @@ def curvilinear_phase(api, drive, data_dir):
                     check(lc.get("v1_f32", 0) > 0, f"{tool}: no v1_f32")
 
 
+def face_terms(mesh, spec, dim):
+    """A ``boundary_conditions`` dict as the reference stepping takes it:
+    Dirichlet (mask, value) pairs, Robin (axis, side, h, T_inf) and flux
+    (axis, side, q) faces, driven (mask, amplitude) pairs and their (ω, φ).
+    Written for the specs this script uses: faces named left/right (x),
+    front/back or bottom/top (the second axis in 2D, y and z in 3D)."""
+    import math
+
+    names = {"left": (0, 0), "right": (0, 1)}
+    names.update({"bottom": (1, 0), "top": (1, 1)} if dim == 2 else
+                 {"front": (1, 0), "back": (1, 1), "bottom": (2, 0),
+                  "top": (2, 1)})
+    pairs, robin, flux, amp, omega, phase = [], [], [], [], 0.0, 0.0
+    for face, sp in spec.items():
+        axis, side = names[face]
+        if not isinstance(sp, dict):
+            sp = {"type": "dirichlet", "value": sp}
+        if sp["type"] == "dirichlet":
+            pairs.append((mesh.face_mask(axis, side), float(sp["value"])))
+            if sp.get("amplitude"):
+                amp.append((mesh.face_mask(axis, side), sp["amplitude"]))
+                omega = 2.0 * math.pi / sp["period"]
+                phase = sp.get("phase", 0.0)
+        elif sp["type"] == "robin":
+            robin.append((axis, side, sp["h"], sp["T_ambient"]))
+        elif sp["type"] == "neumann":
+            flux.append((axis, side, sp["flux"]))
+    return dict(pairs=pairs, robin=robin, flux=flux, amp_pairs=amp,
+                omega=omega, phase=phase)
+
+
+def scan_line(label, st, steps, launches, extra=""):
+    print(f"{label}: setup/scan/fetch={st['setup_seconds']:.3f}/"
+          f"{st['scan_seconds']:.3f}/{st['fetch_seconds']:.3f} s steps/s="
+          f"{steps / st['scan_seconds']:.3f} iterations/step="
+          f"{st['cg_iterations'] / steps:.2f} relres="
+          f"{st['relative_residual']:.3e} launches={launches}{extra}",
+          flush=True)
+
+
+def count_calls(module, name):
+    """Count the calls of ``module.name``; returns the one-element list it
+    counts in."""
+    n = [0]
+    orig = getattr(module, name)
+
+    def counted(*a, **kw):
+        n[0] += 1
+        return orig(*a, **kw)
+
+    setattr(module, name, counted)
+    return n
+
+
+def mixed_phase(api, run, hold_cs, data_dir, full=MIXED_3D, flat=MIXED_2D):
+    """The ``_mixed`` tools on the card.  Full width: ``solve_heat_3D_mixed``
+    with a driven Dirichlet face, a Robin face and a flux face, MG-PCG per
+    step, with ``PDE_TPU_CS`` 0 and 1, at the default step tolerance and at
+    ``MIXED_TIGHT_TOL``, each held against a float64 θ-scheme of the same
+    weak form on the card; then ``solve_heat_2D_mixed`` (flat CG) against
+    the float64 stepping on the host.  ``run(label, cs, fn)`` is one
+    main-path run, ``hold_cs(built, label)`` holds the CS operators it
+    built against plain."""
+    import numpy as np
+    import torch
+
+    from pde_solver_tpu_torch.config import config_overrides
+    from pde_solver_tpu_torch.mesh import box_mesh, rectangle_mesh
+    from pde_solver_tpu_torch.ops import multigrid as mg
+
+    steps, dt = full["num_steps"], full["dt"]
+    n = (full["nx"] + 1) * (full["ny"] + 1) * (full["nz"] + 1)
+    mg_calls = count_calls(mg, "mg_pcg")
+    tols = (("", {}), (f" tol={MIXED_TIGHT_TOL:.0e}",
+                       dict(transient_inner_tol=MIXED_TIGHT_TOL)))
+    T_runs = {}
+    for tag, cfg in tols:
+        for cs in ("0", "1"):
+            mg_calls[0] = 0
+            label = f"mixed 3D{tag} PDE_TPU_CS={cs}"
+            with config_overrides(**cfg):
+                res, st, launches, cs_built = run(
+                    label, cs, lambda: api.solve_heat_3D_mixed(
+                        **full, data_dir=data_dir))
+            T, times = field(res)
+            os.remove(res.data_file)
+            T_runs[tag, cs] = T
+            refused = [s for s, op, *_ in cs_built if op is None]
+            scan_line(label, st, steps, launches,
+                      f" MG-PCG step solves={mg_calls[0]} CS levels="
+                      f"{[s for s, op, *_ in cs_built if op is not None]} "
+                      f"CS refused at={refused}")
+            check(st["num_dofs"] == n, f"{label}: dof count {st['num_dofs']}")
+            check(mg_calls[0] == steps, f"{label}: {mg_calls[0]} MG-PCG "
+                  f"step solves in {steps} steps")
+            check(bool(st["converged"]) and st["relative_residual"]
+                  <= st["convergence_target"],
+                  f"{label} did not converge: {st}")
+            check(T.shape == (steps + 1, n) and times.shape == (steps + 1,)
+                  and bool(np.all(np.isfinite(T))),
+                  f"{label}: field {T.shape}")
+            if cs == "0":
+                for name in ("v1_f32", "v1_bf16"):
+                    check(launches.get(name, 0) > 0,
+                          f"{label} launched no {name}")
+                check(not any(k.startswith("cs_") for k in launches),
+                      f"{label} launched CS kernels")
+            else:
+                built = [op for _, op, *_ in cs_built if op is not None]
+                check(bool(cs_built), f"{label}: the CS route was never "
+                      f"tried")
+                if built:
+                    check(launches.get("cs_apply_v1", 0) > 0,
+                          f"{label} built CS operators and launched none")
+                    fine = built[0]
+                    print(f"{label}: fine-level CS operator n_win="
+                          f"{fine.n_win} ({fine.n_win * 1024 / fine.N:.4f} "
+                          f"of the nodes) sets={len(fine.sets)}", flush=True)
+                    hold_cs(cs_built, label)
+                else:
+                    print(f"{label}: try_build refused every level "
+                          f"{refused}; the run stayed on the dense kernel",
+                          flush=True)
+                    check(launches.get("v1_f32", 0) > 0,
+                          f"{label}: refused and launched no dense kernel")
+            del cs_built
+    t0 = time.perf_counter()
+    mesh = box_mesh(full["nx"], full["ny"], full["nz"], (0.0, 0.0, 0.0),
+                    (1.0, 1.0, 1.0))
+    T_ref = theta_scheme_f64(mesh, dt=dt, num_steps=steps, T_initial=20.0,
+                             device="cuda", **face_terms(
+                                 mesh, full["boundary_conditions"], 3))
+    torch.cuda.empty_cache()
+    scale = np.abs(T_ref).max()
+    left = mesh.flat_node_coords()[:, 0] == 0.0
+    g_t = (100.0 + 20.0 * np.sin(2.0 * np.pi / 0.1 * dt
+                                 * np.arange(1, steps + 1)))[:, None]
+    print(f"mixed 3D: float64 reference {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    for (tag, _), bound_f64, bound_route in zip(
+            tols, (MIXED_DEFAULT_TOL, HEAT_F64_TOL),
+            (MIXED_DEFAULT_TOL, MIXED_ROUTE_TOL)):
+        T0, T1 = T_runs[tag, "0"], T_runs[tag, "1"]
+        gaps = [float(np.abs(T - T_ref).max() / scale) for T in (T0, T1)]
+        gap = float(np.abs(T1 - T0).max() / scale)
+        drive_err = float(np.abs(T0[1:, left] - g_t).max())
+        print(f"mixed 3D{tag}: max|ΔT|/max|T|: CS vs dense={gap:.3e} (bound "
+              f"{bound_route}), dense vs f64={gaps[0]:.3e}, CS vs f64="
+              f"{gaps[1]:.3e} (bound {bound_f64}); driven face off "
+              f"100 + 20 sin(ωt) by {drive_err:.3e}", flush=True)
+        check(gap <= bound_route, f"mixed 3D{tag} routes differ by "
+              f"{gap:.3e}")
+        check(drive_err <= 1e-4, f"mixed 3D{tag} driven face off by "
+              f"{drive_err:.3e}")
+        check(max(gaps) <= bound_f64, f"mixed 3D{tag} off the float64 "
+              f"trajectory by {max(gaps):.3e}")
+    del T_runs, T_ref
+
+    # 2D at 256²: flat CG through K1 v1 at 7 offsets, against the host
+    spec = dict(full["boundary_conditions"])
+    mesh = rectangle_mesh(flat["nx"], flat["ny"], (0.0, 0.0), (1.0, 1.0))
+    T_ref = theta_scheme_f64(mesh, dt=0.01, num_steps=50, T_initial=20.0,
+                             **face_terms(mesh, spec, 2))
+    for (tag, cfg), bound_ in zip(tols, (MIXED_DEFAULT_TOL, MIXED_2D_TOL)):
+        label = f"mixed 2D{tag}"
+        with config_overrides(**cfg):
+            res, st, launches, _ = run(label, "0", lambda:
+                                       api.solve_heat_2D_mixed(
+                                           **flat, boundary_conditions=spec,
+                                           data_dir=data_dir))
+        T, _ = field(res)
+        gap = float(np.abs(T - T_ref).max() / np.abs(T_ref).max())
+        scan_line(label, st, 50, launches,
+                  f" vs host f64 backward Euler max|ΔT|/max|T|={gap:.3e} "
+                  f"(bound {bound_})")
+        check(bool(st["converged"]) and T.shape == T_ref.shape,
+              f"{label} did not converge: {st}")
+        check(gap <= bound_, f"{label} off float64 by {gap:.3e}")
+        check(launches.get("v1_f32", 0) > 0, f"{label} launched no v1_f32")
+
+
+def gaussian_pulse(mesh, width, amplitude=1.0):
+    """The advection tools' default initial field: a Gaussian pulse at the
+    middle of the domain, zero on the boundary."""
+    import numpy as np
+
+    x = mesh.node_coords
+    r2 = sum((x[..., a] - (mesh.origin[a] + 0.5 * mesh.extent[a])) ** 2
+             for a in range(mesh.dim))
+    return np.where(mesh.boundary_mask(), 0.0,
+                    amplitude * np.exp(-r2 / (2.0 * width ** 2)))
+
+
+def advection_phase(api, run, hold_cs, data_dir, full=ADVECTION_3D,
+                    ab1=ADVECTION_AB1, flat=ADVECTION_2D):
+    """The advection tools on the card.  Full width: ``solve_advection_3D``
+    (CNAB2, flat CG on K1 v1 at 15 offsets) with ``PDE_TPU_CS`` 0 and 1,
+    held against a float64 CNAB2 stepping on the card; one "ab1" run at a
+    smaller size the same way; ``solve_advection_2D`` against the float64
+    stepping on the host."""
+    import numpy as np
+    import torch
+
+    from pde_solver_tpu_torch.mesh import box_mesh, rectangle_mesh
+
+    def reference(kw, scheme, device):
+        mesh = box_mesh(kw["nx"], kw["ny"], kw["nz"], (0.0, 0.0, 0.0),
+                        (1.0, 1.0, 1.0))
+        return theta_scheme_f64(
+            mesh, [(mesh.boundary_mask(), 0.0)], kw["dt"], kw["num_steps"],
+            theta=0.5 if scheme == "cnab2" else 1.0,
+            kappa=kw.get("diffusivity", 0.01), velocity=[1.0, 0.0, 0.0],
+            scheme=scheme,
+            u0=gaussian_pulse(mesh, 0.15), device=device)
+
+    steps = full["num_steps"]
+    n = (full["nx"] + 1) * (full["ny"] + 1) * (full["nz"] + 1)
+    c_runs = {}
+    for cs in ("0", "1"):
+        label = f"advection 3D PDE_TPU_CS={cs}"
+        res, st, launches, cs_built = run(
+            label, cs, lambda: api.solve_advection_3D(**full,
+                                                      data_dir=data_dir))
+        c, times = field(res)
+        os.remove(res.data_file)
+        c_runs[cs] = c
+        scan_line(label, st, steps, launches,
+                  f" cfl={st['cfl']:.3f} cell_peclet={st['cell_peclet']:.3f} "
+                  f"scheme={st['scheme']}")
+        check(st["num_dofs"] == n and st["scheme"] == "cnab2",
+              f"{label}: {st}")
+        check(st["cfl"] < 1.0 and st["cell_peclet"] < 2.0, f"{label}: {st}")
+        check(bool(st["converged"]) and st["relative_residual"]
+              <= st["convergence_target"], f"{label} did not converge: {st}")
+        check(c.shape == (steps + 1, n) and times.shape == (steps + 1,)
+              and bool(np.all(np.isfinite(c))), f"{label}: field {c.shape}")
+        if cs == "0":
+            check(launches.get("v1_f32", 0) > 0, f"{label}: no v1_f32")
+            check(not any(k.startswith("cs_") for k in launches),
+                  f"{label} launched CS kernels")
+        else:
+            built = [op for _, op, *_ in cs_built if op is not None]
+            check(bool(cs_built), f"{label}: the CS route was never tried")
+            if built:
+                check(launches.get("cs_apply_v1", 0) > 0,
+                      f"{label} built a CS operator and launched none")
+                hold_cs(cs_built, label)
+            else:
+                print(f"{label}: try_build refused "
+                      f"{[s for s, *_ in cs_built]}; the run stayed on the "
+                      f"dense kernel", flush=True)
+                check(launches.get("v1_f32", 0) > 0, f"{label}: no v1_f32")
+        del cs_built
+    t0 = time.perf_counter()
+    c_ref = reference(full, "cnab2", "cuda")
+    torch.cuda.empty_cache()
+    scale = np.abs(c_ref).max()
+    gaps = {cs: float(np.abs(c - c_ref).max() / scale)
+            for cs, c in c_runs.items()}
+    gap = float(np.abs(c_runs["1"] - c_runs["0"]).max() / scale)
+    print(f"advection 3D: float64 CNAB2 reference "
+          f"{time.perf_counter() - t0:.3f} s; max|Δc|/max|c|: CS vs dense="
+          f"{gap:.3e}, dense vs f64={gaps['0']:.3e}, CS vs f64="
+          f"{gaps['1']:.3e} (bound {ADVECTION_F64_TOL})", flush=True)
+    check(gap <= HEAT_ROUTE_TOL, f"advection 3D routes differ by {gap:.3e}")
+    for cs, g in gaps.items():
+        check(g <= ADVECTION_F64_TOL, f"advection 3D (PDE_TPU_CS={cs}) off "
+              f"the float64 trajectory by {g:.3e}")
+    del c_runs, c_ref
+
+    res, st, launches, _ = run("advection 3D ab1", "0", lambda:
+                               api.solve_advection_3D(**ab1,
+                                                      data_dir=data_dir))
+    c = field(res)[0]
+    c_ref = reference(ab1, "ab1", "cuda")
+    torch.cuda.empty_cache()
+    gap = float(np.abs(c - c_ref).max() / np.abs(c_ref).max())
+    scan_line("advection 3D ab1", st, ab1["num_steps"], launches,
+              f" scheme={st['scheme']} vs f64 AB1 max|Δc|/max|c|={gap:.3e} "
+              f"(bound {ADVECTION_F64_TOL})")
+    check(bool(st["converged"]) and st["scheme"] == "ab1"
+          and gap <= ADVECTION_F64_TOL, f"advection ab1 off by {gap:.3e}")
+    check(launches.get("v1_f32", 0) > 0, "advection ab1 launched no v1_f32")
+
+    res, st, launches, _ = run("advection 2D", "0", lambda:
+                               api.solve_advection_2D(**flat,
+                                                      data_dir=data_dir))
+    c = field(res)[0]
+    mesh = rectangle_mesh(flat["nx"], flat["ny"], (0.0, 0.0), (1.0, 1.0))
+    c_ref = theta_scheme_f64(mesh, [(mesh.boundary_mask(), 0.0)], 0.002, 200,
+                             theta=0.5, kappa=flat.get("diffusivity", 0.01),
+                             velocity=[1.0, 0.0],
+                             u0=gaussian_pulse(mesh, 0.1))
+    gap = float(np.abs(c - c_ref).max() / np.abs(c_ref).max())
+    scan_line("advection 2D", st, 200, launches,
+              f" cfl={st['cfl']:.3f} cell_peclet={st['cell_peclet']:.3f} vs "
+              f"host f64 CNAB2 max|Δc|/max|c|={gap:.3e} (bound "
+              f"{ADVECTION_F64_TOL})")
+    check(bool(st["converged"]) and c.shape == c_ref.shape
+          and gap <= ADVECTION_F64_TOL, f"advection 2D off by {gap:.3e}")
+    check(launches.get("v1_f32", 0) > 0, "advection 2D launched no v1_f32")
+
+
+def picard_f64(mesh, pairs, kappa0, beta, T_initial=50.0, tol=1e-8):
+    """Float64 Picard iteration of −∇·(κ0(1+βT)∇T) = 0 on the host, κ at the
+    mean of each cell's corner nodes, every linear solve by sparse LU;
+    returns the flat field and the iterations."""
+    import numpy as np
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+
+    from pde_solver_tpu_torch.mesh import flatten_values
+    from pde_solver_tpu_torch.ops import assembly
+    from pde_solver_tpu_torch.ops.bc import DirichletBC
+
+    shape = mesh.node_shape
+    bc = DirichletBC.from_masks(pairs, shape)
+    free = np.asarray(bc.free_mask, np.float64).reshape(-1)
+    g = (np.asarray(bc.values, np.float64) * (1.0 - bc.free_mask)).reshape(-1)
+    P = sp.diags(free)
+    T = np.where(free > 0, T_initial, g)
+    for it in range(1, 41):
+        Tn = T.reshape(shape)
+        corners = [Tn[tuple(slice(c, Tn.shape[a] - 1 + c)
+                            for a, c in enumerate(corner))]
+                   for corner in np.ndindex(*([2] * mesh.dim))]
+        kcells = kappa0 * (1.0 + beta * sum(corners) / len(corners))
+        A = stencil_csr(assembly.assemble_scalar_stencil(
+            mesh, "stiffness", cell_coeff=kcells), shape)
+        T_new = spla.spsolve((P @ A @ P + sp.diags(1.0 - free)).tocsc(),
+                             g - free * (A @ g))
+        rel = np.linalg.norm(T_new - T) / np.linalg.norm(T_new)
+        T = T_new
+        if rel < tol:
+            break
+    return flatten_values(T.reshape(shape), mesh.dim), it
+
+
+def analytic_phase(api, drive, data_dir, nonlinear=NONLINEAR_2D):
+    """Closed forms through the new tools, at the sizes and within the
+    bounds of the JAX package's own tests of these families: steady 1D
+    Dirichlet–Robin and Dirichlet–flux lines and the sphere's A + B/r (host
+    sparse LU as a user's call takes it, then on the card with
+    ``host_direct_threshold=0``), the thermal wave, the Kirchhoff profile,
+    the advected Gaussian; and the nonlinear 2D tool on the card against a
+    float64 Picard iteration on the host."""
+    import numpy as np
+
+    from pde_solver_tpu_torch.config import config_overrides
+    from pde_solver_tpu_torch.fields import load_field
+    from pde_solver_tpu_torch.mesh import rectangle_mesh
+
+    def both_paths(label, tool, kw, exact, rtol):
+        """Relative error against ``exact(x)``: by host LU within ``rtol``,
+        on the card within max(rtol, 1e-6)."""
+        out = []
+        for where, cfg, bound_ in (("host LU", {}, rtol),
+                                   ("card", dict(host_direct_threshold=0),
+                                    max(rtol, 1e-6))):
+            with config_overrides(**cfg):
+                res, st, launches = drive(f"{label} ({where})", lambda:
+                                          getattr(api, tool)(
+                                              **kw, data_dir=data_dir))
+            f = load_field(res.data_file)
+            u = np.asarray(f.values)[0]
+            want = exact(np.linalg.norm(np.asarray(f.coords), axis=1))
+            err = float(np.abs(u - want).max() / np.abs(want).max())
+            out.append(f"{where} {err:.3e} (bound {bound_:.0e})")
+            check(bool(st["converged"]) and err <= bound_,
+                  f"{label} ({where}) off its closed form by {err:.3e}")
+            check(bool(launches.get("v1_f32", 0)) == (where == "card"),
+                  f"{label} ({where}): launches {launches}")
+        print(f"{label}: max rel. error vs closed form: " + ", ".join(out),
+              flush=True)
+
+    kappa, L, T0, h, t_inf = 2.5, 3.0, 100.0, 7.0, 25.0
+    c = h * (t_inf - T0) / (1.0 + h * L / kappa)
+    both_paths("1D Dirichlet-Robin", "solve_heat_1D_mixed", dict(
+        length=L, nx=32, diffusivity=kappa, steady=True, boundary_conditions={
+            "left": T0, "right": {"type": "robin", "h": h,
+                                  "T_ambient": t_inf}}),
+        lambda x: T0 + c * x / kappa, 1e-8)
+    both_paths("1D Dirichlet-flux", "solve_heat_1D_mixed", dict(
+        length=2.0, nx=16, diffusivity=4.0, steady=True, boundary_conditions={
+            "left": 0.0, "right": {"type": "neumann", "flux": 50.0}}),
+        lambda x: 50.0 * x / 4.0, 1e-8)
+    kappa, r1, r2, T0, h, t_inf = 2.0, 0.5, 1.5, 300.0, 8.0, 20.0
+    A, B = np.linalg.solve(np.array([[1.0, 1.0 / r1],
+                                     [h, h / r2 - kappa / r2 ** 2]]),
+                           np.array([T0, h * t_inf]))
+    both_paths("sphere Dirichlet-Robin", "solve_heat_radial_mixed", dict(
+        kind="sphere", r_inner=r1, r_outer=r2, nr=400, diffusivity=kappa,
+        steady=True, boundary_conditions={
+            "inner": T0, "outer": {"type": "robin", "h": h,
+                                   "T_ambient": t_inf}}),
+        lambda r: A + B / r, 2e-5)
+
+    # the thermal wave: T(0, t) = 10 sin(2πt) on a 4 m slab, 4 periods of
+    # 256 Crank-Nicolson steps
+    k = np.sqrt(np.pi)
+    with config_overrides(theta=0.5):
+        res, st, launches = drive("thermal wave 1D", lambda:
+                                  api.solve_heat_1D_mixed(
+                                      length=4.0, nx=512, T_initial=0.0,
+                                      dt=1.0 / 256, num_steps=1024,
+                                      data_dir=data_dir, boundary_conditions={
+                                          "left": {"type": "dirichlet",
+                                                   "value": 0.0,
+                                                   "amplitude": 10.0,
+                                                   "period": 1.0},
+                                          "right": 0.0}))
+    T, times = field(res)
+    x = np.linspace(0.0, 4.0, 513)
+    exact = 10.0 * np.exp(-k * x) * np.sin(2.0 * np.pi * times[-1] - k * x)
+    zone = x < 2.5 / k
+    err = float(np.abs(T[-1][zone] - exact[zone]).max())
+    j = int(np.argmin(np.abs(k * x - 1.0)))
+    amp = 0.5 * (T[-257:, j].max() - T[-257:, j].min())
+    scan_line("thermal wave 1D", st, 1024, launches,
+              f" max|T - A e^(-kx) sin(ωt - kx)|={err:.3e} (bound 0.5); "
+              f"amplitude at kx = 1: {amp:.4f} (10/e = {10 / np.e:.4f}, "
+              f"within 8 %)")
+    check(bool(st["converged"]) and err < 0.5
+          and abs(amp - 10.0 / np.e) <= 0.8 / np.e,
+          f"thermal wave off: {err:.3e}, amplitude {amp:.4f}")
+    check(launches.get("v1_f32", 0) > 0, "thermal wave launched no v1_f32")
+
+    # Kirchhoff: κ0 (T + βT²/2) is harmonic
+    res, st, launches = drive("Kirchhoff 1D (host sparse LU, no card)",
+                              lambda: api.solve_heat_1D_nonlinear(
+                                  length=1.0, nx=256, kappa0=2.0, beta=0.01,
+                                  T_left=100.0, T_right=0.0,
+                                  data_dir=data_dir))
+    T = field(res)[0][0]
+    x = np.linspace(0.0, 1.0, 257)
+    th0 = 2.0 * (100.0 + 0.01 * 100.0 ** 2 / 2)
+    exact = (-1.0 + np.sqrt(1.0 + 0.01 * th0 * (1.0 - x))) / 0.01
+    err = float(np.abs(T - exact).max() / 100.0)
+    print(f"Kirchhoff 1D: {st['picard_iterations']} Picard iterations, "
+          f"max|ΔT|/100={err:.3e} (bound 2e-4)", flush=True)
+    check(bool(st["converged"]) and err < 2e-4, f"Kirchhoff off {err:.3e}")
+
+    res, st, launches = drive("nonlinear 2D", lambda:
+                              api.solve_heat_2D_nonlinear(**nonlinear,
+                                                          data_dir=data_dir))
+    T = field(res)[0][0]
+    mesh = rectangle_mesh(nonlinear["nx"], nonlinear["ny"], (0.0, 0.0),
+                          (1.0, 1.0))
+    T_ref, its = picard_f64(mesh, [(mesh.boundary_mask(), 0.0),
+                                   (mesh.face_mask(0, 0), 100.0)],
+                            1.0, nonlinear["beta"])
+    gap = float(np.abs(T - T_ref).max() / np.abs(T_ref).max())
+    print(f"nonlinear 2D: dof={st['num_dofs']} Picard iterations="
+          f"{st['picard_iterations']} (host f64: {its}) CG iterations="
+          f"{st['cg_iterations']} vs host f64 Picard with sparse LU "
+          f"max|ΔT|/max|T|={gap:.3e} (bound 1e-6) launches={launches}",
+          flush=True)
+    check(bool(st["converged"]) and abs(st["picard_iterations"] - its) <= 1
+          and gap <= 1e-6, f"nonlinear 2D off by {gap:.3e}: {st}")
+    check(launches.get("v1_f32", 0) > 0, "nonlinear 2D launched no v1_f32")
+
+    # the advected, diffusing Gaussian on (0, 3): first order in Δt ("ab1")
+    kappa, s0, x0, T_end = 0.005, 0.08, 0.7, 0.6
+    x = np.linspace(0.0, 3.0, 513)
+    s2 = s0 ** 2 + 2 * kappa * T_end
+    exact = (s0 / np.sqrt(s2)) * np.exp(-(x - x0 - T_end) ** 2 / (2 * s2))
+    errs = []
+    for nsteps in (600, 1200):
+        with config_overrides(theta=0.5):
+            res, st, launches = drive(
+                f"gaussian transport 1D {nsteps} steps", lambda:
+                api.solve_advection_1D(
+                    length=3.0, nx=512, velocity=1.0, diffusivity=kappa,
+                    pulse_center=x0, pulse_width=s0, dt=T_end / nsteps,
+                    num_steps=nsteps, scheme="ab1", data_dir=data_dir))
+        u = field(res)[0][-1]
+        errs.append(float(np.linalg.norm(u - exact) / np.linalg.norm(exact)))
+        check(bool(st["converged"]) and st["cfl"] < 1.0
+              and abs(x[np.argmax(u)] - (x0 + T_end)) < 0.02,
+              f"gaussian transport: {st}")
+        check(launches.get("v1_f32", 0) > 0, "gaussian: no v1_f32")
+    print(f"gaussian transport 1D: relL2 error {errs[0]:.3e} at 600 steps "
+          f"(bound 0.03), {errs[1]:.3e} at 1200 (below 0.65 of the first)",
+          flush=True)
+    check(errs[0] < 0.03 and errs[1] < 0.65 * errs[0],
+          f"gaussian transport errors {errs}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1431,10 +2047,13 @@ def main() -> int:
     built = spy_cs_builds(ck)
     os.environ["PDE_TPU_CS"] = "1"
     sk.reset_launch_counts()
+    # 2,009 nodes lie under the CS route's size gate: lowered for this check
+    cs_min_dof, ck.CS_MIN_DOF = ck.CS_MIN_DOF, 0
     with config_overrides(device="cuda", precision="mixed",
                           transient_mg_threshold=100, mg_threshold=100,
                           transient_inner_tol=1e-8):
         r_heat = api.solve_heat_3D(**SMALL_HEAT, data_dir=data_dir)
+    ck.CS_MIN_DOF = cs_min_dof
     os.environ["PDE_TPU_CS"] = "0"
     T_dev = field(r_heat)[0]
     small_mesh = box_mesh(*SMALL_HEAT_CELLS, (0.0, 0.0, 0.0), (1.0, 0.2, 0.2))
@@ -1498,7 +2117,7 @@ def main() -> int:
         return res, st, launches, cs_built
 
     vm_runs = {}
-    for cs in ("0", "1"):
+    for cs in ("0", "1", "hybrid"):
         with config_overrides(device="cuda"):
             res, st, launches, cs_built = main_path(
                 f"flagship PDE_TPU_CS={cs}", cs,
@@ -1514,22 +2133,28 @@ def main() -> int:
               f"flagship relres {st['relative_residual']:.3e} > 1e-6")
         check(vm.shape == (1, 161 * 65 * 65), f"field shape {vm.shape}")
         check(bool(np.all(np.isfinite(vm))), "non-finite von Mises values")
-        wanted = (("cs_apply_v3",) if cs == "1"
-                  else ("v3_f32", "v3_bf16", "v1_f32"))
+        wanted = {"0": ("v3_f32", "v3_bf16", "v1_f32"),
+                  "1": ("cs_apply_v3",),
+                  "hybrid": ("cs_apply_v3", "v3_bf16")}[cs]
         for name in wanted:
             check(launches.get(name, 0) > 0,
                   f"the flagship (PDE_TPU_CS={cs}) launched no {name} kernel")
-        if cs == "1":
-            check((161, 65, 65) in {s for s, op, *_ in cs_built
-                                    if op is not None},
-                  "flagship: no CS operator at the fine level")
+        if cs != "0":
+            # the CS route's size gate: the two levels of ≥ 65,536 DOF
+            cs_levels = sorted(s for s, op, *_ in cs_built if op is not None
+                               and op.vdim == 3)
+            check(cs_levels == [(81, 33, 33), (161, 65, 65)],
+                  f"flagship (PDE_TPU_CS={cs}): CS levels {cs_levels}")
             check_built(ck, sk, cs_built, f"flagship PDE_TPU_CS={cs}",
                         cs_level_ms)
         del cs_built
-    gap = float(np.abs(vm_runs["1"] - vm_runs["0"]).max()
-                / np.abs(vm_runs["0"]).max())
-    print(f"flagship CS vs dense: max|Δvm|/max|vm|={gap:.3e}", flush=True)
-    check(gap <= 1e-5, f"flagship CS and dense routes differ by {gap:.3e}")
+    for cs in ("1", "hybrid"):
+        gap = float(np.abs(vm_runs[cs] - vm_runs["0"]).max()
+                    / np.abs(vm_runs["0"]).max())
+        print(f"flagship PDE_TPU_CS={cs} vs dense: max|Δvm|/max|vm|="
+              f"{gap:.3e}", flush=True)
+        check(gap <= 1e-5, f"flagship PDE_TPU_CS={cs} and dense routes "
+              f"differ by {gap:.3e}")
     del vm_runs
 
     T_runs = {}
@@ -1559,9 +2184,10 @@ def main() -> int:
             check(launches.get(name, 0) > 0,
                   f"the heat slice (PDE_TPU_CS={cs}) launched no {name}")
         if cs == "1":
-            check((129, 129, 129) in {s for s, op, *_ in cs_built
-                                      if op is not None},
-                  "heat: no CS operator at the 129^3 fine level")
+            cs_levels = sorted(s for s, op, *_ in cs_built if op is not None)
+            check(cs_levels == [(65, 65, 65), (129, 129, 129)],
+                  f"heat: CS levels {cs_levels}, expected the two of "
+                  f"≥ 65,536 DOF")
             check_built(ck, sk, cs_built, f"heat PDE_TPU_CS={cs}",
                         cs_level_ms)
         else:
@@ -1600,6 +2226,20 @@ def main() -> int:
             print(f"phase {name}: {time.perf_counter() - t0:.3f} s",
                   flush=True)
 
+        # -- the _mixed, nonlinear and advection tools -----------------------
+        def hold_cs(cs_built, label):
+            check_built(ck, sk, cs_built, label, cs_level_ms)
+
+        for name, phase in (("mixed", mixed_phase),
+                            ("advection", advection_phase)):
+            t0 = time.perf_counter()
+            phase(api, main_path, hold_cs, data_dir)
+            print(f"phase {name}: {time.perf_counter() - t0:.3f} s",
+                  flush=True)
+        t0 = time.perf_counter()
+        analytic_phase(api, drive, data_dir)
+        print(f"phase analytic: {time.perf_counter() - t0:.3f} s", flush=True)
+
     noffs = {key[3] for key in by_operator}
     print(f"dense operators launched on the main paths: offset counts "
           f"{sorted(noffs)} (built: {sk.KERNEL_NOFFS})", flush=True)
@@ -1619,9 +2259,10 @@ def main() -> int:
                   f"{shape} n_off={n_off} {ms:.4f} ({bnd / ms:.3f}"
                   f"{' L2' if l2 else ''})"
                   for shape, n_off, (ms, bnd, l2) in levels), flush=True)
-    for run in ("flagship", "heat"):
+    for run in ("flagship", "heat", "mixed 3D", f"mixed 3D tol="
+                f"{MIXED_TIGHT_TOL:.0e}", "advection 3D"):
         parts = []
-        for cs in ("0", "1"):
+        for cs in ("0", "1") + (("hybrid",) if run == "flagship" else ()):
             label = f"{run} PDE_TPU_CS={cs}"
             dense = [(n, level_ms[(v, sh, no)][0])
                      for (lb, v, sh, no), n in by_operator.items()

@@ -1,4 +1,6 @@
 """Public solver API of the port — the tools ported so far: heat 1D, 2D
+and 3D, the four ``_mixed`` heat tools (Robin, flux and periodically driven
+faces), the two nonlinear-conductivity tools, advection-diffusion 1D, 2D
 and 3D, the five curvilinear heat tools, static elasticity 1D, 2D and 3D,
 and the three ``_loaded`` elasticity tools.
 
@@ -283,6 +285,491 @@ def solve_heat_3D(
 
     field = _pack(mesh, embed_identity3, times, values, 3, meta, stats)
     return _result(field, data_dir, "heat_3d")
+
+
+# ======================================================================
+# Heat — mixed boundary conditions (extension tools)
+# ======================================================================
+# Beyond the reference surface (its heat solvers are Dirichlet-only,
+# fenics_mcp_server.py:294-297): per-face Dirichlet / Robin-convective /
+# Neumann-flux / insulated conditions.  The 13 reference tool signatures are
+# a frozen contract (tests/test_api.py), so these live as *_mixed extensions.
+
+def _mixed_heat_problem(mesh, dim, diffusivity, boundary_conditions,
+                        source_type, source_value, steady, T_initial,
+                        initial_type, initial_amplitude, initial_wavenumber,
+                        dt, num_steps):
+    dirichlet, robin, flux, modulated = heat.parse_face_bcs(
+        boundary_conditions, dim)
+
+    def bc_builder(m):
+        return [(m.face_mask(axis, side), val)
+                for axis, side, val in dirichlet]
+
+    # sinusoidal Dirichlet driving: one shared (omega, phase) sinusoid —
+    # the first modulated face sets it (mixed periods are not supported)
+    bc_amp_pairs, mod_omega, mod_phase = (), 0.0, 0.0
+    if modulated and not steady:
+        mod_omega, mod_phase = modulated[0][3], modulated[0][4]
+        bc_amp_pairs = [(mesh.face_mask(axis, side), amp)
+                        for axis, side, amp, _, _ in modulated]
+
+    return heat.HeatProblem(
+        mesh=mesh, diffusivity=diffusivity, bc_builder=bc_builder,
+        robin_faces=robin, flux_faces=flux,
+        bc_amp_pairs=bc_amp_pairs, mod_omega=mod_omega,
+        mod_phase=mod_phase,
+        source_type=source_type, source_value=source_value, steady=steady,
+        T_initial=T_initial, initial_type=initial_type,
+        initial_amplitude=initial_amplitude,
+        initial_wavenumber=initial_wavenumber, dt=dt, num_steps=num_steps)
+
+
+def _mixed_bc_meta(boundary_conditions):
+    out = {}
+    for face, spec in (boundary_conditions or {}).items():
+        out[str(face)] = spec if isinstance(spec, dict) else float(spec)
+    return out
+
+
+def solve_heat_1D_mixed(
+    length: float = 2.0,
+    nx: int = 50,
+    diffusivity: float = 1.0,
+    boundary_conditions: Optional[dict] = None,
+    T_initial: float = 0.0,
+    dt: float = 0.01,
+    num_steps: int = 50,
+    data_dir: str = "data",
+    steady: bool = False,
+    source_type: str = "none",
+    source_value: float = 0.0,
+    initial_type: str = "constant",
+    initial_amplitude: float = 1.0,
+    initial_wavenumber: float = 1.0,
+) -> SolveResult:
+    """1D heat with per-face mixed BCs (extension tool).
+
+    ``boundary_conditions``: {"left"/"right": spec} where spec is a number
+    (Dirichlet), {"type": "robin", "h": .., "T_ambient": ..} (convective
+    -k du/dn = h (u - T_ambient)), {"type": "neumann", "flux": ..} (inward
+    flux), or {"type": "insulated"}.  Unnamed faces are insulated.
+    """
+    mesh = interval_mesh(nx, 0.0, length)
+    p = _mixed_heat_problem(mesh, 1, diffusivity, boundary_conditions,
+                            source_type, source_value, steady, T_initial,
+                            initial_type, initial_amplitude,
+                            initial_wavenumber, dt, num_steps)
+    times, values, stats = heat.solve_heat_problem(p)
+    meta = {
+        "name": "temperature", "unit": "°C", "pde": "heat",
+        "coordinate_system": "cartesian", "length": length,
+        "boundary_conditions": _mixed_bc_meta(boundary_conditions),
+        "source_type": source_type, "source_value": source_value,
+        "steady": steady,
+    }
+    field = _pack(mesh, embed_line, times, values, 1, meta, stats)
+    return _result(field, data_dir, "heat_1d_mixed")
+
+
+def solve_heat_2D_mixed(
+    Lx: float = 1.0,
+    Ly: float = 1.0,
+    nx: int = 30,
+    ny: int = 30,
+    diffusivity: float = 1.0,
+    boundary_conditions: Optional[dict] = None,
+    T_initial: float = 20.0,
+    dt: float = 0.01,
+    num_steps: int = 50,
+    data_dir: str = "data",
+    steady: bool = False,
+    source_type: str = "none",
+    source_value: float = 0.0,
+    initial_type: str = "constant",
+    initial_amplitude: float = 1.0,
+    initial_wavenumber: float = 1.0,
+) -> SolveResult:
+    """2D heat on [0,Lx]×[0,Ly] with per-face mixed BCs (extension tool).
+
+    Faces: left/right (x), bottom/top (y); see :func:`solve_heat_1D_mixed`
+    for the spec format.
+    """
+    mesh = rectangle_mesh(nx, ny, (0.0, 0.0), (Lx, Ly))
+    p = _mixed_heat_problem(mesh, 2, diffusivity, boundary_conditions,
+                            source_type, source_value, steady, T_initial,
+                            initial_type, initial_amplitude,
+                            initial_wavenumber, dt, num_steps)
+    times, values, stats = heat.solve_heat_problem(p)
+    meta = {
+        "name": "temperature", "unit": "°C", "pde": "heat",
+        "coordinate_system": "cartesian", "Lx": Lx, "Ly": Ly,
+        "boundary_conditions": _mixed_bc_meta(boundary_conditions),
+        "source_type": source_type, "source_value": source_value,
+        "steady": steady,
+    }
+    field = _pack(mesh, embed_plane, times, values, 2, meta, stats)
+    return _result(field, data_dir, "heat_2d_mixed")
+
+
+def solve_heat_3D_mixed(
+    Lx: float = 1.0,
+    Ly: float = 1.0,
+    Lz: float = 1.0,
+    nx: int = 10,
+    ny: int = 10,
+    nz: int = 10,
+    diffusivity: float = 1.0,
+    boundary_conditions: Optional[dict] = None,
+    T_initial: float = 20.0,
+    dt: float = 0.01,
+    num_steps: int = 20,
+    data_dir: str = "data",
+    steady: bool = False,
+    source_type: str = "none",
+    source_value: float = 0.0,
+    initial_type: str = "constant",
+    initial_amplitude: float = 1.0,
+    initial_wavenumber: float = 1.0,
+) -> SolveResult:
+    """3D heat on a box with per-face mixed BCs (extension tool).
+
+    Faces: left/right (x), front/back (y), bottom/top (z), plus the groups
+    "sides" (all non-x faces) and "all"; see :func:`solve_heat_1D_mixed`.
+    """
+    mesh = box_mesh(nx, ny, nz, (0.0, 0.0, 0.0), (Lx, Ly, Lz))
+    p = _mixed_heat_problem(mesh, 3, diffusivity, boundary_conditions,
+                            source_type, source_value, steady, T_initial,
+                            initial_type, initial_amplitude,
+                            initial_wavenumber, dt, num_steps)
+    times, values, stats = heat.solve_heat_problem(p)
+    meta = {
+        "name": "temperature", "unit": "°C", "pde": "heat",
+        "coordinate_system": "cartesian", "Lx": Lx, "Ly": Ly, "Lz": Lz,
+        "geometry_type": "box",
+        "boundary_conditions": _mixed_bc_meta(boundary_conditions),
+        "source_type": source_type, "source_value": source_value,
+        "steady": steady,
+    }
+    field = _pack(mesh, embed_identity3, times, values, 3, meta, stats)
+    return _result(field, data_dir, "heat_3d_mixed")
+
+
+def solve_heat_radial_mixed(
+    kind: str = "cylinder",
+    r_inner: float = 0.0,
+    r_outer: float = 1.0,
+    nr: int = 50,
+    diffusivity: float = 1.0,
+    boundary_conditions: Optional[dict] = None,
+    T_initial: float = 20.0,
+    dt: float = 0.01,
+    num_steps: int = 50,
+    data_dir: str = "data",
+    steady: bool = False,
+    source_type: str = "none",
+    source_value: float = 0.0,
+) -> SolveResult:
+    """Radial cylindrical/spherical heat with mixed inner/outer BCs
+    (extension tool — convective quenching is the canonical use).
+
+    ``boundary_conditions``: {"inner"/"outer": spec} with the same spec
+    format as :func:`solve_heat_1D_mixed` ("all"/"surface" apply to the
+    outer face, plus the inner face of a hollow shell).  The Robin surface
+    term carries the coordinate weight (r or r²), so the convective flux
+    balance holds on the physical curved surface.  An unconstrained face is
+    insulated; the r=0 axis of a solid body needs no condition (weight → 0).
+    A Dirichlet spec may add ``amplitude`` + ``period`` (or ``omega``)
+    [+ ``phase``] for sinusoidal driving T(t) = value + amplitude·sin(ωt+φ)
+    — e.g. a daily surface-temperature cycle on a buried pipe.
+    """
+    if kind not in ("cylinder", "sphere"):
+        raise ValueError(f"kind must be 'cylinder' or 'sphere', got {kind!r}")
+    wfn = heat.weight_r if kind == "cylinder" else heat.weight_r2
+    mesh = interval_mesh(nr, r_inner, r_outer)
+    hollow = r_inner > 1e-10
+
+    dirichlet, robin, flux, modulated = [], [], [], []
+    for face, spec in (boundary_conditions or {}).items():
+        f = str(face).strip().lower()
+        if f in ("all", "boundary", "surface", "outer surface", "everywhere"):
+            sides = [1] + ([0] if hollow else [])
+        elif f in ("outer", "outside", "right"):
+            sides = [1]
+        elif f in ("inner", "inside", "left"):
+            if not hollow:
+                continue  # solid body: r=0 is an axis, not a surface
+            sides = [0]
+        else:
+            raise ValueError(f"unknown radial face {face!r}; "
+                             "expected inner/outer/all")
+        if isinstance(spec, (int, float)):
+            spec = {"type": "dirichlet", "value": float(spec)}
+        kind_bc = str(spec.get("type", "dirichlet")).strip().lower()
+        for side in sides:
+            if kind_bc in ("dirichlet", "fixed", "temperature"):
+                dirichlet.append((side, float(spec.get("value", 0.0))))
+                if spec.get("amplitude"):
+                    omega = spec.get("omega")
+                    if omega is None:
+                        period = float(spec.get("period", 1.0))
+                        omega = 2.0 * np.pi / period if period else 0.0
+                    modulated.append((side, float(spec["amplitude"]),
+                                      float(omega),
+                                      float(spec.get("phase", 0.0))))
+            elif kind_bc in ("robin", "convection", "convective"):
+                t_inf = spec.get("T_ambient", spec.get("t_ambient",
+                         spec.get("t_inf", spec.get("ambient", 0.0))))
+                robin.append((0, side, float(spec.get("h", 1.0)),
+                              float(t_inf)))
+            elif kind_bc in ("neumann", "flux", "heat_flux"):
+                flux.append((0, side,
+                             float(spec.get("flux", spec.get("value", 0.0)))))
+            elif kind_bc in ("insulated", "adiabatic", "natural"):
+                pass
+            else:
+                raise ValueError(f"unknown BC type {kind_bc!r}")
+
+    def bc_builder(m):
+        return [(m.face_mask(0, side), val) for side, val in dirichlet]
+
+    # sinusoidal Dirichlet driving: one shared (omega, phase) sinusoid —
+    # the first modulated face sets it (matching _mixed_heat_problem)
+    bc_amp_pairs, mod_omega, mod_phase = (), 0.0, 0.0
+    if modulated and not steady:
+        mod_omega, mod_phase = modulated[0][2], modulated[0][3]
+        bc_amp_pairs = [(mesh.face_mask(0, side), amp)
+                        for side, amp, _, _ in modulated]
+
+    p = heat.HeatProblem(
+        mesh=mesh, diffusivity=diffusivity, weight_fn=wfn,
+        weight_quad_degree=3 if kind == "cylinder" else 4,
+        bc_builder=bc_builder, robin_faces=robin, flux_faces=flux,
+        bc_amp_pairs=bc_amp_pairs, mod_omega=mod_omega, mod_phase=mod_phase,
+        source_type=source_type, source_value=source_value, steady=steady,
+        T_initial=T_initial, curvilinear_ic=True, dt=dt, num_steps=num_steps)
+    times, values, stats = heat.solve_heat_problem(p)
+    meta = {
+        "name": "temperature", "unit": "°C", "pde": "heat",
+        "coordinate_system": "cylindrical" if kind == "cylinder" else "spherical",
+        "geometry_type": (kind if not hollow
+                          else ("annulus" if kind == "cylinder" else "shell")),
+        "r_inner": r_inner, "r_outer": r_outer,
+        "boundary_conditions": _mixed_bc_meta(boundary_conditions),
+        "source_type": source_type, "source_value": source_value,
+        "steady": steady,
+    }
+    field = _pack(mesh, embed_line, times, values, 1, meta, stats)
+    return _result(field, data_dir, f"heat_radial_{kind}_mixed")
+
+
+# ======================================================================
+# Nonlinear conductivity (extension tools)
+# ======================================================================
+
+def solve_heat_1D_nonlinear(
+    length: float = 2.0,
+    nx: int = 100,
+    kappa0: float = 1.0,
+    beta: float = 0.01,
+    T_left: float = 100.0,
+    T_right: float = 0.0,
+    T_initial: float = 50.0,
+    source_type: str = "none",
+    source_value: float = 0.0,
+    data_dir: str = "data",
+) -> SolveResult:
+    """Steady 1D heat with κ(T) = κ0(1+βT), Picard-iterated (extension
+    tool — the reference's solvers are linear-only).  Validated against
+    the Kirchhoff-transform closed form."""
+    mesh = interval_mesh(nx, 0.0, length)
+    p = heat.HeatProblem(
+        mesh=mesh, steady=True, T_initial=T_initial,
+        bc_builder=lambda m: [(m.face_mask(0, 0), T_left),
+                              (m.face_mask(0, 1), T_right)],
+        source_type=source_type, source_value=source_value)
+    times, values, stats = heat.solve_heat_nonlinear(p, kappa0, beta)
+    meta = {
+        "name": "temperature", "unit": "°C", "pde": "heat",
+        "coordinate_system": "cartesian", "length": length,
+        "kappa0": kappa0, "beta": beta, "nonlinear": True,
+        "source_type": source_type, "source_value": source_value,
+        "steady": True,
+    }
+    field = _pack(mesh, embed_line, times, values, 1, meta, stats)
+    return _result(field, data_dir, "heat_1d_nonlinear")
+
+
+def solve_heat_2D_nonlinear(
+    Lx: float = 1.0,
+    Ly: float = 1.0,
+    nx: int = 40,
+    ny: int = 40,
+    kappa0: float = 1.0,
+    beta: float = 0.01,
+    T_boundary: float = 0.0,
+    T_left: Optional[float] = None,
+    T_initial: float = 50.0,
+    source_type: str = "none",
+    source_value: float = 0.0,
+    data_dir: str = "data",
+) -> SolveResult:
+    """Steady 2D heat with κ(T) = κ0(1+βT) (extension tool).  ``T_left``
+    optionally overrides the uniform boundary on the x=0 edge."""
+    mesh = rectangle_mesh(nx, ny, (0.0, 0.0), (Lx, Ly))
+
+    def bc_builder(m):
+        pairs = [(m.boundary_mask(), T_boundary)]
+        if T_left is not None:
+            pairs.append((m.face_mask(0, 0), float(T_left)))
+        return pairs
+
+    p = heat.HeatProblem(mesh=mesh, steady=True, T_initial=T_initial,
+                         bc_builder=bc_builder,
+                         source_type=source_type,
+                         source_value=source_value)
+    times, values, stats = heat.solve_heat_nonlinear(p, kappa0, beta)
+    meta = {
+        "name": "temperature", "unit": "°C", "pde": "heat",
+        "coordinate_system": "cartesian", "Lx": Lx, "Ly": Ly,
+        "kappa0": kappa0, "beta": beta, "nonlinear": True,
+        "source_type": source_type, "source_value": source_value,
+        "steady": True,
+    }
+    field = _pack(mesh, embed_plane, times, values, 2, meta, stats)
+    return _result(field, data_dir, "heat_2d_nonlinear")
+
+
+# ======================================================================
+# Advection-diffusion (extension tools)
+# ======================================================================
+# The reference's schema lists pde_type="advection" and its parser emits it
+# (pde_schema.py:15), but its dispatcher has no route — every advection
+# query errors out.  These tools solve u_t + v·∇u = κΔu + f with IMEX
+# θ-stepping (implicit SPD diffusion, explicit Galerkin convection).
+
+def _advection_solve(mesh, embed, dim, velocity, diffusivity, T_boundary,
+                     T_initial, initial_type, pulse_center, pulse_width,
+                     pulse_amplitude, source_type, source_value, dt,
+                     num_steps, data_dir, extra_meta, scheme="cnab2"):
+    from pde_solver_tpu_torch.models.advection import (AdvectionProblem,
+                                                 solve_advection_problem)
+    p = AdvectionProblem(
+        mesh=mesh, velocity=velocity, diffusivity=diffusivity,
+        bc_builder=lambda m: [(m.boundary_mask(), T_boundary)],
+        source_type=source_type, source_value=source_value,
+        T_initial=T_initial, initial_type=initial_type,
+        pulse_center=pulse_center, pulse_width=pulse_width,
+        pulse_amplitude=pulse_amplitude, dt=dt, num_steps=num_steps,
+        scheme=scheme)
+    times, values, stats = solve_advection_problem(p)
+    meta = {
+        "name": "concentration", "unit": "-", "pde": "advection",
+        "coordinate_system": "cartesian",
+        "velocity": list(np.asarray(velocity, dtype=float).ravel()),
+        "diffusivity": diffusivity,
+        "cfl": stats["cfl"], "cell_peclet": stats["cell_peclet"],
+        "scheme": stats["scheme"],
+        "source_type": source_type, "source_value": source_value,
+        "steady": False, **extra_meta,
+    }
+    field = _pack(mesh, embed, times, values, dim, meta, stats)
+    return _result(field, data_dir, f"advection_{dim}d")
+
+
+def solve_advection_1D(
+    length: float = 2.0,
+    nx: int = 200,
+    velocity: float = 1.0,
+    diffusivity: float = 0.01,
+    T_boundary: float = 0.0,
+    T_initial: float = 0.0,
+    initial_type: str = "gaussian",
+    pulse_center: Optional[float] = None,
+    pulse_width: float = 0.1,
+    pulse_amplitude: float = 1.0,
+    dt: float = 0.002,
+    num_steps: int = 200,
+    data_dir: str = "data",
+    source_type: str = "none",
+    source_value: float = 0.0,
+    scheme: str = "cnab2",
+) -> SolveResult:
+    """1D advection-diffusion u_t + v u_x = κ u_xx + f on (0, length)
+    (extension tool — see the module note above)."""
+    mesh = interval_mesh(nx, 0.0, length)
+    return _advection_solve(
+        mesh, embed_line, 1, [velocity], diffusivity, T_boundary, T_initial,
+        initial_type, None if pulse_center is None else [pulse_center],
+        pulse_width, pulse_amplitude, source_type, source_value, dt,
+        num_steps, data_dir, {"length": length}, scheme=scheme)
+
+
+def solve_advection_2D(
+    Lx: float = 1.0,
+    Ly: float = 1.0,
+    nx: int = 60,
+    ny: int = 60,
+    vx: float = 1.0,
+    vy: float = 0.0,
+    diffusivity: float = 0.01,
+    T_boundary: float = 0.0,
+    T_initial: float = 0.0,
+    initial_type: str = "gaussian",
+    pulse_center_x: Optional[float] = None,
+    pulse_center_y: Optional[float] = None,
+    pulse_width: float = 0.1,
+    pulse_amplitude: float = 1.0,
+    dt: float = 0.002,
+    num_steps: int = 200,
+    data_dir: str = "data",
+    source_type: str = "none",
+    source_value: float = 0.0,
+    scheme: str = "cnab2",
+) -> SolveResult:
+    """2D advection-diffusion on [0,Lx]×[0,Ly] (extension tool)."""
+    mesh = rectangle_mesh(nx, ny, (0.0, 0.0), (Lx, Ly))
+    center = None
+    if pulse_center_x is not None or pulse_center_y is not None:
+        center = [pulse_center_x if pulse_center_x is not None else Lx / 2,
+                  pulse_center_y if pulse_center_y is not None else Ly / 2]
+    return _advection_solve(
+        mesh, embed_plane, 2, [vx, vy], diffusivity, T_boundary, T_initial,
+        initial_type, center, pulse_width, pulse_amplitude, source_type,
+        source_value, dt, num_steps, data_dir, {"Lx": Lx, "Ly": Ly},
+        scheme=scheme)
+
+
+def solve_advection_3D(
+    Lx: float = 1.0,
+    Ly: float = 1.0,
+    Lz: float = 1.0,
+    nx: int = 24,
+    ny: int = 24,
+    nz: int = 24,
+    vx: float = 1.0,
+    vy: float = 0.0,
+    vz: float = 0.0,
+    diffusivity: float = 0.01,
+    T_boundary: float = 0.0,
+    T_initial: float = 0.0,
+    initial_type: str = "gaussian",
+    pulse_width: float = 0.15,
+    pulse_amplitude: float = 1.0,
+    dt: float = 0.005,
+    num_steps: int = 100,
+    data_dir: str = "data",
+    source_type: str = "none",
+    source_value: float = 0.0,
+    scheme: str = "cnab2",
+) -> SolveResult:
+    """3D advection-diffusion on a box (extension tool)."""
+    mesh = box_mesh(nx, ny, nz, (0.0, 0.0, 0.0), (Lx, Ly, Lz))
+    return _advection_solve(
+        mesh, embed_identity3, 3, [vx, vy, vz], diffusivity, T_boundary,
+        T_initial, initial_type, None, pulse_width, pulse_amplitude,
+        source_type, source_value, dt, num_steps, data_dir,
+        {"Lx": Lx, "Ly": Ly, "Lz": Lz}, scheme=scheme)
 
 
 # ======================================================================
@@ -605,13 +1092,6 @@ def solve_elasticity_3D_static(
 # Beyond the reference surface: its elasticity tools accept body forces
 # only (fenics_mcp_server.py:1670-1674, :1820-1824); end loads, surface
 # tractions and pressures are the textbook cantilever/plate queries.
-
-def _mixed_bc_meta(boundary_conditions):
-    out = {}
-    for face, spec in (boundary_conditions or {}).items():
-        out[str(face)] = spec if isinstance(spec, dict) else float(spec)
-    return out
-
 
 def _resolve_face_loads(loads: Optional[dict], mesh) -> list:
     """Per-face load specs → (axis, side, traction_vector) list.

@@ -1,14 +1,15 @@
 """Heat-equation solver family: what the Cartesian and curvilinear heat
 tools solve with.
 
-Counterpart of ``pde_solver_tpu.models.heat`` for the Dirichlet tools:
-``HeatProblem``, the initial field, the generic entry point
-``solve_heat_problem`` (steady through the linear-solve facade, transient
-through ``ops.timestepping.run_transient``), the coordinate weights and
+Counterpart of ``pde_solver_tpu.models.heat``: ``HeatProblem``, the
+initial field, the generic entry point ``solve_heat_problem`` (steady
+through the linear-solve facade, transient through
+``ops.timestepping.run_transient``) with Robin and flux faces
+(``ops.surface``) folded into every multigrid level and sinusoidal driving
+handed to the scan, the nonlinear Picard solve ``solve_heat_nonlinear``, the
+per-face BC parser of the ``_mixed`` tools, the coordinate weights and
 embeddings, the composite-core diffusivity marking, and the face names the
-``_loaded`` elasticity tools resolve.  Robin and flux faces, the nonlinear
-Picard solve and the per-face BC parser are not ported yet (ROADMAP queue 1,
-item 7).
+``_loaded`` elasticity tools resolve too.
 """
 
 from __future__ import annotations
@@ -80,6 +81,39 @@ class HeatProblem:
     mod_phase: float = 0.0
 
 
+def _apply_surface_terms(p: HeatProblem, mesh: StructuredMesh,
+                         K: Dict) -> Tuple[Dict, np.ndarray]:
+    """Fold Robin/flux boundary integrals into (stiffness, load).
+
+    Robin: K += h·(surface mass on Γ), b += h·T_inf·(surface load on Γ);
+    Neumann: b += q_in·(surface load on Γ).  Both respect the problem's
+    coordinate weight (curvilinear solids), restricted to the face plane.
+    The Robin term is PSD, so the constrained operator stays SPD for CG/MG.
+    """
+    from pde_solver_tpu_torch.ops import surface
+
+    b = np.zeros(mesh.node_shape, dtype=np.float64)
+    for axis, side, h, t_inf in p.robin_faces:
+        if h == 0.0:
+            continue
+        K = surface.add_stencil(
+            K, surface.assemble_face_mass(mesh, int(axis), int(side),
+                                          coeff=float(h),
+                                          weight_fn=p.weight_fn))
+        if t_inf != 0.0:
+            b += surface.assemble_face_load(
+                mesh, int(axis), int(side), coeff=float(h) * float(t_inf),
+                weight_fn=p.weight_fn,
+                quad_degree=p.weight_quad_degree)
+    for axis, side, q_in in p.flux_faces:
+        if q_in != 0.0:
+            b += surface.assemble_face_load(
+                mesh, int(axis), int(side), coeff=float(q_in),
+                weight_fn=p.weight_fn,
+                quad_degree=p.weight_quad_degree)
+    return K, b
+
+
 def _initial_field(p: HeatProblem) -> np.ndarray:
     mesh = p.mesh
     if p.curvilinear_ic or p.initial_type in (None, "constant"):
@@ -106,9 +140,6 @@ def _initial_field(p: HeatProblem) -> np.ndarray:
 def solve_heat_problem(p: HeatProblem, config: Optional[SolverConfig] = None
                        ) -> Tuple[np.ndarray, np.ndarray, Dict]:
     """Returns (times [Nt], values [Nt, N] flat float64, stats dict)."""
-    if p.robin_faces or p.flux_faces:
-        raise NotImplementedError("Robin/flux faces (ops/surface.py) are not "
-                                  "ported yet (ROADMAP queue 1, item 7)")
     cfg = config or get_config()
     mesh = p.mesh
     phases: Dict[str, float] = {}
@@ -132,6 +163,10 @@ def solve_heat_problem(p: HeatProblem, config: Optional[SolverConfig] = None
         else:
             b = np.zeros(mesh.node_shape, dtype=np.float64)
 
+        if p.robin_faces or p.flux_faces:
+            K, b_surf = _apply_surface_terms(p, mesh, K)
+            b = b + b_surf
+
         pairs = list(p.bc_pairs) if p.bc_pairs else (
             list(p.bc_builder(mesh)) if p.bc_builder else [])
         bc = DirichletBC.from_masks(pairs, mesh.node_shape)
@@ -147,6 +182,10 @@ def solve_heat_problem(p: HeatProblem, config: Optional[SolverConfig] = None
                 cell_coeff=kappa_c, quad_degree=stiff_deg)
             if kappa_c is None and p.diffusivity != 1.0:
                 K_c = {o: p.diffusivity * W for o, W in K_c.items()}
+            if p.robin_faces or p.flux_faces:
+                # coarse levels carry the same Robin surface mass (the load
+                # part is irrelevant for the MG operator)
+                K_c, _ = _apply_surface_terms(p, mesh_c, K_c)
             bc_c = DirichletBC.from_masks(list(p.bc_builder(mesh_c)),
                                           mesh_c.node_shape)
             return K_c, bc_c
@@ -180,14 +219,25 @@ def solve_heat_problem(p: HeatProblem, config: Optional[SolverConfig] = None
                     quad_degree=(max(p.weight_quad_degree, 2)
                                  if p.weight_fn is not None else 2))
                 return K_c, M_c, bc_c
+        time_mod = None
         if p.mod_omega and (len(p.bc_amp_pairs) or p.source_amp):
-            raise NotImplementedError("periodic driving (mod_omega) is not "
-                                      "ported yet (ROADMAP queue 1, item 8)")
+            time_mod = {"omega": float(p.mod_omega),
+                        "phase": float(p.mod_phase)}
+            if p.source_amp:
+                time_mod["source_amp"] = p.source_amp * \
+                    assembly.assemble_load(mesh, weight_fn=p.weight_fn,
+                                           quad_degree=p.weight_quad_degree)
+            if len(p.bc_amp_pairs):
+                amp_bc = DirichletBC.from_masks(list(p.bc_amp_pairs),
+                                                mesh.node_shape)
+                time_mod["bc_amp_values"] = np.asarray(
+                    amp_bc.values * (1.0 - amp_bc.free_mask), np.float64)
         with phase_timer(phases, "solve"):
             res = run_transient(K, M, mesh, bc, b, u0, dt=p.dt,
                                 num_steps=p.num_steps,
                                 theta=p.theta if p.theta is not None else cfg.theta,
-                                config=cfg, mg_level_builder=mg_builder_t)
+                                config=cfg, mg_level_builder=mg_builder_t,
+                                time_mod=time_mod)
         values = np.stack([flatten_values(v, mesh.dim) for v in res.values])
         times = res.times
         # explicit per-step target: the worst step residual must meet the
@@ -212,6 +262,86 @@ def solve_heat_problem(p: HeatProblem, config: Optional[SolverConfig] = None
         mesh.num_nodes, p.steady, phases.get("assembly_seconds", 0.0),
         phases.get("solve_seconds", 0.0), info["cg_iterations"])
     return times, values, info
+
+
+# ----------------------------------------------------------------------
+# Nonlinear conductivity (extension: the reference is linear-only)
+# ----------------------------------------------------------------------
+
+def _cell_average(T_nodes: np.ndarray, dim: int) -> np.ndarray:
+    """Average the 2^d corner nodes of every cell (shape [*cell_shape])."""
+    out = None
+    for corner in np.ndindex(*([2] * dim)):
+        sl = tuple(slice(c, (None if c else -1)) for c in corner)
+        out = T_nodes[sl] if out is None else out + T_nodes[sl]
+    return out / (2 ** dim)
+
+
+def solve_heat_nonlinear(p: HeatProblem, kappa0: float, beta: float,
+                         config: Optional[SolverConfig] = None,
+                         picard_tol: float = 1e-8, max_picard: int = 40,
+                         ) -> Tuple[np.ndarray, np.ndarray, Dict]:
+    """Steady heat with κ(T) = κ0 (1 + β T) by Picard iteration.
+
+    Each iteration evaluates κ at the per-cell average of the current
+    iterate and re-solves the linearized SPD system through the standard
+    stack; convergence is the relative iterate change.  Validated against
+    the Kirchhoff-transform closed form (tests/test_torch_mixed_advection.py):
+    θ = κ0 (T + βT²/2) is harmonic, so 1D profiles are the inverted
+    quadratic of a straight line.  β must keep κ positive over the
+    temperature range (checked per iteration).
+    """
+    cfg = config or get_config()
+    mesh = p.mesh
+    if not p.steady:
+        raise ValueError("solve_heat_nonlinear handles steady problems; "
+                         "transient κ(T) is not supported yet")
+    pairs = list(p.bc_pairs) if p.bc_pairs else (
+        list(p.bc_builder(mesh)) if p.bc_builder else [])
+    bc = DirichletBC.from_masks(pairs, mesh.node_shape)
+    if p.source_type == "constant" and p.source_value != 0.0:
+        b = p.source_value * assembly.assemble_load(
+            mesh, weight_fn=p.weight_fn, quad_degree=p.weight_quad_degree)
+    else:
+        b = np.zeros(mesh.node_shape, dtype=np.float64)
+
+    # initial iterate: the linearization point is the BC-consistent field
+    T = np.asarray(bc.apply_values(
+        np.full(mesh.node_shape, float(p.T_initial))), np.float64)
+    total_cg = 0
+    rel = np.inf
+    it = 0
+    for it in range(1, max_picard + 1):
+        kcells = kappa0 * (1.0 + beta * _cell_average(T, mesh.dim))
+        if kcells.min() <= 0.0:
+            raise ValueError(
+                f"kappa(T) became non-positive (min {kcells.min():.3g}) — "
+                "beta is too large for this temperature range")
+        K = assembly.assemble_scalar_stencil(
+            mesh, "stiffness", weight_fn=p.weight_fn, cell_coeff=kcells,
+            quad_degree=(p.weight_quad_degree
+                         if p.weight_fn is not None else 2))
+        T_new, stats = solve_stencil_system(K, mesh, bc, b, config=cfg)
+        T_new = np.asarray(T_new, np.float64)
+        total_cg += int(stats.iterations)
+        rel = (np.linalg.norm((T_new - T).ravel())
+               / max(np.linalg.norm(T_new.ravel()), 1e-300))
+        T = T_new
+        if rel < picard_tol:
+            break
+    get_logger().info(
+        "nonlinear heat: %d Picard iterations (%d CG total), change %.2e",
+        it, total_cg, rel)
+    values = flatten_values(T, mesh.dim)[None, :]
+    info = {
+        "steady": True, "nonlinear": True,
+        "picard_iterations": it, "cg_iterations": total_cg,
+        "relative_residual": float(rel),
+        "converged": bool(rel < picard_tol),
+        "convergence_target": picard_tol,
+        "num_dofs": mesh.num_nodes,
+    }
+    return np.array([0.0]), values, info
 
 
 # ----------------------------------------------------------------------
@@ -296,7 +426,8 @@ def composite_kappa_cells(mesh: StructuredMesh, core_radius: float,
 
 
 # ----------------------------------------------------------------------
-# Face names (the per-face load specs of the _loaded elasticity tools)
+# Per-face mixed boundary conditions (the _mixed heat tools; the _loaded
+# elasticity tools resolve their face names here too)
 # ----------------------------------------------------------------------
 
 # face name → (axis, side) per dimension; x is the "length" axis, matching
@@ -337,3 +468,50 @@ def _face_keys(dim: int, name: str):
         raise ValueError(f"unknown face {name!r} for dim={dim}; "
                          f"expected one of {sorted(table)}")
     return [table[alias]]
+
+
+def parse_face_bcs(boundary_conditions, dim: int):
+    """Parse a per-face BC spec dict into solver inputs.
+
+    Spec: ``{face: {"type": "dirichlet"|"robin"|"neumann"|"insulated", ...}}``
+    where robin carries ``h`` + ``T_ambient`` (aliases ``t_inf``/``ambient``),
+    neumann carries ``flux`` (inward W/m²; ``insulated`` ≡ flux 0), and a bare
+    number is shorthand for a Dirichlet value.  A Dirichlet spec may add
+    ``amplitude`` + ``period`` (or ``omega``) [+ ``phase``] for sinusoidal
+    driving: T(t) = value + amplitude·sin(ωt+φ).  Unnamed faces default to
+    the natural (insulated) condition.  Returns
+    ``(dirichlet_list, robin_faces, flux_faces, modulated)`` with dirichlet
+    entries as ``(axis, side, value)`` and modulated entries as
+    ``(axis, side, amplitude, omega, phase)``.
+    """
+    dirichlet, robin, flux, modulated = [], [], [], []
+    for face, spec in (boundary_conditions or {}).items():
+        keys = _face_keys(dim, face)
+        if isinstance(spec, (int, float)):
+            spec = {"type": "dirichlet", "value": float(spec)}
+        kind = str(spec.get("type", "dirichlet")).strip().lower()
+        for axis, side in keys:
+            if kind in ("dirichlet", "fixed", "temperature"):
+                dirichlet.append((axis, side, float(spec.get("value", 0.0))))
+                if spec.get("amplitude"):
+                    omega = spec.get("omega")
+                    if omega is None:
+                        period = float(spec.get("period", 1.0))
+                        omega = 2.0 * np.pi / period if period else 0.0
+                    modulated.append((axis, side,
+                                      float(spec["amplitude"]),
+                                      float(omega),
+                                      float(spec.get("phase", 0.0))))
+            elif kind in ("robin", "convection", "convective"):
+                t_inf = spec.get("T_ambient", spec.get("t_ambient",
+                         spec.get("t_inf", spec.get("ambient", 0.0))))
+                robin.append((axis, side, float(spec.get("h", 1.0)),
+                              float(t_inf)))
+            elif kind in ("neumann", "flux", "heat_flux"):
+                flux.append((axis, side,
+                             float(spec.get("flux", spec.get("value", 0.0)))))
+            elif kind in ("insulated", "adiabatic", "natural"):
+                pass  # natural BC: no term
+            else:
+                raise ValueError(f"unknown BC type {kind!r} for face {face!r}")
+    return dirichlet, robin, flux, modulated

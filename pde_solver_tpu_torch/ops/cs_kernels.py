@@ -74,7 +74,19 @@ INNER = 2
 KERNEL_VDIMS = cuda_build.defined_list("cs_stencil", "CS_STENCIL_VDIMS")
 KERNEL_NOFFS = cuda_build.defined_list("cs_stencil", "CS_STENCIL_NOFFS")
 
+# Below this DOF count a level stays on the dense kernel even with
+# ``PDE_TPU_CS`` on: the reference's ``PALLAS_MIN_DOF``, the size under
+# which it never tries the constant-interior route.  On an H100 the CS
+# kernel is 2.6-3.2x slower than dense bf16 on levels of a few thousand
+# nodes, where nearly every node is a near-boundary one (PERF.md).
+CS_MIN_DOF = 65536
+
 _LIB: Optional[ctypes.CDLL] = None
+
+
+def cs_wins(n_dof: int) -> bool:
+    """Whether a level of ``n_dof`` unknowns may take the CS route."""
+    return n_dof >= CS_MIN_DOF
 
 
 def cs_mode() -> str:

@@ -32,7 +32,7 @@ from pde_solver_tpu_torch.mesh import StructuredMesh
 from pde_solver_tpu_torch.ops.bc import DirichletBC
 from pde_solver_tpu_torch.ops.cg import SolveStats
 from pde_solver_tpu_torch.ops.cs_kernels import (CSFlatStencilOperator,
-                                                 cs_enabled)
+                                                 cs_enabled, cs_wins)
 from pde_solver_tpu_torch.ops.stencil_kernels import (FlatStencilOperator,
                                                       kernel_wins)
 
@@ -291,12 +291,13 @@ def _static_flat_op(sysm: ScaledSystem, mesh: StructuredMesh, vdim: int,
     """Kernel-backed flat operator for the f32 CG paths (static, and the
     transient step without multigrid), or None when plain shifted slices
     are the right call (below ``KERNEL_MIN_DOF``).  With ``PDE_TPU_CS`` on
-    it is the constant-interior operator where the stencil allows one.
+    it is the constant-interior operator where the stencil allows one and
+    the system has at least ``CS_MIN_DOF`` unknowns.
     _cg_unit_diag then iterates in the flat layout."""
     n = int(np.prod(mesh.node_shape)) * vdim
     if not kernel_wins(n):
         return None
-    if cs_enabled():
+    if cs_enabled() and cs_wins(n):
         op = CSFlatStencilOperator.try_build(
             sysm.offsets, sysm.weights, mesh.node_shape, vdim=vdim,
             device=device, cache_key=sysm.ckey)

@@ -34,7 +34,8 @@ import torch
 from pde_solver_tpu_torch.mesh import StructuredMesh
 from pde_solver_tpu_torch.ops.bc import DirichletBC
 from pde_solver_tpu_torch.ops.cs_kernels import (CSFlatStencilOperator,
-                                                 cs_enabled, cs_mode)
+                                                 cs_enabled, cs_mode,
+                                                 cs_wins)
 from pde_solver_tpu_torch.ops.linsolve import (ScaledSystem, _dot,
                                                _is_flat_op, _pad1,
                                                _stencil_apply, prepare_system)
@@ -203,7 +204,8 @@ def _to_level(sysm: ScaledSystem, mesh, vdim: int, device,
     constant-interior level through the CS operator for both residuals and
     smoothing (it streams no weights, so a bf16 copy buys nothing);
     "hybrid" keeps the dense bf16 operator for smoothing.  A level that is
-    not CS-representable stays dense."""
+    not CS-representable, or has fewer than ``CS_MIN_DOF`` unknowns, stays
+    dense."""
     host_w = [np.asarray(W, dtype=np.float64) for W in sysm.weights]
     free = torch.as_tensor(sysm.free, dtype=torch.float32, device=device)
     n_dof = int(np.prod(mesh.node_shape)) * vdim
@@ -211,7 +213,7 @@ def _to_level(sysm: ScaledSystem, mesh, vdim: int, device,
     if kernel_wins(n_dof):
         mode = cs_mode()
         cs = None
-        if cs_enabled(mode):
+        if cs_enabled(mode) and cs_wins(n_dof):
             cs = CSFlatStencilOperator.try_build(
                 sysm.offsets, sysm.weights, mesh.node_shape, vdim=vdim,
                 device=device, cache_key=sysm.ckey)

@@ -17,15 +17,18 @@ at float32.
 
 Like the reference, "mixed" precision runs the scan in float32 (implicit
 stepping is contractive and every step is solved to
-``transient_inner_tol`` from a warm start).  Not ported, each raising
-``NotImplementedError``: float64 scans, periodic driving (``time_mod``),
-IMEX convection (``C_np``), checkpointing and sharding.  The reference
-thins large trajectory pulls to bfloat16 frames for its slow host link;
-the port pulls everything at float32 (ROADMAP queue 3).
+``transient_inner_tol`` from a warm start).  Sinusoidal driving
+(``time_mod``) and explicit IMEX convection (``C_np``, folded into the
+explicit operator for "ab1" or extrapolated by Adams-Bashforth-2 for
+"cnab2") are operands of the same step.  Not ported, each raising
+``NotImplementedError``: float64 scans, checkpointing and sharding.  The
+reference thins large trajectory pulls to bfloat16 frames for its slow host
+link; the port pulls everything at float32 (ROADMAP queue 3).
 """
 
 from __future__ import annotations
 
+import math
 import time
 from typing import Dict, NamedTuple, Optional
 
@@ -114,13 +117,26 @@ def run_transient(
 ) -> TransientResult:
     """``mg_level_builder(mesh_c) -> (K_c, M_c, bc_c)`` (optional) enables
     MG-PCG step solves: the implicit operator M + θΔtK is re-assembled per
-    coarse level and each step runs a V-cycle-preconditioned CG."""
-    if C_np:
-        raise NotImplementedError("IMEX convection (C_np) is not ported yet "
-                                  "(ROADMAP queue 1, item 8)")
-    if time_mod:
-        raise NotImplementedError("periodic driving (time_mod) is not ported "
-                                  "yet (ROADMAP queue 1, item 8)")
+    coarse level and each step runs a V-cycle-preconditioned CG.
+
+    ``C_np`` (optional): a non-symmetric convection stencil applied
+    explicitly (IMEX), so the implicit solve stays SPD.  Its offsets must
+    be a subset of K∪M's (true for same-mesh P1 assembly).
+    ``convection_scheme`` picks the explicit treatment:
+
+    * ``"ab1"``: (M + θΔtK) u⁺ = (M − (1−θ)ΔtK − ΔtC) u + Δt b — C folds
+      into the explicit-side operator, O(Δt) splitting.
+    * ``"cnab2"``: (M + θΔtK) u⁺ = (M − (1−θ)ΔtK) u − Δt(3/2 C u − 1/2 C u⁻)
+      + Δt b — O(Δt²) overall with θ=1/2.  The loop carries the previous
+      state; the first step self-starts as AB1 (u⁻ = u⁰).
+
+    ``time_mod`` (optional): sinusoidal driving.  Dict keys: ``omega``
+    [rad/s], ``phase`` (default 0), ``source_amp`` (assembled load-vector
+    amplitude b1: b(t) = b0 + sin(ωt+φ)·b1) and/or ``bc_amp_values``
+    (node-shaped Dirichlet amplitude: g(t) = g0 + sin(ωt+φ)·g_amp on
+    constrained DOFs).  The sinusoid is evaluated on the host in float64
+    per step (the reference evaluates it in the float32 state type; the
+    two differ by ~1e-7 relative)."""
     if convection_scheme not in ("ab1", "cnab2"):
         raise ValueError(f"unknown convection_scheme {convection_scheme!r}")
     cfg = config or get_config()
@@ -142,8 +158,11 @@ def run_transient(
     maxiter = cfg.resolved_maxiter(n)
     num_steps = int(num_steps)
 
+    cnab2 = bool(C_np) and convection_scheme == "cnab2"
     A_np = _combine(K_np, M_np, alpha=theta * dt, beta=1.0)
     B_np = _combine(K_np, M_np, alpha=-(1.0 - theta) * dt, beta=1.0)
+    if C_np and not cnab2:
+        B_np = _combine(C_np, B_np, alpha=-dt, beta=1.0)
     # scaled, masked implicit operator (zero rhs: only the weights are
     # needed, the per-step lift uses the precomputed A g)
     sysm = prepare_system(A_np, mesh, bc, np.zeros(u0_np.shape), vdim)
@@ -152,6 +171,25 @@ def run_transient(
     free_np = np.asarray(bc.free_mask, dtype=np.float64)
     B_list = [np.asarray(B_np.get(o, np.zeros_like(scaled[i])), np.float64)
               for i, o in enumerate(offsets)]
+    C_list = None
+    if cnab2:
+        C_list = [dt * np.asarray(C_np.get(o, np.zeros_like(B_list[i])),
+                                  np.float64)
+                  for i, o in enumerate(offsets)]
+
+    # sinusoidal-driving operands: b1 pre-scaled by dt, g1 restricted to
+    # constrained DOFs with its matching lift A·g1
+    b1_np = g1_np = Ag1_np = None
+    omega = phase = 0.0
+    if time_mod:
+        omega = float(time_mod["omega"])
+        phase = float(time_mod.get("phase", 0.0))
+        if time_mod.get("source_amp") is not None:
+            b1_np = dt * np.asarray(time_mod["source_amp"], np.float64)
+        if time_mod.get("bc_amp_values") is not None:
+            g1_np = (1.0 - free_np) * np.asarray(time_mod["bc_amp_values"],
+                                                 np.float64)
+            Ag1_np = np_stencil_apply(A_np, g1_np, d, vdim)
 
     h = None
     if (mg_level_builder is not None and cfg.use_multigrid
@@ -179,6 +217,9 @@ def run_transient(
     B_w = tuple(dev(W) for W in B_list)
     free, g, Ag = dev(free_np), dev(gvals), dev(Ag_np)
     b_src = dev(dt * np.asarray(b_source_np, np.float64))
+    C_w = None if C_list is None else tuple(dev(W) for W in C_list)
+    b1, g1, Ag1 = (None if a is None else dev(a)
+                   for a in (b1_np, g1_np, Ag1_np))
     if sysm.scale_kind == "scalar":
         scale_ops = _make_scale_ops(dev(sysm.s), None, None)
     else:
@@ -186,9 +227,27 @@ def run_transient(
     to_hat_b, to_hat_x, from_hat_x = scale_ops
     inner_tol = cfg.transient_inner_tol
 
-    def step(u):
+    def step(u, u_prev, n):
+        """Step n → n+1 (n a host integer: the sinusoid costs no sync)."""
         rhs = _stencil_apply(offsets, B_w, u, d, vdim) + b_src
-        b_hat = to_hat_b(free * (rhs - Ag) + g)
+        Ag_t, g_t = Ag, g
+        if time_mod:
+            # b(t) enters the θ-scheme as Δt·[θ s(t_{n+1}) + (1−θ) s(t_n)]·b1;
+            # Dirichlet data g(t) is enforced at the new time level, its
+            # lift A·g(t) scaling with the same sinusoid
+            s_n = math.sin(omega * (n * dt) + phase)
+            s_np1 = math.sin(omega * (n * dt + dt) + phase)
+            if b1 is not None:
+                rhs = rhs + (theta * s_np1 + (1.0 - theta) * s_n) * b1
+            if g1 is not None:
+                Ag_t, g_t = Ag + s_np1 * Ag1, g + s_np1 * g1
+        if C_w is not None:
+            # CNAB2: Adams-Bashforth-2 extrapolation of the convection term
+            # (C_w is pre-scaled by Δt)
+            rhs = rhs - (1.5 * _stencil_apply(offsets, C_w, u, d, vdim)
+                         - 0.5 * _stencil_apply(offsets, C_w, u_prev, d,
+                                                vdim))
+        b_hat = to_hat_b(free * (rhs - Ag_t) + g_t)
         x0_hat = to_hat_x(u)
         if h is not None:
             # resync_every=0: warm-started step solves take a handful of
@@ -223,8 +282,10 @@ def run_transient(
     t_scan = time.perf_counter()
     iters, res = 0, 0.0
     frame = 0
+    u_prev = u
     for j in range(1, num_steps + 1):
-        u, k, relres = step(u)
+        u_new, k, relres = step(u, u_prev, j - 1)
+        u_prev, u = u, u_new
         iters += int(k)
         res = max(res, float(relres))
         if frame < len(kept) and kept[frame] == j:

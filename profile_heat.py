@@ -10,7 +10,11 @@ seconds.  Then it runs each route once under ``torch.profiler`` (CPU and
 CUDA), with every step solve marked by ``record_function("step_solve")``,
 and prints the device time of the kernels that started within the step
 solves, summed per kernel, and that total as a share of the unprofiled
-scans.  The per-kernel table goes to ``build/profile_heat.json`` as well.
+scans.  Every device copy of at least 1 ms in that span is kept out of
+those sums and listed with its start after the first step solve began,
+whether it started within a step solve, and the port's Python frames of the
+CPU operator that was running when it started.  The per-kernel table goes to ``build/profile_heat.json``
+as well.
 Needs a CUDA card; writes only under ``build/``.
 """
 
@@ -34,9 +38,13 @@ def solve(api, config_overrides, cs: str, n: int, steps: int, data_dir: str):
     return res.meta["solver_stats"]
 
 
-def kernel_table(prof):
+def kernel_table(prof, min_copy_ms: float = 1.0):
     """Device kernels that started within the marked step solves:
-    {name: [ms, launches]}, and the marked span in ms."""
+    {name: [ms, launches]}, and the marked span in ms.  Copies of at least
+    ``min_copy_ms`` are left out (``long_copies`` lists them): the one such
+    copy is the trajectory's fetch after the last step, whose start on the
+    device's clock can read a few ms before the last mark's end on the
+    host's."""
     from torch.autograd import DeviceType
 
     events = prof.events()
@@ -48,11 +56,46 @@ def kernel_table(prof):
     for e in events:
         if e.device_type != DeviceType.CUDA or e.name == MARK:
             continue
+        if "Memcpy" in e.name and \
+                e.time_range.elapsed_us() / 1e3 >= min_copy_ms:
+            continue
         if lo <= e.time_range.start <= hi:
             row = table.setdefault(e.name, [0.0, 0])
             row[0] += e.time_range.elapsed_us() / 1e3
             row[1] += 1
     return table, (hi - lo) / 1e3
+
+
+def long_copies(prof, min_ms: float = 1.0):
+    """Device copies of at least ``min_ms`` that started within the span of
+    the marked step solves: (name, ms, start after the span began in ms,
+    inside a step solve?, the package's frames of the innermost CPU operator
+    with a Python stack that was running when the copy started)."""
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+    cpu = [e for e in events if e.device_type == DeviceType.CPU]
+    marks = [e for e in cpu if e.name == MARK]
+    lo = min(e.time_range.start for e in marks)
+    hi = max(e.time_range.end for e in marks)
+    out = []
+    for e in events:
+        if e.device_type != DeviceType.CUDA or "Memcpy" not in e.name:
+            continue
+        t, ms = e.time_range.start, e.time_range.elapsed_us() / 1e3
+        if not lo <= t <= hi or ms < min_ms:
+            continue
+        inside = any(m.time_range.start <= t <= m.time_range.end
+                     for m in marks)
+        over = [c for c in cpu if c.time_range.start <= t <= c.time_range.end
+                and c.stack]
+        frames = []
+        if over:
+            op = min(over, key=lambda c: c.time_range.elapsed_us())
+            frames = [f"{op.name}"] + [f for f in op.stack
+                                       if "pde_solver_tpu_torch" in f][:4]
+        out.append((e.name, ms, (t - lo) / 1e3, inside, frames))
+    return out
 
 
 def main() -> int:
@@ -99,7 +142,8 @@ def main() -> int:
            "routes": {}}
     for cs in "01":
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+                                 ProfilerActivity.CUDA],
+                     with_stack=True) as prof:
             solve(api, config_overrides, cs, args.n, args.steps, data_dir)
         table, span_ms = kernel_table(prof)
         total = sum(ms for ms, _ in table.values())
@@ -110,8 +154,15 @@ def main() -> int:
               f"share of the unprofiled scans: {share}", flush=True)
         for name, (ms, k) in sorted(table.items(), key=lambda kv: -kv[1][0]):
             print(f"  {ms:10.3f} ms {k:7d}  {name[:90]}")
+        copies = long_copies(prof)
+        for name, ms, at, inside, frames in copies:
+            print(f"  copy {name}: {ms:.3f} ms, {at:.2f} ms after the first "
+                  f"step solve began, {'inside' if inside else 'outside'} a "
+                  f"step solve; running: {' <- '.join(frames) or 'unknown'}",
+                  flush=True)
         out["routes"][cs] = {"span_ms": span_ms, "kernel_ms": total,
-                             "launches": launches, "kernels": table}
+                             "launches": launches, "kernels": table,
+                             "copies": copies}
     mg.mg_pcg = orig
     os.makedirs(build, exist_ok=True)
     with open(os.path.join(build, "profile_heat.json"), "w") as f:

@@ -361,6 +361,8 @@ def test_disk_cache_roundtrip(tmp_path, monkeypatch):
 @pytest.mark.parametrize("mode", ["0", "1", "hybrid"])
 def test_routing_follows_pde_tpu_cs(monkeypatch, mode):
     monkeypatch.setenv("PDE_TPU_CS", mode)
+    # the 41×7×7 system lies under the CS route's size gate
+    monkeypatch.setattr(ck, "CS_MIN_DOF", 100)
     mesh = port_box(40, 6, 6, (0, 0, 0), (1.0, 0.2, 0.2))
     sysm = _heat_be_system(box_mesh(40, 6, 6, (0, 0, 0), (1.0, 0.2, 0.2)))
     flat = port_ls._static_flat_op(sysm, mesh, 1, "cpu")

@@ -101,14 +101,21 @@ def test_port_never_imports_jax():
             " pde_solver_tpu_torch.ops.timestepping,"
             " pde_solver_tpu_torch.ops.cs_kernels,"
             " pde_solver_tpu_torch.ops.surface,"
-            " pde_solver_tpu_torch.models.heat;"
+            " pde_solver_tpu_torch.models.heat,"
+            " pde_solver_tpu_torch.models.advection;"
             "from pde_solver_tpu_torch.api import (solve_heat_3D,"
             " solve_heat_1D, solve_heat_2D, solve_heat_1D_cylindrical,"
             " solve_heat_1D_spherical, solve_heat_2D_cylindrical,"
             " solve_heat_2D_spherical, solve_heat_3D_spherical,"
             " solve_elasticity_1D_static, solve_elasticity_2D_static,"
             " solve_elasticity_1D_loaded, solve_elasticity_2D_loaded,"
-            " solve_elasticity_3D_loaded);"
+            " solve_elasticity_3D_loaded, solve_heat_1D_mixed,"
+            " solve_heat_2D_mixed, solve_heat_3D_mixed,"
+            " solve_heat_radial_mixed, solve_heat_1D_nonlinear,"
+            " solve_heat_2D_nonlinear, solve_advection_1D,"
+            " solve_advection_2D, solve_advection_3D);"
+            "pde_solver_tpu_torch.models.heat.solve_heat_nonlinear;"
+            "pde_solver_tpu_torch.models.advection.solve_advection_problem;"
             "assert 'jax' not in sys.modules, 'jax imported';"
             "assert not any(m.startswith('pde_solver_tpu.') or "
             "m == 'pde_solver_tpu' for m in sys.modules)")

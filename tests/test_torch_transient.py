@@ -1,7 +1,7 @@
 """The transient heat slice of the port against the JAX package:
 ``solve_heat_3D`` through its plain-CG, multigrid and constant-interior
 routes at small sizes, the steady tool, snapshot thinning, what is not
-ported yet, and ``mg_pcg``'s ``resync_every``."""
+ported yet (and what since was), and ``mg_pcg``'s ``resync_every``."""
 
 import inspect
 
@@ -119,6 +119,7 @@ def test_cs_route_matches_reference_and_dense(tmp_path, monkeypatch):
                         classmethod(spy))
     monkeypatch.setenv("PDE_TPU_PALLAS", "1")
     monkeypatch.setattr(pallas_kernels, "PALLAS_MIN_DOF", 100)
+    monkeypatch.setattr(ck, "CS_MIN_DOF", 100)   # both size gates lowered
     monkeypatch.setenv("PDE_TPU_CS", "1")
     cfg = dict(precision="f32", transient_inner_tol=1e-8)
     tool = dict(Lx=1.0, Ly=0.2, Lz=0.2, nx=40, ny=6, nz=6, num_steps=4)
@@ -182,29 +183,48 @@ def _small_heat():
 @pytest.mark.parametrize("what", ["time_mod", "C_np", "checkpoint", "shard",
                                   "f64", "robin", "mod_omega"])
 def test_unported_inputs_raise(what):
+    """Checkpointing, sharding and float64 scans raise; periodic driving,
+    explicit convection and Robin faces, which raised until they were
+    ported, now run and change the answer."""
     K, M, mesh, bc, b, u0 = _small_heat()
     kw, cfg = {}, dict(device="cpu", precision="f32")
     if what == "time_mod":
-        kw["time_mod"] = {"omega": 1.0, "source_amp": b}
+        kw["time_mod"] = {"omega": 1.0, "source_amp": b + 1.0}
     elif what == "C_np":
-        kw["C_np"] = {o: 0.1 * W for o, W in K.items()}
+        kw["C_np"] = assembly.assemble_convection_stencil(
+            mesh, np.array([1.0, 0.0, 0.0]))
     elif what == "checkpoint":
         cfg["transient_checkpoint_every"] = 2
     elif what == "shard":
         cfg["shard_devices"] = 4
     elif what == "f64":
         cfg["precision"] = "f64"
-    with config.config_overrides(**cfg), pytest.raises(NotImplementedError):
-        if what == "robin":
-            heat.solve_heat_problem(heat.HeatProblem(
-                mesh=mesh, bc_pairs=[(mesh.face_mask(0, 0), 1.0)],
-                robin_faces=[(0, 1, 5.0, 0.0)]))
-        elif what == "mod_omega":
-            heat.solve_heat_problem(heat.HeatProblem(
-                mesh=mesh, bc_pairs=[(all_boundary(mesh), 0.0)],
-                T_initial=20.0, num_steps=2, source_amp=1.0, mod_omega=1.0))
-        else:
+    if what in ("checkpoint", "shard", "f64"):
+        with config.config_overrides(**cfg), \
+                pytest.raises(NotImplementedError):
             timestepping.run_transient(K, M, mesh, bc, b, u0, 0.01, 2, **kw)
+        return
+    with config.config_overrides(**cfg):
+        if what == "robin":
+            plain = dict(mesh=mesh, bc_pairs=[(mesh.face_mask(0, 0), 1.0)],
+                         num_steps=2)
+            extra = dict(robin_faces=[(0, 1, 5.0, 0.0)])
+        elif what == "mod_omega":
+            plain = dict(mesh=mesh, bc_pairs=[(all_boundary(mesh), 0.0)],
+                         T_initial=20.0, num_steps=2)
+            extra = dict(source_amp=1.0, mod_omega=1.0)
+        if what in ("robin", "mod_omega"):
+            _, v0, _ = heat.solve_heat_problem(heat.HeatProblem(**plain))
+            _, v, info = heat.solve_heat_problem(
+                heat.HeatProblem(**plain, **extra))
+            assert info["converged"]
+        else:
+            v0 = timestepping.run_transient(K, M, mesh, bc, b, u0, 0.01,
+                                            2).values
+            v = timestepping.run_transient(K, M, mesh, bc, b, u0, 0.01, 2,
+                                           **kw).values
+    assert v.shape == v0.shape and np.all(np.isfinite(v))
+    assert np.abs(v - v0).max() > 1e-6 * np.abs(v0).max()
 
 
 def test_mg_pcg_without_resync_matches_reference():
