@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 1. Asserts a CUDA card and prints its name and power limit (nvidia-smi).
-2. Builds both kernel sources from ``pde_solver_tpu_torch/csrc`` with nvcc
-   for sm_90a, in parallel, and prints the build seconds and every
+2. Builds the three kernel sources from ``pde_solver_tpu_torch/csrc`` with
+   nvcc for sm_90a, in parallel, and prints the build seconds and every
    kernel's ptxas report.
 3. Dense SpMV (``flat_stencil_spmv``): holds each 3D variant (vdim=3 f32,
    vdim=3 bf16, vdim=1 f32, vdim=1 bf16) against its plain PyTorch version
@@ -120,6 +120,45 @@
    Every dense operator a main-path run launched has its offset count
    recorded (all must be built ones: 3, 7, 15), and each shape and
    variant is timed once (profiler device ms, share of its bound).
+9. The floor probes (``floor_probes``: wonly, shifts, residentw, csz), each
+   against its plain version (relative max error ≤ 1e-5; wonly and
+   residentw also with bf16 weights) on the flagship's scaled fine-level
+   elasticity operator (161×65×65, vdim 3) and the heat slice's (129³,
+   vdim 1), on two ragged tails (N mod 4 = 3, 1), and with one planted
+   fault each that must read > 1e-4.  Times each probe as in 3 (events,
+   profiler device ms, bound, share; where its bytes fit the L2 also with
+   128 MB written between launches); prints for wonly the GB/s it reaches
+   beside K1's device time at the same shape, for shifts and csz the fused
+   CS kernel's device time beside them.  The library yardstick of wonly is
+   ``W.sum(0)``; the other three have no single PyTorch call.  Then their
+   main path, counts 0 before and read after: the entry point
+   ``floor_probes.kernel_floor`` on the flagship's operator.
+10. The Newmark and modal tools, each run a main path of its own:
+   - full width, ``solve_wave_3D(nx=ny=nz=128, dt=0.01, num_steps=20)``
+     (2,146,689 DOF, the default sine mode): MG-PCG per step (counted),
+     ``PDE_TPU_CS`` 0 and 1 (CS levels exactly 129³ and 65³), against the
+     standing mode Π sin(πxᵢ) cos(√3πt) within a bound derived from the
+     scheme's period error and the mesh's, against a float64 Newmark of
+     the same M, K on the card (sparse CSR, Jacobi-PCG to 1e-12),
+     displacements and velocities, and the routes against each other;
+   - full width, ``solve_elasticity_3D_dynamic`` on the flagship's mesh
+     (160×64×64 cells, 2,040,675 DOF, 10 steps of 1e-4 s): the cantilever
+     released under gravity.  A spy on ``run_newmark`` keeps its operands
+     and result: converged, the clamped face never moves, max|u| under 2.2×
+     the static tip deflection q L⁴/(8EI), and the energy balance ½vᵀMv +
+     ½uᵀKu − fᵀu = 0 at the last frame, evaluated on the host in float64,
+     within 0.1 of fᵀu (the float32 right side f − K ũ leaves 5.8e-2 at
+     this mesh width); the same tool at 40×16×16 cells against a float64
+     Newmark of the same M, K on the card (bound 1e-2: float32 leaves
+     1.4e-3 – 2.9e-3);
+   - ``solve_wave_1D`` and ``solve_wave_2D`` at their default sizes against
+     their standing modes;
+   - ``solve_elasticity_3D_modal(nx=48, ny=12, nz=12, num_modes=2)``
+     (24,843 DOF: MG + the double-float32 F-cycle on K1 v3, one hierarchy
+     build and then cache hits, both counted) and
+     ``solve_elasticity_2D_modal(nx=96, ny=24, num_modes=2)`` (4,850 DOF,
+     flat CG on K1 v2), each against ``scipy.sparse.linalg.eigsh`` of the
+     same pencil on the free DOFs (host float64), frequencies within 1e-6.
 
 Fails loudly at the first failed check (non-zero exit, no result line).
 Prints, before the last line, the card line and a JSON line with, for each
@@ -130,7 +169,8 @@ error against plain, and at its main-path shape ``ms`` (events),
 saying why: bf16 weights), ``shape`` and ``l2_resident`` (the streamed
 bytes under the 50 MB L2, where the share is not one of HBM); for the CS
 kernels also ``cold_device_ms`` and ``cold_share``, with the L2 emptied
-between launches (null for the dense ones).  The last line is ``{"ok":
+between launches (null for the dense ones), and for the probes that read
+weights ``bf16`` (the times with bfloat16 weights, by shape).  The last line is ``{"ok":
 true, "device": {...}}``.  Needs no network; writes only under
 ``build/``.
 """
@@ -275,6 +315,44 @@ MIXED_TIGHT_TOL = 1e-9
 # each other (H100), where the heat slice's stay within HEAT_ROUTE_TOL
 MIXED_ROUTE_TOL = 5e-5
 ADVECTION_F64_TOL = 1e-4
+# the floor probes: ragged tails (N mod 4 = 3 and 1) beside the two
+# main-path shapes, and why three of them have no library yardstick
+FLOOR_SOURCE = "pde_solver_tpu_torch/csrc/floor_probes.cu"
+FLOOR_RAGGED = ((71, 65, 61), (73, 65, 61))
+PROBE_REPLACES = {"wonly": "benchmarks/kernel_floor.py:63",
+                  "shifts": "benchmarks/kernel_floor.py:98",
+                  "residentw": "benchmarks/kernel_floor.py:148",
+                  "csz": "benchmarks/kernel_floor.py:202"}
+PROBE_NO_LIBRARY = ("no single PyTorch call computes a shifted stencil sum "
+                    "with constant or tiled weights")
+FLOOR_REPS = 20
+# the Newmark slice at full width: the wave equation on 128³ cells (the
+# default sine mode, Π sin(πxᵢ) cos(√3πt)), and the flagship's cantilever
+# released under gravity; the latter also at 40×16×16 against the host
+WAVE_3D = dict(nx=128, ny=128, nz=128, dt=0.01, num_steps=20)
+DYNAMIC_3D = dict(Lx=1.0, Ly=0.2, Lz=0.2, nx=160, ny=64, nz=64,
+                  body_fz=-7.65e4, dt=1e-4, num_steps=10)
+DYNAMIC_SMALL = dict(DYNAMIC_3D, nx=40, ny=16, nz=16)
+# float32 Newmark scans against float64 (max|Δ|/max, displacements and
+# velocities).  The wave's step operator M + βΔt²K is close to the mass
+# matrix (H100 at 129³: 1.1e-6 and 4.0e-5).  The cantilever's right side
+# f − K ũ is a difference of terms |K||ũ| / |f| ∝ h⁻² times larger, which
+# a float32 scan cannot resolve: at 40×16×16 cells and E = 210 GPa it sits
+# 1.4e-3 (u) and 2.9e-3 (v) from float64 after 10 steps, at any step
+# tolerance (H100; 1.0e-5 and 1.7e-5 at 8×4×4 on the CPU).  An open fault
+# of the float32 scan (ROADMAP queue 3), stated here, not hidden
+NEWMARK_F64_TOL = 1e-4
+DYNAMIC_F64_TOL = 1e-2
+# ½vᵀMv + ½uᵀKu − fᵀu of the released cantilever, as a share of fᵀu.  The
+# float32 right side f − K ũ loses |K||ũ| / |f| ∝ h⁻² digits: the balance
+# closes to 1.2e-4 at 16×8×8 cells (CPU), 5.8e-2 at 160×64×64 (H100);
+# PERF.md and ROADMAP queue 3 carry it as an open fault of the float32 scan
+ENERGY_TOL = 0.1
+# the modal slice: 24,843 DOF (MG + df2) and 4,850 DOF (flat CG); two modes
+# each, since every solve is launch-bound
+MODAL_3D = dict(nx=48, ny=12, nz=12, num_modes=2)
+MODAL_2D = dict(nx=96, ny=24, num_modes=2)
+MODAL_TOL = 1e-6
 
 
 def check(ok: bool, msg: str) -> None:
@@ -1072,12 +1150,14 @@ def spy_cs_builds(ck):
 
 def spy_flat_launches(sk):
     """Record every FlatStencilOperator that launches its kernel, once
-    each; returns the dict (id -> operator) it fills."""
+    each, with the launches it had made before (an operator of a cached
+    hierarchy outlives the run that built it); returns the dict
+    (id -> (operator, launches before)) it fills."""
     launched = {}
     orig = sk.FlatStencilOperator._launch
 
     def spy(self, x):
-        launched.setdefault(id(self), self)
+        launched.setdefault(id(self), (self, self.launches))
         return orig(self, x)
 
     sk.FlatStencilOperator._launch = spy
@@ -1099,9 +1179,9 @@ def check_launched(sk, launched, label: str, results, record,
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4)
     seen = {}
-    for op in launched.values():
+    for op, before in launched.values():
         key = (label, op.variant, op.node_shape, op.n_off)
-        record[key] = record.get(key, 0) + op.launches
+        record[key] = record.get(key, 0) + op.launches - before
         x = torch.randn((op.vdim, op.N), generator=gen, device="cuda")
         y = op.apply_flat(x)
         y_plain = sk.spmv_plain(op.W, x, op.deltas, op.vdim)
@@ -1956,6 +2036,758 @@ def analytic_phase(api, drive, data_dir, nonlinear=NONLINEAR_2D):
           f"gaussian transport errors {errs}")
 
 
+def probe_bytes_flops(name, op, tile=None):
+    """Bytes a probe must move (each input read once, each output written
+    once) and its float32 operations, for ``op``'s shape and weight type."""
+    nw = op.n_off * op.vdim * op.vdim
+    xy = 2 * op.vdim * op.N * 4
+    if name == "wonly":
+        return nw * op.N_pad * op.W.element_size() + op.N_pad * 4, \
+            float(nw * op.N_pad)
+    if name == "shifts":
+        return xy, 2.0 * nw * op.N
+    if name == "residentw":
+        return xy + tile.numel() * tile.element_size(), 2.0 * nw * op.N
+    # csz: two mask planes, three constant sets and the two joins
+    return xy + 2 * op.N_pad * 4, (6.0 * nw + 4.0 * op.vdim) * op.N
+
+
+def time_probe(label, name, kernel, plain, cost, reps_p=3, library=None,
+               beside=""):
+    """Times one probe: events in turns (plain, library, kernel, kernel,
+    library, plain), profiler device ms, and where its bytes fit the L2 the
+    device ms with 128 MB written between launches.  Prints one line and
+    returns the fields of the result line."""
+    import torch
+
+    nbytes, flops = cost
+    bound_ms, bound_by = bound(nbytes, flops)
+    ms, plain_ms, library_ms = turns(kernel, plain, 50, reps_p,
+                                     library=library)
+    dev = device_ms(kernel, f"{name}_kernel")
+    l2 = nbytes < L2_BYTES
+    cold = None
+    if l2:
+        flush = torch.empty(FLUSH_BYTES // 4, device="cuda")
+        cold = device_ms(lambda: (flush.zero_(), kernel()), f"{name}_kernel")
+        del flush
+    print(f"probe {name} {label}: ms={ms:.4f} device_ms={dev:.4f} plain_ms="
+          f"{plain_ms:.4f} library_ms="
+          f"{'none' if library_ms is None else f'{library_ms:.4f}'} "
+          f"bound_ms={bound_ms:.4f} ({bound_by}; {nbytes / 1e6:.1f} MB) "
+          f"share={bound_ms / ms:.3f}"
+          + (f" (fits L2: not a share of HBM) | L2 emptied between "
+             f"launches: device {cold:.4f}, share of HBM "
+             f"{bound_ms / cold:.3f}" if l2 else
+             f" -> {nbytes / ms / 1e6:.1f} GB/s by events, "
+             f"{nbytes / dev / 1e6:.1f} GB/s by device time")
+          + beside, flush=True)
+    return dict(ms=ms, device_ms=dev, plain_ms=plain_ms,
+                library_ms=library_ms,
+                library_note=None if library else PROBE_NO_LIBRARY,
+                bound_ms=bound_ms, bound_by=bound_by, share=bound_ms / ms,
+                shape=label, l2_resident=l2, cold_device_ms=cold,
+                cold_share=None if cold is None else bound_ms / cold)
+
+
+def probe_checks(fp, sk, op, x, label, results):
+    """The four probes on ``op``'s weights (f32 and bf16 where a probe reads
+    weights) against their plain versions, relative max error ≤ REL_TOL,
+    and one planted fault each that must read > FAULT_MIN.  Returns what
+    the timings need: (op16, tiles, constants, masks)."""
+    import torch
+
+    v, deltas = op.vdim, op.deltas
+    op16 = op.as_weight_dtype(torch.bfloat16)
+    wc, dz0, dz1 = fp.probe_constants(op.n_off * v * v)
+    masks = fp.face_masks(op.N_pad, op.node_shape[-1], x.device)
+    tiles = {}
+    rels = {}
+
+    def hold(name, y, y_plain):
+        if x.is_cuda:
+            torch.cuda.synchronize()
+        rel = rel_err(y, y_plain)
+        check(rel <= REL_TOL, f"probe {name} at {label}: kernel vs plain "
+              f"relative max error {rel:.3e} > {REL_TOL}")
+        res = results.setdefault(name.split()[0], {"max_abs_err": 0.0})
+        res["max_abs_err"] = max(res["max_abs_err"],
+                                 float((y - y_plain).abs().max()))
+        rels[name] = rel
+        return y_plain
+
+    plains = {}
+    for wt, o in (("f32", op), ("bf16", op16)):
+        plains[f"wonly {wt}"] = hold(f"wonly {wt}", fp.wonly(o.W),
+                                     fp.wonly_plain(o.W))
+        tiles[wt] = fp.weight_tile(o.W)
+        plains[f"residentw {wt}"] = hold(
+            f"residentw {wt}", fp.residentw(tiles[wt], x, deltas, v),
+            fp.residentw_plain(tiles[wt], x, deltas, v))
+    plains["shifts"] = hold("shifts", fp.shifts(x, deltas, v, wc),
+                            fp.shifts_plain(x, deltas, v, wc))
+    plains["csz"] = hold("csz", fp.csz(masks, x, deltas, v, wc, dz0, dz1),
+                         fp.csz_plain(masks, x, deltas, v, wc, dz0, dz1))
+    # one planted fault a probe, each in the last, partial group of nodes
+    n = op.N - 2
+    W_bad = op.W.clone()
+    W_bad[op.W.shape[0] // 2, n] += 10.0 * float(plains["wonly f32"].abs().max())
+    tile_bad = tiles["f32"].clone()
+    tile_bad[:, n % tile_bad.shape[1]] = 0
+    wc_bad = wc.copy()
+    wc_bad[deltas.index(0) * v * v] *= 1.1
+    m_bad = masks.clone()
+    m_bad[1] = 0
+    faults = {
+        "wonly": rel_err(fp.wonly(W_bad), plains["wonly f32"]),
+        "residentw": rel_err(fp.residentw(tile_bad, x, deltas, v),
+                             plains["residentw f32"]),
+        "shifts": rel_err(fp.shifts(x, deltas, v, wc_bad), plains["shifts"]),
+        "csz": rel_err(fp.csz(m_bad, x, deltas, v, wc, dz0, dz1),
+                       plains["csz"])}
+    del W_bad, tile_bad, m_bad
+    print(f"probes {label} N={op.N} (N mod 4 = {op.N % 4}) v{v}: rel err "
+          + ", ".join(f"{k} {r:.3e}" for k, r in rels.items())
+          + "; planted faults: "
+          + ", ".join(f"{k} {r:.3e}" for k, r in faults.items()), flush=True)
+    check(min(faults.values()) > FAULT_MIN, f"probes at {label}: a planted "
+          f"fault reads {min(faults.values()):.3e}, not above {FAULT_MIN}")
+    return op16, tiles, (wc, dz0, dz1), masks
+
+
+def floor_phase(fp, sk, ck, cases=None, ragged=FLOOR_RAGGED, device="cuda",
+                timed=True):
+    """The four floor probes against their plain versions on the card: at
+    the flagship's fine-level elasticity operator (161×65×65, vdim 3) and
+    the heat slice's (129³, vdim 1), and on random weights at two ragged
+    tails; then their times beside their bounds, P1 beside K1 and P2 / P4
+    beside the fused CS kernel at the same shape.  The first case gives the
+    result line's numbers.  Returns per-probe results."""
+    import torch
+
+    if cases is None:
+        cases = (("flagship elasticity 161x65x65", 3, elasticity_operator),
+                 ("heat 129^3", 1,
+                  lambda: heat_operator((128, 128, 128))))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(5)
+    results = {}
+    for label, vdim, build in cases:
+        mesh, sysm = build()
+        op = sk.FlatStencilOperator(sysm.offsets, sysm.weights,
+                                    mesh.node_shape, vdim=vdim, device=device)
+        x = torch.randn((vdim, op.N), generator=gen, device=device)
+        op16, tiles, (wc, dz0, dz1), masks = probe_checks(fp, sk, op, x,
+                                                          label, results)
+        if timed:
+            d = op.deltas
+            k1 = {wt: device_ms(lambda o=o: o.apply_flat(x),
+                                "flat_stencil_spmv_kernel")
+                  for wt, o in (("f32", op), ("bf16", op16))}
+            cs = ck.CSFlatStencilOperator.try_build(
+                sysm.offsets, sysm.weights, mesh.node_shape, vdim=vdim,
+                device=device)
+            check(cs is not None, f"{label}: CS build refused")
+            cs_ms = device_ms(lambda: cs.apply_flat(x), "cs_apply_kernel")
+            del cs
+            fields = {}
+            for wt, o in (("f32", op), ("bf16", op16)):
+                W = o.W
+                fields[f"wonly {wt}"] = time_probe(
+                    f"{label} {wt}", "wonly", lambda: fp.wonly(W),
+                    lambda: fp.wonly_plain(W),
+                    probe_bytes_flops("wonly", o),
+                    library=lambda: W.sum(0, dtype=torch.float32),
+                    beside=f" | K1 {wt} at this shape: device "
+                           f"{k1[wt]:.4f} ms")
+                t = tiles[wt]
+                fields[f"residentw {wt}"] = time_probe(
+                    f"{label} {wt}", "residentw",
+                    lambda: fp.residentw(t, x, d, vdim),
+                    lambda: fp.residentw_plain(t, x, d, vdim),
+                    probe_bytes_flops("residentw", o, t),
+                    beside=f" | K1 {wt}: device {k1[wt]:.4f} ms")
+            lib_rel = rel_err(op.W.sum(0, dtype=torch.float32),
+                              fp.wonly_plain(op.W))
+            check(lib_rel <= REL_TOL, f"{label}: W.sum(0) vs wonly_plain "
+                  f"{lib_rel:.3e}")
+            beside = f" | fused CS kernel at this shape: device {cs_ms:.4f} ms"
+            fields["shifts"] = time_probe(
+                label, "shifts", lambda: fp.shifts(x, d, vdim, wc),
+                lambda: fp.shifts_plain(x, d, vdim, wc),
+                probe_bytes_flops("shifts", op), beside=beside)
+            fields["csz"] = time_probe(
+                label, "csz",
+                lambda: fp.csz(masks, x, d, vdim, wc, dz0, dz1),
+                lambda: fp.csz_plain(masks, x, d, vdim, wc, dz0, dz1),
+                probe_bytes_flops("csz", op), beside=beside)
+            for name, f in fields.items():
+                res = results[name.split()[0]]
+                if name.endswith("bf16"):
+                    res.setdefault("bf16", {})[label] = {
+                        k: f[k] for k in ("ms", "device_ms", "bound_ms",
+                                          "share", "library_ms",
+                                          "cold_device_ms")}
+                elif "ms" not in res:
+                    res.update(f)
+        del op, op16, tiles, masks, x, mesh, sysm
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    # ragged tails on random weights (N mod 4 = 3 and 1), vdim 3 and 1
+    tiny = sorted_p1_offsets()
+    for vdim, shape in zip((3, 1), ragged):
+        N = shape[0] * shape[1] * shape[2]
+        W = torch.zeros((len(tiny) * vdim * vdim, sk.padded_length(N)),
+                        device=device)
+        W[:, :N] = torch.randn((W.shape[0], N), generator=gen, device=device)
+        op = sk.FlatStencilOperator.from_packed(W, tiny, shape, vdim)
+        x = torch.randn((vdim, N), generator=gen, device=device)
+        probe_checks(fp, sk, op, x, f"ragged {shape}", results)
+        del W, op, x
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return results
+
+
+def sorted_p1_offsets():
+    """The 15 offsets of the sorted P1 stencil of a 3D mesh."""
+    from pde_solver_tpu_torch.mesh import box_mesh
+    from pde_solver_tpu_torch.ops import assembly
+
+    tiny = box_mesh(2, 2, 2, (0.0, 0.0, 0.0), (1.0, 1.0, 1.0))
+    return tuple(sorted(assembly.assemble_elasticity_stencil(tiny, 1.0, 1.0)))
+
+
+def block_stencil_csr(stencil, shape, vdim):
+    """A numpy (block) stencil {offset: weights [*shape(, v, v)]} as a
+    float64 scipy CSR matrix, DOFs in C order (node·v + component)."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    if vdim == 1:
+        return stencil_csr(stencil, shape)
+    N = int(np.prod(shape))
+    strides = np.cumprod((1,) + tuple(shape[::-1]))[:-1][::-1]
+    node = np.arange(N)
+    rows, cols, vals = [], [], []
+    for off, W in stencil.items():
+        c = node + int(np.dot(off, strides))
+        ok = (c >= 0) & (c < N)
+        Wf = np.asarray(W, np.float64).reshape(N, vdim, vdim)
+        for a in range(vdim):
+            for b in range(vdim):
+                rows.append(node[ok] * vdim + a)
+                cols.append(c[ok] * vdim + b)
+                vals.append(Wf[ok, a, b])
+    return sp.csr_matrix((np.concatenate(vals), (np.concatenate(rows),
+                                                 np.concatenate(cols))),
+                         shape=(N * vdim, N * vdim))
+
+
+def newmark_f64(K, M, free, f, u0, v0, dt, num_steps, beta=0.25, gamma=0.5,
+                device=None):
+    """Float64 Newmark-β of M ü + K u = f written from the scheme: the
+    constrained DOFs keep u0 with v = a = 0; M a0 = f − K u0 and every step
+    (M + βΔt²K) a⁺ = f − K ũ on the free DOFs.  ``K``, ``M`` scipy CSR,
+    the vectors flat.  On the host (no ``device``) by one sparse LU of each
+    matrix; on ``device`` by Jacobi-PCG on torch sparse CSR, warm-started,
+    to a true relative residual ≤ 1e-12.  Returns (us, vs), each
+    [num_steps + 1, n]."""
+    import numpy as np
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+
+    idx = np.flatnonzero(free)
+    Kff = K[idx][:, idx].tocsr()
+    Mff = M[idx][:, idx].tocsr()
+    A = (Mff + (beta * dt * dt) * Kff).tocsr()
+    # the pinned values' pull on the free rows
+    ff = f[idx] - (K[idx] @ (u0 * (1.0 - free)))
+    u, v = u0[idx].copy(), v0[idx].copy()
+    c1, c2 = dt * dt * (0.5 - beta), beta * dt * dt
+
+    if device is None:
+        lu_m, lu_a = spla.splu(Mff.tocsc()), spla.splu(A.tocsc())
+        solve_m, solve_a = (lambda b, x0: lu_m.solve(b)), \
+            (lambda b, x0: lu_a.solve(b))
+        Kmv = lambda x: Kff @ x                    # noqa: E731
+        to_host = lambda x: x                      # noqa: E731
+    else:
+        import torch
+
+        def dev_csr(S):
+            return torch.sparse_csr_tensor(
+                torch.from_numpy(S.indptr.astype(np.int64)),
+                torch.from_numpy(S.indices.astype(np.int64)),
+                torch.from_numpy(S.data), size=S.shape,
+                dtype=torch.float64).to(device)
+
+        def pcg(S, dinv):
+            def solve(b, x):
+                bn = float(torch.linalg.vector_norm(b))
+                if bn == 0.0:
+                    return torch.zeros_like(b)
+                r = b - (S @ x[:, None])[:, 0]
+                z = dinv * r
+                p, rz = z, torch.dot(r, z)
+                for it in range(1, 20001):
+                    Ap = (S @ p[:, None])[:, 0]
+                    alpha = rz / torch.dot(p, Ap)
+                    x = x + alpha * p
+                    r = r - alpha * Ap
+                    if it % 10 == 0 and float(torch.linalg.vector_norm(
+                            b - (S @ x[:, None])[:, 0])) <= 1e-12 * bn:
+                        break
+                    z = dinv * r
+                    rz_new = torch.dot(r, z)
+                    p, rz = z + (rz_new / rz) * p, rz_new
+                relres = float(torch.linalg.vector_norm(
+                    b - (S @ x[:, None])[:, 0])) / bn
+                check(relres <= 1e-12, f"float64 Newmark reference: relres "
+                      f"{relres:.3e} after {it} iterations")
+                iters[0] += it
+                return x
+            return solve
+
+        iters = [0]
+        Kd = dev_csr(Kff)
+        solve_m = pcg(dev_csr(Mff),
+                      torch.from_numpy(1.0 / Mff.diagonal()).to(device))
+        solve_a = pcg(dev_csr(A),
+                      torch.from_numpy(1.0 / A.diagonal()).to(device))
+        Kmv = lambda x: (Kd @ x[:, None])[:, 0]    # noqa: E731
+        to_host = lambda x: x.cpu().numpy()        # noqa: E731
+        ff, u, v = (torch.from_numpy(a).to(device) for a in (ff, u, v))
+
+    a = solve_m(ff - Kmv(u), 0.0 * u)
+    us, vs = [to_host(u)], [to_host(v)]
+    for _ in range(num_steps):
+        u_pred = u + dt * v + c1 * a
+        a_new = solve_a(ff - Kmv(u_pred), a)
+        u = u_pred + c2 * a_new
+        v = v + dt * ((1.0 - gamma) * a + gamma * a_new)
+        a = a_new
+        us.append(to_host(u))
+        vs.append(to_host(v))
+    if device is not None:
+        print(f"float64 Newmark reference, {len(idx)} free DOF: {iters[0]} "
+              f"PCG iterations over {num_steps} steps", flush=True)
+
+    def full(frames, pinned):
+        out = np.tile(pinned * (1.0 - free), (len(frames), 1))
+        out[:, idx] = np.stack(frames)
+        return out
+
+    return full(us, u0), full(vs, np.zeros_like(u0))
+
+
+def spy_newmark():
+    """Keep the arguments and the result of every ``run_newmark`` call (the
+    tools return the displacement magnitude or flat values only); returns
+    the list of (args, kwargs, NewmarkResult)."""
+    from pde_solver_tpu_torch.models import wave
+    from pde_solver_tpu_torch.ops import timestepping
+
+    calls = []
+    orig = timestepping.run_newmark
+
+    def spy(*a, **kw):
+        res = orig(*a, **kw)
+        calls.append((a, kw, res))
+        return res
+
+    timestepping.run_newmark = spy     # elasticity imports it at call time
+    wave.run_newmark = spy
+    return calls
+
+
+def energy_share(K_np, M_np, f_np, res, parts=False):
+    """|½vᵀMv + ½uᵀKu − fᵀu| / |fᵀu| at the last frame of a Newmark run
+    started at rest from u = 0 (where the balance is 0), on the host in
+    float64; with ``parts`` also the balance and fᵀu."""
+    import numpy as np
+
+    from pde_solver_tpu_torch.ops.linsolve import np_stencil_apply
+
+    u, v = res.values[-1], res.velocities[-1]
+    d, vdim = u.ndim - 1, u.shape[-1]
+    work = float(np.sum(f_np * u))
+    energy = 0.5 * float(np.sum(v * np_stencil_apply(M_np, v, d, vdim))) \
+        + 0.5 * float(np.sum(u * np_stencil_apply(K_np, u, d, vdim))) - work
+    share = abs(energy) / abs(work)
+    return (share, energy, work) if parts else share
+
+
+def newmark_line(label, res, steps, launches, extra=""):
+    print(f"{label}: setup/scan/fetch={res.setup_seconds:.3f}/"
+          f"{res.scan_seconds:.3f}/{res.fetch_seconds:.3f} s steps/s="
+          f"{steps / res.scan_seconds:.3f} iterations/step="
+          f"{res.total_cg_iterations / steps:.2f} relres="
+          f"{res.max_relative_residual:.3e} launches={launches}{extra}",
+          flush=True)
+
+
+def standing_mode_tol(dim, k, h, omega, T, dt):
+    """Bound on max|u − Π sin(k xᵢ) cos(ωt)| of a Newmark run from the
+    projected sine, 1.5 × the sum of what is known to differ: the
+    consistent-mass projection raises the nodal amplitude by (kh)²/12 an
+    axis; the average-acceleration scheme stretches the period by (ωΔt)²/12
+    a radian and the P1 mesh shortens it by (kh)²/24, over ωT radians."""
+    kh2 = (k * h) ** 2
+    return 1.5 * (dim * kh2 / 12.0
+                  + omega * T * ((omega * dt) ** 2 / 12.0 + kh2 / 24.0))
+
+
+def wave_matrices(mesh, c=1.0):
+    """(K, M, free) of the wave tools' weak form as float64 scipy CSR:
+    c²·stiffness, mass, all-boundary Dirichlet."""
+    import numpy as np
+
+    from pde_solver_tpu_torch.ops import assembly
+
+    K = stencil_csr(assembly.assemble_scalar_stencil(mesh, "stiffness"),
+                    mesh.node_shape) * (c * c)
+    M = stencil_csr(assembly.assemble_scalar_stencil(mesh, "mass"),
+                    mesh.node_shape)
+    free = (~np.asarray(mesh.boundary_mask(), bool)).astype(np.float64)
+    return K.tocsr(), M, free.reshape(-1)
+
+
+def newmark_phase(api, run, hold_cs, data_dir, wave=WAVE_3D,
+                  beam=DYNAMIC_3D, small=DYNAMIC_SMALL, device="cuda"):
+    """The Newmark tools on the card.  Full width: ``solve_wave_3D`` (MG-PCG
+    per step, ``PDE_TPU_CS`` 0 and 1) against the standing mode and a
+    float64 Newmark of the same M, K on the card; ``solve_elasticity_3D_
+    dynamic`` on the flagship's mesh (a cantilever released under gravity)
+    with its energy balance, and at a small size against a float64 Newmark
+    (on ``device``, or by sparse LU on the host without one);
+    ``solve_wave_1D`` / ``solve_wave_2D`` at
+    their default sizes against their standing modes."""
+    import numpy as np
+
+    from pde_solver_tpu_torch.config import config_overrides
+    from pde_solver_tpu_torch.mesh import (box_mesh, flatten_values,
+                                           interval_mesh, rectangle_mesh)
+    from pde_solver_tpu_torch.ops import multigrid as mg
+
+    calls = spy_newmark()
+    mg_calls = count_calls(mg, "mg_pcg")
+
+    # -- wave 3D at full width ------------------------------------------------
+    steps, dt = wave["num_steps"], wave["dt"]
+    cells = (wave["nx"], wave["ny"], wave["nz"])
+    n = int(np.prod([c + 1 for c in cells]))
+    u_runs = {}
+    for cs in ("0", "1"):
+        label = f"wave 3D PDE_TPU_CS={cs}"
+        mg_calls[0] = 0
+        del calls[:]
+        res, st, launches, cs_built = run(label, cs, lambda: api.solve_wave_3D(
+            **wave, data_dir=data_dir))
+        u, times = field(res)
+        os.remove(res.data_file)
+        nres = calls[-1][2]
+        # node order of the grid (C order), as the float64 reference's
+        u_runs[cs] = (nres.values.reshape(steps + 1, -1),
+                      nres.velocities.reshape(steps + 1, -1))
+        check(np.array_equal(u[-1], flatten_values(nres.values[-1], 3)),
+              f"{label}: the artifact's last frame is not the scan's")
+        levels = sorted(s for s, op, *_ in cs_built if op is not None)
+        newmark_line(label, calls[-1][2], steps, launches,
+                     f" MG-PCG step solves={mg_calls[0]} CS levels={levels}")
+        check(st["num_dofs"] == n and st["integrator"] == "newmark_beta",
+              f"{label}: {st}")
+        check(mg_calls[0] == steps, f"{label}: {mg_calls[0]} MG-PCG step "
+              f"solves in {steps} steps")
+        check(bool(st["converged"]) and st["relative_residual"]
+              <= st["convergence_target"], f"{label} did not converge: {st}")
+        check(u.shape == (steps + 1, n) and times.shape == (steps + 1,)
+              and bool(np.all(np.isfinite(u))), f"{label}: field {u.shape}")
+        if cs == "0":
+            for name in ("v1_f32", "v1_bf16"):
+                check(launches.get(name, 0) > 0, f"{label} launched no {name}")
+            check(not any(k.startswith("cs_") for k in launches),
+                  f"{label} launched CS kernels")
+        else:
+            want = sorted(tuple(c // f + 1 for c in cells) for f in (1, 2)
+                          if np.prod([c // f + 1 for c in cells]) >= 65536)
+            # the fine level twice: the step operator's, and the mass
+            # operator's of the initial field's consistent-mass projection
+            check(sorted(set(levels)) == want, f"{label}: CS levels "
+                  f"{levels}, expected {want} (those of ≥ 65,536 DOF)")
+            check(bool(levels) == bool(launches.get("cs_apply_v1", 0)),
+                  f"{label}: CS levels {levels}, launches {launches}")
+            hold_cs(cs_built, label)
+        del cs_built
+    mesh = box_mesh(*cells, (0.0, 0.0, 0.0), (1.0, 1.0, 1.0))
+    omega = np.sqrt(3.0) * np.pi
+    mode = np.prod(np.sin(np.pi * mesh.node_coords), axis=-1).reshape(-1)
+    exact = mode[None, :] * np.cos(omega * times)[:, None]
+    analytic_tol = standing_mode_tol(3, np.pi, 1.0 / min(cells), omega,
+                                     times[-1], dt)
+    t0 = time.perf_counter()
+    K, M, free = wave_matrices(mesh)
+    u_ref, v_ref = newmark_f64(K, M, free, np.zeros(n), u_runs["0"][0][0],
+                               np.zeros(n), dt, steps, device=device)
+    del K, M
+    ref_s = time.perf_counter() - t0
+    vscale = np.abs(v_ref).max()
+    for cs, (u, v) in u_runs.items():
+        err = float(np.abs(u - exact).max())
+        gap_u = float(np.abs(u - u_ref).max() / np.abs(u_ref).max())
+        gap_v = float(np.abs(v - v_ref).max() / vscale)
+        print(f"wave 3D PDE_TPU_CS={cs}: max|u - Π sin(πxᵢ) cos(√3πt)|="
+              f"{err:.3e} (bound {analytic_tol:.3e}); vs float64 Newmark "
+              f"max|Δu|/max|u|={gap_u:.3e} max|Δv|/max|v|={gap_v:.3e} "
+              f"(bound {NEWMARK_F64_TOL})", flush=True)
+        check(err <= analytic_tol, f"wave 3D (PDE_TPU_CS={cs}) off the "
+              f"standing mode by {err:.3e}")
+        check(max(gap_u, gap_v) <= NEWMARK_F64_TOL, f"wave 3D (PDE_TPU_CS="
+              f"{cs}) off the float64 Newmark by {gap_u:.3e} / {gap_v:.3e}")
+    gap = float(np.abs(u_runs["1"][0] - u_runs["0"][0]).max())
+    print(f"wave 3D: float64 reference {ref_s:.3f} s; CS vs dense "
+          f"max|Δu|={gap:.3e} (bound {HEAT_ROUTE_TOL})", flush=True)
+    check(gap <= HEAT_ROUTE_TOL, f"wave 3D routes differ by {gap:.3e}")
+    del u_runs, u_ref, v_ref, exact
+
+    # -- the cantilever released under gravity, full width --------------------
+    steps = beam["num_steps"]
+    bcells = (beam["nx"], beam["ny"], beam["nz"])
+    nodes = tuple(c + 1 for c in bcells)
+    label = "dynamic 3D " + "x".join(str(c) for c in bcells)
+    mg_calls[0] = 0
+    del calls[:]
+    res, st, launches, _ = run(label, "0", lambda:
+                               api.solve_elasticity_3D_dynamic(
+                                   **beam, data_dir=data_dir))
+    mag, times = field(res)
+    os.remove(res.data_file)
+    (K_np, M_np, _, _, f_np, *_), _, nres = calls[-1]
+    newmark_line(label, nres, steps, launches,
+                 f" MG-PCG step solves={mg_calls[0]}")
+    check(st["num_dofs"] == 3 * int(np.prod(nodes)), f"{label}: {st}")
+    check(mg_calls[0] == steps and bool(st["converged"]),
+          f"{label}: {mg_calls[0]} MG-PCG step solves, {st}")
+    check(mag.shape == (steps + 1, int(np.prod(nodes)))
+          and bool(np.all(np.isfinite(mag))), f"{label}: field {mag.shape}")
+    for name in ("v3_f32", "v3_bf16"):
+        check(launches.get(name, 0) > 0, f"{label} launched no {name}")
+    clamp = float(max(np.abs(nres.values[:, 0]).max(),
+                      np.abs(nres.velocities[:, 0]).max()))
+    # Euler–Bernoulli tip deflection of the static beam, q L⁴ / (8 E I)
+    q = abs(beam["body_fz"]) * beam["Ly"] * beam["Lz"]
+    inertia = beam["Ly"] * beam["Lz"] ** 3 / 12.0
+    static = q * beam["Lx"] ** 4 / (8.0 * FLAGSHIP["E"] * inertia)
+    t0 = time.perf_counter()
+    share, energy, work = energy_share(K_np, M_np, f_np, nres, parts=True)
+    print(f"{label}: clamped face max|u|,|v|={clamp:.3e}; max|u|="
+          f"{mag.max():.6e} m at t={times[-1]:.1e} s (static tip deflection "
+          f"q L^4/(8EI) = {static:.6e} m, bound 2.2x); energy balance "
+          f"½vᵀMv + ½uᵀKu − fᵀu = {energy:.6e} J against fᵀu = {work:.6e} J "
+          f"(share {share:.3e}, bound {ENERGY_TOL}; host f64, "
+          f"{time.perf_counter() - t0:.3f} s)", flush=True)
+    check(clamp == 0.0, f"{label}: the clamped face moved by {clamp:.3e}")
+    check(0.0 < mag.max() <= 2.2 * static, f"{label}: max|u| {mag.max():.3e} "
+          f"against 2× the static deflection {static:.3e}")
+    check(share <= ENERGY_TOL, f"{label}: energy balance off by "
+          f"{share:.3e} of fᵀu")
+    del K_np, M_np, nres, mag
+    del calls[:]
+
+    # -- the same tool at a small size against a float64 Newmark ---------------
+    scells = (small["nx"], small["ny"], small["nz"])
+    label = "dynamic 3D " + "x".join(str(c) for c in scells)
+    with config_overrides(transient_mg_threshold=100, mg_threshold=100):
+        res, st, launches, _ = run(label, "0", lambda:
+                                   api.solve_elasticity_3D_dynamic(
+                                       **small, data_dir=data_dir))
+    (K_np, M_np, smesh, bc, f_np, u0, v0, *_), _, nres = calls[-1]
+    t0 = time.perf_counter()
+    shape = smesh.node_shape
+    u_ref, v_ref = newmark_f64(
+        block_stencil_csr(K_np, shape, 3), block_stencil_csr(M_np, shape, 3),
+        np.asarray(bc.free_mask, np.float64).reshape(-1), f_np.reshape(-1),
+        u0.reshape(-1), v0.reshape(-1), small["dt"], small["num_steps"],
+        device=device)
+    nd = u_ref.shape[1]
+    gap_u = float(np.abs(nres.values.reshape(-1, nd) - u_ref).max()
+                  / np.abs(u_ref).max())
+    gap_v = float(np.abs(nres.velocities.reshape(-1, nd) - v_ref).max()
+                  / np.abs(v_ref).max())
+    share = energy_share(K_np, M_np, f_np, nres)
+    newmark_line(label, nres, small["num_steps"], launches,
+                 f" energy balance off by {share:.3e} of fᵀu;"
+                 f" vs float64 Newmark "
+                 f"({time.perf_counter() - t0:.3f} s) max|Δu|/max|u|="
+                 f"{gap_u:.3e} max|Δv|/max|v|={gap_v:.3e} (bound "
+                 f"{DYNAMIC_F64_TOL})")
+    check(bool(st["converged"]) and max(gap_u, gap_v) <= DYNAMIC_F64_TOL,
+          f"{label} off the float64 Newmark by {gap_u:.3e} / {gap_v:.3e}")
+    check(launches.get("v3_f32", 0) > 0 and launches.get("v3_bf16", 0) > 0,
+          f"{label}: launches {launches}")
+    del calls[:], K_np, M_np, u_ref, v_ref
+
+    # -- wave 1D and 2D at their default sizes against their standing modes ---
+    for tool, kw, make, omega_of in (
+            ("solve_wave_1D", {}, lambda: interval_mesh(50, 0.0, 2.0),
+             lambda k: k),
+            ("solve_wave_2D", {}, lambda: rectangle_mesh(30, 30, (0.0, 0.0),
+                                                         (1.0, 1.0)),
+             lambda k: np.sqrt(2.0) * k)):
+        res, st, launches, _ = run(tool, "0", lambda: getattr(api, tool)(
+            **kw, data_dir=data_dir))
+        u, times = field(res)
+        m = make()
+        k = np.pi / min(m.extent)
+        omega = omega_of(k)
+        mode = flatten_values(np.prod(np.sin(k * m.node_coords), axis=-1),
+                              m.dim)
+        err = float(np.abs(u - mode[None, :] * np.cos(omega * times)[:, None])
+                    .max())
+        tol = standing_mode_tol(m.dim, k, max(m.spacing), omega, times[-1],
+                                0.01)
+        newmark_line(tool, calls[-1][2], len(times) - 1, launches,
+                     f" max|u - mode·cos(ωt)|={err:.3e} (bound {tol:.3e})")
+        check(bool(st["converged"]) and err <= tol,
+              f"{tool} off its standing mode by {err:.3e}")
+        check(launches.get("v1_f32", 0) > 0, f"{tool} launched no v1_f32")
+        del calls[:]
+
+
+def modal_phase(api, drive, data_dir, box=MODAL_3D, plate=MODAL_2D):
+    """The modal tools on the card against ``scipy.sparse.linalg.eigsh`` of
+    the same pencil on the free DOFs (shift-invert at 0, host float64):
+    3D above ``mg_threshold`` (MG + the double-float32 F-cycle, one
+    hierarchy build and then cache hits, both counted), 2D under it (flat
+    CG with float64 refinement)."""
+    import numpy as np
+    import scipy.sparse.linalg as spla
+
+    from pde_solver_tpu_torch.mesh import box_mesh, rectangle_mesh
+    from pde_solver_tpu_torch.models import elasticity as elast
+    from pde_solver_tpu_torch.ops import assembly, eigen, linsolve
+    from pde_solver_tpu_torch.ops import multigrid as mg
+
+    solves = count_calls(eigen, "solve_stencil_system")
+    builds = count_calls(mg, "build_hierarchy")
+    for tool, kw, mesh, mode, vdim, wanted in (
+            ("solve_elasticity_3D_modal", box,
+             box_mesh(box["nx"], box["ny"], box["nz"], (0.0, 0.0, 0.0),
+                      (1.0, 0.2, 0.2)), "3d", 3, ("v3_f32", "v3_bf16")),
+            ("solve_elasticity_2D_modal", plate,
+             rectangle_mesh(plate["nx"], plate["ny"], (0.0, 0.0), (1.0, 0.2)),
+             "plane_stress", 2, ("v2_f32",))):
+        solves[0] = builds[0] = 0
+        linsolve._MG_CACHE.clear()
+        res, st, launches = drive(tool, lambda: getattr(api, tool)(
+            **kw, data_dir=data_dir))
+        freqs = np.asarray(res.meta["frequencies_hz"])
+        shapes, _ = field(res)
+        t0 = time.perf_counter()
+        lam, mu = elast.lame_parameters(210e9, 0.3, mode)
+        K = block_stencil_csr(assembly.assemble_elasticity_stencil(
+            mesh, lam, mu), mesh.node_shape, vdim)
+        M = block_stencil_csr(elast.assemble_vector_mass(mesh, 7800.0),
+                              mesh.node_shape, vdim)
+        free = np.ones(mesh.node_shape + (vdim,), bool)
+        free[0] = False                                  # clamped at x = 0
+        idx = np.flatnonzero(free.reshape(-1))
+        w = spla.eigsh(K[idx][:, idx].tocsc(), k=kw["num_modes"],
+                       M=M[idx][:, idx].tocsc(), sigma=0.0, which="LM",
+                       return_eigenvectors=False)
+        want = np.sqrt(np.sort(w)) / (2.0 * np.pi)
+        gap = float(np.abs(freqs - want).max() / want.max())
+        n_dof = vdim * mesh.num_nodes
+        print(f"{tool}: dof={n_dof} frequencies_hz="
+              f"{[round(float(f), 6) for f in freqs]} vs eigsh (host f64, "
+              f"{time.perf_counter() - t0:.3f} s) max rel. gap {gap:.3e} "
+              f"(bound {MODAL_TOL}); subspace iterations={st['iterations']} "
+              f"solves={solves[0]} hierarchy builds={builds[0]} cache hits="
+              f"{solves[0] - builds[0] if builds[0] else 0} inner "
+              f"iterations={st['cg_iterations']} max eigen-residual="
+              f"{st['max_residual']:.3e} launches={launches}", flush=True)
+        check(bool(st["converged"]) and gap <= MODAL_TOL,
+              f"{tool} off eigsh by {gap:.3e}: {st}")
+        check(shapes.shape == (kw["num_modes"], mesh.num_nodes)
+              and bool(np.all(np.isfinite(shapes)))
+              and np.allclose(shapes.max(axis=1), 1.0),
+              f"{tool}: mode shapes {shapes.shape}")
+        check(builds[0] == (1 if vdim == 3 else 0) and solves[0] >= 2
+              * (kw["num_modes"] + 2), f"{tool}: {builds[0]} hierarchy "
+              f"builds in {solves[0]} solves")
+        for name in wanted:
+            check(launches.get(name, 0) > 0, f"{tool} launched no {name}")
+    linsolve._MG_CACHE.clear()
+
+
+class MainPaths:
+    """The main-path runs' bookkeeping: the launch counts set to 0 just
+    before a run and read just after, in all (``main_launches``) and by run
+    (``path_launches``); every dense operator a run launched held against
+    plain and timed once per shape (``by_operator``, ``level_ms``); every
+    constant-interior operator a run built handed back to the caller."""
+
+    def __init__(self, sk, ck, kernels, built):
+        self.sk, self.ck, self.kernels, self.built = sk, ck, kernels, built
+        self.launched = spy_flat_launches(sk)
+        self.main_launches = {}
+        self.path_launches = {}
+        self.by_operator = {}
+        self.level_ms = {}
+        self.cs_level_ms = {}
+
+    def counted(self, label, cs, fn):
+        """fn() with ``PDE_TPU_CS`` = cs: (result, launches, wall s)."""
+        import torch
+
+        os.environ["PDE_TPU_CS"] = cs
+        del self.built[:]
+        self.launched.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        self.sk.reset_launch_counts()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = dict(self.sk.KERNEL_LAUNCHES)
+        os.environ["PDE_TPU_CS"] = "0"
+        for k, v in launches.items():
+            self.main_launches[k] = self.main_launches.get(k, 0) + v
+        self.path_launches[label] = launches
+        return res, launches, wall
+
+    def run(self, label, cs, fn):
+        """One main-path run of an API tool: (result, solver stats,
+        launches, the CS builds it made)."""
+        import torch
+
+        res, launches, wall = self.counted(label, cs, fn)
+        st = res.meta["solver_stats"]
+        print(f"phase {label}: {wall:.3f} s wall; "
+              + " ".join(f"{k}={v:.3f}" for k, v in st.items()
+                         if k.endswith("_seconds")), flush=True)
+        relres = st.get("relative_residual", st.get("max_residual"))
+        print(f"{label}: dof={st.get('num_dofs')} iterations="
+              f"{st['cg_iterations']} relres={relres:.3e} "
+              f"converged={st['converged']} peak_device_mem="
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+              f"cs_builds={[(s, op is not None) for s, op, *_ in self.built]} "
+              f"launches={launches}", flush=True)
+        check_launched(self.sk, self.launched, label, self.kernels,
+                       self.by_operator, self.level_ms)
+        cs_built = list(self.built)
+        del self.built[:]
+        return res, st, launches, cs_built
+
+    def drive(self, label, fn):
+        res, st, launches, _ = self.run(label, "0", fn)
+        return res, st, launches
+
+    def hold_cs(self, cs_built, label):
+        check_built(self.ck, self.sk, cs_built, label, self.cs_level_ms)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1977,6 +2809,7 @@ def main() -> int:
     from pde_solver_tpu_torch.mesh import box_mesh
     from pde_solver_tpu_torch.ops import assembly, cuda_build
     from pde_solver_tpu_torch.ops import cs_kernels as ck
+    from pde_solver_tpu_torch.ops import floor_probes as fp
     from pde_solver_tpu_torch.ops import stencil_kernels as sk
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1992,9 +2825,10 @@ def main() -> int:
 
     # -- build: one nvcc per source, all at once ----------------------------
     t0 = time.perf_counter()
-    cuda_build.build("flat_stencil_spmv", "cs_stencil")
+    cuda_build.build("flat_stencil_spmv", "cs_stencil", "floor_probes")
     sk.build_library()
     ck.build_library()
+    fp.build_library()
     print(f"phase build: {time.perf_counter() - t0:.3f} s", flush=True)
     for name, info in cuda_build.BUILD_INFO.items():
         print(f"  {name}: {info['seconds']:.3f} s ({info['path']})")
@@ -2076,45 +2910,10 @@ def main() -> int:
           "small heat launched no CS kernel")
 
     # -- main paths through the API ------------------------------------------
-    main_launches = {}
-    path_launches = {}
-    by_operator = {}
-    level_ms = {}
-    cs_level_ms = {}
-    launched = spy_flat_launches(sk)
-
-    def main_path(label, cs, fn):
-        """One main-path run: counts 0 just before, read just after; then
-        every dense operator it launched is held against plain."""
-        os.environ["PDE_TPU_CS"] = cs
-        del built[:]
-        launched.clear()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        sk.reset_launch_counts()
-        t = time.perf_counter()
-        res = fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-        launches = dict(sk.KERNEL_LAUNCHES)
-        os.environ["PDE_TPU_CS"] = "0"
-        for k, v in launches.items():
-            main_launches[k] = main_launches.get(k, 0) + v
-        path_launches[label] = launches
-        st = res.meta["solver_stats"]
-        print(f"phase {label}: {wall:.3f} s wall; "
-              + " ".join(f"{k}={v:.3f}" for k, v in st.items()
-                         if k.endswith("_seconds")), flush=True)
-        print(f"{label}: dof={st['num_dofs']} iterations={st['cg_iterations']}"
-              f" relres={st['relative_residual']:.3e} "
-              f"converged={st['converged']} peak_device_mem="
-              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
-              f"cs_builds={[(s, op is not None) for s, op, *_ in built]} "
-              f"launches={launches}", flush=True)
-        check_launched(sk, launched, label, kernels, by_operator, level_ms)
-        cs_built = list(built)
-        del built[:]
-        return res, st, launches, cs_built
+    paths = MainPaths(sk, ck, kernels, built)
+    main_path, drive, hold_cs = paths.run, paths.drive, paths.hold_cs
+    by_operator, level_ms = paths.by_operator, paths.level_ms
+    cs_level_ms = paths.cs_level_ms
 
     vm_runs = {}
     for cs in ("0", "1", "hybrid"):
@@ -2213,10 +3012,6 @@ def main() -> int:
               f"trajectory by {g:.3e}")
 
     # -- the 1D/2D, curvilinear and _loaded tools ----------------------------
-    def drive(label, fn):
-        res, st, launches, _ = main_path(label, "0", fn)
-        return res, st, launches
-
     with config_overrides(device="cuda"):
         for name, phase in (("baselines", baseline_phase),
                             ("loaded", loaded_phase),
@@ -2227,9 +3022,6 @@ def main() -> int:
                   flush=True)
 
         # -- the _mixed, nonlinear and advection tools -----------------------
-        def hold_cs(cs_built, label):
-            check_built(ck, sk, cs_built, label, cs_level_ms)
-
         for name, phase in (("mixed", mixed_phase),
                             ("advection", advection_phase)):
             t0 = time.perf_counter()
@@ -2239,6 +3031,34 @@ def main() -> int:
         t0 = time.perf_counter()
         analytic_phase(api, drive, data_dir)
         print(f"phase analytic: {time.perf_counter() - t0:.3f} s", flush=True)
+
+        # -- the floor probes: against plain, timed, then their main path ----
+        t0 = time.perf_counter()
+        for name, res in floor_phase(fp, sk, ck).items():
+            kernels[f"floor_{name}"] = res
+        floor, launches, wall = paths.counted(
+            "floor", "0", lambda: fp.kernel_floor(FLAGSHIP_CELLS,
+                                                  reps=FLOOR_REPS))
+        print(f"phase floor: {time.perf_counter() - t0:.3f} s; the entry "
+              f"point kernel_floor{FLAGSHIP_CELLS} {wall:.3f} s wall, "
+              f"{floor['clock']} ms a call: "
+              + " ".join(f"{k}={v:.4f}" for k, v in floor["ms"].items())
+              + f"; launches={launches}", flush=True)
+        for name in PROBE_REPLACES:
+            check(launches.get(f"floor_{name}", 0) >= FLOOR_REPS,
+                  f"the floor path launched floor_{name} "
+                  f"{launches.get(f'floor_{name}', 0)} times")
+        check(floor["clock"] == "cuda events" and all(
+            np.isfinite(v) and v > 0 for v in floor["ms"].values()),
+            f"floor: {floor}")
+
+        # -- the Newmark and modal tools ---------------------------------------
+        t0 = time.perf_counter()
+        newmark_phase(api, main_path, hold_cs, data_dir)
+        print(f"phase newmark: {time.perf_counter() - t0:.3f} s", flush=True)
+        t0 = time.perf_counter()
+        modal_phase(api, drive, data_dir)
+        print(f"phase modal: {time.perf_counter() - t0:.3f} s", flush=True)
 
     noffs = {key[3] for key in by_operator}
     print(f"dense operators launched on the main paths: offset counts "
@@ -2260,7 +3080,7 @@ def main() -> int:
                   f"{' L2' if l2 else ''})"
                   for shape, n_off, (ms, bnd, l2) in levels), flush=True)
     for run in ("flagship", "heat", "mixed 3D", f"mixed 3D tol="
-                f"{MIXED_TIGHT_TOL:.0e}", "advection 3D"):
+                f"{MIXED_TIGHT_TOL:.0e}", "advection 3D", "wave 3D"):
         parts = []
         for cs in ("0", "1") + (("hybrid",) if run == "flagship" else ()):
             label = f"{run} PDE_TPU_CS={cs}"
@@ -2285,14 +3105,16 @@ def main() -> int:
                             "v1_f32", "v1_bf16")]
     entries += [(f"cs_apply[v{v}]", f"cs_apply_v{v}", CS_SOURCE,
                  REPLACES["cs_apply"]) for v in (1, 3)]
+    entries += [(f"floor_probes[{name}]", f"floor_{name}", FLOOR_SOURCE, repl)
+                for name, repl in PROBE_REPLACES.items()]
     keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
             "bound_by", "share", "library_ms", "library_note", "shape",
-            "l2_resident", "cold_device_ms", "cold_share")
+            "l2_resident", "cold_device_ms", "cold_share", "bf16")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": repl,
-         "launches": main_launches.get(key, 0),
+         "launches": paths.main_launches.get(key, 0),
          "launches_by_path": {label: n[key] for label, n in
-                              path_launches.items() if n.get(key)},
+                              paths.path_launches.items() if n.get(key)},
          **{k: kernels[key].get(k) for k in keys}}
         for name, key, source, repl in entries]}))
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,8 @@
 and 3D, the four ``_mixed`` heat tools (Robin, flux and periodically driven
 faces), the two nonlinear-conductivity tools, advection-diffusion 1D, 2D
 and 3D, the five curvilinear heat tools, static elasticity 1D, 2D and 3D,
-and the three ``_loaded`` elasticity tools.
+the three ``_loaded`` elasticity tools, 2D and 3D modal analysis, 3D
+elastodynamics and the wave equation 1D, 2D and 3D (Newmark-β).
 
 Names, signatures, defaults, artifact layout and result metadata match
 ``pde_solver_tpu.api`` exactly (tests compare ``inspect.signature``).  Every
@@ -21,13 +22,17 @@ import numpy as np
 
 from pde_solver_tpu_torch.fields import SolveResult, TimeSeriesField, save_field
 from pde_solver_tpu_torch.mesh import (StructuredMesh, box_mesh,
-                                       interval_mesh, rectangle_mesh)
+                                       flatten_values, interval_mesh,
+                                       rectangle_mesh)
 from pde_solver_tpu_torch.models import elasticity as elast
-from pde_solver_tpu_torch.models import heat
+from pde_solver_tpu_torch.models import heat, wave
 from pde_solver_tpu_torch.models.heat import (
     embed_identity3, embed_line, embed_plane, embed_rtheta, embed_rz,
     embed_spherical, weight_r, weight_r2, weight_r2_sin_theta, weight_r_yz,
 )
+from pde_solver_tpu_torch.ops import assembly
+from pde_solver_tpu_torch.ops.bc import DirichletBC
+from pde_solver_tpu_torch.ops.eigen import smallest_modes
 
 
 def _pack(mesh: StructuredMesh, embed, times, values, dim, meta, stats) -> TimeSeriesField:
@@ -1217,3 +1222,274 @@ def solve_elasticity_3D_loaded(
                   meta, stats)
     return _result(field, data_dir, f"elasticity_3d_loaded_{quantity}")
 
+
+# ======================================================================
+# Modal analysis and elastodynamics (extension tools)
+# ======================================================================
+
+def solve_elasticity_2D_modal(
+    Lx: float = 1.0,
+    Ly: float = 0.2,
+    nx: int = 24,
+    ny: int = 6,
+    E: float = 210e9,
+    nu: float = 0.3,
+    rho: float = 7800.0,
+    num_modes: int = 4,
+    plane_stress: bool = True,
+    data_dir: str = "data",
+) -> SolveResult:
+    """2D in-plane natural frequencies + mode shapes, clamped left edge
+    (extension tool; see :func:`solve_elasticity_3D_modal`)."""
+
+    mesh = rectangle_mesh(nx, ny, (0.0, 0.0), (Lx, Ly))
+    mode = "plane_stress" if plane_stress else "plane_strain"
+    lam_p, mu = elast.lame_parameters(E, nu, mode)
+    K = assembly.assemble_elasticity_stencil(mesh, lam_p, mu)
+    M = elast.assemble_vector_mass(mesh, rho)
+    bc = DirichletBC.from_masks([(mesh.face_mask(0, 0), 0.0)],
+                                mesh.node_shape, vdim=2)
+
+    def coarse_level(mesh_c):
+        K_c = assembly.assemble_elasticity_stencil(mesh_c, lam_p, mu)
+        bc_c = DirichletBC.from_masks([(mesh_c.face_mask(0, 0), 0.0)],
+                                      mesh_c.node_shape, vdim=2)
+        return K_c, bc_c
+
+    lams, modes, stats = smallest_modes(K, M, mesh, bc,
+                                        num_modes=num_modes, vdim=2,
+                                        mg_level_builder=coarse_level)
+    freqs = np.sqrt(np.maximum(lams, 0.0)) / (2.0 * np.pi)
+    frames = []
+    for j in range(len(lams)):
+        mag = np.linalg.norm(modes[j], axis=-1)
+        frames.append(flatten_values(mag / max(mag.max(), 1e-300),
+                                     mesh.dim))
+    values = np.stack(frames)
+    meta = {
+        "name": "mode_shape", "unit": "-", "pde": "elasticity_modal",
+        "coordinate_system": "cartesian",
+        "Lx": Lx, "Ly": Ly, "E": E, "nu": nu, "rho": rho,
+        "plane_stress": plane_stress,
+        "frequencies_hz": [float(f) for f in freqs],
+        "num_modes": int(num_modes),
+    }
+    field = _pack(mesh, embed_plane, freqs, values, 2, meta, stats)
+    return _result(field, data_dir, "elasticity_2d_modal")
+
+
+def solve_elasticity_3D_modal(
+    Lx: float = 1.0,
+    Ly: float = 0.2,
+    Lz: float = 0.2,
+    nx: int = 16,
+    ny: int = 6,
+    nz: int = 6,
+    E: float = 210e9,
+    nu: float = 0.3,
+    rho: float = 7800.0,
+    num_modes: int = 4,
+    data_dir: str = "data",
+) -> SolveResult:
+    """Natural frequencies + mode shapes of a clamped-free box (extension
+    tool — the reference has no eigen capability).
+
+    Solves K φ = ω² M φ with Rayleigh–Ritz subspace iteration
+    (ops/eigen.py).  The artifact packs one frame per mode — the
+    displacement magnitude |φ| — with the frame "times" carrying the
+    frequencies in Hz, so the standard animated plotters page through the
+    mode shapes.  ``meta.frequencies_hz`` holds the list.
+    """
+
+    mesh = box_mesh(nx, ny, nz, (0.0, 0.0, 0.0), (Lx, Ly, Lz))
+    lam_p, mu = elast.lame_parameters(E, nu, "3d")
+    K = assembly.assemble_elasticity_stencil(mesh, lam_p, mu)
+    M = elast.assemble_vector_mass(mesh, rho)
+    bc = DirichletBC.from_masks([(mesh.face_mask(0, 0), 0.0)],
+                                mesh.node_shape, vdim=3)
+
+    def coarse_level(mesh_c):
+        K_c = assembly.assemble_elasticity_stencil(mesh_c, lam_p, mu)
+        bc_c = DirichletBC.from_masks([(mesh_c.face_mask(0, 0), 0.0)],
+                                      mesh_c.node_shape, vdim=3)
+        return K_c, bc_c
+
+    lams, modes, stats = smallest_modes(K, M, mesh, bc,
+                                        num_modes=num_modes, vdim=3,
+                                        mg_level_builder=coarse_level)
+    freqs = np.sqrt(np.maximum(lams, 0.0)) / (2.0 * np.pi)
+    # per-mode displacement magnitude, normalized to unit max for display
+    frames = []
+    for j in range(len(lams)):
+        mag = np.linalg.norm(modes[j], axis=-1)
+        frames.append(flatten_values(mag / max(mag.max(), 1e-300),
+                                     mesh.dim))
+    values = np.stack(frames)
+    meta = {
+        "name": "mode_shape", "unit": "-", "pde": "elasticity_modal",
+        "coordinate_system": "cartesian",
+        "Lx": Lx, "Ly": Ly, "Lz": Lz, "E": E, "nu": nu, "rho": rho,
+        "frequencies_hz": [float(f) for f in freqs],
+        "num_modes": int(num_modes),
+    }
+    field = _pack(mesh, embed_identity3, freqs, values, 3, meta, stats)
+    return _result(field, data_dir, "elasticity_3d_modal")
+
+
+def solve_elasticity_3D_dynamic(
+    Lx: float = 1.0,
+    Ly: float = 1.0,
+    Lz: float = 1.0,
+    nx: int = 10,
+    ny: int = 10,
+    nz: int = 10,
+    E: float = 210e9,
+    nu: float = 0.3,
+    rho: float = 7800.0,
+    body_fx: float = 0.0,
+    body_fy: float = 0.0,
+    body_fz: float = 0.0,
+    dt: float = 1e-4,
+    num_steps: int = 50,
+    data_dir: str = "data",
+) -> SolveResult:
+    """3D elastodynamics ρü − ∇·σ(u) = f on a box, clamped x=0 face.
+
+    **Extension beyond the reference** (14th tool): the reference's
+    elasticity solvers are all static (fenics_mcp_server.py:1470-1892).
+    Implicit Newmark-β (energy-conserving average acceleration,
+    ``ops.timestepping.run_newmark``); outputs the displacement-magnitude
+    time series (animatable with the standard 3D volume plotter)."""
+    mesh = box_mesh(nx, ny, nz, (0.0, 0.0, 0.0), (Lx, Ly, Lz))
+    res, info = elast.solve_elasticity_dynamic(
+        mesh, E, nu, rho, np.array([body_fx, body_fy, body_fz]), "3d",
+        dt, num_steps)
+    # [Nt+1, *shape, 3] → displacement magnitude [Nt+1, N]
+    mag = np.linalg.norm(res.values, axis=-1).reshape(res.values.shape[0], -1)
+    meta = {
+        "name": "displacement_magnitude", "unit": "m",
+        "pde": "elasticity_3d_dynamic",
+        "Lx": Lx, "Ly": Ly, "Lz": Lz, "E": E, "nu": nu, "rho": rho,
+        "body_fx": body_fx, "body_fy": body_fy, "body_fz": body_fz,
+        "dt": dt, "num_steps": num_steps,
+        "integrator": "newmark_beta", "beta": 0.25, "gamma": 0.5,
+    }
+    field = _pack(mesh, embed_identity3, res.times, mag, 3, meta, info)
+    return _result(field, data_dir, "elasticity_3d_dynamic")
+
+
+# ======================================================================
+# Wave equation (extension — the reference parses pde_type="wave" but has
+# no solver for it; see models/wave.py)
+# ======================================================================
+
+def solve_wave_1D(
+    length: float = 2.0,
+    nx: int = 50,
+    wave_speed: float = 1.0,
+    boundary_value: float = 0.0,
+    source_value: float = 0.0,
+    initial_type: str = "sine",
+    initial_amplitude: float = 1.0,
+    initial_wavenumber: Optional[float] = None,
+    dt: float = 0.01,
+    num_steps: int = 50,
+    data_dir: str = "data",
+) -> SolveResult:
+    """1D wave equation u_tt = c² u_xx + f on (0, length), Dirichlet ends.
+
+    **Extension beyond the reference**: its parser emits pde_type="wave"
+    (pde_parser_agent.py:205) but no solver exists.  Implicit Newmark-β
+    (β=¼, γ=½: unconditionally stable, energy-conserving).
+    ``initial_wavenumber=None`` → the fundamental standing mode π/length
+    (sine IC vanishes at both ends)."""
+    mesh = interval_mesh(nx, 0.0, length)
+    p = wave.WaveProblem(
+        mesh=mesh, wave_speed=wave_speed, boundary_value=boundary_value,
+        source_value=source_value, initial_type=initial_type,
+        initial_amplitude=initial_amplitude,
+        initial_wavenumber=initial_wavenumber, dt=dt, num_steps=num_steps)
+    times, values, stats = wave.solve_wave_problem(p)
+    meta = {
+        "name": "displacement", "unit": "m", "pde": "wave_1d",
+        "coordinate_system": "cartesian", "length": length,
+        "wave_speed": wave_speed, "boundary_value": boundary_value,
+        "source_value": source_value, "dt": dt, "num_steps": num_steps,
+        "integrator": "newmark_beta", "beta": 0.25, "gamma": 0.5,
+    }
+    field = _pack(mesh, embed_line, times, values, 1, meta, stats)
+    return _result(field, data_dir, "wave_1d")
+
+
+def solve_wave_2D(
+    Lx: float = 1.0,
+    Ly: float = 1.0,
+    nx: int = 30,
+    ny: int = 30,
+    wave_speed: float = 1.0,
+    boundary_value: float = 0.0,
+    source_value: float = 0.0,
+    initial_type: str = "sine",
+    initial_amplitude: float = 1.0,
+    initial_wavenumber: Optional[float] = None,
+    dt: float = 0.01,
+    num_steps: int = 50,
+    data_dir: str = "data",
+) -> SolveResult:
+    """2D wave (vibrating membrane) on [0,Lx]×[0,Ly], fixed edges.
+
+    Extension beyond the reference (see solve_wave_1D)."""
+    mesh = rectangle_mesh(nx, ny, (0.0, 0.0), (Lx, Ly))
+    p = wave.WaveProblem(
+        mesh=mesh, wave_speed=wave_speed, boundary_value=boundary_value,
+        source_value=source_value, initial_type=initial_type,
+        initial_amplitude=initial_amplitude,
+        initial_wavenumber=initial_wavenumber, dt=dt, num_steps=num_steps)
+    times, values, stats = wave.solve_wave_problem(p)
+    meta = {
+        "name": "displacement", "unit": "m", "pde": "wave_2d",
+        "coordinate_system": "cartesian", "Lx": Lx, "Ly": Ly,
+        "wave_speed": wave_speed, "boundary_value": boundary_value,
+        "source_value": source_value, "dt": dt, "num_steps": num_steps,
+        "integrator": "newmark_beta", "beta": 0.25, "gamma": 0.5,
+    }
+    field = _pack(mesh, embed_plane, times, values, 2, meta, stats)
+    return _result(field, data_dir, "wave_2d")
+
+
+def solve_wave_3D(
+    Lx: float = 1.0,
+    Ly: float = 1.0,
+    Lz: float = 1.0,
+    nx: int = 20,
+    ny: int = 20,
+    nz: int = 20,
+    wave_speed: float = 1.0,
+    boundary_value: float = 0.0,
+    source_value: float = 0.0,
+    initial_type: str = "sine",
+    initial_amplitude: float = 1.0,
+    initial_wavenumber: Optional[float] = None,
+    dt: float = 0.01,
+    num_steps: int = 50,
+    data_dir: str = "data",
+) -> SolveResult:
+    """3D acoustic wave on a box, fixed boundary.
+
+    Extension beyond the reference (see solve_wave_1D)."""
+    mesh = box_mesh(nx, ny, nz, (0.0, 0.0, 0.0), (Lx, Ly, Lz))
+    p = wave.WaveProblem(
+        mesh=mesh, wave_speed=wave_speed, boundary_value=boundary_value,
+        source_value=source_value, initial_type=initial_type,
+        initial_amplitude=initial_amplitude,
+        initial_wavenumber=initial_wavenumber, dt=dt, num_steps=num_steps)
+    times, values, stats = wave.solve_wave_problem(p)
+    meta = {
+        "name": "displacement", "unit": "m", "pde": "wave_3d",
+        "coordinate_system": "cartesian", "Lx": Lx, "Ly": Ly, "Lz": Lz,
+        "wave_speed": wave_speed, "boundary_value": boundary_value,
+        "source_value": source_value, "dt": dt, "num_steps": num_steps,
+        "integrator": "newmark_beta", "beta": 0.25, "gamma": 0.5,
+    }
+    field = _pack(mesh, embed_identity3, times, values, 3, meta, stats)
+    return _result(field, data_dir, "wave_3d")

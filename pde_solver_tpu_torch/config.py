@@ -54,7 +54,8 @@ class SolverConfig:
     def resolved_shard_devices(self) -> int:
         if self.shard_devices > 1 or self.shard_grid.strip():
             raise NotImplementedError(
-                "sharded solves are not ported yet (ROADMAP queue 1, item 11)")
+                "sharded solves are not ported yet (ROADMAP queue 1, item 11: "
+                "step I)")
         return 0
 
     def resolve_precision(self) -> str:

@@ -1,11 +1,14 @@
-"""Static linear elasticity (1D bar, 2D plane stress/strain, 3D).
+"""Linear elasticity (1D bar, 2D plane stress/strain, 3D), static and
+dynamic.
 
-Counterpart of ``pde_solver_tpu.models.elasticity`` for the static solves:
-the 1D axial bar (end load, thermal expansion, fixed-fixed), and the
-clamped-x=0 2D/3D problem under body forces, surface tractions and thermal
-prestress as a matrix-free block-stencil solve, then per-element von Mises
-from constant P1 gradients (host numpy, float64) and an L2 projection onto
-P1 — the discrete operation FEniCS' ``project`` performs.
+Counterpart of ``pde_solver_tpu.models.elasticity``: the 1D axial bar (end
+load, thermal expansion, fixed-fixed), and the clamped-x=0 2D/3D problem
+under body forces, surface tractions and thermal prestress as a matrix-free
+block-stencil solve, then per-element von Mises from constant P1 gradients
+(host numpy, float64) and an L2 projection onto P1 — the discrete operation
+FEniCS' ``project`` performs.  :func:`solve_elasticity_dynamic` integrates
+ρ ü − ∇·σ(u) = f by implicit Newmark-β, and :func:`assemble_vector_mass` is
+the consistent mass it and the modal tools share.
 """
 
 from __future__ import annotations
@@ -235,3 +238,71 @@ def solve_elasticity_nd(mesh: StructuredMesh, E: float, nu: float,
         phases.get("solve_seconds", 0.0), info["cg_iterations"],
         info["relative_residual"])
     return flatten_values(field, d), info
+
+
+def assemble_vector_mass(mesh: StructuredMesh, rho: float) -> Dict:
+    """Consistent vector mass stencil: ρ ∫ φ_n φ_m dx ⊗ I_d."""
+    d = mesh.dim
+    m = assembly.assemble_scalar_stencil(mesh, "mass")
+    eye = np.eye(d)
+    return {o: rho * W[..., None, None] * eye for o, W in m.items()}
+
+
+def solve_elasticity_dynamic(mesh: StructuredMesh, E: float, nu: float,
+                             rho: float, body_force: np.ndarray, mode: str,
+                             dt: float, num_steps: int,
+                             u0: Optional[np.ndarray] = None,
+                             v0: Optional[np.ndarray] = None,
+                             beta: float = 0.25, gamma: float = 0.5,
+                             config: Optional[SolverConfig] = None):
+    """Implicit elastodynamics ρ ü − ∇·σ(u) = f with the x=0 face clamped.
+
+    Newmark-β time integration (β=¼, γ=½ default: unconditionally stable,
+    energy-conserving).  Returns a
+    :class:`~pde_solver_tpu_torch.ops.timestepping.NewmarkResult` plus
+    stats."""
+    from pde_solver_tpu_torch.ops.timestepping import run_newmark
+
+    cfg = config or get_config()
+    d = mesh.dim
+    lam, mu = lame_parameters(E, nu, mode)
+    phases: Dict[str, float] = {}
+    with phase_timer(phases, "assembly"):
+        K = assembly.assemble_elasticity_stencil(mesh, lam, mu)
+        M = assemble_vector_mass(mesh, rho)
+        f = assembly.assemble_vector_load(mesh,
+                                          np.asarray(body_force, np.float64))
+        bc = DirichletBC.from_masks([(mesh.face_mask(0, 0), 0.0)],
+                                    mesh.node_shape, vdim=d)
+    shape = mesh.node_shape + (d,)
+    u0 = np.zeros(shape) if u0 is None else np.asarray(u0, np.float64)
+    v0 = np.zeros(shape) if v0 is None else np.asarray(v0, np.float64)
+
+    def coarse_level(mesh_c):
+        K_c = assembly.assemble_elasticity_stencil(mesh_c, lam, mu)
+        M_c = assemble_vector_mass(mesh_c, rho)
+        bc_c = DirichletBC.from_masks([(mesh_c.face_mask(0, 0), 0.0)],
+                                      mesh_c.node_shape, vdim=d)
+        return K_c, M_c, bc_c
+
+    with phase_timer(phases, "solve"):
+        res = run_newmark(K, M, mesh, bc, f, u0, v0, dt, num_steps,
+                          beta=beta, gamma=gamma, vdim=d, config=cfg,
+                          mg_level_builder=coarse_level)
+    inner_tol = cfg.tol if cfg.resolve_precision() == "f64" \
+        else cfg.transient_inner_tol
+    step_target = max(inner_tol, cfg.accuracy_target)
+    info = {
+        "num_dofs": mesh.num_nodes * d,
+        "cg_iterations": res.total_cg_iterations,
+        "relative_residual": res.max_relative_residual,
+        "converged": bool(res.max_relative_residual <= step_target),
+        "convergence_target": step_target,
+        "num_steps": num_steps,
+        **phases,
+    }
+    get_logger().info(
+        "elastodynamics: %d DOF × %d Newmark steps solve=%.3fs iters=%d",
+        info["num_dofs"], num_steps, phases.get("solve_seconds", 0.0),
+        res.total_cg_iterations)
+    return res, info

@@ -17,11 +17,15 @@ Ported solve branches: host sparse LU for tiny systems, and the "mixed"
 scheme — with a multigrid level builder the double-float32 F-cycle
 (``ops.multigrid.solve_fcycle_df2``), without one float32 CG inner solves
 plus a float64 host refinement loop.  The f64 and f32 branches and sharding
-raise ``NotImplementedError`` (ROADMAP queue 1).
+raise ``NotImplementedError`` (ROADMAP queue 1).  The multigrid hierarchy
+and the F-cycle's weight ladder of the last ``_MG_CACHE_MAX`` operators
+stay in memory (``_MG_CACHE``), so repeated solves on one operator — a
+modal analysis makes dozens — build them once.
 """
 
 from __future__ import annotations
 
+import hashlib
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -29,6 +33,7 @@ import torch
 
 from pde_solver_tpu_torch.config import SolverConfig, get_config
 from pde_solver_tpu_torch.mesh import StructuredMesh
+from pde_solver_tpu_torch.ops import cs_kernels, stencil_kernels
 from pde_solver_tpu_torch.ops.bc import DirichletBC
 from pde_solver_tpu_torch.ops.cg import SolveStats
 from pde_solver_tpu_torch.ops.cs_kernels import (CSFlatStencilOperator,
@@ -99,8 +104,6 @@ _PREP_CACHE_MIN_DOF = 100_000
 
 
 def _prep_cache_key(stencil: Dict, free: np.ndarray, node_shape, vdim: int):
-    import hashlib
-
     h = hashlib.blake2b(digest_size=16)
     for off in sorted(stencil.keys()):
         h.update(np.ascontiguousarray(np.asarray(stencil[off], np.float64)))
@@ -349,6 +352,58 @@ def _host_direct_solve(sysm: ScaledSystem, node_shape, vdim: int):
 
 
 # ----------------------------------------------------------------------
+# MG operator cache: hierarchy + df-ladder weight parts keyed by content
+# (node shape, offsets, scaled-weight and free-mask bytes), routing and
+# device.  Repeated solves of the same discrete system — the solves of a
+# modal analysis, follow-up calls that change only BC values or the load —
+# skip the hierarchy build and the weight uploads.  BC *values* are not
+# part of the operator (masking bakes in the free pattern only; values
+# enter through b̂), so value-only follow-ups hit the cache.
+# ----------------------------------------------------------------------
+
+_MG_CACHE: Dict = {}
+_MG_CACHE_MAX = 2
+
+
+def _mg_cache_key(mesh: StructuredMesh, vdim: int, prec: str,
+                  sysm: ScaledSystem, device: torch.device):
+    h = hashlib.blake2b(digest_size=16)
+    for W in sysm.weights:
+        h.update(np.ascontiguousarray(W))
+    h.update(np.ascontiguousarray(sysm.free))
+    # the routing bakes into the built hierarchy's operators, and its
+    # tensors live on one device: an entry of another routing or device
+    # would silently keep the old kernels or hand over foreign tensors.
+    # The routing is PDE_TPU_CS and the two size gates (the reference's
+    # bf16-smoother switch has no counterpart here: dense levels always
+    # smooth with bf16 weights).
+    routing = (cs_kernels.cs_mode(), cs_kernels.CS_MIN_DOF,
+               stencil_kernels.KERNEL_MIN_DOF)
+    return (mesh.node_shape, vdim, prec, sysm.offsets, routing, str(device),
+            h.hexdigest())
+
+
+def _mg_cache_get(key):
+    entry = _MG_CACHE.pop(key, None)
+    if entry is not None:
+        _MG_CACHE[key] = entry  # LRU refresh
+    return entry
+
+
+def _mg_cache_put(key, hierarchy, ladder):
+    """Cache (hierarchy, ladder or None); the host arrays of the levels are
+    marked read-only, since every solve that hits the entry shares them."""
+    for lv in hierarchy.levels:
+        for a in (list(lv.host_weights or []) + [lv.host_Ainv]
+                  + list(lv.host_scale or [])):
+            if a is not None:
+                a.setflags(write=False)
+    _MG_CACHE[key] = (hierarchy, ladder)
+    while len(_MG_CACHE) > _MG_CACHE_MAX:
+        _MG_CACHE.pop(next(iter(_MG_CACHE)))
+
+
+# ----------------------------------------------------------------------
 # Public facade
 # ----------------------------------------------------------------------
 
@@ -405,15 +460,27 @@ def solve_stencil_system(
         from pde_solver_tpu_torch.utils.observability import get_logger
 
         t_h = _time.perf_counter()
-        hierarchy = mg.build_hierarchy(mesh, sysm, mg_level_builder,
-                                       vdim=vdim, device=device)
+        hier_key = _mg_cache_key(mesh, vdim, prec, sysm, device)
+        cached = _mg_cache_get(hier_key)
+        if cached is not None:
+            hierarchy, ladder_core = cached
+            get_logger().info("hierarchy cache hit (%.3fs key, %d DOF)",
+                              _time.perf_counter() - t_h, n)
+        else:
+            ladder_core = None
+            hierarchy = mg.build_hierarchy(mesh, sysm, mg_level_builder,
+                                           vdim=vdim, device=device)
         if hierarchy is not None:
             # Double-float32 F-cycle: Galerkin ladder with an exact f64
             # coarsest anchor and error-free-transformation defects at the
             # finest level — beats the κ_eff·ε32 floor that stalls a plain
             # f32 refinement loop on ill-conditioned problems.
             t_l = _time.perf_counter()
-            ladder = mg.build_df_ladder(hierarchy, sysm, sysm.b_hat)
+            if ladder_core is not None:
+                ladder = mg.ladder_with_b(ladder_core, sysm.b_hat)
+            else:
+                ladder = mg.build_df_ladder(hierarchy, sysm, sysm.b_hat)
+                _mg_cache_put(hier_key, hierarchy, ladder)
             t_s = _time.perf_counter()
             x_hi, x_lo, iters, relres = mg.solve_fcycle_df2(
                 hierarchy, ladder, max(cfg.tol, 1e-9),

@@ -606,9 +606,7 @@ def solve_fcycle_df2(h: MGHierarchy, ladder: DFLadder, tol: float,
     from pde_solver_tpu_torch.ops.df32 import jit_df_residual
 
     d, vdim = h.grid_dim, h.vdim
-    device = ladder.bhi0.device
-    Ainv32 = torch.as_tensor(h.levels[-1].host_Ainv, dtype=torch.float32,
-                             device=device)
+    Ainv32 = h.levels[-1].Ainv    # float32 on the device since the build
     bnorm = float(torch.sqrt(_dot(ladder.bhi0, ladder.bhi0)))
     if bnorm == 0.0:
         z = torch.zeros_like(ladder.bhi0)

@@ -1,7 +1,7 @@
-"""Implicit θ-scheme time stepping, eager torch.
+"""Implicit θ-scheme and Newmark-β time stepping, eager torch.
 
 Counterpart of ``pde_solver_tpu.ops.timestepping`` (``run_transient`` with
-its plain and snapshot-thinned scans) on one device:
+its plain and snapshot-thinned scans, and ``run_newmark``) on one device:
 
     (M + θ Δt K) u^{n+1} = (M − (1−θ) Δt K) u^n + Δt b
 
@@ -24,6 +24,19 @@ explicit operator for "ab1" or extrapolated by Adams-Bashforth-2 for
 ``NotImplementedError``: float64 scans, checkpointing and sharding.  The
 reference thins large trajectory pulls to bfloat16 frames for its slow host
 link; the port pulls everything at float32 (ROADMAP queue 3).
+
+:func:`run_newmark` integrates M ü + K u = f (elastodynamics, the scalar
+wave equation) in acceleration form:
+
+    ũ       = uₙ + Δt vₙ + Δt² (½ − β) aₙ             (predictor)
+    A_eff a = free ⊙ (f − K ũ),  A_eff = M + β Δt² K  (scaled step solve)
+    uₙ₊₁   = ũ + β Δt² aₙ₊₁
+    vₙ₊₁   = vₙ + Δt ((1 − γ) aₙ + γ aₙ₊₁)
+
+β = ¼, γ = ½ (average acceleration) is unconditionally stable and conserves
+the discrete energy ½ vᵀMv + ½ uᵀKu for f = 0 in exact arithmetic.
+Dirichlet nodes keep u = g with v = a = 0: A_eff's masked rows are identity
+with a zero right side there.
 """
 
 from __future__ import annotations
@@ -42,6 +55,8 @@ from pde_solver_tpu_torch.ops.linsolve import (_cg_unit_diag, _static_flat_op,
                                                _stencil_apply,
                                                np_stencil_apply,
                                                prepare_system)
+from pde_solver_tpu_torch.ops.stencil_kernels import (FlatStencilOperator,
+                                                      kernel_wins)
 from pde_solver_tpu_torch.utils.observability import get_logger
 
 
@@ -309,3 +324,176 @@ def run_transient(
                            max_relative_residual=res,
                            setup_seconds=setup_s, scan_seconds=scan_s,
                            fetch_seconds=fetch_s)
+
+
+# ----------------------------------------------------------------------
+# Newmark-β second-order dynamics:  M ü + K u = f
+# ----------------------------------------------------------------------
+
+class NewmarkResult(NamedTuple):
+    values: np.ndarray       # [num_steps+1, *node_shape(, v)] displacements
+    velocities: np.ndarray   # [num_steps+1, *node_shape(, v)]
+    times: np.ndarray
+    total_cg_iterations: int
+    max_relative_residual: float
+    setup_seconds: float = 0.0  # host system prep + a0 + MG hierarchy
+    scan_seconds: float = 0.0   # the stepping loop
+    fetch_seconds: float = 0.0  # both trajectories device → host
+
+
+def run_newmark(
+    K_np: Dict,
+    M_np: Dict,
+    mesh: StructuredMesh,
+    bc: DirichletBC,
+    f_np: np.ndarray,
+    u0_np: np.ndarray,
+    v0_np: np.ndarray,
+    dt: float,
+    num_steps: int,
+    beta: float = 0.25,
+    gamma: float = 0.5,
+    vdim: int = 1,
+    config: Optional[SolverConfig] = None,
+    mg_level_builder=None,
+) -> NewmarkResult:
+    """Implicit Newmark-β time integration of M ü + K u = f.
+
+    ``K_np``/``M_np`` are (block) stencils; ``f_np`` a constant external
+    load; ``u0_np`` must satisfy the Dirichlet values (they stay pinned).
+    ``mg_level_builder(mesh_c) -> (K_c, M_c, bc_c)`` (optional) enables
+    MG-PCG step solves on A_eff = M + βΔt²K above
+    ``transient_mg_threshold`` DOF; without a hierarchy every step is a
+    plain CG on the dense flat operator of A_eff.  K ũ applies the unscaled
+    K through plain shifted slices, as the explicit operators of
+    ``run_transient`` do.  Every step's displacement and velocity come
+    back (no frame thinning), float64 on the host from the float32 device
+    trajectory."""
+    cfg = config or get_config()
+    cfg.resolved_shard_devices()  # raises when sharding is requested
+    if cfg.transient_checkpoint_every > 0:
+        raise NotImplementedError("checkpointed Newmark scans are not ported "
+                                  "yet (ROADMAP step H)")
+    prec = cfg.resolve_precision()
+    if prec == "mixed":
+        prec = "f32"   # the reference's rule: no f64 inside the scan
+    if prec != "f32":
+        raise NotImplementedError(f"precision {prec!r} Newmark scans are not "
+                                  "ported yet; only 'f32' and 'mixed' are "
+                                  "(ROADMAP step H)")
+    t_setup = time.perf_counter()
+    device = torch.device(cfg.device)
+    d = mesh.dim
+    n = int(np.prod(mesh.node_shape)) * vdim
+    maxiter = cfg.resolved_maxiter(n)
+    num_steps = int(num_steps)
+    inner_tol = cfg.transient_inner_tol
+
+    A_np = _combine(K_np, M_np, alpha=beta * dt * dt, beta=1.0)
+    # acceleration BC values are zero: a zero-valued mask of u's pattern
+    bc0 = DirichletBC(np.asarray(bc.free_mask, np.float64),
+                      np.zeros_like(np.asarray(bc.values, np.float64)))
+    sysm = prepare_system(A_np, mesh, bc0, np.zeros(u0_np.shape), vdim)
+    offsets = sysm.offsets
+    wshape = mesh.node_shape + ((vdim, vdim) if vdim > 1 else ())
+    K_list = [np.asarray(K_np.get(o, np.zeros(wshape)), np.float64)
+              for o in offsets]
+
+    def dev(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                               device=device)
+
+    def flat_or_plain(system):
+        """The dense flat operator (never the constant-interior one: the
+        reference does not try it on this branch), or per-offset tensors
+        below ``KERNEL_MIN_DOF``."""
+        if kernel_wins(n):
+            return FlatStencilOperator(offsets, system.weights,
+                                       mesh.node_shape, vdim=vdim,
+                                       device=device)
+        return tuple(dev(W) for W in system.weights)
+
+    free_np = np.asarray(bc.free_mask, dtype=np.float64)
+    # consistent initial acceleration: M a0 = free ⊙ (f − K u0)
+    sys_m = prepare_system(M_np, mesh, bc0, free_np * (
+        np.asarray(f_np, np.float64)
+        - np_stencil_apply(K_np, np.asarray(u0_np, np.float64), d, vdim)),
+        vdim)
+    xh0, _, _ = _cg_unit_diag(offsets, flat_or_plain(sys_m),
+                              dev(sys_m.b_hat),
+                              torch.zeros(u0_np.shape, dtype=torch.float32,
+                                          device=device),
+                              inner_tol, maxiter, d, vdim)
+    a = dev(free_np * sys_m.from_hat_x(xh0.cpu().numpy().astype(np.float64)))
+    del sys_m
+
+    h = None
+    if (mg_level_builder is not None and cfg.use_multigrid
+            and n >= cfg.resolved_transient_mg_threshold()):
+        from pde_solver_tpu_torch.ops import multigrid as mg
+
+        def A_builder(mesh_c):
+            K_c, M_c, bc_c = mg_level_builder(mesh_c)
+            return _combine(K_c, M_c, alpha=beta * dt * dt, beta=1.0), bc_c
+
+        h = mg.build_hierarchy(mesh, sysm, A_builder, vdim=vdim,
+                               device=device)
+    A32 = flat_or_plain(sysm) if h is None else None
+
+    K_w = tuple(dev(W) for W in K_list)
+    free, f_ext = dev(free_np), dev(f_np)
+    if sysm.scale_kind == "scalar":
+        scale_ops = _make_scale_ops(dev(sysm.s), None, None)
+    else:
+        scale_ops = _make_scale_ops(None, dev(sysm.Ct), dev(sysm.CinvT))
+    to_hat_b, to_hat_x, from_hat_x = scale_ops
+    c1 = dt * dt * (0.5 - beta)
+    c2 = beta * dt * dt
+
+    u, v = dev(u0_np), dev(v0_np)
+    us = torch.empty((num_steps,) + tuple(u.shape), dtype=torch.float32,
+                     device=device)
+    vs = torch.empty_like(us)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    setup_s = time.perf_counter() - t_setup
+
+    t_scan = time.perf_counter()
+    iters, res = 0, 0.0
+    for j in range(num_steps):
+        u_pred = u + dt * v + c1 * a
+        bt = free * (f_ext - _stencil_apply(offsets, K_w, u_pred, d, vdim))
+        if h is not None:
+            xh, k, relres = mg.mg_pcg(h, to_hat_b(bt), to_hat_x(a),
+                                      inner_tol, maxiter, resync_every=0)
+        else:
+            xh, k, relres = _cg_unit_diag(offsets, A32, to_hat_b(bt),
+                                          to_hat_x(a), inner_tol, maxiter,
+                                          d, vdim)
+        a_new = free * from_hat_x(xh)
+        u = u_pred + c2 * a_new
+        v = v + dt * ((1.0 - gamma) * a + gamma * a_new)
+        a = a_new
+        us[j], vs[j] = u, v
+        iters += int(k)
+        res = max(res, float(relres))
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    scan_s = time.perf_counter() - t_scan
+
+    t_fetch = time.perf_counter()
+    values = np.concatenate([np.asarray(u0_np, np.float64)[None],
+                             us.cpu().numpy().astype(np.float64)], axis=0)
+    vels = np.concatenate([np.asarray(v0_np, np.float64)[None],
+                           vs.cpu().numpy().astype(np.float64)], axis=0)
+    fetch_s = time.perf_counter() - t_fetch
+    get_logger().info("newmark: %d steps, %d CG iterations, max relres "
+                      "%.3e, setup %.3fs, scan %.3fs, fetch %.3fs (%d DOF, "
+                      "%s step solves)", num_steps, iters, res, setup_s,
+                      scan_s, fetch_s, n, "MG-PCG" if h is not None else "CG")
+    return NewmarkResult(values=values, velocities=vels,
+                         times=dt * np.arange(num_steps + 1,
+                                              dtype=np.float64),
+                         total_cg_iterations=iters,
+                         max_relative_residual=res, setup_seconds=setup_s,
+                         scan_seconds=scan_s, fetch_seconds=fetch_s)

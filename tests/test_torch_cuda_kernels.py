@@ -1,6 +1,7 @@
 """CUDA kernels of the port against their plain PyTorch versions, on the
 card: the dense flat-stencil SpMV (every variant ``chip_smoke.py`` launches,
-v1_bf16 included) and the fused constant-interior kernel (K3 and K4).
+v1_bf16 included), the fused constant-interior kernel (K3 and K4) and the
+four floor probes.
 
 A CUDA kernel has no CPU mode, so every test here is marked ``cuda`` and
 skips without a card.  The file imports neither JAX nor the JAX package, so
@@ -21,6 +22,7 @@ from pde_solver_tpu_torch.ops.bc import DirichletBC, all_boundary
 from pde_solver_tpu_torch.ops.linsolve import (_cg_unit_diag, np_stencil_apply,
                                                prepare_system)
 from pde_solver_tpu_torch.ops import cs_kernels as ck
+from pde_solver_tpu_torch.ops import floor_probes as fp
 from pde_solver_tpu_torch.ops import stencil_kernels as sk
 from pde_solver_tpu_torch.ops.timestepping import _combine
 
@@ -317,3 +319,134 @@ def test_flat_cg_through_cs_kernels_matches_cpu(card):
     assert rr_cpu <= 1e-6 and rr_gpu <= 1e-6
     assert abs(k_gpu - k_cpu) <= 2
     assert _rel(x_gpu, x_cpu) <= 1e-5
+
+
+# ---- the floor probes (csrc/floor_probes.cu) --------------------------------
+
+# vdim and node shape: 3, 7 and 15 offsets; N mod 4 = 0, 1, 2, 3; blocks
+# clear of both ends of x (a block spans 512 nodes) and grids where every
+# shift crosses an end
+PROBE_CASES = [(1, (5000,)), (1, (4003,)), (1, (13, 10)), (2, (65, 34)),
+               (2, (67, 41)), (1, (41, 13, 13)), (3, (41, 13, 13)),
+               (3, (19, 9, 9)), (3, (23, 9, 9)), (3, (69, 65, 61)),
+               (1, (2, 2, 2)), (3, (2, 2, 2))]
+
+
+def _probe_inputs(vdim, shape, bf16, card):
+    """Random weight planes on the sorted P1 stencil of the shape's
+    dimension, an input, the three constant sets and the face masks."""
+    dim = len(shape)
+    tiny = (box_mesh(2, 2, 2, (0, 0, 0), (1, 1, 1)) if dim == 3
+            else rectangle_mesh(2, 2, (0, 0), (1, 1)) if dim == 2
+            else interval_mesh(2, 0.0, 1.0))
+    offsets = tuple(sorted(assembly.assemble_scalar_stencil(tiny, "mass")))
+    N = int(np.prod(shape))
+    rng = np.random.default_rng(11)
+    W = np.zeros((len(offsets) * vdim * vdim, sk.padded_length(N)),
+                 np.float32)
+    W[:, :N] = rng.standard_normal((W.shape[0], N))
+    op = sk.FlatStencilOperator.from_packed(torch.from_numpy(W).to(card),
+                                            offsets, shape, vdim)
+    op = op.as_weight_dtype(torch.bfloat16 if bf16 else torch.float32)
+    x = torch.from_numpy(rng.standard_normal((vdim, N)).astype(
+        np.float32)).to(card)
+    terms = fp.probe_constants(op.n_off * vdim * vdim)
+    masks = fp.face_masks(op.N_pad, shape[-1], card)
+    return op, x, terms, masks
+
+
+def _counted(name):
+    return sk.KERNEL_LAUNCHES.get(f"floor_{name}", 0)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("vdim,shape", PROBE_CASES)
+def test_probes_reading_weights_match_plain(card, vdim, shape, bf16):
+    """wonly, and residentw with a tile that wraps (64 nodes), with the
+    reference's tile of 4,096 and with one that holds every node."""
+    op, x, _, _ = _probe_inputs(vdim, shape, bf16, card)
+    before = _counted("wonly"), _counted("residentw")
+    y = fp.wonly(op.W)
+    torch.cuda.synchronize()
+    # float32 sums in the same order, but fused multiply-adds in the kernel
+    assert _rel(y.cpu(), fp.wonly_plain(op.W).cpu()) <= 1e-5
+    tiles = [fp.weight_tile(op.W, B) for B in (64, fp.TILE_NODES, op.N_pad)]
+    for tile in tiles:
+        y = fp.residentw(tile, x, op.deltas, vdim)
+        torch.cuda.synchronize()
+        y_plain = fp.residentw_plain(tile, x, op.deltas, vdim)
+        assert _rel(y.cpu(), y_plain.cpu()) <= 1e-5, tile.shape
+    # with every node in the tile the probe is the dense operator
+    assert _rel(y.cpu(), op.apply_flat(x).cpu()) <= 1e-5
+    assert (_counted("wonly"), _counted("residentw")) == \
+        (before[0] + 1, before[1] + 3)
+
+
+@pytest.mark.parametrize("vdim,shape", PROBE_CASES)
+def test_constant_weight_probes_match_plain(card, vdim, shape):
+    op, x, (wc, dz0, dz1), masks = _probe_inputs(vdim, shape, False, card)
+    before = _counted("shifts"), _counted("csz")
+    y_s = fp.shifts(x, op.deltas, vdim, wc)
+    y_c = fp.csz(masks, x, op.deltas, vdim, wc, dz0, dz1)
+    torch.cuda.synchronize()
+    assert _rel(y_s.cpu(), fp.shifts_plain(x, op.deltas, vdim, wc).cpu()) \
+        <= 1e-5
+    assert _rel(y_c.cpu(), fp.csz_plain(masks, x, op.deltas, vdim, wc, dz0,
+                                        dz1).cpu()) <= 1e-5
+    # without face terms csz is shifts, bit for bit
+    zero = np.zeros_like(wc)
+    assert torch.equal(fp.csz(masks, x, op.deltas, vdim, wc, zero, zero), y_s)
+    # and against float64 on the host
+    xs = x.cpu().numpy().astype(np.float64)
+    y64 = np.zeros_like(xs)
+    for o, d in enumerate(op.deltas):
+        lo, hi = max(0, -d), min(op.N, op.N - d)
+        for a in range(vdim):
+            for b in range(vdim):
+                y64[a, lo:hi] += float(wc[(o * vdim + a) * vdim + b]) \
+                    * xs[b, lo + d:hi + d]
+    assert _rel(y_s.cpu(), y64) <= 1e-5
+    assert (_counted("shifts"), _counted("csz")) == \
+        (before[0] + 1, before[1] + 2)
+
+
+def test_probe_planted_faults_show(card):
+    """One changed input of each probe moves it > 1e-4 (relative) off the
+    plain version of the unchanged inputs."""
+    op, x, (wc, dz0, dz1), masks = _probe_inputs(3, (41, 13, 13), False, card)
+    n = op.N - 2                                   # in the last, partial group
+    W_bad = op.W.clone()
+    W_bad[7, n] += 10.0
+    assert _rel(fp.wonly(W_bad).cpu(), fp.wonly_plain(op.W).cpu()) > 1e-4
+    tile = fp.weight_tile(op.W, 64)
+    tile_bad = tile.clone()
+    tile_bad[:, n % 64] = 0
+    assert _rel(fp.residentw(tile_bad, x, op.deltas, 3).cpu(),
+                fp.residentw_plain(tile, x, op.deltas, 3).cpu()) > 1e-4
+    wc_bad = wc.copy()
+    wc_bad[op.deltas.index(0) * 9] *= 1.01
+    assert _rel(fp.shifts(x, op.deltas, 3, wc_bad).cpu(),
+                fp.shifts_plain(x, op.deltas, 3, wc).cpu()) > 1e-4
+    m_bad = masks.clone()
+    m_bad[1] = 0
+    assert _rel(fp.csz(m_bad, x, op.deltas, 3, wc, dz0, dz1).cpu(),
+                fp.csz_plain(masks, x, op.deltas, 3, wc, dz0, dz1).cpu()) \
+        > 1e-4
+
+
+def test_probes_reject_what_they_do_not_take(card):
+    op, x, (wc, dz0, dz1), masks = _probe_inputs(1, (41, 13, 13), False, card)
+    before = dict(sk.KERNEL_LAUNCHES)
+    with pytest.raises(ValueError):
+        fp.shifts(x.double(), op.deltas, 1, wc)
+    with pytest.raises(ValueError):
+        fp.shifts(x, op.deltas[:-1], 1, wc[:-1])     # 14 offsets
+    with pytest.raises(ValueError):
+        fp.residentw(fp.weight_tile(op.W, 66), x, op.deltas, 1)
+    with pytest.raises(ValueError):
+        fp.residentw(fp.weight_tile(op.W).cpu(), x, op.deltas, 1)
+    with pytest.raises(ValueError):
+        fp.csz(masks[:, :-128].contiguous(), x, op.deltas, 1, wc, dz0, dz1)
+    with pytest.raises(ValueError):
+        fp.wonly(op.W[:, :100].contiguous())
+    assert dict(sk.KERNEL_LAUNCHES) == before

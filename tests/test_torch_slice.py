@@ -102,7 +102,10 @@ def test_port_never_imports_jax():
             " pde_solver_tpu_torch.ops.cs_kernels,"
             " pde_solver_tpu_torch.ops.surface,"
             " pde_solver_tpu_torch.models.heat,"
-            " pde_solver_tpu_torch.models.advection;"
+            " pde_solver_tpu_torch.models.advection,"
+            " pde_solver_tpu_torch.models.wave,"
+            " pde_solver_tpu_torch.ops.floor_probes,"
+            " pde_solver_tpu_torch.ops.eigen;"
             "from pde_solver_tpu_torch.api import (solve_heat_3D,"
             " solve_heat_1D, solve_heat_2D, solve_heat_1D_cylindrical,"
             " solve_heat_1D_spherical, solve_heat_2D_cylindrical,"
@@ -113,7 +116,13 @@ def test_port_never_imports_jax():
             " solve_heat_2D_mixed, solve_heat_3D_mixed,"
             " solve_heat_radial_mixed, solve_heat_1D_nonlinear,"
             " solve_heat_2D_nonlinear, solve_advection_1D,"
-            " solve_advection_2D, solve_advection_3D);"
+            " solve_advection_2D, solve_advection_3D,"
+            " solve_wave_1D, solve_wave_2D, solve_wave_3D,"
+            " solve_elasticity_3D_dynamic, solve_elasticity_2D_modal,"
+            " solve_elasticity_3D_modal);"
+            "pde_solver_tpu_torch.ops.timestepping.run_newmark;"
+            "pde_solver_tpu_torch.ops.eigen.smallest_modes;"
+            "pde_solver_tpu_torch.ops.floor_probes.kernel_floor;"
             "pde_solver_tpu_torch.models.heat.solve_heat_nonlinear;"
             "pde_solver_tpu_torch.models.advection.solve_advection_problem;"
             "assert 'jax' not in sys.modules, 'jax imported';"
