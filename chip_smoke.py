@@ -122,10 +122,12 @@
    variant is timed once (profiler device ms, share of its bound).
 9. The floor probes (``floor_probes``: wonly, shifts, residentw, csz), each
    against its plain version (relative max error ≤ 1e-5; wonly and
-   residentw also with bf16 weights) on the flagship's scaled fine-level
-   elasticity operator (161×65×65, vdim 3) and the heat slice's (129³,
-   vdim 1), on two ragged tails (N mod 4 = 3, 1), and with one planted
-   fault each that must read > 1e-4.  Times each probe as in 3 (events,
+   residentw also with bf16 weights, residentw with tiles of 64, 4,096
+   and N_pad nodes) on the flagship's scaled fine-level elasticity
+   operator (161×65×65, vdim 3) and the heat slice's (129³, vdim 1), on
+   two ragged tails (N mod 4 = 3, 1), and with one planted fault each that
+   must read > 1e-4; csz with zero face sets must equal shifts bit for
+   bit.  Prints the ptxas lines of residentw and csz.  Times each probe as in 3 (events,
    profiler device ms, bound, share; where its bytes fit the L2 also with
    128 MB written between launches); prints for wonly the GB/s it reaches
    beside K1's device time at the same shape, for shifts and csz the fused
@@ -2095,6 +2097,7 @@ def probe_checks(fp, sk, op, x, label, results):
     weights) against their plain versions, relative max error ≤ REL_TOL,
     and one planted fault each that must read > FAULT_MIN.  Returns what
     the timings need: (op16, tiles, constants, masks)."""
+    import numpy as np
     import torch
 
     v, deltas = op.vdim, op.deltas
@@ -2120,14 +2123,23 @@ def probe_checks(fp, sk, op, x, label, results):
     for wt, o in (("f32", op), ("bf16", op16)):
         plains[f"wonly {wt}"] = hold(f"wonly {wt}", fp.wonly(o.W),
                                      fp.wonly_plain(o.W))
-        tiles[wt] = fp.weight_tile(o.W)
-        plains[f"residentw {wt}"] = hold(
-            f"residentw {wt}", fp.residentw(tiles[wt], x, deltas, v),
-            fp.residentw_plain(tiles[wt], x, deltas, v))
+        # tiles that wrap many times, the reference's, and all of W
+        for B in (64, fp.TILE_NODES, op.N_pad):
+            tile = fp.weight_tile(o.W, B)
+            y_plain = hold(f"residentw {wt} B={B}",
+                           fp.residentw(tile, x, deltas, v),
+                           fp.residentw_plain(tile, x, deltas, v))
+            if B == fp.TILE_NODES:
+                tiles[wt], plains[f"residentw {wt}"] = tile, y_plain
     plains["shifts"] = hold("shifts", fp.shifts(x, deltas, v, wc),
                             fp.shifts_plain(x, deltas, v, wc))
     plains["csz"] = hold("csz", fp.csz(masks, x, deltas, v, wc, dz0, dz1),
                          fp.csz_plain(masks, x, deltas, v, wc, dz0, dz1))
+    # without face sets csz is shifts, bit for bit
+    no_face = np.zeros_like(wc)
+    check(torch.equal(fp.csz(masks, x, deltas, v, wc, no_face, no_face),
+                      fp.shifts(x, deltas, v, wc)),
+          f"probes at {label}: csz without face sets is not shifts")
     # one planted fault a probe, each in the last, partial group of nodes
     n = op.N - 2
     W_bad = op.W.clone()
@@ -2146,13 +2158,27 @@ def probe_checks(fp, sk, op, x, label, results):
         "csz": rel_err(fp.csz(m_bad, x, deltas, v, wc, dz0, dz1),
                        plains["csz"])}
     del W_bad, tile_bad, m_bad
-    print(f"probes {label} N={op.N} (N mod 4 = {op.N % 4}) v{v}: rel err "
+    print(f"probes {label} N={op.N} (N mod 4 = {op.N % 4}) v{v}: csz "
+          f"without face sets = shifts bit for bit; rel err "
           + ", ".join(f"{k} {r:.3e}" for k, r in rels.items())
           + "; planted faults: "
           + ", ".join(f"{k} {r:.3e}" for k, r in faults.items()), flush=True)
     check(min(faults.values()) > FAULT_MIN, f"probes at {label}: a planted "
           f"fault reads {min(faults.values()):.3e}, not above {FAULT_MIN}")
     return op16, tiles, (wc, dz0, dz1), masks
+
+
+def ptxas_lines(log: str, kernels):
+    """ptxas's report lines (registers, shared memory, spills) of the
+    kernels whose mangled names hold one of ``kernels``."""
+    out, current = [], None
+    for line in log.splitlines():
+        if "entry function" in line or "Function properties" in line:
+            current = next((k for k in kernels if k in line), None)
+        if current and any(w in line for w in ("entry function", "registers",
+                                               "spill", "smem")):
+            out.append(line.strip())
+    return out
 
 
 def floor_phase(fp, sk, ck, cases=None, ragged=FLOOR_RAGGED, device="cuda",
@@ -2169,6 +2195,13 @@ def floor_phase(fp, sk, ck, cases=None, ragged=FLOOR_RAGGED, device="cuda",
         cases = (("flagship elasticity 161x65x65", 3, elasticity_operator),
                  ("heat 129^3", 1,
                   lambda: heat_operator((128, 128, 128))))
+    if device == "cuda":
+        from pde_solver_tpu_torch.ops import cuda_build
+
+        for line in ptxas_lines(str(cuda_build.BUILD_INFO["floor_probes"]
+                                    .get("log", "")),
+                                ("residentw_kernel", "csz_kernel")):
+            print(f"  floor ptxas: {line}", flush=True)
     gen = torch.Generator(device=device)
     gen.manual_seed(5)
     results = {}

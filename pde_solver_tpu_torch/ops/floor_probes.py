@@ -12,7 +12,7 @@ work and leave the rest out:
   pass costs.
 * :func:`residentw` — the dense kernel's sum with node n reading the
   weights of node ``n mod B`` of one tile of ``B = TILE_NODES`` nodes, so
-  per-node weights that never leave the cache.  Wrong as an operator by
+  per-node weights that never leave the chip.  Wrong as an operator by
   design: only its time means anything.
 * :func:`csz` — ``shifts`` with two more constant sets switched on by two
   streamed mask planes (the faces ``n mod nz = 0`` and ``n mod nz = nz−1``
@@ -30,13 +30,21 @@ flagship's operator and reports their times beside the dense kernel's.
 Layouts are the dense kernel's: W ``[n_off·v², N_pad]`` (f32 or bf16,
 ``N_pad`` = N rounded up to 128), x and y ``[v, N]`` f32, offsets as flat
 deltas in the sorted P1 stencil's order.
+
+``residentw`` and ``csz`` launch by a plan computed here and checked by the
+C function (:func:`residentw_plan`, :func:`csz_plan`): which tile slots and
+repeats a block takes, and which segments of x a ``csz`` block stages in
+shared memory.  The CPU tests check the plans' coverage at the main paths'
+shapes.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import sys
 import time
+from dataclasses import dataclass
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -45,10 +53,29 @@ import torch
 from pde_solver_tpu_torch.ops import cuda_build
 from pde_solver_tpu_torch.ops.stencil_kernels import (check_row_groups,
                                                       count_launch,
-                                                      padded_length)
+                                                      padded_length,
+                                                      row_groups)
 
 # Nodes of residentw's weight tile: the block of the reference's probe.
 TILE_NODES = 4096
+# The launch geometry of csrc/floor_probes.cu: residentw's threads a block
+# (one tile slot each), csz's threads a block; the row groups and shared
+# bytes a block may have
+RESIDENTW_THREADS = 128
+CSZ_THREADS = 128
+MAX_GROUPS = 8
+MAX_SMEM = 232448
+
+
+def csz_nodes(vdim: int) -> int:
+    """Nodes a csz thread takes (``csz_nodes`` of the source)."""
+    return 8 if vdim == 1 else 4
+
+
+def csz_run(vdim: int) -> int:
+    """Consecutive nodes a csz block stages and computes."""
+    return CSZ_THREADS * csz_nodes(vdim)
+
 
 # What csrc/floor_probes.cu is built for, read from its #define lines.
 PROBE_VDIMS = cuda_build.defined_list("floor_probes", "FLOOR_PROBE_VDIMS")
@@ -61,17 +88,148 @@ def build_library() -> ctypes.CDLL:
     """Compile (if the source hash is new) and load the probes' library."""
     global _LIB
     if _LIB is None:
-        lib = cuda_build.library("floor_probes")
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.floor_wonly.argtypes = [p, i, i, ll, p, p]
-        lib.floor_shifts.argtypes = [i, p, p, ll, p, i, p, p]
-        lib.floor_residentw.argtypes = [p, i, ll, i, p, p, ll, p, i, p]
-        lib.floor_csz.argtypes = [p, ll, i, p, p, ll, p, i, p, p, p, p]
-        for fn in (lib.floor_wonly, lib.floor_shifts, lib.floor_residentw,
-                   lib.floor_csz):
-            fn.restype = ctypes.c_int
-        _LIB = lib
+        _LIB = bind_library(cuda_build.library("floor_probes"))
     return _LIB
+
+
+def bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the C functions' arguments on a build of the source."""
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.floor_wonly.argtypes = [p, i, i, ll, p, p]
+    lib.floor_shifts.argtypes = [i, p, p, ll, p, i, p, p]
+    lib.floor_residentw.argtypes = [p, i, ll, i, p, p, ll, p, i, p, i, p]
+    lib.floor_csz.argtypes = [p, ll, i, p, p, ll, p, i, p, p, p, p, i, p]
+    lib.floor_residentw_blocks_per_sm.argtypes = [i, i, i, p]
+    for fn in (lib.floor_wonly, lib.floor_shifts, lib.floor_residentw,
+               lib.floor_csz, lib.floor_residentw_blocks_per_sm):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+# ----------------------------------------------------------------------
+# Launch plans
+# ----------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ResidentwPlan:
+    """residentw's grid: ``slot_blocks`` blocks of ``threads`` threads, one
+    tile slot s each, times ``ranges`` ranges of ``per_range`` consecutive
+    repeats; a thread visits the nodes s + jB of the repeats j of its
+    range."""
+    N: int
+    B: int
+    threads: int
+    slot_blocks: int
+    repeats: int
+    ranges: int
+    per_range: int
+
+    @functools.cached_property
+    def c_array(self) -> np.ndarray:
+        return np.array([self.threads, self.slot_blocks, self.repeats,
+                         self.ranges, self.per_range], np.int32)
+
+
+@functools.lru_cache(maxsize=64)
+def residentw_plan(N: int, B: int, resident_blocks: int) -> ResidentwPlan:
+    """The plan for a tile of B slots over N nodes: as many repeat ranges
+    as the card holds blocks at once (``resident_blocks``), one range where
+    the slot blocks alone fill it: the grid runs in one wave, and a slot's
+    weights are loaded as few times as fill the card."""
+    slot_blocks = -(-B // RESIDENTW_THREADS)
+    repeats = -(-N // B)
+    ranges = max(1, min(repeats, resident_blocks // slot_blocks))
+    per_range = -(-repeats // ranges)
+    return ResidentwPlan(N, B, RESIDENTW_THREADS, slot_blocks, repeats,
+                         -(-repeats // per_range), per_range)
+
+
+@dataclass(frozen=True)
+class CszPlan:
+    """csz's grid: block r takes run r, the ``csz_run(vdim)`` nodes from
+    B0 = r·run.  It stages, per component, the segments ``[B0 + seg_lo[s],
+    ...)`` of x, ``seg_chunks[s]`` 16-byte chunks each from the 16-byte
+    boundary at or below their start, at chunk ``seg_chunk0[s]`` of the
+    component's row; row group g reads segment ``group_seg[g]`` from
+    ``group_off[g]`` on."""
+    N: int
+    vdim: int
+    runs: int
+    seg_lo: Tuple[int, ...]
+    seg_chunk0: Tuple[int, ...]
+    seg_chunks: Tuple[int, ...]
+    group_seg: Tuple[int, ...]
+    group_off: Tuple[int, ...]
+
+    @property
+    def run(self) -> int:
+        return csz_run(self.vdim)
+
+    @property
+    def row_floats(self) -> int:
+        return 4 * sum(self.seg_chunks)
+
+    @property
+    def smem_bytes(self) -> int:
+        return 4 * self.vdim * self.row_floats
+
+    @functools.cached_property
+    def c_array(self) -> np.ndarray:
+        def slots(values):
+            return list(values) + [0] * (MAX_GROUPS - len(values))
+        return np.array([CSZ_THREADS, csz_nodes(self.vdim), self.run,
+                         self.runs, len(self.seg_lo), self.row_floats,
+                         self.smem_bytes]
+                        + slots(self.seg_lo) + slots(self.seg_chunk0)
+                        + slots(self.seg_chunks) + slots(self.group_seg)
+                        + slots(self.group_off), np.int32)
+
+
+def csz_segments(deltas: Sequence[int], run: int):
+    """(seg_lo, seg_chunk0, seg_chunks, group_seg, group_off): the row
+    groups' windows of a run, ``[base_g, base_g + run + size_g − 1)``
+    relative to its first node, merged where they overlap (the groups come
+    in ascending δ), each segment long enough for its start's shift of up
+    to 3 values below it."""
+    segs, group_seg, group_off = [], [], []
+    for first, size in row_groups(len(deltas)):
+        lo = int(deltas[first])
+        end = lo + run + size - 1
+        if segs and lo <= segs[-1][1]:
+            segs[-1][1] = max(segs[-1][1], end)
+        else:
+            segs.append([lo, end])
+        group_seg.append(len(segs) - 1)
+        group_off.append(lo - segs[-1][0])
+    chunks = [-(-(end - lo + 3) // 4) for lo, end in segs]
+    chunk0 = [sum(chunks[:s]) for s in range(len(chunks))]
+    return (tuple(lo for lo, _ in segs), tuple(chunk0), tuple(chunks),
+            tuple(group_seg), tuple(group_off))
+
+
+@functools.lru_cache(maxsize=64)
+def csz_plan(N: int, deltas: Tuple[int, ...], vdim: int) -> CszPlan:
+    """The plan for N nodes: one block a run."""
+    run = csz_run(vdim)
+    plan = CszPlan(N, vdim, -(-N // run), *csz_segments(deltas, run))
+    if plan.smem_bytes > MAX_SMEM:
+        raise ValueError(f"csz would stage {plan.smem_bytes} bytes a block, "
+                         f"more than {MAX_SMEM}")
+    return plan
+
+
+@functools.lru_cache(maxsize=64)
+def _resident_blocks(device: int, vdim: int, n_off: int, bf16: int) -> int:
+    """Blocks of residentw the card holds at once: blocks an SM times
+    SMs."""
+    blocks = ctypes.c_int(0)
+    rc = build_library().floor_residentw_blocks_per_sm(
+        vdim, n_off, bf16, ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"floor_residentw_blocks_per_sm({vdim}, {n_off}, "
+                           f"{bf16}) failed: CUDA error {rc}")
+    return blocks.value * torch.cuda.get_device_properties(
+        device).multi_processor_count
 
 
 def probe_constants(n_terms: int) -> Tuple[np.ndarray, np.ndarray,
@@ -263,9 +421,12 @@ def residentw(Wt: torch.Tensor, x: torch.Tensor, deltas: Sequence[int],
                          f"multiple of 4")
     y = torch.empty_like(x)
     d = _c_array(deltas, np.int32)
+    bf16 = int(Wt.dtype == torch.bfloat16)
+    plan = residentw_plan(x.shape[1], Wt.shape[1], _resident_blocks(
+        x.device.index, vdim, len(deltas), bf16)).c_array
     rc = build_library().floor_residentw(
-        Wt.data_ptr(), int(Wt.dtype == torch.bfloat16), Wt.shape[1], vdim,
-        x.data_ptr(), y.data_ptr(), x.shape[1], d.ctypes.data, len(deltas),
+        Wt.data_ptr(), bf16, Wt.shape[1], vdim, x.data_ptr(), y.data_ptr(),
+        x.shape[1], d.ctypes.data, len(deltas), plan.ctypes.data, len(plan),
         _stream(x))
     _launched(rc, "residentw", f"vdim={vdim}, N={x.shape[1]}, {Wt.dtype} "
               f"tile of {Wt.shape[1]}")
@@ -289,10 +450,11 @@ def csz(m: torch.Tensor, x: torch.Tensor, deltas: Sequence[int], vdim: int,
     y = torch.empty_like(x)
     d = _c_array(deltas, np.int32)
     t = [_c_array(c, np.float32) for c in (wc, dz0, dz1)]
+    plan = csz_plan(N, tuple(int(v) for v in deltas), vdim).c_array
     rc = build_library().floor_csz(
         m.data_ptr(), m.shape[1], vdim, x.data_ptr(), y.data_ptr(), N,
         d.ctypes.data, len(deltas), t[0].ctypes.data, t[1].ctypes.data,
-        t[2].ctypes.data, _stream(x))
+        t[2].ctypes.data, plan.ctypes.data, len(plan), _stream(x))
     _launched(rc, "csz", f"vdim={vdim}, N={N}")
     return y
 

@@ -450,3 +450,40 @@ def test_probes_reject_what_they_do_not_take(card):
     with pytest.raises(ValueError):
         fp.wonly(op.W[:, :100].contiguous())
     assert dict(sk.KERNEL_LAUNCHES) == before
+
+
+# residentw where the tile's repeats do not divide N (N mod B ≠ 0), where N
+# is smaller than the tile, and where the repeat ranges split unevenly;
+# csz where N is smaller than one staged run (512 nodes at v2, v3; 1,024 at
+# v1) or no multiple of it
+RAGGED_TILES = [(3, (9, 9, 9), 4096), (1, (5, 5, 5), 64), (1, (41, 13, 13), 4096),
+                (3, (41, 13, 13), 1000), (2, (67, 41), 68), (1, (5000,), 4996)]
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("vdim,shape,B", RAGGED_TILES)
+def test_residentw_ragged_repeats_match_plain(card, vdim, shape, B, bf16):
+    op, x, _, _ = _probe_inputs(vdim, shape, bf16, card)
+    B = min(B, op.N_pad)
+    N = op.N
+    assert N < B or N % B != 0
+    tile = fp.weight_tile(op.W, B)
+    y = fp.residentw(tile, x, op.deltas, vdim)
+    torch.cuda.synchronize()
+    assert _rel(y.cpu(), fp.residentw_plain(tile, x, op.deltas, vdim).cpu()) \
+        <= 1e-5
+
+
+@pytest.mark.parametrize("vdim,shape", [(1, (5, 5, 5)), (3, (9, 9, 9)),
+                                        (3, (41, 13, 13)), (1, (65, 65, 63)),
+                                        (2, (67, 41)), (1, (1023,))])
+def test_csz_ragged_runs_match_plain(card, vdim, shape):
+    op, x, (wc, dz0, dz1), masks = _probe_inputs(vdim, shape, False, card)
+    assert op.N < fp.csz_run(vdim) or op.N % fp.csz_run(vdim) != 0
+    y = fp.csz(masks, x, op.deltas, vdim, wc, dz0, dz1)
+    torch.cuda.synchronize()
+    assert _rel(y.cpu(), fp.csz_plain(masks, x, op.deltas, vdim, wc, dz0,
+                                      dz1).cpu()) <= 1e-5
+    zero = np.zeros_like(wc)
+    assert torch.equal(fp.csz(masks, x, op.deltas, vdim, wc, zero, zero),
+                       fp.shifts(x, op.deltas, vdim, wc))

@@ -226,3 +226,139 @@ def test_entry_point_runs_every_probe_on_the_cpu_and_counts_no_launch():
                               "shifts", "csz"}
     assert all(t > 0 for t in out["ms"].values())
     assert not sk.KERNEL_LAUNCHES      # plain versions launch nothing
+
+
+# ---- the launch plans of residentw and csz ---------------------------------
+
+# the main paths' probe shapes (flagship v3, heat slice v1) and the two
+# ragged tails chip_smoke.py holds the kernels at (N mod 4 = 3 and 1)
+PLAN_SHAPES = [((161, 65, 65), 3), ((129, 129, 129), 1),
+               ((71, 65, 61), 3), ((73, 65, 61), 1)]
+# blocks of residentw an H100 holds at once at v3: 132 SMs × 2 (214
+# registers a thread)
+RESIDENT = 132 * 2
+
+
+def _deltas(shape):
+    tiny = ref_box(2, 2, 2, (0, 0, 0), (1.0, 1.0, 1.0))
+    offsets = sorted(ref_asm.assemble_scalar_stencil(tiny, "mass"))
+    strides = (shape[1] * shape[2], shape[2], 1)
+    return tuple(int(sum(o * s for o, s in zip(off, strides)))
+                 for off in offsets)
+
+
+def _resident_nodes(plan):
+    """Every node residentw computes under the plan, by the kernel's index
+    arithmetic: thread slot s of block (slot block, range) visits s + jB
+    for the repeats j of its range while s < B and s + jB < N."""
+    slot = np.arange(plan.slot_blocks * plan.threads)
+    slot = slot[slot < plan.B]
+    j = np.arange(plan.ranges * plan.per_range)
+    j = j[j < plan.repeats]
+    n = slot[:, None] + j[None, :] * plan.B
+    return n[n < plan.N]
+
+
+@pytest.mark.parametrize("shape", [shape for shape, _ in PLAN_SHAPES])
+@pytest.mark.parametrize("B", [64, fp.TILE_NODES, None])
+def test_residentw_plan_covers_every_node_once(shape, B):
+    """Every node of [0, N) is computed exactly once, by a thread whose
+    slot is n mod B; B None is the whole-W tile (N_pad slots)."""
+    N = int(np.prod(shape))
+    B = B or sk.padded_length(N)
+    plan = fp.residentw_plan(N, B, RESIDENT)
+    assert plan.slot_blocks * plan.threads >= B
+    assert plan.ranges * plan.per_range >= plan.repeats
+    assert (plan.ranges - 1) * plan.per_range < plan.repeats
+    assert plan.slot_blocks * plan.ranges <= max(RESIDENT, plan.slot_blocks)
+    nodes = _resident_nodes(plan)
+    assert np.array_equal(np.bincount(nodes, minlength=N), np.ones(N, int))
+    assert len(plan.c_array) == 5 and plan.c_array.dtype == np.int32
+
+
+@pytest.mark.parametrize("N,B", [(1000, 4096), (4099, 4096), (10 ** 5, 64),
+                                 (10 ** 5, 100_000)])
+def test_residentw_plan_ragged_repeats_and_small_grids(N, B):
+    """N < B (one partial repeat), N mod B ≠ 0, and ranges that do not
+    divide the repeats: still every node once."""
+    for resident in (1, 7, RESIDENT, 132 * 3):
+        plan = fp.residentw_plan(N, B, resident)
+        assert np.array_equal(np.bincount(_resident_nodes(plan), minlength=N),
+                              np.ones(N, int))
+
+
+def _staged(plan, x, b, B0, sh, s):
+    """What the kernel stages of segment s of component b for the run at
+    B0: 16-byte chunks from the boundary at or below x[b, B0 + seg_lo[s]]
+    (x's pointer sh values past a boundary), zero outside [0, N).  The
+    chunks [j_lo, j_hi) the kernel copies whole (by TMA) must lie inside
+    [0, N), and every other chunk must not."""
+    N = plan.N
+    chunks = plan.seg_chunks[s]
+    i0 = sh + b * N + B0 + plan.seg_lo[s]
+    pos0 = (i0 - i0 % 4) - sh - b * N
+    j_lo = min(chunks, max(0, (3 - pos0) >> 2))
+    j_hi = max(j_lo, min(chunks, (N - pos0) >> 2))
+    first = pos0 + 4 * np.arange(chunks)
+    whole = (first >= 0) & (first + 4 <= N)
+    assert np.array_equal(whole, (np.arange(chunks) >= j_lo)
+                          & (np.arange(chunks) < j_hi))
+    pos = pos0 + np.arange(4 * chunks)
+    inside = (pos >= 0) & (pos < N)
+    return np.where(inside, x[b, np.clip(pos, 0, N - 1)], 0.0), i0 % 4
+
+
+@pytest.mark.parametrize("shape,vdim", PLAN_SHAPES)
+@pytest.mark.parametrize("sh", [0, 3])
+def test_csz_plan_stages_every_read(shape, vdim, sh):
+    """Block r takes run r, the runs cover [0, N) and every node of a run
+    is taken by one thread; every x[b, n + δ_o] a node reads lies in its
+    group's staged segment and is x there, or zero exactly where n + δ_o
+    falls outside [0, N).  x's values are distinct, so a read of the wrong
+    value shows."""
+    N = int(np.prod(shape))
+    deltas = _deltas(shape)
+    plan = fp.csz_plan(N, deltas, vdim)
+    run = plan.run
+    assert plan.smem_bytes <= fp.MAX_SMEM
+    assert (plan.runs - 1) * run < N <= plan.runs * run
+    ln = (np.arange(fp.CSZ_THREADS)[:, None]
+          + np.arange(fp.csz_nodes(vdim))[None, :] * fp.CSZ_THREADS).ravel()
+    assert np.array_equal(np.sort(ln), np.arange(run))
+    x = (np.arange(vdim * N, dtype=np.float64).reshape(vdim, N) + 1.0)
+    n_all = np.arange(N)
+    for first, size in sk.row_groups(15):
+        g = [f for f, _ in sk.row_groups(15)].index(first)
+        s = plan.group_seg[g]
+        assert plan.group_off[g] == deltas[first] - plan.seg_lo[s] >= 0
+        for b in range(vdim):
+            got = np.empty((size, N))
+            for r in range(plan.runs):
+                B0 = r * run
+                seg, shift = _staged(plan, x, b, B0, sh, s)
+                n = n_all[B0:B0 + run]
+                for p in range(size):
+                    q = shift + plan.group_off[g] + (n - B0) + p
+                    assert q.max() < len(seg)
+                    got[p, B0:B0 + len(n)] = seg[q]
+            for p in range(size):
+                src = n_all + deltas[first + p]
+                want = np.where((src >= 0) & (src < N),
+                                x[b, np.clip(src, 0, N - 1)], 0.0)
+                assert np.array_equal(got[p], want), (g, p, b)
+
+
+def test_csz_plan_merges_overlapping_windows():
+    """At 15 offsets on a 3D grid the seven row groups' windows fall into
+    three segments (the planes below, at and above the node), and the
+    flagship's staged x fits an SM's shared memory five times."""
+    plan = fp.csz_plan(161 * 65 * 65, _deltas((161, 65, 65)), 3)
+    assert plan.seg_lo == (-4291, -66, 4225)
+    assert plan.group_seg == (0, 0, 1, 1, 1, 2, 2)
+    assert 5 * plan.smem_bytes <= 228 * 1024
+    assert plan.runs == -(-161 * 65 * 65 // plan.run) and plan.run == 512
+    assert len(plan.c_array) == 7 + 5 * fp.MAX_GROUPS
+    assert fp.csz_plan(129 ** 3, _deltas((129, 129, 129)), 1).run == 1024
+    # a grid smaller than one run: one run, one segment
+    small = fp.csz_plan(5 * 5 * 5, _deltas((5, 5, 5)), 1)
+    assert (small.runs, len(small.seg_lo)) == (1, 1)
