@@ -127,12 +127,14 @@
    operator (161×65×65, vdim 3) and the heat slice's (129³, vdim 1), on
    two ragged tails (N mod 4 = 3, 1), and with one planted fault each that
    must read > 1e-4; csz with zero face sets must equal shifts bit for
-   bit.  Prints the ptxas lines of residentw and csz.  Times each probe as in 3 (events,
-   profiler device ms, bound, share; where its bytes fit the L2 also with
-   128 MB written between launches); prints for wonly the GB/s it reaches
-   beside K1's device time at the same shape, for shifts and csz the fused
-   CS kernel's device time beside them.  The library yardstick of wonly is
-   ``W.sum(0)``; the other three have no single PyTorch call.  Then their
+   bit.  Prints the ptxas lines of shifts, residentw and csz.  Times each
+   probe as in 3 (events, profiler device ms, bound, share; where its
+   bytes fit the L2 also with 128 MB written between launches); prints for
+   wonly the GB/s it reaches beside K1's device time at the same shape,
+   for shifts and csz the fused CS kernel's device time beside them.  The
+   library yardstick of wonly is ``W.sum(0)``, that of shifts one
+   ``conv1d`` (``shifts_library``, held against plain first); residentw
+   and csz have no single PyTorch call.  Then their
    main path, counts 0 before and read after: the entry point
    ``floor_probes.kernel_floor`` on the flagship's operator.
 10. The Newmark and modal tools, each run a main path of its own:
@@ -326,7 +328,7 @@ PROBE_REPLACES = {"wonly": "benchmarks/kernel_floor.py:63",
                   "residentw": "benchmarks/kernel_floor.py:148",
                   "csz": "benchmarks/kernel_floor.py:202"}
 PROBE_NO_LIBRARY = ("no single PyTorch call computes a shifted stencil sum "
-                    "with constant or tiled weights")
+                    "with tiled weights or masked face sets")
 FLOOR_REPS = 20
 # the Newmark slice at full width: the wave equation on 128³ cells (the
 # default sine mode, Π sin(πxᵢ) cos(√3πt)), and the flagship's cantilever
@@ -2054,8 +2056,26 @@ def probe_bytes_flops(name, op, tile=None):
     return xy + 2 * op.N_pad * 4, (6.0 * nw + 4.0 * op.vdim) * op.N
 
 
+def shifts_library(x, deltas, vdim: int, wc):
+    """The function of the shifts probe as one PyTorch call: a conv1d of x
+    [v, N] with the kernel K[a, b, P + δ_o] = wc[(o·v + a)·v + b] and zero
+    padding P = max|δ| (mostly zero taps).  TF32 is off, as the package
+    sets it."""
+    import numpy as np
+    import torch
+
+    P = max(abs(int(d)) for d in deltas)
+    K = torch.zeros((vdim, vdim, 2 * P + 1), dtype=torch.float32)
+    w = torch.as_tensor(np.asarray(wc, np.float32))
+    for o, d in enumerate(deltas):
+        K[:, :, P + int(d)] = w[o * vdim * vdim:(o + 1) * vdim * vdim] \
+            .reshape(vdim, vdim)
+    K = K.to(x.device)
+    return lambda: torch.nn.functional.conv1d(x[None], K, padding=P)[0]
+
+
 def time_probe(label, name, kernel, plain, cost, reps_p=3, library=None,
-               beside=""):
+               reps_l=20, beside=""):
     """Times one probe: events in turns (plain, library, kernel, kernel,
     library, plain), profiler device ms, and where its bytes fit the L2 the
     device ms with 128 MB written between launches.  Prints one line and
@@ -2065,7 +2085,7 @@ def time_probe(label, name, kernel, plain, cost, reps_p=3, library=None,
     nbytes, flops = cost
     bound_ms, bound_by = bound(nbytes, flops)
     ms, plain_ms, library_ms = turns(kernel, plain, 50, reps_p,
-                                     library=library)
+                                     library=library, reps_l=reps_l)
     dev = device_ms(kernel, f"{name}_kernel")
     l2 = nbytes < L2_BYTES
     cold = None
@@ -2200,7 +2220,8 @@ def floor_phase(fp, sk, ck, cases=None, ragged=FLOOR_RAGGED, device="cuda",
 
         for line in ptxas_lines(str(cuda_build.BUILD_INFO["floor_probes"]
                                     .get("log", "")),
-                                ("residentw_kernel", "csz_kernel")):
+                                ("shifts_kernel", "residentw_kernel",
+                                 "csz_kernel")):
             print(f"  floor ptxas: {line}", flush=True)
     gen = torch.Generator(device=device)
     gen.manual_seed(5)
@@ -2245,10 +2266,15 @@ def floor_phase(fp, sk, ck, cases=None, ragged=FLOOR_RAGGED, device="cuda",
             check(lib_rel <= REL_TOL, f"{label}: W.sum(0) vs wonly_plain "
                   f"{lib_rel:.3e}")
             beside = f" | fused CS kernel at this shape: device {cs_ms:.4f} ms"
+            conv = shifts_library(x, d, vdim, wc)
+            lib_rel = rel_err(conv(), fp.shifts_plain(x, d, vdim, wc))
+            check(lib_rel <= REL_TOL, f"{label}: conv1d vs shifts_plain "
+                  f"{lib_rel:.3e}")
             fields["shifts"] = time_probe(
                 label, "shifts", lambda: fp.shifts(x, d, vdim, wc),
                 lambda: fp.shifts_plain(x, d, vdim, wc),
-                probe_bytes_flops("shifts", op), beside=beside)
+                probe_bytes_flops("shifts", op), library=conv, reps_l=3,
+                beside=beside + f" | conv1d vs plain {lib_rel:.2e}")
             fields["csz"] = time_probe(
                 label, "csz",
                 lambda: fp.csz(masks, x, d, vdim, wc, dz0, dz1),

@@ -3,7 +3,8 @@
 on one GPU.
 
     git show <commit>:pde_solver_tpu_torch/csrc/floor_probes.cu > build/floor_probes_ref.cu
-    python3 floor_ab.py [--ref build/floor_probes_ref.cu]
+    python3 floor_ab.py [--ref build/floor_probes_ref.cu [--ref-probes shifts]]
+                        [--probes shifts ...]
 
 On the flagship's scaled fine-level elasticity operator (161×65×65, v = 3)
 and the heat slice's (129³, v = 1) it times, by profiler device ms over 50
@@ -12,22 +13,30 @@ written between launches):
 
 - the probes of ``pde_solver_tpu_torch/csrc/floor_probes.cu``, each first
   held against its plain version (relative max error ≤ 1e-5);
-- with ``--ref PATH``, another ``floor_probes.cu`` with the C interface of
-  the probes before launch plans (no plan arguments: the kernels of the
-  commit that added them), held against plain the same way;
+- with ``--ref PATH``, another ``floor_probes.cu``, held against plain the
+  same way, for the probes (``--ref-probes``, all three by default) that
+  it gives the C interface of the probes before launch plans (no plan
+  arguments: the kernels of the commit that added them; a later source
+  kept it for shifts alone until shifts took a plan too);
 - variants of either source (``NEW_VARIANTS``, ``REF_VARIANTS``) that each
   take one part away or change one choice; they may compute other
   functions and are only timed.  A variant is a text patch of the source
   (``stencil_span.cuh`` inlined first): one whose text the source no
-  longer holds is reported and skipped.  Variants of the plan-taking
-  source that change its launch geometry set the matching constants of
-  ``ops/floor_probes.py`` while they run.
+  longer holds is reported and skipped, one whose text an earlier variant
+  has shares its build.  Variants of the plan-taking source that change
+  its launch geometry set the matching constants of
+  ``ops/floor_probes.py`` while they run.  The shifts variants take apart
+  its staged runs (v2, v3); at v1 shifts reads x through L1 and they run
+  its unchanged span path.
+
+``--probes`` times only the named probes (and the variants of those).
 
 Prints the card, each build's ptxas lines (registers, spills, shared
 memory) and SASS instruction count per kernel (``cuobjdump -sass``), and
 one line per probe, operator and source: device ms warm and emptied, the
-bound (chip_smoke.probe_bytes_flops over the card's peaks) and the share.
-Needs a CUDA card and nvcc; builds under ``build/floor_ab``.
+bound (chip_smoke.probe_bytes_flops over the card's peaks) and the share,
+and for shifts the grid of its plan.  Needs a CUDA card and nvcc; builds
+under ``build/floor_ab``.
 """
 
 from __future__ import annotations
@@ -41,6 +50,54 @@ import sys
 import time
 
 import chip_smoke as cs
+
+# parts of shifts taken away: the staging of windows (thread 0 still
+# arrives on each window's mbarrier, announcing no bytes, so the runs find
+# every window "full"), the waits for them, the loads from shared memory
+# (values made in registers), the FMAs (one XOR a loaded value), the whole
+# sum
+_NO_COPIES = (
+    ("""      bulk_copy(dst + 4 * t[b].j_lo, src + 4 * t[b].j_lo,
+                16u * (t[b].j_hi - t[b].j_lo), bar);""", "      (void)dst;"),
+    ("  if (threadIdx.x == 0) expect_bytes(bar, bytes);",
+     "  if (threadIdx.x == 0) expect_bytes(bar, 0u);"),
+    ("      expect_bytes(bar, 16u * VDIM * chunks);",
+     "      expect_bytes(bar, 0u);"),
+    ("        bulk_copy(buf + b * row_floats, x + b * N + pos0, 16u * chunks, "
+     "bar);", "        (void)pos0;"))
+_NO_STAGING = _NO_COPIES + (
+    ("    const int edge = t[b].j_lo + chunks - t[b].j_hi;",
+     "    const int edge = 0;"),)
+_NO_WAIT = (
+    ("      wait_barrier(bar0 + 8 * slot, (wraps + (i >= p.stages)) & 1u);",
+     ""),)
+_NO_LOADS = (
+    ("        xv[b][s][k] = buf[at[b] + threadIdx.x + k * kShiftsThreads + s];",
+     "        xv[b][s][k] = __int_as_float(0x3f800000 + threadIdx.x + k + s"
+     " + b + at[b]);"),)
+_NO_FMAS = (
+    ("""        const float w = terms.wc[((kFirst + s) * VDIM + a) * VDIM + b];
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          acc[a][k] = fmaf(w, xv[b][s][k], acc[a][k]);
+        }""", """        if (a != 0) continue;
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          acc[0][k] = __int_as_float(__float_as_int(acc[0][k]) ^
+                                     __float_as_int(xv[b][s][k]));
+        }"""),)
+_NO_SUM = (("  (shifts_group<VDIM, NOFF, K, G>(buf, at[G], terms, acc), ...);",
+            "  (void)at;"),)
+
+
+def _nodes_variant(k):
+    """shifts with ``k`` nodes a thread in a staged run."""
+    return (f"shifts {k} nodes a thread (staged runs of {128 * k})",
+            ("shifts",),
+            [("constexpr int kShiftsNodes = 4;",
+              f"constexpr int kShiftsNodes = {k};")],
+            {"SHIFTS_NODES": k})
+
 
 # (label, probes it is timed on, [(text in the source, its replacement)],
 #  {constant of ops/floor_probes.py: value while it runs})
@@ -96,20 +153,41 @@ NEW_VARIANTS = (
      [("        xv[b][s][k] = buf[at[b] + threadIdx.x + k * kCszThreads + s];",
        "        xv[b][s][k] = __int_as_float(0x3f800000 + threadIdx.x + k + s"
        " + b + at[b]);")], {}),
-    ("csz no x copies", ("csz",),
-     [("        bulk_copy(dst + 4 * t[b].j_lo, src + 4 * t[b].j_lo,\n"
-       "                  16u * (t[b].j_hi - t[b].j_lo), bar0 + 8 * s);",
-       "        (void)dst;"),
-      ("      bytes += 16u * (t[b].j_hi - t[b].j_lo);", "      (void)bytes;")],
+    ("csz no x copies", ("csz",), list(_NO_COPIES), {}),
+    ("shifts no x copies", ("shifts",), list(_NO_COPIES), {}),
+    ("shifts no x loads", ("shifts",), list(_NO_LOADS), {}),
+    ("shifts no FMAs (one XOR a loaded value)", ("shifts",), list(_NO_FMAS),
      {}),
+    ("shifts empty (no copies, waits, loads, FMAs or stores)", ("shifts",),
+     [*_NO_STAGING, *_NO_WAIT, *_NO_SUM,
+      ("        for (int a = 0; a < VDIM; ++a) y[a * N + B0 + i] = acc[a][k];",
+       "        (void)acc;")], {}),
+    ("shifts stores of y alone (no copies, loads, FMAs)", ("shifts",),
+     [*_NO_STAGING, *_NO_WAIT, *_NO_SUM], {}),
+    ("shifts smem loads and FMAs alone (no copies, no waits)", ("shifts",),
+     [*_NO_STAGING, *_NO_WAIT], {}),
+    ("shifts copies, waits and stores (no loads, no FMAs)", ("shifts",),
+     [*_NO_LOADS, *_NO_FMAS], {}),
+    ("shifts no window in flight (ring of the planes read)", ("shifts",), [],
+     {"SHIFTS_AHEAD": 0}),
+    ("shifts two windows in flight", ("shifts",), [], {"SHIFTS_AHEAD": 2}),
+    ("shifts (b) one run a block, no window in flight", ("shifts",), [],
+     {"SHIFTS_AHEAD": 0,
+      "shifts_ranges": lambda planes, columns, sms, per_sm: planes}),
+    *(("shifts %d blocks an SM" % n, ("shifts",), [],
+       {"SHIFTS_BLOCKS_PER_SM": n}) for n in (2, 3, 6)),
+    *(_nodes_variant(k) for k in (2, 5, 8)),
     ("csz 8 nodes a thread at v3", ("csz",),
-     [("  return vdim == 1 ? 8 : 4;", "  return 8;")],
+     [("csz_nodes(int vdim) {\n  return vdim == 1 ? 8 : 4;",
+       "csz_nodes(int vdim) {\n  return 8;")],
      {"csz_nodes": lambda vdim: 8}),
     ("csz 2 nodes a thread at v3", ("csz",),
-     [("  return vdim == 1 ? 8 : 4;", "  return vdim == 1 ? 8 : 2;")],
+     [("csz_nodes(int vdim) {\n  return vdim == 1 ? 8 : 4;",
+       "csz_nodes(int vdim) {\n  return vdim == 1 ? 8 : 2;")],
      {"csz_nodes": lambda vdim: 8 if vdim == 1 else 2}),
     ("csz 4 nodes a thread at v1", ("csz",),
-     [("  return vdim == 1 ? 8 : 4;", "  return 4;")],
+     [("csz_nodes(int vdim) {\n  return vdim == 1 ? 8 : 4;",
+       "csz_nodes(int vdim) {\n  return 4;")],
      {"csz_nodes": lambda vdim: 4}),
 )
 
@@ -169,13 +247,14 @@ def inline_header(src: str) -> str:
 
 
 def build_variants(path: str, variants, out_dir: str, prefix: str):
-    """Every variant of a source, one nvcc each, all started together;
+    """Every variant of a source, one nvcc each, all started together (a
+    variant whose text an earlier one has shares its build, process None);
     returns [(label, probes, overrides, so path, nvcc process)]."""
     from pde_solver_tpu_torch.ops import cuda_build
 
     src = inline_header(open(path).read())
     os.makedirs(out_dir, exist_ok=True)
-    procs = []
+    procs, built = [], {}
     for i, (label, probes, patches, overrides) in enumerate(variants):
         missing = [old for old, _ in patches if old not in src]
         if missing:
@@ -185,10 +264,14 @@ def build_variants(path: str, variants, out_dir: str, prefix: str):
         text = src
         for old, new in patches:
             text = text.replace(old, new)
+        if text in built:
+            procs.append((label, probes, overrides, built[text], None))
+            continue
         cu = os.path.join(out_dir, f"{prefix}_{i}.cu")
         so = os.path.join(out_dir, f"{prefix}_{i}.so")
         with open(cu, "w") as f:
             f.write(text)
+        built[text] = so
         procs.append((label, probes, overrides, so, subprocess.Popen(
             [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", so, cu],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
@@ -219,6 +302,9 @@ def finish(procs, prefix: str):
     CDLL)]."""
     libs = []
     for label, probes, overrides, so, proc in procs:
+        if proc is None:
+            libs.append((label, probes, overrides, ctypes.CDLL(so)))
+            continue
         log, _ = proc.communicate()
         cs.check(proc.returncode == 0, f"nvcc {prefix} {label}:\n{log}")
         names = tuple(KERNELS[p] for p in probes)
@@ -270,6 +356,12 @@ class RefCalls:
         return y
 
 
+def _clear_plans(fp):
+    for f in (fp.shifts_plan, fp._shifts_blocks_per_sm, fp.residentw_plan,
+              fp.csz_plan, fp._resident_blocks):
+        f.cache_clear()
+
+
 class NewCalls:
     """The probes through ops/floor_probes.py's wrappers, bound to one
     build of the plan-taking source, with the module constants a variant
@@ -286,8 +378,7 @@ class NewCalls:
         for k, v in self.overrides.items():
             setattr(fp, k, v)
         fp._LIB = self.bound
-        for f in (fp.residentw_plan, fp.csz_plan, fp._resident_blocks):
-            f.cache_clear()
+        _clear_plans(fp)
         return self
 
     def __exit__(self, *exc):
@@ -295,8 +386,7 @@ class NewCalls:
         for k, v in self.saved.items():
             setattr(fp, k, v)
         fp._LIB = self.saved_lib
-        for f in (fp.residentw_plan, fp.csz_plan, fp._resident_blocks):
-            f.cache_clear()
+        _clear_plans(fp)
 
     def __call__(self, probe, x, deltas, vdim, tile=None, masks=None,
                  terms=None):
@@ -312,7 +402,18 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ref", help="a floor_probes.cu with the earlier C "
                     "interface, timed beside this one")
+    ap.add_argument("--ref-probes", nargs="+", default=list(KERNELS),
+                    choices=list(KERNELS), help="the probes whose earlier "
+                    "(plan-less) C interface the --ref source has")
+    ap.add_argument("--probes", nargs="+", default=list(KERNELS),
+                    choices=list(KERNELS), help="the probes to time")
     args = ap.parse_args()
+    ref_probes = tuple(p for p in args.ref_probes if p in args.probes)
+
+    def wanted(variants, probes):
+        return tuple((label, tuple(p for p in on if p in probes), patches,
+                      over) for label, on, patches, over in variants
+                     if any(p in probes for p in on))
 
     import torch
 
@@ -331,12 +432,12 @@ def main() -> int:
     out_dir = os.path.join(root, "build", "floor_ab")
     t0 = time.perf_counter()
     src = str(cuda_build.CSRC / "floor_probes.cu")
-    procs_n = build_variants(src, (("new", ("shifts", "residentw", "csz"),
-                                    [], {}),) + NEW_VARIANTS, out_dir, "new")
-    procs_r = build_variants(args.ref, (("ref", ("shifts", "residentw",
-                                                 "csz"), [], {}),)
-                             + REF_VARIANTS, out_dir, "ref") \
-        if args.ref else []
+    procs_n = build_variants(src, wanted((("new", tuple(KERNELS), [], {}),)
+                                         + NEW_VARIANTS, args.probes),
+                             out_dir, "new")
+    procs_r = build_variants(args.ref, wanted(
+        (("ref", tuple(KERNELS), [], {}),) + REF_VARIANTS, ref_probes),
+        out_dir, "ref") if args.ref and ref_probes else []
     libs = [("new", label, probes, NewCalls(fp, lib, over))
             for label, probes, over, lib in finish(procs_n, "new")]
     libs += [("ref", label, probes, RefCalls(lib))
@@ -388,14 +489,38 @@ def main() -> int:
                     warm = cs.device_ms(run, kernel)
                     cold = cs.device_ms(lambda: (flush.zero_(), run()),
                                         kernel)
+                    grid = shifts_grid_line(fp, op.N, d, vdim) \
+                        if kind == "new" and probe == "shifts" else ""
                 print(f"{label} {case} [{kind}: {name}]: device_ms warm "
                       f"{warm:.4f} emptied {cold:.4f} bound_ms {bnd:.4f} "
                       f"({by}) share {bnd / warm:.3f} / {bnd / cold:.3f}"
-                      + (f" (vs plain {rel:.2e})" if checked else ""),
-                      flush=True)
+                      + (f" (vs plain {rel:.2e})" if checked else "")
+                      + grid, flush=True)
         del op, ops, tiles, x, plains, masks, mesh, sysm
         torch.cuda.empty_cache()
     return 0
+
+
+def shifts_grid_line(fp, N, deltas, vdim) -> str:
+    """The grid shifts launched by: its plan's blocks, stride, planes a
+    block, ring and shared bytes, and the blocks an SM holds at that many
+    bytes."""
+    import torch
+
+    if vdim not in fp.SHIFTS_STAGED_VDIMS:
+        return " | span path through L1, no plan"
+    deltas = tuple(int(v) for v in deltas)
+    per_sm = fp._shifts_blocks_per_sm(vdim, len(deltas),
+                                      fp.shifts_smem_bytes(deltas, vdim))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = fp.shifts_plan(N, deltas, vdim, sms, per_sm)
+    _, a0, a1 = plan.block_planes(0)
+    _, b0, b1 = plan.block_planes(plan.blocks - 1)
+    return (f" | plan: {plan.blocks} blocks ({per_sm} an SM fit) of "
+            f"{a1 - a0}–{b1 - b0} runs of {plan.run} nodes, {plan.columns} "
+            f"columns a stride of {plan.stride}, {plan.planes} planes, "
+            f"{plan.stages} windows of {plan.row_floats} floats, "
+            f"{plan.smem_bytes} B")
 
 
 class _Null:

@@ -19,25 +19,23 @@
 // them at the end, so that with zero face sets it equals shifts bit for
 // bit.  Results differ from the plain versions by float32 rounding only.
 //
-// wonly and shifts replace benchmarks/kernel_floor.py::_wonly_kernel and
-// ::_shifts_kernel.  Those share the TPU kernel's [rows, 128] tiling, lane
-// rolls and halo rows; none of that is carried over.  A thread owns 4
-// consecutive nodes (wonly: 16 bytes of every plane, so 4 nodes at f32 and
-// 8 at bf16) and reads x through L1/L2 by the row groups of the sorted P1
-// stencil (stencil_span.cuh), as the dense kernel does.  wonly is bound by
-// the bytes of W (one 16-byte streaming load per plane and thread, eight
-// planes in flight); shifts moves only x and y, a few MB that fit the L2,
-// so it is bound by instruction rate and latency: its constants sit in the
-// kernel's parameters and every (o, b, a) loop is unrolled, so a constant
-// is an operand of its FMA and costs no load.
+// wonly replaces benchmarks/kernel_floor.py::_wonly_kernel, which shares
+// the TPU kernel's [rows, 128] tiling; none of that is carried over.  A
+// thread owns 16 bytes of every plane (4 nodes at f32, 8 at bf16), one
+// 16-byte streaming load per plane and thread, eight planes in flight: it
+// is bound by the bytes of W.
 //
-// residentw and csz, and what bounds them, are described at their kernels.
-//
+// shifts, residentw and csz, and what bounds them, are described at their
+// kernels.  residentw reads x through L1/L2 by the row groups of the sorted
+// P1 stencil (stencil_span.cuh), as the dense kernel does; shifts and csz
+// stage the x a run of nodes reads in shared memory by TMA.
+
 // C interface for ctypes: each function launches on the given stream, does
 // not synchronise, allocates nothing, and returns cudaGetLastError() (0 on
 // success) or cudaErrorInvalidValue for arguments, or a launch plan, it is
-// not built for.  residentw and csz take the plan that ops/floor_probes.py
-// computes on the host and check it against their own arithmetic.
+// not built for.  shifts, residentw and csz take the plan that
+// ops/floor_probes.py computes on the host and check it against their own
+// arithmetic.
 
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
@@ -50,24 +48,28 @@
 
 #define FLOOR_PROBE_VDIMS 1, 2, 3
 #define FLOOR_PROBE_NOFFS 3, 7, 15
+// shifts stages x at these vdims; at v1 it reads x spans through L1
+#define SHIFTS_STAGED_VDIMS 2, 3
 
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kNodes = 4;          // consecutive nodes a thread (shifts)
 constexpr int kPlaneAlign = 128;   // N_pad is a multiple of this
 constexpr int kMaxGroups = 8;
 constexpr int kMaxTerms = 15 * 3 * 3;
 constexpr long long kMaxIndex = 1LL << 30;   // v·N_pad and |δ| stay below
 constexpr int kMaxSmem = 232448;             // dynamic shared memory a block
 
-// csz: a block stages the x of a run of consecutive nodes; thread t takes
-// nodes t, t + kCszThreads, ... of the run (csz_nodes(v) of them)
+// csz and shifts: a block stages the x of a run of consecutive nodes;
+// thread t takes nodes t, t + threads, ... of the run
 constexpr int kCszThreads = 128;
+constexpr int kShiftsThreads = 128;
+constexpr int kMaxStages = 6;      // windows in a shifts block's ring
 
-// the lengths of the two plan arrays (ops/floor_probes.py builds them)
+// the lengths of the plan arrays (ops/floor_probes.py builds them)
 constexpr int kResidentPlanLen = 5;
 constexpr int kCszPlanLen = 7 + 5 * kMaxGroups;
+constexpr int kShiftsPlanLen = 14 + 2 * kMaxGroups;
 
 struct Geometry {
   int base[kMaxGroups];   // δ of each row group's first member
@@ -130,10 +132,10 @@ wonly_kernel(const WT* __restrict__ W, float* __restrict__ y, int nw,
 
 // ------------------------------------------- x spans read through L1/L2 --
 
-// What a thread of shifts or residentw works on: its first node, whether
-// every x span of its nodes' range lies inside [0, N) (then read with no
-// bounds test, as aligned chunks where a thread has several nodes), and
-// x's 16-byte aligned base.
+// What a thread of residentw, or of shifts at v1, works on: its first
+// node, whether every x span of its nodes' range lies inside [0, N) (then
+// read with no bounds test, as aligned chunks where a thread has several
+// nodes), and x's 16-byte aligned base.
 struct Tile {
   int n0;
   bool interior;
@@ -196,64 +198,6 @@ __device__ __forceinline__ void store_nodes(float* __restrict__ y, int N,
       if (t.n0 + k < N) ya[k] = acc[a][k];
     }
   }
-}
-
-// --------------------------------------------------------------- shifts --
-
-// constant weights, FMAs in (o, b, a) order.
-template <int VDIM, int NOFF, int G, bool INTERIOR>
-__device__ __forceinline__ void shifts_group(const Terms& terms,
-                                             const float* __restrict__ x,
-                                             const Tile& t, int N, int base,
-                                             float (&acc)[VDIM][kNodes]) {
-  constexpr int kSize = group_size(NOFF, G);
-  constexpr int kFirst = group_first(NOFF, G);
-  float xv[VDIM][kNodes + kSize - 1];
-  group_spans<VDIM, kNodes, NOFF, G, INTERIOR>(x, t, N, base, xv);
-#pragma unroll
-  for (int s = 0; s < kSize; ++s) {
-#pragma unroll
-    for (int b = 0; b < VDIM; ++b) {
-#pragma unroll
-      for (int a = 0; a < VDIM; ++a) {
-        const float w = terms.wc[((kFirst + s) * VDIM + a) * VDIM + b];
-#pragma unroll
-        for (int k = 0; k < kNodes; ++k) {
-          acc[a][k] = fmaf(w, xv[b][s + k], acc[a][k]);
-        }
-      }
-    }
-  }
-}
-
-template <int VDIM, int NOFF, bool INTERIOR, int... G>
-__device__ __forceinline__ void shifts_groups(
-    std::integer_sequence<int, G...>, const Terms& terms,
-    const float* __restrict__ x, const Tile& t, int N, const Geometry& geo,
-    float (&acc)[VDIM][kNodes]) {
-  (shifts_group<VDIM, NOFF, G, INTERIOR>(terms, x, t, N, geo.base[G], acc),
-   ...);
-}
-
-template <int VDIM, int NOFF>
-__global__ void __launch_bounds__(kThreads)
-shifts_kernel(const float* __restrict__ x, float* __restrict__ y, int N,
-              const __grid_constant__ Geometry geo,
-              const __grid_constant__ Terms terms) {
-  constexpr int kBlockNodes = kThreads * kNodes;
-  const int B0 = blockIdx.x * kBlockNodes;
-  const Tile t = make_tile(x, N, geo, B0 + threadIdx.x * kNodes, B0,
-                           B0 + kBlockNodes);
-  if (t.n0 >= N) return;
-  float acc[VDIM][kNodes];
-  zero<VDIM, kNodes>(acc);
-  constexpr auto kGroups = std::make_integer_sequence<int, group_count(NOFF)>{};
-  if (t.interior) {
-    shifts_groups<VDIM, NOFF, true>(kGroups, terms, x, t, N, geo, acc);
-  } else {
-    shifts_groups<VDIM, NOFF, false>(kGroups, terms, x, t, N, geo, acc);
-  }
-  store_nodes<VDIM, kNodes>(y, N, t, acc);
 }
 
 // ------------------------------------------------------------ residentw --
@@ -367,54 +311,24 @@ residentw_kernel(const WT* __restrict__ Wt, const float* __restrict__ x,
   }
 }
 
-// ------------------------------------------------------------------ csz --
+// ------------------------------------------------------------- staged x --
 //
-// Replaces benchmarks/kernel_floor.py::_csz_kernel (:202): three constant
-// sums over the shifted x, joined by two streamed face masks.  Its bound
-// is operations, 6·n_off·v² + 4v flops a node (0.0083 ms at the flagship's
-// v3 level): x, y and the masks are 19 MB, inside the L2.  Read the way
-// shifts reads x (4 consecutive nodes a thread, x spans through L1 with
-// selects, an interior body and an edge body: 4,096 SASS instructions at
-// v3), it spent 30 % of its time on the second body's instruction fetch
-// and a quarter on the x spans' loads (floor_ab.py).  Here:
+// shifts and csz stage the x a run of consecutive nodes reads in shared
+// memory, as spans of x (stage_span): one thread copies a span of every
+// component with the Tensor Memory Accelerator (cp.async.bulk, one
+// mbarrier a span), its start rounded down to 16 bytes.  Only the 16-byte
+// chunks inside [0, N) go by TMA; the block's threads read the chunks
+// across either end value by value and write zero outside [0, N).  So the
+// FMAs need no bounds test (one code path), and away from the ends staging
+// costs the threads no instructions.  Thread t of T takes nodes t, t + T,
+// ... of the run: a warp reads 32 consecutive words of a span, with no
+// bank conflicts and no selects.
 //
-// - A block takes one run of csz_nodes(v)·kCszThreads consecutive nodes.
-//   One thread copies, per component b, the segments of x the run reads
-//   into shared memory with the Tensor Memory Accelerator (cp.async.bulk,
-//   one mbarrier a segment): the row groups' windows [B0 + base_g, B0 +
-//   run + base_g + size_g − 1), merged where they overlap (three segments
-//   at 15 offsets on a 3D grid), each start rounded down to 16 bytes.
-//   Only the 16-byte chunks inside [0, N) go by TMA; the block's threads
-//   read the chunks across either end value by value and write zero
-//   outside [0, N).  So the FMAs need no bounds test (one code path), and
-//   away from the ends staging costs the threads no instructions.
-// - The FMAs of a row group wait only for its own segment: the first
-//   segment's groups run while the later segments are in flight.  The
-//   thread's face masks are loaded while the copies fly.
-// - Thread t takes nodes t, t + kCszThreads, ...: a warp reads 32
-//   consecutive words of a segment, no bank conflicts, and each constant
-//   (a kernel parameter, the operand of its FMAs) serves csz_nodes(v)
-//   FMAs of one straight-line body.
-// - No loop runs around the FMAs.  A persistent grid walking the runs in
-//   a loop made the compiler hoist the 405 constants of v3 into registers
-//   and spill them (2.2 KB of stack, 0.557 ms); with a two-stage TMA ring
-//   and the constants in shared memory it took 0.0255 ms (floor_ab.py).
-//
-// What bounds it: FMA issue (405 a node at v3, three quarters of its
-// instructions) and the partial last wave of blocks; see PERF.md.
-//
-// The plan (segments, their lengths and offsets, each group's place in its
-// segment, the run count) comes from the host.
-
-// nodes a csz thread takes: more where a node's work is small
-__host__ __device__ constexpr int csz_nodes(int vdim) {
-  return vdim == 1 ? 8 : 4;
-}
-
-// {wc, dz0, dz1, 0} of (o, b, a), in the order of the FMAs
-struct FaceTerms {
-  float4 t[kMaxTerms];
-};
+// csz stages, a run, the row groups' windows [B0 + base_g, B0 + run +
+// base_g + size_g − 1) merged where they overlap (three segments at 15
+// offsets on a 3D grid): the segments (their first δ, lengths and places
+// in the staged row, each row group's place in its segment) come from the
+// host's plan.  shifts stages one window a plane (see there).
 
 struct CszPlan {
   int n_seg;
@@ -440,77 +354,163 @@ __device__ __forceinline__ void bulk_copy(float* dst, const float* src,
       :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(bar) : "memory");
 }
 
-__device__ __forceinline__ void wait_barrier(unsigned bar) {
+// Waits until the phase of parity `parity` of the mbarrier at `bar` has
+// completed.
+__device__ __forceinline__ void wait_barrier(unsigned bar, unsigned parity) {
   unsigned done = 0;
   while (!done) {
     asm volatile(
         "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
         " selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done) : "r"(bar) : "memory");
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
   }
 }
 
-// Where segment s of component b starts in x's row b for the run from B0
-// (pos0, rounded down to 16 bytes), and its chunks [j_lo, j_hi) that lie
+// Thread 0 initialises `count` mbarriers from bar0 (8 bytes apart) for one
+// arrival each and makes them visible to the async proxy.  The block syncs
+// before another thread waits on one.
+__device__ __forceinline__ void init_barriers(unsigned bar0, int count) {
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < count; ++i) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+                   :: "r"(bar0 + 8 * i) : "memory");
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
+}
+
+// Where a span of x from node `start` of row b begins (pos0, rounded down
+// to 16 bytes), and its chunks [j_lo, j_hi) of the `chunks` it has that lie
 // inside [0, N).
-struct SegmentSpan {
+struct ChunkSpan {
   int pos0, j_lo, j_hi;
 };
 
-__device__ __forceinline__ SegmentSpan segment_span(const CszPlan& p, int s,
-                                                    int b, int sh, int N,
-                                                    int B0) {
-  SegmentSpan t;
-  t.pos0 = ((sh + b * N + B0 + p.seg_lo[s]) & ~3) - sh - b * N;
-  const int chunks = p.seg_chunks[s];
+__device__ __forceinline__ ChunkSpan chunk_span(int b, int sh, int N,
+                                                int start, int chunks) {
+  ChunkSpan t;
+  t.pos0 = ((sh + b * N + start) & ~3) - sh - b * N;
   t.j_lo = min(chunks, max(0, (3 - t.pos0) >> 2));
   t.j_hi = max(t.j_lo, min(chunks, (N - t.pos0) >> 2));
   return t;
 }
 
-// Stages the run from B0: x's segments [VDIM][row_floats], zero outside
-// [0, N).  Per segment s thread 0 arrives on the mbarrier bar0 + 8s
-// expecting the bytes of its chunks inside [0, N) and starts their TMA
-// copies; every thread fills its share of the rest.  The caller syncs the
-// block, then waits on a segment's mbarrier before it reads the segment.
+// One arrival on the mbarrier at `bar`, announcing `bytes` of TMA copies
+// to come.
+__device__ __forceinline__ void expect_bytes(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// Stages `chunks` 16-byte chunks of every row b of x from node `start`
+// (rounded down to 16 bytes) at buf + b·row_floats, zero outside [0, N),
+// by a block of THREADS threads: thread 0 arrives on the mbarrier `bar`
+// announcing the bytes of the chunks inside [0, N) and starts their TMA
+// copies; every thread fills its share of the rest.  Returns whether any
+// chunk was filled so (the same answer in every thread): the block syncs
+// before it reads those, and waits on the mbarrier before it reads the
+// span.
+template <int VDIM, int THREADS>
+__device__ __forceinline__ bool stage_span(float* buf, int row_floats,
+                                           unsigned bar,
+                                           const float* __restrict__ x,
+                                           int sh, int N, int start,
+                                           int chunks) {
+  if (start >= 3 && start + 4 * chunks <= N) {   // every chunk inside
+    if (threadIdx.x == 0) {
+      expect_bytes(bar, 16u * VDIM * chunks);
+#pragma unroll
+      for (int b = 0; b < VDIM; ++b) {
+        const int pos0 = ((sh + b * N + start) & ~3) - sh - b * N;
+        bulk_copy(buf + b * row_floats, x + b * N + pos0, 16u * chunks, bar);
+      }
+    }
+    return false;
+  }
+  ChunkSpan t[VDIM];
+  unsigned bytes = 0;
+#pragma unroll
+  for (int b = 0; b < VDIM; ++b) {
+    t[b] = chunk_span(b, sh, N, start, chunks);
+    bytes += 16u * (t[b].j_hi - t[b].j_lo);
+  }
+  if (threadIdx.x == 0) expect_bytes(bar, bytes);
+  bool filled = false;
+#pragma unroll
+  for (int b = 0; b < VDIM; ++b) {
+    float* dst = buf + b * row_floats;
+    const float* src = x + b * N + t[b].pos0;
+    if (threadIdx.x == 0 && t[b].j_hi > t[b].j_lo) {
+      bulk_copy(dst + 4 * t[b].j_lo, src + 4 * t[b].j_lo,
+                16u * (t[b].j_hi - t[b].j_lo), bar);
+    }
+    const int edge = t[b].j_lo + chunks - t[b].j_hi;
+    filled |= edge > 0;
+    for (int e = threadIdx.x; e < edge; e += THREADS) {
+      const int j = e < t[b].j_lo ? e : t[b].j_hi + e - t[b].j_lo;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int pos = t[b].pos0 + 4 * j + q;
+        dst[4 * j + q] = pos >= 0 && pos < N ? __ldg(src + 4 * j + q) : 0.0f;
+      }
+    }
+  }
+  return filled;
+}
+
+// Stages the run from B0: x's segments [VDIM][row_floats], segment s on
+// the mbarrier bar0 + 8s (stage_span).  The caller syncs the block, then
+// waits on a segment's mbarrier before it reads the segment.
 template <int VDIM>
 __device__ __forceinline__ void stage_run(float* buf, unsigned bar0,
                                           const CszPlan& p,
                                           const float* __restrict__ x, int sh,
                                           int N, int B0) {
   for (int s = 0; s < p.n_seg; ++s) {
-    SegmentSpan t[VDIM];
-    unsigned bytes = 0;
-#pragma unroll
-    for (int b = 0; b < VDIM; ++b) {
-      t[b] = segment_span(p, s, b, sh, N, B0);
-      bytes += 16u * (t[b].j_hi - t[b].j_lo);
-    }
-    if (threadIdx.x == 0) {
-      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-                   :: "r"(bar0 + 8 * s), "r"(bytes) : "memory");
-    }
-#pragma unroll
-    for (int b = 0; b < VDIM; ++b) {
-      float* dst = buf + b * p.row_floats + 4 * p.seg_chunk0[s];
-      const float* src = x + b * N + t[b].pos0;
-      if (threadIdx.x == 0 && t[b].j_hi > t[b].j_lo) {
-        bulk_copy(dst + 4 * t[b].j_lo, src + 4 * t[b].j_lo,
-                  16u * (t[b].j_hi - t[b].j_lo), bar0 + 8 * s);
-      }
-      const int edge = t[b].j_lo + p.seg_chunks[s] - t[b].j_hi;
-      for (int e = threadIdx.x; e < edge; e += kCszThreads) {
-        const int j = e < t[b].j_lo ? e : t[b].j_hi + e - t[b].j_lo;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int pos = t[b].pos0 + 4 * j + q;
-          dst[4 * j + q] = pos >= 0 && pos < N ? __ldg(src + 4 * j + q) : 0.0f;
-        }
-      }
-    }
+    stage_span<VDIM, kCszThreads>(buf + 4 * p.seg_chunk0[s], p.row_floats,
+                                  bar0 + 8 * s, x, sh, N, B0 + p.seg_lo[s],
+                                  p.seg_chunks[s]);
   }
 }
+
+// ------------------------------------------------------------------ csz --
+//
+// Replaces benchmarks/kernel_floor.py::_csz_kernel (:202): three constant
+// sums over the shifted x, joined by two streamed face masks.  Its bound
+// is operations, 6·n_off·v² + 4v flops a node (0.0083 ms at the flagship's
+// v3 level): x, y and the masks are 19 MB, inside the L2.  Read the way
+// the earlier shifts read x (4 consecutive nodes a thread, x spans through
+// L1 with selects, an interior body and an edge body: 4,096 SASS
+// instructions at v3), it spent 30 % of its time on the second body's
+// instruction fetch and a quarter on the x spans' loads (floor_ab.py).
+// Here:
+//
+// - A block takes one run of csz_nodes(v)·kCszThreads consecutive nodes
+//   and stages its x (see "staged x").
+// - The FMAs of a row group wait only for its own segment: the first
+//   segment's groups run while the later segments are in flight.  The
+//   thread's face masks are loaded while the copies fly.
+// - Each constant (a kernel parameter, the operand of its FMAs) serves
+//   csz_nodes(v) FMAs of one straight-line body.
+// - No loop runs around the FMAs.  A persistent grid walking the runs in
+//   a loop made the compiler hoist the 405 constants of v3 into registers
+//   and spill them (2.2 KB of stack, 0.557 ms); with a two-stage TMA ring
+//   and the constants in shared memory it took 0.0255 ms (floor_ab.py).
+//
+// What bounds it: FMA issue (405 a node at v3, three quarters of its
+// instructions) and the partial last wave of blocks; see PERF.md.
+
+// nodes a csz thread takes: more where a node's work is small
+__host__ __device__ constexpr int csz_nodes(int vdim) {
+  return vdim == 1 ? 8 : 4;
+}
+
+// {wc, dz0, dz1, 0} of (o, b, a), in the order of the FMAs
+struct FaceTerms {
+  float4 t[kMaxTerms];
+};
 
 template <int VDIM, int NOFF, int K, int G>
 __device__ __forceinline__ void csz_group(const float* buf, unsigned bar,
@@ -521,7 +521,7 @@ __device__ __forceinline__ void csz_group(const float* buf, unsigned bar,
                                           float (&az1)[VDIM][K]) {
   constexpr int kSize = group_size(NOFF, G);
   constexpr int kFirst = group_first(NOFF, G);
-  wait_barrier(bar);
+  wait_barrier(bar, 0);
   float xv[VDIM][kSize][K];
 #pragma unroll
   for (int b = 0; b < VDIM; ++b) {
@@ -586,14 +586,7 @@ csz_kernel(const float* __restrict__ m, int N_pad,
   const unsigned bar0 = smem_addr(full);   // a segment's: bar0 + 8·s
   const int sh = static_cast<int>((reinterpret_cast<uintptr_t>(x) & 15) >> 2);
   const int B0 = blockIdx.x * K * kCszThreads;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < p.n_seg; ++s) {
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
-                   :: "r"(bar0 + 8 * s) : "memory");
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-  }
+  init_barriers(bar0, p.n_seg);
   stage_run<VDIM>(buf, bar0, p, x, sh, N, B0);
   float m0[K], m1[K];
 #pragma unroll
@@ -620,6 +613,295 @@ csz_kernel(const float* __restrict__ m, int N_pad,
       }
     }
   }
+}
+
+// --------------------------------------------------------------- shifts --
+//
+// Replaces benchmarks/kernel_floor.py::_shifts_kernel (:98), the shifted
+// sum with constant weights: no weight stream, so it moves only x and y
+// (16 MB at the flagship's v3 level, inside the L2) and does 135 FMAs a
+// node at v3.  Its floors on this card: the launch with the y stores
+// (about 0.004 ms), the x staged from L2, the shared memory reads (45
+// words a node at v3, one per (o, b)) and FMA issue (0.0027 ms); what
+// sets the time is how far they overlap (floor_ab.py; PERF.md).  Staged
+// as csz stages x, three segments a run (3.6× x's bytes), the copies
+// alone took as long as the whole kernel, so at v2 and v3 a block walks a
+// column of runs a plane apart and stages each plane's x once for the
+// three runs that read it:
+//
+// - The 15 offsets of the sorted P1 stencil on a 3D grid lie in three
+//   planes (group_plane): the run from B0 reads x in B0 + m·S + [wlo,
+//   whi) for m = −1, 0, 1, with S about the plane stride and [wlo, whi)
+//   the run widened by the in-plane offsets (run + 133 nodes at the
+//   flagship); on a 2D grid the rows play the planes, on a 1D grid m is 0
+//   alone.  The host's plan finds S and the window from the row groups
+//   (S is the run where the planes are shorter than a run).
+// - Block b takes column c = b mod columns, the runs from B0 = c·run +
+//   j·S (each up to the next multiple of S) of one range of planes j.  A
+//   ring of `stages` windows holds the planes j − 1, j, j + 1 and the next
+//   one in flight; after the run of plane j the window of plane j − 1 is
+//   refilled with the plane `stages` later.  One TMA copy a plane and
+//   component, one mbarrier a slot whose phase flips each time the ring
+//   wraps: x crosses from L2 (L + 2) / L times for a range of L planes
+//   instead of three.
+// - The grid is one wave of about four blocks an SM (the host's plan,
+//   from the occupancy query), the planes cut into ranges longest first,
+//   so that where the card gives block b to SM b mod SMs no SM takes more
+//   than ⌈runs / SMs⌉ runs.
+// - Thread t takes the nodes t, t + kShiftsThreads, ... of a run: a warp
+//   reads 32 consecutive words of a window, no bank conflicts, no
+//   selects, one code path (zero fill at the ends, as csz).  The waits
+//   come before the FMAs of a run, so the loads of one row group can be
+//   scheduled beside the FMAs of another.
+// - The constants stay kernel parameters, the operands of their FMAs; the
+//   sum runs in (o, b, a) order with fmaf, so that csz with zero face sets
+//   equals it bit for bit.
+//
+// At v1 shifts keeps the span path through L1 (shifts_kernel_spans).
+
+constexpr int kShiftsNodes = 4;   // nodes a shifts thread takes in a run
+
+// The planes of the row groups of the sorted P1 stencil: on a 3D grid (15
+// offsets) groups 0 and 1 lie in the plane below, 2–4 in the node's, 5
+// and 6 above; on a 2D grid (7) the rows below, at and above the node; on
+// a 1D grid (3) one group.  A run of plane j reads the planes j −
+// plane_spread ... j + plane_spread.
+__host__ __device__ constexpr int below_groups(int n_off) {
+  return n_off == 15 ? 2 : n_off == 7 ? 1 : 0;
+}
+__host__ __device__ constexpr int group_plane(int n_off, int g) {
+  return g < below_groups(n_off) ? -1
+         : g >= group_count(n_off) - below_groups(n_off) ? 1 : 0;
+}
+__host__ __device__ constexpr int plane_spread(int n_off) {
+  return below_groups(n_off) > 0 ? 1 : 0;
+}
+
+struct ShiftsPlan {
+  int stride;                      // S: from one plane's run to the next
+  int columns;                     // runs a plane: ⌈S / run⌉
+  int planes;                      // ⌈N / S⌉
+  int ranges;                      // plane ranges a column is cut into
+  int stages;                      // windows in a block's ring
+  int win_lo;                      // a window's first δ from its run's B0
+  int row_floats;                  // staged floats a window and component
+  int group_off[kMaxGroups];       // base_g − group_plane(g)·S − win_lo
+};
+
+template <int VDIM, int NOFF, int K, int G>
+__device__ __forceinline__ void shifts_group(const float* buf,
+                                             const int (&at)[VDIM],
+                                             const Terms& terms,
+                                             float (&acc)[VDIM][K]) {
+  constexpr int kSize = group_size(NOFF, G);
+  constexpr int kFirst = group_first(NOFF, G);
+  float xv[VDIM][kSize][K];
+#pragma unroll
+  for (int b = 0; b < VDIM; ++b) {
+#pragma unroll
+    for (int s = 0; s < kSize; ++s) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        xv[b][s][k] = buf[at[b] + threadIdx.x + k * kShiftsThreads + s];
+      }
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < kSize; ++s) {
+#pragma unroll
+    for (int b = 0; b < VDIM; ++b) {
+#pragma unroll
+      for (int a = 0; a < VDIM; ++a) {
+        const float w = terms.wc[((kFirst + s) * VDIM + a) * VDIM + b];
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          acc[a][k] = fmaf(w, xv[b][s][k], acc[a][k]);
+        }
+      }
+    }
+  }
+}
+
+// The sum of a run: row group g reads the window of plane j +
+// group_plane(g), which starts at `place[d][b]` of the ring (d = its plane
+// + plane_spread), from group_off[g] on.
+template <int VDIM, int NOFF, int K, int D, int... G>
+__device__ __forceinline__ void shifts_groups(
+    std::integer_sequence<int, G...>, const float* buf,
+    const int (&place)[D][VDIM], const ShiftsPlan& p, const Terms& terms,
+    float (&acc)[VDIM][K]) {
+  int at[sizeof...(G)][VDIM];
+#pragma unroll
+  for (int g = 0; g < static_cast<int>(sizeof...(G)); ++g) {
+#pragma unroll
+    for (int b = 0; b < VDIM; ++b) {
+      at[g][b] = place[group_plane(NOFF, g) + plane_spread(NOFF)][b] +
+                 p.group_off[g];
+    }
+  }
+  (shifts_group<VDIM, NOFF, K, G>(buf, at[G], terms, acc), ...);
+}
+
+// Block b takes column b mod columns and the range r = b div columns of
+// its planes: the planes are cut into `ranges` ranges, the first planes
+// mod ranges of them one plane longer, so that where the card gives block
+// b to SM b mod SMs the longer ranges spread over the SMs.  The block
+// walks its range through a ring of `stages` windows: the planes j − 1 ...
+// j + 1 its runs read, staged plane after plane, each window once.
+template <int VDIM, int NOFF>
+__device__ __forceinline__ void shifts_staged(const float* __restrict__ x,
+                                              float* __restrict__ y, int N,
+                                              const ShiftsPlan& p,
+                                              const Terms& terms) {
+  constexpr int K = kShiftsNodes;
+  constexpr int kRun = K * kShiftsThreads;
+  constexpr int kSpread = plane_spread(NOFF);
+  constexpr int kRead = 2 * kSpread + 1;   // windows a run reads
+  extern __shared__ float4 smem4[];
+  __shared__ alignas(8) unsigned long long full[kMaxStages];   // a slot's
+  float* const buf = reinterpret_cast<float*>(smem4);
+  const unsigned bar0 = smem_addr(full);
+  const int sh = static_cast<int>((reinterpret_cast<uintptr_t>(x) & 15) >> 2);
+  const int chunks = p.row_floats / 4;
+  const int window = VDIM * p.row_floats;
+  const int c0 = (blockIdx.x % p.columns) * kRun;
+  const int width = min(kRun, p.stride - c0);   // the column's nodes a run
+  const int r = blockIdx.x / p.columns;
+  const int per = p.planes / p.ranges;
+  const int longer = p.planes % p.ranges;   // ranges of per + 1 planes
+  const int j0 = r * per + min(r, longer);
+  const int j1 = j0 + per + (r < longer);
+  // the planes staged, q0 ... q_end − 1, plane q in slot (q − q0) mod
+  // stages; a window starts at node c0 + q·S + win_lo
+  const int q0 = j0 - kSpread;
+  const int q_end = j1 + kSpread;
+  const int first = c0 + p.win_lo;
+  init_barriers(bar0, p.stages);
+  for (int i = 0; i < p.stages && q0 + i < q_end; ++i) {
+    stage_span<VDIM, kShiftsThreads>(buf + i * window, p.row_floats,
+                                     bar0 + 8 * i, x, sh, N,
+                                     first + (q0 + i) * p.stride, chunks);
+  }
+  __syncthreads();   // the threads' edge chunks, and the mbarriers' init
+  int lo = 0;          // the slot of plane j − kSpread: (j − j0) mod stages
+  unsigned wraps = 0;  // (j − j0) div stages
+  for (int j = j0; j < j1; ++j) {
+    // wait for the windows of the planes j − kSpread ... j + kSpread, and
+    // where x[b, c0 + (j + d − kSpread)·S + win_lo] lies in the ring
+    int place[kRead][VDIM];
+#pragma unroll
+    for (int d = 0; d < kRead; ++d) {
+      const int i = lo + d;
+      const int slot = i < p.stages ? i : i - p.stages;
+      wait_barrier(bar0 + 8 * slot, (wraps + (i >= p.stages)) & 1u);
+      const int start = first + (j - kSpread + d) * p.stride;
+#pragma unroll
+      for (int b = 0; b < VDIM; ++b) {
+        place[d][b] = slot * window + b * p.row_floats +
+                      ((sh + b * N + start) & 3);
+      }
+    }
+    float acc[VDIM][K];
+    zero<VDIM, K>(acc);
+    shifts_groups<VDIM, NOFF, K>(
+        std::make_integer_sequence<int, group_count(NOFF)>{}, buf, place, p,
+        terms, acc);
+    const int B0 = c0 + j * p.stride;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int i = threadIdx.x + k * kShiftsThreads;
+      if (i < width && B0 + i < N) {
+#pragma unroll
+        for (int a = 0; a < VDIM; ++a) y[a * N + B0 + i] = acc[a][k];
+      }
+    }
+    // the window of plane j − kSpread is read no more: refill its slot
+    // with the plane `stages` later
+    const int q = j - kSpread + p.stages;
+    if (q < q_end) {
+      __syncthreads();   // every thread is done with that window
+      if (stage_span<VDIM, kShiftsThreads>(buf + lo * window, p.row_floats,
+                                           bar0 + 8 * lo, x, sh, N,
+                                           first + q * p.stride, chunks)) {
+        __syncthreads();   // the edge chunks, before the window is read
+      }
+    }
+    if (++lo == p.stages) {
+      lo = 0;
+      ++wraps;
+    }
+  }
+}
+
+// At v1 the staged runs lose to x read through L1 (floor_ab.py: a node's
+// 15 FMAs do not cover the staging's waits and syncs), so v1 keeps the
+// span path: a thread owns kSpanNodes consecutive nodes and reads each
+// row group's x span as aligned 16-byte chunks shifted into place by
+// selects (stencil_span.cuh), one block a run of kShiftsThreads·kSpanNodes
+// nodes, an interior body and an edge body.  It takes no plan.
+constexpr int kSpanNodes = 4;
+
+template <int VDIM, int NOFF, int G, bool INTERIOR>
+__device__ __forceinline__ void span_group(const Terms& terms,
+                                           const float* __restrict__ x,
+                                           const Tile& t, int N, int base,
+                                           float (&acc)[VDIM][kSpanNodes]) {
+  constexpr int kSize = group_size(NOFF, G);
+  constexpr int kFirst = group_first(NOFF, G);
+  float xv[VDIM][kSpanNodes + kSize - 1];
+  group_spans<VDIM, kSpanNodes, NOFF, G, INTERIOR>(x, t, N, base, xv);
+#pragma unroll
+  for (int s = 0; s < kSize; ++s) {
+#pragma unroll
+    for (int b = 0; b < VDIM; ++b) {
+#pragma unroll
+      for (int a = 0; a < VDIM; ++a) {
+        const float w = terms.wc[((kFirst + s) * VDIM + a) * VDIM + b];
+#pragma unroll
+        for (int k = 0; k < kSpanNodes; ++k) {
+          acc[a][k] = fmaf(w, xv[b][s + k], acc[a][k]);
+        }
+      }
+    }
+  }
+}
+
+template <int VDIM, int NOFF, bool INTERIOR, int... G>
+__device__ __forceinline__ void span_groups(
+    std::integer_sequence<int, G...>, const Terms& terms,
+    const float* __restrict__ x, const Tile& t, int N, const Geometry& geo,
+    float (&acc)[VDIM][kSpanNodes]) {
+  (span_group<VDIM, NOFF, G, INTERIOR>(terms, x, t, N, geo.base[G], acc),
+   ...);
+}
+
+template <int NOFF>
+__global__ void __launch_bounds__(kShiftsThreads)
+shifts_kernel_spans(const float* __restrict__ x, float* __restrict__ y,
+                    int N, const __grid_constant__ Geometry geo,
+                    const __grid_constant__ Terms terms) {
+  constexpr int kBlockNodes = kShiftsThreads * kSpanNodes;
+  const int B0 = blockIdx.x * kBlockNodes;
+  const Tile t = make_tile(x, N, geo, B0 + threadIdx.x * kSpanNodes, B0,
+                           B0 + kBlockNodes);
+  if (t.n0 >= N) return;
+  float acc[1][kSpanNodes];
+  zero<1, kSpanNodes>(acc);
+  constexpr auto kGroups = std::make_integer_sequence<int, group_count(NOFF)>{};
+  if (t.interior) {
+    span_groups<1, NOFF, true>(kGroups, terms, x, t, N, geo, acc);
+  } else {
+    span_groups<1, NOFF, false>(kGroups, terms, x, t, N, geo, acc);
+  }
+  store_nodes<1, kSpanNodes>(y, N, t, acc);
+}
+
+template <int VDIM, int NOFF>
+__global__ void __launch_bounds__(kShiftsThreads)
+shifts_kernel(const float* __restrict__ x, float* __restrict__ y, int N,
+              const __grid_constant__ ShiftsPlan p,
+              const __grid_constant__ Terms terms) {
+  shifts_staged<VDIM, NOFF>(x, y, N, p, terms);
 }
 
 // --------------------------------------------------------------- host --
@@ -655,9 +937,6 @@ struct Call {
   int N;
   Geometry geo;
   cudaStream_t stream;
-  int blocks() const {
-    return (N + kThreads * kNodes - 1) / (kThreads * kNodes);
-  }
 };
 
 bool make_call(int vdim, const void* x, void* y, long long N,
@@ -675,24 +954,6 @@ bool make_call(int vdim, const void* x, void* y, long long N,
   c->N = static_cast<int>(N);
   c->stream = static_cast<cudaStream_t>(stream);
   return true;
-}
-
-template <int VDIM, int NOFF>
-bool shifts_if(const Call& c, const Terms& terms) {
-  if (c.vdim != VDIM || c.n_off != NOFF) return false;
-  shifts_kernel<VDIM, NOFF><<<c.blocks(), kThreads, 0, c.stream>>>(
-      c.x, c.y, c.N, c.geo, terms);
-  return true;
-}
-
-template <int VDIM, int... NOFFS>
-bool shifts_noff(const Call& c, const Terms& terms) {
-  return (shifts_if<VDIM, NOFFS>(c, terms) || ...);
-}
-
-template <int... VDIMS>
-bool shifts_dispatch(const Call& c, const Terms& terms) {
-  return (shifts_noff<VDIMS, FLOOR_PROBE_NOFFS>(c, terms) || ...);
 }
 
 // residentw's plan: {threads, slot blocks, repeats, repeat ranges,
@@ -794,6 +1055,135 @@ bool check_csz_plan(const int* plan, int vdim, int N, const Geometry& geo,
   return true;
 }
 
+// shifts' plan: {threads, nodes a thread, run, stride, columns, planes,
+// ranges, blocks, lowest and highest plane a run reads, stages, win_lo,
+// row_floats, shared bytes}, then per row group (kMaxGroups slots each)
+// its plane and its offset in the window.  Checked so that the blocks'
+// runs cover [0, N) once, every window a run reads is in the ring while it
+// runs, and every read of every node of a run lands inside its group's
+// window whatever the 16-byte shift of the window's start (0..3 values).
+bool check_shifts_plan(const int* plan, int vdim, int N, const Geometry& geo,
+                       int n_off, ShiftsPlan* sp, int* blocks, int* smem) {
+  const int run = kShiftsThreads * kShiftsNodes;
+  const int spread = plane_spread(n_off);
+  *sp = {};
+  sp->stride = plan[3];
+  sp->columns = plan[4];
+  sp->planes = plan[5];
+  sp->ranges = plan[6];
+  *blocks = plan[7];
+  sp->stages = plan[10];
+  sp->win_lo = plan[11];
+  sp->row_floats = plan[12];
+  *smem = plan[13];
+  if (plan[0] != kShiftsThreads || plan[1] != kShiftsNodes ||
+      plan[2] != run || sp->stride < run || sp->stride > kMaxIndex ||
+      sp->columns != (sp->stride + run - 1) / run ||
+      sp->planes != (N + sp->stride - 1) / sp->stride || sp->ranges < 1 ||
+      sp->ranges > sp->planes ||
+      *blocks != static_cast<long long>(sp->columns) * sp->ranges ||
+      plan[8] != -spread || plan[9] != spread ||
+      sp->stages < 2 * spread + 1 || sp->stages > kMaxStages ||
+      sp->win_lo < -kMaxIndex || sp->win_lo > kMaxIndex ||
+      sp->row_floats < 4 || sp->row_floats % 4 != 0 ||
+      static_cast<long long>(*smem) !=
+          4LL * sp->stages * vdim * sp->row_floats ||
+      *smem > kMaxSmem) {
+    return false;
+  }
+  for (int g = 0; g < group_count(n_off); ++g) {
+    const int m = plan[14 + g];
+    const int off = plan[14 + kMaxGroups + g];
+    if (m != group_plane(n_off, g) ||
+        off != static_cast<long long>(geo.base[g]) -
+                   static_cast<long long>(m) * sp->stride - sp->win_lo ||
+        off < 0 ||
+        3LL + off + run + group_size(n_off, g) - 1 > sp->row_floats) {
+      return false;
+    }
+    sp->group_off[g] = off;
+  }
+  return true;
+}
+
+// Shared memory up to `smem` bytes a block for shifts, and as much of the
+// SM's on-chip store for shared memory as it has (the plan's grid counts
+// on the blocks it holds at once).
+template <int VDIM, int NOFF>
+bool shifts_attributes(int smem) {
+  return cudaFuncSetAttribute(shifts_kernel<VDIM, NOFF>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              smem) == cudaSuccess &&
+         cudaFuncSetAttribute(shifts_kernel<VDIM, NOFF>,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared) == cudaSuccess;
+}
+
+template <int VDIM, int NOFF>
+bool shifts_if(const Call& c, const ShiftsPlan& sp, int blocks, int smem,
+               const Terms& terms, bool* ok) {
+  if (c.vdim != VDIM || c.n_off != NOFF) return false;
+  *ok = shifts_attributes<VDIM, NOFF>(smem);
+  if (*ok) {
+    shifts_kernel<VDIM, NOFF><<<blocks, kShiftsThreads, smem, c.stream>>>(
+        c.x, c.y, c.N, sp, terms);
+  }
+  return true;
+}
+
+template <int NOFF>
+bool shifts_span_if(const Call& c, const Terms& terms) {
+  if (c.vdim != 1 || c.n_off != NOFF) return false;
+  constexpr int kRun = kShiftsThreads * kSpanNodes;
+  const int blocks = (c.N + kRun - 1) / kRun;
+  shifts_kernel_spans<NOFF><<<blocks, kShiftsThreads, 0, c.stream>>>(
+      c.x, c.y, c.N, c.geo, terms);
+  return true;
+}
+
+template <int... NOFFS>
+bool shifts_span_dispatch(const Call& c, const Terms& terms) {
+  return (shifts_span_if<NOFFS>(c, terms) || ...);
+}
+
+template <int VDIM, int... NOFFS>
+bool shifts_noff(const Call& c, const ShiftsPlan& sp, int blocks, int smem,
+                 const Terms& terms, bool* ok) {
+  return (shifts_if<VDIM, NOFFS>(c, sp, blocks, smem, terms, ok) || ...);
+}
+
+template <int... VDIMS>
+bool shifts_dispatch(const Call& c, const ShiftsPlan& sp, int blocks,
+                     int smem, const Terms& terms, bool* ok) {
+  return (shifts_noff<VDIMS, FLOOR_PROBE_NOFFS>(c, sp, blocks, smem, terms,
+                                                ok) || ...);
+}
+
+// Blocks of shifts an SM holds at once with `smem` bytes of staged runs.
+template <int VDIM, int NOFF>
+bool shifts_occupancy_if(int vdim, int n_off, int smem, int* blocks) {
+  if (vdim != VDIM || n_off != NOFF) return false;
+  if (!shifts_attributes<VDIM, NOFF>(smem) ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          blocks, shifts_kernel<VDIM, NOFF>, kShiftsThreads, smem) !=
+          cudaSuccess) {
+    *blocks = 0;
+  }
+  return true;
+}
+
+template <int VDIM, int... NOFFS>
+bool shifts_occupancy_noff(int vdim, int n_off, int smem, int* blocks) {
+  return (shifts_occupancy_if<VDIM, NOFFS>(vdim, n_off, smem, blocks) ||
+          ...);
+}
+
+template <int... VDIMS>
+bool shifts_occupancy_dispatch(int vdim, int n_off, int smem, int* blocks) {
+  return (shifts_occupancy_noff<VDIMS, FLOOR_PROBE_NOFFS>(vdim, n_off, smem,
+                                                          blocks) || ...);
+}
+
 template <int VDIM, int NOFF>
 bool csz_if(const Call& c, const float* m, int N_pad, const CszPlan& cp,
             int runs, int smem, const FaceTerms& terms, bool* ok) {
@@ -873,14 +1263,45 @@ extern "C" int floor_wonly(const void* W, int w_is_bf16, int nw,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The blocks of shifts an SM holds at once with `smem` bytes of staged
+// runs a block.
+extern "C" int floor_shifts_blocks_per_sm(int vdim, int n_off, int smem,
+                                          int* blocks) {
+  *blocks = 0;
+  if (smem < 0 || smem > kMaxSmem ||
+      !shifts_occupancy_dispatch<SHIFTS_STAGED_VDIMS>(vdim, n_off, smem,
+                                                      blocks)) {
+    return kInvalid;
+  }
+  return *blocks > 0 ? 0 : kInvalid;
+}
+
+// At v1 shifts takes no plan (plan_len 0), at v2 and v3 the staged
+// kernel's.
 extern "C" int floor_shifts(int vdim, const void* x, void* y, long long N,
                             const int* deltas, int n_off, const float* wc,
-                            void* stream) {
+                            const int* plan, int plan_len, void* stream) {
   Call c;
   if (!make_call(vdim, x, y, N, deltas, n_off, stream, &c)) return kInvalid;
   Terms terms = {};
   for (int i = 0; i < n_off * vdim * vdim; ++i) terms.wc[i] = wc[i];
-  if (!shifts_dispatch<FLOOR_PROBE_VDIMS>(c, terms)) return kInvalid;
+  if (vdim == 1) {
+    if (plan_len != 0 || !shifts_span_dispatch<FLOOR_PROBE_NOFFS>(c, terms)) {
+      return kInvalid;
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
+  ShiftsPlan sp;
+  int blocks, smem;
+  bool ok = false;
+  if (plan_len != kShiftsPlanLen ||
+      !check_shifts_plan(plan, vdim, c.N, c.geo, n_off, &sp, &blocks,
+                         &smem) ||
+      !shifts_dispatch<SHIFTS_STAGED_VDIMS>(c, sp, blocks, smem, terms,
+                                            &ok) ||
+      !ok) {
+    return kInvalid;
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

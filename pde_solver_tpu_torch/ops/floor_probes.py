@@ -31,9 +31,10 @@ Layouts are the dense kernel's: W ``[n_off·v², N_pad]`` (f32 or bf16,
 ``N_pad`` = N rounded up to 128), x and y ``[v, N]`` f32, offsets as flat
 deltas in the sorted P1 stencil's order.
 
-``residentw`` and ``csz`` launch by a plan computed here and checked by the
-C function (:func:`residentw_plan`, :func:`csz_plan`): which tile slots and
-repeats a block takes, and which segments of x a ``csz`` block stages in
+``shifts``, ``residentw`` and ``csz`` launch by a plan computed here and
+checked by the C function (:func:`shifts_plan`, :func:`residentw_plan`,
+:func:`csz_plan`): which runs of nodes, tile slots and repeats a block
+takes, and which segments of x a ``shifts`` or ``csz`` block stages in
 shared memory.  The CPU tests check the plans' coverage at the main paths'
 shapes.
 """
@@ -59,12 +60,21 @@ from pde_solver_tpu_torch.ops.stencil_kernels import (check_row_groups,
 # Nodes of residentw's weight tile: the block of the reference's probe.
 TILE_NODES = 4096
 # The launch geometry of csrc/floor_probes.cu: residentw's threads a block
-# (one tile slot each), csz's threads a block; the row groups and shared
-# bytes a block may have
+# (one tile slot each), csz's and shifts' threads a block; the row groups,
+# shared bytes and shifts windows a block may have
 RESIDENTW_THREADS = 128
 CSZ_THREADS = 128
+SHIFTS_THREADS = 128
 MAX_GROUPS = 8
 MAX_SMEM = 232448
+MAX_STAGES = 6
+# the windows a shifts block keeps in flight beyond those its current run
+# reads (their copies fly while that run's FMAs run), and the blocks an SM
+# its grid aims at
+SHIFTS_AHEAD = 1
+SHIFTS_BLOCKS_PER_SM = 4
+# nodes a shifts thread takes in a staged run (kShiftsNodes of the source)
+SHIFTS_NODES = 4
 
 
 def csz_nodes(vdim: int) -> int:
@@ -77,9 +87,17 @@ def csz_run(vdim: int) -> int:
     return CSZ_THREADS * csz_nodes(vdim)
 
 
-# What csrc/floor_probes.cu is built for, read from its #define lines.
+def shifts_run() -> int:
+    """Consecutive nodes a shifts block stages and computes at a time."""
+    return SHIFTS_THREADS * SHIFTS_NODES
+
+
+# What csrc/floor_probes.cu is built for, read from its #define lines, and
+# the vdims at which shifts stages x (at the others it takes no plan).
 PROBE_VDIMS = cuda_build.defined_list("floor_probes", "FLOOR_PROBE_VDIMS")
 PROBE_NOFFS = cuda_build.defined_list("floor_probes", "FLOOR_PROBE_NOFFS")
+SHIFTS_STAGED_VDIMS = cuda_build.defined_list("floor_probes",
+                                              "SHIFTS_STAGED_VDIMS")
 
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -96,12 +114,14 @@ def bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declares the C functions' arguments on a build of the source."""
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.floor_wonly.argtypes = [p, i, i, ll, p, p]
-    lib.floor_shifts.argtypes = [i, p, p, ll, p, i, p, p]
+    lib.floor_shifts.argtypes = [i, p, p, ll, p, i, p, p, i, p]
     lib.floor_residentw.argtypes = [p, i, ll, i, p, p, ll, p, i, p, i, p]
     lib.floor_csz.argtypes = [p, ll, i, p, p, ll, p, i, p, p, p, p, i, p]
     lib.floor_residentw_blocks_per_sm.argtypes = [i, i, i, p]
+    lib.floor_shifts_blocks_per_sm.argtypes = [i, i, i, p]
     for fn in (lib.floor_wonly, lib.floor_shifts, lib.floor_residentw,
-               lib.floor_csz, lib.floor_residentw_blocks_per_sm):
+               lib.floor_csz, lib.floor_residentw_blocks_per_sm,
+               lib.floor_shifts_blocks_per_sm):
         fn.restype = ctypes.c_int
     return lib
 
@@ -144,6 +164,10 @@ def residentw_plan(N: int, B: int, resident_blocks: int) -> ResidentwPlan:
                          -(-repeats // per_range), per_range)
 
 
+def _slots(values) -> list:
+    return list(values) + [0] * (MAX_GROUPS - len(values))
+
+
 @dataclass(frozen=True)
 class CszPlan:
     """csz's grid: block r takes run r, the ``csz_run(vdim)`` nodes from
@@ -175,17 +199,75 @@ class CszPlan:
 
     @functools.cached_property
     def c_array(self) -> np.ndarray:
-        def slots(values):
-            return list(values) + [0] * (MAX_GROUPS - len(values))
         return np.array([CSZ_THREADS, csz_nodes(self.vdim), self.run,
                          self.runs, len(self.seg_lo), self.row_floats,
                          self.smem_bytes]
-                        + slots(self.seg_lo) + slots(self.seg_chunk0)
-                        + slots(self.seg_chunks) + slots(self.group_seg)
-                        + slots(self.group_off), np.int32)
+                        + _slots(self.seg_lo) + _slots(self.seg_chunk0)
+                        + _slots(self.seg_chunks) + _slots(self.group_seg)
+                        + _slots(self.group_off), np.int32)
 
 
-def csz_segments(deltas: Sequence[int], run: int):
+@dataclass(frozen=True)
+class ShiftsPlan:
+    """shifts' grid: the runs of ``shifts_run()`` nodes from B0 =
+    c·run + j·stride (column c, plane j; each run's nodes up to the next
+    multiple of ``stride``).  Block b takes column b mod columns and range
+    b div columns of its planes, cut into ``ranges`` ranges, the first
+    planes mod ranges of them one plane longer.  A run reads the windows
+    [B0 + m·stride + win_lo, ... + row_floats − 3) of the planes m = m_lo
+    ... m_hi around it (row group g those of ``group_plane[g]``, from
+    ``group_off[g]`` on); a block keeps ``stages`` windows in a ring, each
+    staged once.  At v1 shifts takes no plan (it reads x through L1)."""
+    N: int
+    vdim: int
+    stride: int
+    ranges: int
+    m_lo: int
+    m_hi: int
+    stages: int
+    win_lo: int
+    row_floats: int
+    group_plane: Tuple[int, ...]
+    group_off: Tuple[int, ...]
+
+    @property
+    def run(self) -> int:
+        return shifts_run()
+
+    @property
+    def columns(self) -> int:
+        return -(-self.stride // self.run)
+
+    @property
+    def planes(self) -> int:
+        return -(-self.N // self.stride)
+
+    @property
+    def blocks(self) -> int:
+        return self.columns * self.ranges
+
+    @property
+    def smem_bytes(self) -> int:
+        return 4 * self.stages * self.vdim * self.row_floats
+
+    def block_planes(self, b: int) -> Tuple[int, int, int]:
+        """(column, first plane, end plane) of block b."""
+        r = b // self.columns
+        per, longer = divmod(self.planes, self.ranges)
+        j0 = r * per + min(r, longer)
+        return b % self.columns, j0, j0 + per + (r < longer)
+
+    @functools.cached_property
+    def c_array(self) -> np.ndarray:
+        return np.array([SHIFTS_THREADS, SHIFTS_NODES, self.run,
+                         self.stride, self.columns, self.planes, self.ranges,
+                         self.blocks, self.m_lo, self.m_hi, self.stages,
+                         self.win_lo, self.row_floats, self.smem_bytes]
+                        + _slots(self.group_plane) + _slots(self.group_off),
+                        np.int32)
+
+
+def staged_segments(deltas: Sequence[int], run: int):
     """(seg_lo, seg_chunk0, seg_chunks, group_seg, group_off): the row
     groups' windows of a run, ``[base_g, base_g + run + size_g − 1)``
     relative to its first node, merged where they overlap (the groups come
@@ -211,10 +293,90 @@ def csz_segments(deltas: Sequence[int], run: int):
 def csz_plan(N: int, deltas: Tuple[int, ...], vdim: int) -> CszPlan:
     """The plan for N nodes: one block a run."""
     run = csz_run(vdim)
-    plan = CszPlan(N, vdim, -(-N // run), *csz_segments(deltas, run))
+    plan = CszPlan(N, vdim, -(-N // run), *staged_segments(deltas, run))
     if plan.smem_bytes > MAX_SMEM:
         raise ValueError(f"csz would stage {plan.smem_bytes} bytes a block, "
                          f"more than {MAX_SMEM}")
+    return plan
+
+
+def group_planes(n_off: int) -> Tuple[int, ...]:
+    """The plane of each row group of the sorted P1 stencil
+    (``group_plane`` of the source): on a 3D grid (15 offsets) groups 0
+    and 1 lie in the plane below the node, 2–4 in its own, 5 and 6 above;
+    on a 2D grid (7) the rows below, at and above; on a 1D grid (3) one
+    group."""
+    below = {15: 2, 7: 1}.get(n_off, 0)
+    count = len(row_groups(n_off))
+    return tuple(-1 if g < below else 1 if g >= count - below else 0
+                 for g in range(count))
+
+
+def shifts_windows(deltas: Sequence[int]):
+    """(stride, win_lo, row_floats, group_off): the window a shifts run
+    stages of each plane it reads.  Row group g reads x in the window of
+    plane ``group_planes[g]`` around its run, a stride apart.  Where the
+    row groups' windows of a run fall into three segments
+    (``staged_segments``: the planes below, at and above the node on a 3D
+    grid, or rows on a 2D grid longer than a run), the stride is the
+    distance from the middle segment's start to the upper one's, so that
+    the window is about the middle segment; where they merge (1D, and
+    grids whose planes are shorter than a run) the stride is the run.  The
+    window is the hull of the groups' windows shifted so, long enough for
+    its start's shift of up to 3 values below it."""
+    run = shifts_run()
+    seg_lo = staged_segments(deltas, run)[0]
+    stride = seg_lo[2] - seg_lo[1] if len(seg_lo) == 3 else run
+    spans = [(int(deltas[first]) - m * stride,
+              int(deltas[first]) + run + size - 1 - m * stride)
+             for (first, size), m in zip(row_groups(len(deltas)),
+                                         group_planes(len(deltas)))]
+    lo = min(a for a, _ in spans)
+    hi = max(b for _, b in spans)
+    return (stride, lo, 4 * -(-(hi - lo + 3) // 4),
+            tuple(a - lo for a, _ in spans))
+
+
+def shifts_stages(deltas: Sequence[int]) -> int:
+    """Windows in a shifts block's ring: the planes a run reads and
+    ``SHIFTS_AHEAD`` more."""
+    planes = group_planes(len(deltas))
+    return max(planes) - min(planes) + 1 + SHIFTS_AHEAD
+
+
+def shifts_smem_bytes(deltas: Sequence[int], vdim: int) -> int:
+    """Shared bytes of a shifts block: its ring of windows."""
+    return 4 * shifts_stages(deltas) * vdim * shifts_windows(deltas)[2]
+
+
+def shifts_ranges(planes: int, columns: int, sms: int, per_sm: int) -> int:
+    """Plane ranges a shifts column is cut into, for ``columns`` columns of
+    ``planes`` runs on ``sms`` SMs that hold ``per_sm`` blocks each: as
+    many as keep the grid of columns × ranges blocks within
+    ``SHIFTS_BLOCKS_PER_SM`` blocks an SM (fewer where the SM holds fewer),
+    one wave.  More blocks an SM hide more latency; fewer walk longer
+    ranges and stage fewer windows twice."""
+    return max(1, min(planes,
+                      sms * min(per_sm, SHIFTS_BLOCKS_PER_SM) // columns))
+
+
+@functools.lru_cache(maxsize=64)
+def shifts_plan(N: int, deltas: Tuple[int, ...], vdim: int, sms: int,
+                per_sm: int) -> ShiftsPlan:
+    """The plan for N nodes on ``sms`` SMs that hold ``per_sm`` blocks each
+    at ``shifts_smem_bytes`` a block (vdim in ``SHIFTS_STAGED_VDIMS``)."""
+    stride, win_lo, row_floats, group_off = shifts_windows(deltas)
+    planes = group_planes(len(deltas))
+    ranges = shifts_ranges(-(-N // stride), -(-stride // shifts_run()), sms,
+                           per_sm)
+    plan = ShiftsPlan(N, vdim, stride, ranges, min(planes), max(planes),
+                      shifts_stages(deltas), win_lo, row_floats, planes,
+                      group_off)
+    if plan.smem_bytes > MAX_SMEM or plan.stages > MAX_STAGES:
+        raise ValueError(f"shifts would stage {plan.stages} windows of "
+                         f"{plan.smem_bytes // plan.stages} bytes a block, "
+                         f"more than {MAX_SMEM} bytes or {MAX_STAGES} "
+                         f"windows")
     return plan
 
 
@@ -230,6 +392,19 @@ def _resident_blocks(device: int, vdim: int, n_off: int, bf16: int) -> int:
                            f"{bf16}) failed: CUDA error {rc}")
     return blocks.value * torch.cuda.get_device_properties(
         device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=64)
+def _shifts_blocks_per_sm(vdim: int, n_off: int, smem: int) -> int:
+    """Blocks of shifts an SM holds at once with ``smem`` shared bytes a
+    block."""
+    blocks = ctypes.c_int(0)
+    rc = build_library().floor_shifts_blocks_per_sm(vdim, n_off, smem,
+                                                    ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"floor_shifts_blocks_per_sm({vdim}, {n_off}, "
+                           f"{smem}) failed: CUDA error {rc}")
+    return blocks.value
 
 
 def probe_constants(n_terms: int) -> Tuple[np.ndarray, np.ndarray,
@@ -398,9 +573,16 @@ def shifts(x: torch.Tensor, deltas: Sequence[int], vdim: int,
         return shifts_plain(x, deltas, vdim, wc)
     y = torch.empty_like(x)
     d, w = _c_array(deltas, np.int32), _c_array(wc, np.float32)
+    deltas = tuple(int(v) for v in deltas)
+    plan = np.zeros(0, np.int32)          # v1 reads x through L1: no plan
+    if vdim in SHIFTS_STAGED_VDIMS:
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        per_sm = _shifts_blocks_per_sm(vdim, len(deltas),
+                                       shifts_smem_bytes(deltas, vdim))
+        plan = shifts_plan(x.shape[1], deltas, vdim, sms, per_sm).c_array
     rc = build_library().floor_shifts(
         vdim, x.data_ptr(), y.data_ptr(), x.shape[1], d.ctypes.data,
-        len(deltas), w.ctypes.data, _stream(x))
+        len(deltas), w.ctypes.data, plan.ctypes.data, len(plan), _stream(x))
     _launched(rc, "shifts", f"vdim={vdim}, N={x.shape[1]}")
     return y
 

@@ -487,3 +487,97 @@ def test_csz_ragged_runs_match_plain(card, vdim, shape):
     zero = np.zeros_like(wc)
     assert torch.equal(fp.csz(masks, x, op.deltas, vdim, wc, zero, zero),
                        fp.shifts(x, op.deltas, vdim, wc))
+
+
+# shifts at v2 and v3 given a plan directly: one block walking every plane
+# of its column (the ring's phases flip many times), three blocks, and a
+# card that holds more blocks than there are runs; ragged N, runs across
+# both ends of x, planes (3D) and rows (2D) shorter and longer than a run
+SHIFTS_RINGS = [(3, (5000,)), (2, (4003,)), (2, (67, 41)), (2, (7, 1100)),
+                (2, (41, 13, 13)), (3, (41, 13, 13)), (3, (23, 9, 9)),
+                (3, (69, 65, 61)), (2, (73, 65, 61)), (2, (2, 2, 2)),
+                (3, (2, 2, 2))]
+
+
+def _shifts_direct(x, deltas, vdim, wc, plan):
+    """floor_shifts with the plan array given: (return code, y), y NaN
+    where the kernel wrote nothing."""
+    y = torch.full_like(x, float("nan"))
+    d = np.ascontiguousarray(deltas, np.int32)
+    w = np.ascontiguousarray(wc, np.float32)
+    a = np.ascontiguousarray(plan, np.int32)
+    rc = fp.build_library().floor_shifts(
+        vdim, x.data_ptr(), y.data_ptr(), x.shape[1], d.ctypes.data, len(d),
+        w.ctypes.data, a.ctypes.data, len(a),
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    return rc, y
+
+
+@pytest.mark.parametrize("sms,per_sm", [(1, 1), (3, 1), (1000, 1000)])
+@pytest.mark.parametrize("vdim,shape", SHIFTS_RINGS)
+def test_shifts_rings_and_small_grids_match_plain(card, vdim, shape, sms,
+                                                  per_sm):
+    op, x, (wc, _, _), masks = _probe_inputs(vdim, shape, False, card)
+    plan = fp.shifts_plan(op.N, tuple(op.deltas), vdim, sms, per_sm)
+    assert plan.blocks <= max(sms * per_sm, plan.columns)
+    rc, y = _shifts_direct(x, op.deltas, vdim, wc, plan.c_array)
+    assert rc == 0
+    assert _rel(y.cpu(), fp.shifts_plain(x, op.deltas, vdim, wc).cpu()) \
+        <= 1e-5
+    zero = np.zeros_like(wc)
+    assert torch.equal(fp.csz(masks, x, op.deltas, vdim, wc, zero, zero), y)
+
+
+def test_shifts_refuses_a_plan_it_was_not_given_for(card):
+    """A plan the C function's own arithmetic contradicts returns
+    cudaErrorInvalidValue and launches nothing; the plan itself, and the
+    deepest ring the kernel keeps, run."""
+    vdim = 3
+    op, x, (wc, _, _), _ = _probe_inputs(vdim, (69, 65, 61), False, card)
+    plan = fp.shifts_plan(op.N, tuple(op.deltas), vdim, 132, 2)
+    good = plan.c_array
+    y_plain = fp.shifts_plain(x, op.deltas, vdim, wc).cpu()
+    rc, y = _shifts_direct(x, op.deltas, vdim, wc, good)
+    assert rc == 0 and _rel(y.cpu(), y_plain) <= 1e-5
+    window = 4 * vdim * plan.row_floats
+    g0 = 14 + fp.MAX_GROUPS                         # group 0's offset
+    bad = {"threads": (0, 64), "nodes a thread": (1, 8), "run": (2, 1024),
+           "a stride below the run": (3, plan.run - 1),
+           "columns": (4, plan.columns + 1), "planes": (5, plan.planes - 1),
+           "no ranges": (6, 0), "more ranges than planes": (6, plan.planes + 1),
+           "blocks": (7, plan.blocks + 1), "m_lo": (8, -2), "m_hi": (9, 2),
+           "fewer windows than a run reads": (10, 2),
+           "too many windows": (10, fp.MAX_STAGES + 1),
+           "win_lo": (11, plan.win_lo + 1),
+           "row floats not whole chunks": (12, plan.row_floats + 2),
+           "shared bytes": (13, plan.smem_bytes + 16),
+           "a group's plane": (14, 1),
+           "a group's offset": (g0, plan.group_off[0] + 1)}
+    for what, (i, v) in bad.items():
+        a = good.copy()
+        a[i] = v
+        rc, y = _shifts_direct(x, op.deltas, vdim, wc, a)
+        assert rc == 1, what                     # cudaErrorInvalidValue
+        assert torch.isnan(y).all(), what
+    # a window one chunk short of its groups' reads, the shared bytes made
+    # to match it
+    a = good.copy()
+    a[12] -= 4
+    a[13] -= 4 * plan.stages * vdim
+    assert _shifts_direct(x, op.deltas, vdim, wc, a)[0] == 1
+    # the deepest ring runs; a wrong plan length does not
+    a = good.copy()
+    a[10] = fp.MAX_STAGES
+    a[13] = fp.MAX_STAGES * window
+    rc, y = _shifts_direct(x, op.deltas, vdim, wc, a)
+    assert rc == 0 and _rel(y.cpu(), y_plain) <= 1e-5
+    assert _shifts_direct(x, op.deltas, vdim, wc, good[:-1])[0] == 1
+    # v1 reads x through L1 and takes no plan: with one it is refused
+    op1, x1, (wc1, _, _), _ = _probe_inputs(1, (41, 13, 13), False, card)
+    rc, y = _shifts_direct(x1, op1.deltas, 1, wc1, np.zeros(0, np.int32))
+    assert rc == 0 and _rel(y.cpu(), fp.shifts_plain(
+        x1, op1.deltas, 1, wc1).cpu()) <= 1e-5
+    assert _shifts_direct(x1, op1.deltas, 1, wc1, good)[0] == 1
+    assert _shifts_direct(x, op.deltas, vdim, wc,
+                          np.zeros(0, np.int32))[0] == 1

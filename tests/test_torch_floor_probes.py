@@ -24,7 +24,10 @@ from jax.experimental.pallas import tpu as pltpu
 
 from benchmarks.kernel_floor import (_csz_kernel, _residentw_kernel,
                                      _shifts_kernel, _wonly_kernel)
+import chip_smoke
 from pde_solver_tpu.mesh import box_mesh as ref_box
+from pde_solver_tpu.mesh import interval_mesh as ref_interval
+from pde_solver_tpu.mesh import rectangle_mesh as ref_rectangle
 from pde_solver_tpu.ops import assembly as ref_asm
 from pde_solver_tpu.ops.pallas_kernels import (LANE,
                                                FlatStencilOperator as RefFlat,
@@ -228,6 +231,20 @@ def test_entry_point_runs_every_probe_on_the_cpu_and_counts_no_launch():
     assert not sk.KERNEL_LAUNCHES      # plain versions launch nothing
 
 
+@pytest.mark.parametrize("vdim", [3, 1])
+def test_shifts_library_conv1d_is_shifts_plain(vdim):
+    """The library yardstick chip_smoke.py times beside shifts: one conv1d
+    with the constants at the taps P + δ and zero padding P = max|δ|
+    computes the shifted sum with zero fill outside [0, N)."""
+    op, _, x = _operator(vdim, "f32")
+    wc, _, _ = _terms(op)
+    xt = torch.from_numpy(x[:, :op.N].copy())      # a ragged N = 1377
+    y = chip_smoke.shifts_library(xt, op.deltas, vdim, wc)()
+    assert y.shape == xt.shape
+    assert _rel(y.numpy(), fp.shifts_plain(xt, op.deltas, vdim,
+                                           wc).numpy()) <= 1e-5
+
+
 # ---- the launch plans of residentw and csz ---------------------------------
 
 # the main paths' probe shapes (flagship v3, heat slice v1) and the two
@@ -362,3 +379,244 @@ def test_csz_plan_merges_overlapping_windows():
     # a grid smaller than one run: one run, one segment
     small = fp.csz_plan(5 * 5 * 5, _deltas((5, 5, 5)), 1)
     assert (small.runs, len(small.seg_lo)) == (1, 1)
+
+
+# ---- shifts: blocks walking columns of runs a plane apart ------------------
+
+def _stencil_deltas(shape):
+    """The flat deltas of the sorted P1 stencil of the shape's dimension
+    (3, 7 or 15 offsets)."""
+    dim = len(shape)
+    tiny = (ref_box(2, 2, 2, (0, 0, 0), (1.0, 1.0, 1.0)) if dim == 3
+            else ref_rectangle(2, 2, (0, 0), (1.0, 1.0)) if dim == 2
+            else ref_interval(2, 0.0, 1.0))
+    offsets = sorted(ref_asm.assemble_scalar_stencil(tiny, "mass"))
+    strides = [int(np.prod(shape[i + 1:])) for i in range(dim)]
+    return tuple(int(sum(o * s for o, s in zip(np.atleast_1d(off), strides)))
+                 for off in offsets)
+
+
+def _shifts_runs(plan):
+    """(block, column start c0, plane j, first node B0, nodes) of every
+    run of the plan, by the kernel's index arithmetic: thread t takes the
+    nodes B0 + t + k·SHIFTS_THREADS of a run, those below the column's end
+    (c0 + stride) and N."""
+    ln = (np.arange(fp.SHIFTS_THREADS)[:, None] + np.arange(
+        fp.SHIFTS_NODES)[None, :] * fp.SHIFTS_THREADS).ravel()
+    for b in range(plan.blocks):
+        c, j0, j1 = plan.block_planes(b)
+        c0 = c * plan.run
+        for j in range(j0, j1):
+            B0 = c0 + j * plan.stride
+            n = B0 + ln[ln < min(plan.run, plan.stride - c0)]
+            yield b, c0, j, B0, n[n < plan.N]
+
+
+# 1D (3 offsets), 2D (7) and 3D (15) grids: the main paths' shapes, ragged
+# N (N mod 4 ≠ 0), rows or planes shorter and longer than a run, and
+# grids smaller than one run
+SHIFTS_SHAPES = [(5000,), (4003,), (37,), (65, 34), (67, 41), (3, 5),
+                 (7, 1100), (161, 65, 65), (129, 129, 129), (71, 65, 61),
+                 (73, 65, 61), (2, 2, 2), (9, 9, 9)]
+# (SMs, blocks an SM holds): one block, a few, and an H100 at the
+# flagship's ring (7 an SM) and at a small one
+CARDS = [(1, 1), (3, 2), (132, 7), (132, 12)]
+
+
+@pytest.mark.parametrize("shape", SHIFTS_SHAPES)
+@pytest.mark.parametrize("vdim", [2, 3])
+@pytest.mark.parametrize("sms,per_sm", CARDS)
+def test_shifts_plan_covers_every_node_once(shape, vdim, sms, per_sm):
+    """Every node of [0, N) is computed exactly once, and the grid is one
+    wave (but where the columns alone outnumber what the card holds); the
+    ranges of a column tile its planes, the longer ones first."""
+    N = int(np.prod(shape))
+    plan = fp.shifts_plan(N, _stencil_deltas(shape), vdim, sms, per_sm)
+    assert plan.stride >= plan.run
+    assert (plan.planes - 1) * plan.stride < N <= plan.planes * plan.stride
+    assert plan.blocks <= max(sms * per_sm, plan.columns)
+    nodes = np.concatenate([n for *_, n in _shifts_runs(plan)])
+    assert np.array_equal(np.bincount(nodes, minlength=N), np.ones(N, int))
+    ranges = [plan.block_planes(b)[1:] for b in range(0, plan.blocks,
+                                                       plan.columns)]
+    assert ranges[0][0] == 0 and ranges[-1][1] == plan.planes
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    lengths = [e - s for s, e in ranges]
+    assert lengths == sorted(lengths, reverse=True)
+    assert lengths[0] - lengths[-1] <= 1
+
+
+@pytest.mark.parametrize("shape", SHIFTS_SHAPES)
+@pytest.mark.parametrize("vdim", [2, 3])
+def test_shifts_plan_ring_holds_every_window_a_run_reads(shape, vdim):
+    """The kernel's ring, step by step: a block stages the planes q0 = j0
+    + m_lo, ... up to the ring's size, window g = q − q0 into slot g mod
+    stages at fill g div stages, and after the run of plane j the plane j
+    + m_lo + stages into the slot plane j + m_lo leaves.  Every run finds
+    the planes j + m_lo ... j + m_hi in their slots, at the fill whose
+    parity it waits for, and no staged plane goes unread."""
+    N = int(np.prod(shape))
+    plan = fp.shifts_plan(N, _stencil_deltas(shape), vdim, 3, 2)
+    assert plan.m_hi - plan.m_lo + 1 <= plan.stages <= fp.MAX_STAGES
+    for b in range(plan.blocks):
+        g = 0
+        slots = {}                    # slot: (column, plane, fill)
+        c, j0, j1 = plan.block_planes(b)
+        for c0, j0, j1 in [(c * plan.run, j0, j1)]:
+            q0, q_end = j0 + plan.m_lo, j1 + plan.m_hi
+            staged, read = set(), set()
+
+            def stage(q):
+                w = g + q - q0
+                slots[w % plan.stages] = (c0, q, w // plan.stages)
+                staged.add(q)
+            for i in range(min(plan.stages, q_end - q0)):
+                stage(q0 + i)
+            lo, wraps = g % plan.stages, g // plan.stages
+            for j in range(j0, j1):
+                for d in range(plan.m_hi - plan.m_lo + 1):
+                    i = lo + d
+                    slot = i if i < plan.stages else i - plan.stages
+                    parity = (wraps + (i >= plan.stages)) & 1
+                    assert slots[slot][:2] == (c0, j + plan.m_lo + d)
+                    assert slots[slot][2] % 2 == parity
+                    read.add(j + plan.m_lo + d)
+                if j + plan.m_lo + plan.stages < q_end:
+                    stage(j + plan.m_lo + plan.stages)
+                lo += 1
+                if lo == plan.stages:
+                    lo, wraps = 0, wraps + 1
+            assert staged == read
+            g += q_end - q0
+
+
+def _check_windows(plan, deltas, sh):
+    """Every x[b, n + δ_o] a node of a run reads lies in its group's staged
+    window (the window of plane j + group_plane[g] of the run's column,
+    its chunks from the 16-byte boundary at or below its start, zero
+    outside [0, N)) and is x there, or zero exactly where n + δ_o falls
+    outside [0, N).  x's values are distinct, so a read of the wrong value
+    shows."""
+    N, vdim = plan.N, plan.vdim
+    x = np.arange(vdim * N, dtype=np.float64).reshape(vdim, N) + 1.0
+    groups = sk.row_groups(len(deltas))
+    pos = np.arange(plan.row_floats)
+    for _, c0, j, B0, n in _shifts_runs(plan):
+        if not len(n):                 # a run past N in the last plane
+            continue
+        for b in range(vdim):
+            windows = {}
+            for m in range(plan.m_lo, plan.m_hi + 1):
+                i0 = sh + b * N + c0 + (j + m) * plan.stride + plan.win_lo
+                p0 = (i0 - i0 % 4) - sh - b * N + pos
+                inside = (p0 >= 0) & (p0 < N)
+                windows[m] = (np.where(inside, x[b, np.clip(p0, 0, N - 1)],
+                                       0.0), i0 % 4)
+            for g, (first, size) in enumerate(groups):
+                win, shift = windows[plan.group_plane[g]]
+                for p in range(size):
+                    q = shift + plan.group_off[g] + (n - B0) + p
+                    assert q.max() < plan.row_floats
+                    src = n + deltas[first + p]
+                    want = np.where((src >= 0) & (src < N),
+                                    x[b, np.clip(src, 0, N - 1)], 0.0)
+                    assert np.array_equal(win[q], want), (g, p, b, j)
+
+
+@pytest.mark.parametrize("shape", [(5000,), (4003,), (65, 34), (7, 1100),
+                                   (161, 65, 65), (71, 65, 61), (73, 65, 61),
+                                   (2, 2, 2), (9, 9, 9)])
+@pytest.mark.parametrize("vdim", [3, 2])
+@pytest.mark.parametrize("sh", [0, 3])
+def test_shifts_plan_stages_every_read(shape, vdim, sh):
+    """The windows of shifts hold every x value their runs' nodes read,
+    zero outside [0, N), at both ends and across them, whatever x's
+    16-byte shift."""
+    deltas = _stencil_deltas(shape)
+    plan = fp.shifts_plan(int(np.prod(shape)), deltas, vdim, 132, 7)
+    _check_windows(plan, deltas, sh)
+
+
+@pytest.mark.parametrize("shape", [(161, 65, 65), (129, 129, 129), (67, 41),
+                                   (7, 1100), (4003,)])
+@pytest.mark.parametrize("vdim", [2, 3])
+def test_shifts_plan_array_and_limits(shape, vdim):
+    """The array the C function checks: {threads, nodes a thread, run,
+    stride, columns, planes, ranges, blocks, m_lo, m_hi, stages, win_lo,
+    row_floats, shared bytes}, then two rows of MAX_GROUPS slots (each
+    group's plane, its offset in the window); the ring's shared bytes
+    within a block's limit, and what the wrapper sizes the grid by."""
+    N = int(np.prod(shape))
+    deltas = _stencil_deltas(shape)
+    plan = fp.shifts_plan(N, deltas, vdim, 132, 7)
+    a = plan.c_array
+    assert a.dtype == np.int32 and len(a) == 14 + 2 * fp.MAX_GROUPS
+    assert list(a[:14]) == [
+        fp.SHIFTS_THREADS, fp.SHIFTS_NODES, plan.run, plan.stride,
+        -(-plan.stride // plan.run), -(-N // plan.stride), plan.ranges,
+        plan.blocks, plan.m_lo, plan.m_hi, plan.stages, plan.win_lo,
+        plan.row_floats, plan.smem_bytes]
+    rows = a[14:].reshape(2, fp.MAX_GROUPS)
+    for row, want in zip(rows, (plan.group_plane, plan.group_off)):
+        assert list(row[:len(want)]) == list(want)
+        assert not row[len(want):].any()
+    assert plan.row_floats % 4 == 0
+    assert plan.stages == plan.m_hi - plan.m_lo + 1 + fp.SHIFTS_AHEAD
+    assert plan.smem_bytes == fp.shifts_smem_bytes(deltas, vdim) \
+        == 4 * plan.stages * vdim * plan.row_floats <= fp.MAX_SMEM
+    for (first, _), m, off in zip(sk.row_groups(len(deltas)),
+                                  plan.group_plane, plan.group_off):
+        assert off == deltas[first] - m * plan.stride - plan.win_lo >= 0
+
+
+def test_shifts_plan_at_the_main_paths_shapes(monkeypatch):
+    """The flagship's v3 level: runs of 512 nodes in 9 columns a stride of
+    4,291 (the distance of the middle plane's x from the upper one's), 159
+    planes; each plane's window the middle segment csz stages, 648 floats
+    a component, in a ring of 4; each column cut into 58 ranges, 522
+    blocks on an H100 (four an SM), the first 43 ranges of 3 planes, the
+    rest of 2: 11 runs on the busiest SM where the card gives block b to
+    SM b mod 132, as few as 1,431 runs allow.  A 1D grid walks consecutive
+    runs, its one window a plane.  The heat slice's v1 takes no plan.  A
+    ring beyond MAX_STAGES is refused."""
+    flagship = _deltas((161, 65, 65))
+    plan = fp.shifts_plan(161 * 65 * 65, flagship, 3, 132, 7)
+    assert (plan.run, plan.stride, plan.columns, plan.planes) == \
+        (512, 4291, 9, 159)
+    assert (plan.m_lo, plan.m_hi, plan.stages) == (-1, 1, 4)
+    assert plan.group_plane == (-1, -1, 0, 0, 0, 1, 1)
+    csz = fp.csz_plan(161 * 65 * 65, flagship, 3)
+    assert plan.win_lo == csz.seg_lo[1]
+    assert plan.row_floats == 4 * csz.seg_chunks[1] == 648
+    assert plan.smem_bytes == 4 * 4 * 3 * 648
+    assert (plan.ranges, plan.blocks) == (58, 522)
+    assert [plan.block_planes(b) for b in (0, 1, 386, 387, 521)] == \
+        [(0, 0, 3), (1, 0, 3), (8, 126, 129), (0, 129, 131), (8, 157, 159)]
+    lengths = [e - s for _, s, e in map(plan.block_planes,
+                                        range(plan.blocks))]
+    assert max(sum(lengths[m::132]) for m in range(132)) == 11 == \
+        -(-plan.columns * plan.planes // 132)
+    line = fp.shifts_plan(5000, _stencil_deltas((5000,)), 3, 3, 1)
+    assert (line.stride, line.columns, line.m_lo, line.m_hi) == \
+        (512, 1, 0, 0)
+    assert (line.blocks, line.stages) == (3, 2)
+    assert [line.block_planes(b) for b in range(3)] == \
+        [(0, 0, 4), (0, 4, 7), (0, 7, 10)]
+    assert 1 not in fp.SHIFTS_STAGED_VDIMS
+    monkeypatch.setattr(fp, "SHIFTS_AHEAD", fp.MAX_STAGES)
+    fp.shifts_plan.cache_clear()
+    with pytest.raises(ValueError, match="windows"):
+        fp.shifts_plan(161 * 65 * 65, flagship, 3, 132, 7)
+    fp.shifts_plan.cache_clear()
+
+
+@pytest.mark.parametrize("planes,columns,sms,per_sm,want", [
+    (159, 9, 132, 7, 58),      # the flagship: four blocks an SM
+    (129, 17, 132, 2, 15),     # an SM that holds two
+    (129, 17, 132, 3, 23),     # three
+    (5, 1, 3, 1, 3),
+    (2, 1, 132, 7, 2),         # fewer planes than blocks: one a block
+    (10, 500, 132, 1, 1)])     # more columns than the card holds
+def test_shifts_ranges_fill_the_card_in_one_wave(planes, columns, sms,
+                                                 per_sm, want):
+    assert fp.shifts_ranges(planes, columns, sms, per_sm) == want
