@@ -163,6 +163,25 @@
      ``solve_elasticity_2D_modal(nx=96, ny=24, num_modes=2)`` (4,850 DOF,
      flat CG on K1 v2), each against ``scipy.sparse.linalg.eigsh`` of the
      same pencil on the free DOFs (host float64), frequencies within 1e-6.
+11. The service layer (``service_phase``), the entry points a user reaches:
+   - the port's MCP server, ``python -m pde_solver_tpu_torch.mcp.server``,
+     started with no ``PDE_TPU_DEVICE`` (the card), ``PDE_TPU_CS=0`` and
+     INFO logging to ``build/service/server.log``, spoken to in raw
+     JSON-RPC lines (``JsonRpcPipe``: every stdout line must be the reply
+     to the request just sent, and nothing may follow the last):
+     initialize, tools/list (the 31 names of the port's ``LocalToolSet``),
+     the flagship (2,040,675 DOF), which must converge in the iterations of
+     the in-process dense run of 6 and lie within 1e-6·max of its field
+     (printed: the gap, the served and in-process wall seconds, the
+     server's INFO lines and the kernel launches of its tool call, added
+     to the main paths' launches), then the plot of the served field (its
+     seconds and bytes; the HTML holds ``Plotly.newPlot`` and the figure
+     JSON), then an unknown tool (``isError``);
+   - the nine chat examples of ``pde_solver_tpu_torch/app.py`` in process,
+     each through ``MultiAgentOrchestrator(llm=None, memory_file=None)``
+     on the port's ``LocalToolSet``, each a main path of its own: each
+     must return a data file and a plot with no error (printed: the tool
+     it routed to, DOF, seconds, iterations, launches).
 
 Fails loudly at the first failed check (non-zero exit, no result line).
 Prints, before the last line, the card line and a JSON line with, for each
@@ -176,7 +195,7 @@ kernels also ``cold_device_ms`` and ``cold_share``, with the L2 emptied
 between launches (null for the dense ones), and for the probes that read
 weights ``bf16`` (the times with bfloat16 weights, by shape).  The last line is ``{"ok":
 true, "device": {...}}``.  Needs no network; writes only under
-``build/``.
+``build/``; the server process it starts ends before it does.
 """
 
 from __future__ import annotations
@@ -357,6 +376,11 @@ ENERGY_TOL = 0.1
 MODAL_3D = dict(nx=48, ny=12, nz=12, num_modes=2)
 MODAL_2D = dict(nx=96, ny=24, num_modes=2)
 MODAL_TOL = 1e-6
+# the service phase: the port's MCP server as a subprocess, the flagship
+# served and plotted, then the nine chat examples in process
+SERVER_CMD = ("-m", "pde_solver_tpu_torch.mcp.server")
+SERVED_TOL = 1e-6        # served against in-process von Mises, ·max|vm|
+SERVE_TIMEOUT = 600.0    # seconds for one reply of the server
 
 
 def check(ok: bool, msg: str) -> None:
@@ -2779,6 +2803,264 @@ def modal_phase(api, drive, data_dir, box=MODAL_3D, plate=MODAL_2D):
     linsolve._MG_CACHE.clear()
 
 
+class JsonRpcPipe:
+    """Raw JSON-RPC 2.0 lines to and from a server subprocess.  Every line
+    the server writes to stdout must be the JSON-RPC reply to the request
+    just sent: a stray print (the port's, a build's, a warning's) fails the
+    run, where a client that skips lines that are not JSON would let it
+    pass."""
+
+    def __init__(self, cmd, env, cwd, stderr):
+        self.proc = subprocess.Popen(cmd, stdin=subprocess.PIPE,
+                                     stdout=subprocess.PIPE, stderr=stderr,
+                                     env=env, cwd=cwd)
+        self.buf = b""
+        self.next_id = 0
+
+    def _line(self, timeout: float) -> bytes:
+        import select
+
+        fd = self.proc.stdout.fileno()
+        deadline = time.monotonic() + timeout
+        while b"\n" not in self.buf:
+            left = deadline - time.monotonic()
+            check(left > 0, f"the server sent no reply in {timeout:.0f} s")
+            ready, _, _ = select.select([fd], [], [], left)
+            if ready:
+                chunk = os.read(fd, 1 << 20)
+                check(chunk != b"", f"the server closed its stdout (exit "
+                      f"code {self.proc.poll()})")
+                self.buf += chunk
+        line, self.buf = self.buf.split(b"\n", 1)
+        return line
+
+    def _send(self, msg) -> None:
+        self.proc.stdin.write((json.dumps(msg) + "\n").encode())
+        self.proc.stdin.flush()
+
+    def request(self, method, params=None, timeout=SERVE_TIMEOUT):
+        self.next_id += 1
+        msg = {"jsonrpc": "2.0", "id": self.next_id, "method": method}
+        if params is not None:
+            msg["params"] = params
+        self._send(msg)
+        raw = self._line(timeout)
+        try:
+            reply = json.loads(raw)
+        except json.JSONDecodeError:
+            reply = None
+        check(isinstance(reply, dict) and reply.get("jsonrpc") == "2.0"
+              and reply.get("id") == self.next_id and "result" in reply,
+              f"server stdout line after {method} is not its JSON-RPC "
+              f"reply: {raw[:300]!r}")
+        return reply["result"]
+
+    def notify(self, method) -> None:
+        self._send({"jsonrpc": "2.0", "method": method})
+
+    def call_tool(self, name, arguments, timeout=SERVE_TIMEOUT):
+        """tools/call: (decoded payload, wall s); fails on ``isError``."""
+        t = time.perf_counter()
+        result = self.request("tools/call", {"name": name,
+                                             "arguments": arguments}, timeout)
+        wall = time.perf_counter() - t
+        text = "".join(c.get("text", "") for c in result.get("content", []))
+        check(result.get("isError") is False,
+              f"tools/call {name} failed: {text[-3000:]}")
+        return json.loads(text), wall
+
+    def close(self, timeout: float = 60.0) -> None:
+        """End of input: the server must exit 0 and write nothing more."""
+        self.proc.stdin.close()
+        try:
+            self.proc.wait(timeout)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+            check(False, f"the server did not exit in {timeout:.0f} s")
+        rest = self.buf + self.proc.stdout.read()
+        self.proc.stdout.close()
+        check(rest.strip() == b"", f"the server wrote {rest[:300]!r} after "
+              "its last reply")
+        check(self.proc.returncode == 0,
+              f"the server exited with code {self.proc.returncode}")
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def call_launches(lines, tool: str):
+    """Seconds and kernel launches of the server's last call of ``tool``,
+    from its ``tools/call`` INFO line."""
+    import re
+
+    found = [m for m in (re.search(rf"tools/call {tool}: ([0-9.]+) s, "
+                                   r"kernel launches (\{.*\})$", line)
+                         for line in lines) if m]
+    check(bool(found), f"no tools/call line of {tool} in the server log")
+    return float(found[-1].group(1)), json.loads(found[-1].group(2))
+
+
+def read_figure(html_path):
+    """The figure JSON of a plot tool's HTML."""
+    import re
+
+    with open(html_path, encoding="utf-8") as f:
+        html = f.read()
+    check("Plotly.newPlot" in html, f"{html_path}: no Plotly.newPlot")
+    m = re.search(r"var fig = (\{.*?\});\nvar config", html, re.S)
+    check(m is not None, f"{html_path}: no figure JSON")
+    return json.loads(m.group(1)), len(html.encode())
+
+
+def service_phase(counted, flagship, vm_ref, ref_iterations, ref_wall,
+                  work_dir, wanted=("v3_f32", "v3_bf16", "v1_f32"),
+                  device="cuda", server_env=None, examples=None):
+    """The system's entry points on the card.  The port's MCP server, started
+    as ``python -m pde_solver_tpu_torch.mcp.server`` with no
+    ``PDE_TPU_DEVICE`` (the card is its default) and INFO logging to
+    ``<work_dir>/server.log``, spoken to in raw JSON-RPC lines: initialize,
+    tools/list (the 31 names of the port's ``LocalToolSet``), the flagship
+    (``flagship``, the dense route, ``PDE_TPU_CS=0``) held against the
+    in-process field ``vm_ref`` of the same solve and its iterations, the
+    plot of the served field, a call of an unknown tool (``isError``); its
+    stdout must hold the replies and nothing else.  Then the nine chat
+    examples of ``pde_solver_tpu_torch/app.py`` in process, each through a
+    ``MultiAgentOrchestrator(llm=None, memory_file=None)`` on the port's
+    ``LocalToolSet``, each a main path of its own (``counted(label, fn)`` →
+    (result, launches, wall s)).  Returns the served flagship's launches.
+    A CPU rehearsal passes ``server_env`` (``PDE_TPU_DEVICE=cpu``), a small
+    ``flagship`` with its own reference, ``wanted=()`` and ``device="cpu"``
+    (the examples then run under ``config_overrides(device="cpu")``)."""
+    import asyncio
+    import contextlib
+
+    import numpy as np
+
+    from pde_solver_tpu_torch import app, config
+    from pde_solver_tpu_torch.agents.dispatcher_agent import LocalToolSet
+    from pde_solver_tpu_torch.agents.orchestrator import \
+        MultiAgentOrchestrator
+    from pde_solver_tpu_torch.fields import load_field
+
+    os.makedirs(work_dir, exist_ok=True)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PDE_TPU_DEVICE", "OPENAI_API_KEY")}
+    env.update(PDE_TPU_LOG_LEVEL="INFO", PDE_TPU_CS="0", **(server_env or {}))
+    names = asyncio.run(LocalToolSet().tool_names())
+    log_path = os.path.join(work_dir, "server.log")
+    t0 = time.perf_counter()
+    with open(log_path, "wb") as log:
+        pipe = JsonRpcPipe([sys.executable, *SERVER_CMD], env, root, log)
+        try:
+            init = pipe.request("initialize", {
+                "protocolVersion": "2024-11-05", "capabilities": {},
+                "clientInfo": {"name": "chip_smoke", "version": "0"}})
+            start_s = time.perf_counter() - t0
+            pipe.notify("notifications/initialized")
+            tools = [t["name"] for t in pipe.request("tools/list")["tools"]]
+            print(f"service: server {init['serverInfo']} up in {start_s:.3f} "
+                  f"s; tools/list {len(tools)} tools", flush=True)
+            check(len(tools) == 31 and sorted(tools) == sorted(names),
+                  f"tools/list {tools} is not the LocalToolSet's {names}")
+
+            payload, wall = pipe.call_tool(
+                "solve_elasticity_3D_static",
+                dict(flagship, data_dir=os.path.join(work_dir, "data")))
+            with open(log_path, encoding="utf-8", errors="replace") as f:
+                lines = f.read().splitlines()
+            server_s, launches = call_launches(lines,
+                                               "solve_elasticity_3D_static")
+            for line in lines:
+                if any(w in line for w in ("hierarchy", "df2 round",
+                                           "elasticity solve", "tools/call")):
+                    print(f"  server: {line}", flush=True)
+            st = payload["meta"]["solver_stats"]
+            vm = load_field(payload["data_file"]).values_array()
+            gap = float(np.abs(vm - vm_ref).max() / np.abs(vm_ref).max())
+            print(f"service flagship: served {wall:.3f} s wall ({server_s:.3f}"
+                  f" s in the server's tool call) vs {ref_wall:.3f} s in "
+                  f"process; iterations {st['cg_iterations']} ({ref_iterations}"
+                  f" in process); relres {st['relative_residual']:.3e}; max|Δvm|"
+                  f"/max|vm| against the in-process field {gap:.3e}; "
+                  f"launches {launches}", flush=True)
+            check(st["converged"] is True, f"served flagship: {st}")
+            check(type(st["cg_iterations"]) is int
+                  and st["cg_iterations"] == ref_iterations,
+                  f"served flagship took {st['cg_iterations']} iterations, "
+                  f"{ref_iterations} in process")
+            check(vm.shape == vm_ref.shape and bool(np.all(np.isfinite(vm))),
+                  f"served field {vm.shape}")
+            check(gap <= SERVED_TOL, f"served flagship off the in-process "
+                  f"field by {gap:.3e}")
+            for name in wanted:
+                check(launches.get(name, 0) > 0,
+                      f"the served flagship launched no {name}")
+
+            plot, plot_s = pipe.call_tool(
+                "plot_time_series_field_from_file",
+                {"data_file": payload["data_file"],
+                 "output_dir": os.path.join(work_dir, "plots")})
+            fig, size = read_figure(plot["html_path"])
+            print(f"service plot: {plot_s:.3f} s, {size} bytes, "
+                  f"{fig['data'][0]['type']} of {len(fig['data'][0]['x'])} "
+                  f"points ({plot['html_path']})", flush=True)
+            check(fig["data"][0]["type"] == "volume"
+                  and len(fig["frames"]) == 1, "served plot: not the "
+                  "flagship's volume")
+            bad = pipe.request("tools/call", {"name": "does_not_exist",
+                                              "arguments": {}})
+            check(bad.get("isError") is True, f"unknown tool: {bad}")
+            pipe.close()
+        finally:
+            pipe.kill()
+    print(f"service server: {time.perf_counter() - t0:.3f} s from start to "
+          f"exit; every stdout line a JSON-RPC reply", flush=True)
+
+    class Recorded(LocalToolSet):
+        """The port's LocalToolSet, recording the tools called."""
+
+        def __init__(self):
+            super().__init__()
+            self.called = []
+
+        async def call(self, name, args):
+            self.called.append(name)
+            return await super().call(name, args)
+
+    os.environ.pop("OPENAI_API_KEY", None)
+    check(config.get_config().device == device,
+          f"the examples run on {config.get_config().device}, not {device}")
+    with contextlib.chdir(work_dir):
+        for i, q in enumerate(examples or app.EXAMPLES):
+            toolset = Recorded()
+            orch = MultiAgentOrchestrator(llm=None, memory_file=None,
+                                          toolset=toolset)
+            res, ex_launches, wall = counted(
+                f"example {i + 1}", lambda: asyncio.run(orch.solve(q)))
+            check("error" not in res and res.get("data_file")
+                  and res.get("html_path"), f"example {i + 1} ({q}): "
+                  f"{res.get('error') or res}")
+            check(os.path.exists(res["data_file"])
+                  and os.path.exists(res["html_path"]),
+                  f"example {i + 1}: no artifacts")
+            values = load_field(res["data_file"]).values_array()
+            st = res["dispatch_result"]["solver_result"]["meta"]["solver_stats"]
+            print(f"example {i + 1}: {toolset.called[0]} dof="
+                  f"{st.get('num_dofs')} nodes={values.shape[-1]} "
+                  f"frames={values.shape[0]} {wall:.3f} s iterations="
+                  f"{st.get('cg_iterations')} launches={ex_launches} "
+                  f"plot={os.path.basename(res['html_path'])}", flush=True)
+            check(bool(np.all(np.isfinite(values))),
+                  f"example {i + 1}: non-finite values")
+            check(toolset.called[-1] == "plot_time_series_field_from_file",
+                  f"example {i + 1}: tools {toolset.called}")
+    return launches
+
+
 class MainPaths:
     """The main-path runs' bookkeeping: the launch counts set to 0 just
     before a run and read just after, in all (``main_launches``) and by run
@@ -2794,6 +3076,7 @@ class MainPaths:
         self.by_operator = {}
         self.level_ms = {}
         self.cs_level_ms = {}
+        self.walls = {}
 
     def counted(self, label, cs, fn):
         """fn() with ``PDE_TPU_CS`` = cs: (result, launches, wall s)."""
@@ -2814,6 +3097,7 @@ class MainPaths:
         for k, v in launches.items():
             self.main_launches[k] = self.main_launches.get(k, 0) + v
         self.path_launches[label] = launches
+        self.walls[label] = wall
         return res, launches, wall
 
     def run(self, label, cs, fn):
@@ -2983,6 +3267,9 @@ def main() -> int:
                                                        data_dir=data_dir))
         vm = field(res)[0]
         vm_runs[cs] = vm
+        if cs == "0":
+            served_ref = (vm, st["cg_iterations"],
+                          paths.walls[f"flagship PDE_TPU_CS={cs}"])
         print(f"flagship PDE_TPU_CS={cs}: max_von_mises="
               f"{np.abs(vm).max():.6e} Pa", flush=True)
         check(st["num_dofs"] == 2_040_675, f"dof count {st['num_dofs']}")
@@ -3118,6 +3405,18 @@ def main() -> int:
         t0 = time.perf_counter()
         modal_phase(api, drive, data_dir)
         print(f"phase modal: {time.perf_counter() - t0:.3f} s", flush=True)
+
+    # -- the service layer: MCP server, plot, chat examples ------------------
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    served = service_phase(
+        lambda label, fn: paths.counted(label, "0", fn), FLAGSHIP,
+        *served_ref, os.path.join(root, "build", "service"))
+    del served_ref
+    paths.path_launches["service flagship (server process)"] = served
+    for k, v in served.items():
+        paths.main_launches[k] = paths.main_launches.get(k, 0) + v
+    print(f"phase service: {time.perf_counter() - t0:.3f} s", flush=True)
 
     noffs = {key[3] for key in by_operator}
     print(f"dense operators launched on the main paths: offset counts "

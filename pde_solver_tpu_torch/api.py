@@ -3,7 +3,8 @@ and 3D, the four ``_mixed`` heat tools (Robin, flux and periodically driven
 faces), the two nonlinear-conductivity tools, advection-diffusion 1D, 2D
 and 3D, the five curvilinear heat tools, static elasticity 1D, 2D and 3D,
 the three ``_loaded`` elasticity tools, 2D and 3D modal analysis, 3D
-elastodynamics and the wave equation 1D, 2D and 3D (Newmark-β).
+elastodynamics, the wave equation 1D, 2D and 3D (Newmark-β), and the two
+plot tools (host numpy/scipy, ``pde_solver_tpu_torch.viz``): all 31.
 
 Names, signatures, defaults, artifact layout and result metadata match
 ``pde_solver_tpu.api`` exactly (tests compare ``inspect.signature``).  Every
@@ -20,7 +21,8 @@ from typing import Optional
 
 import numpy as np
 
-from pde_solver_tpu_torch.fields import SolveResult, TimeSeriesField, save_field
+from pde_solver_tpu_torch.fields import (PlotResult, SolveResult,
+                                         TimeSeriesField, save_field)
 from pde_solver_tpu_torch.mesh import (StructuredMesh, box_mesh,
                                        flatten_values, interval_mesh,
                                        rectangle_mesh)
@@ -1493,3 +1495,47 @@ def solve_wave_3D(
     }
     field = _pack(mesh, embed_identity3, times, values, 3, meta, stats)
     return _result(field, data_dir, "wave_3d")
+
+
+# ======================================================================
+# Plotting (implemented in pde_solver_tpu_torch.viz, re-exported here)
+# ======================================================================
+
+def plot_time_series_field_from_file(
+    data_file: str,
+    field_name: Optional[str] = None,
+    unit: Optional[str] = None,
+    output_dir: str = "plots",
+    filename: Optional[str] = None,
+) -> PlotResult:
+    """Load a pickled TimeSeriesField and render an animated HTML plot.
+
+    Reference tool: fenics_mcp_server.py:2764-2937.
+    """
+    from pde_solver_tpu_torch.viz.plots import plot_time_series_field_from_file as impl
+    return impl(data_file=data_file, field_name=field_name, unit=unit,
+                output_dir=output_dir, filename=filename)
+
+
+def plot_time_series_field(
+    coords,
+    values,
+    times,
+    dim: int = 1,
+    field_name: str = "u",
+    unit: str = "",
+    output_dir: str = "plots",
+    filename: str = "field_timeseries_3d.html",
+    domain_bounds=None,
+    geometry_type: Optional[str] = None,
+    geometry_params=None,
+) -> PlotResult:
+    """Render raw arrays into an animated HTML plot.
+
+    Reference tool: fenics_mcp_server.py:3409-4140.
+    """
+    from pde_solver_tpu_torch.viz.plots import plot_time_series_field as impl
+    return impl(coords=coords, values=values, times=times, dim=dim,
+                field_name=field_name, unit=unit, output_dir=output_dir,
+                filename=filename, domain_bounds=domain_bounds,
+                geometry_type=geometry_type, geometry_params=geometry_params)

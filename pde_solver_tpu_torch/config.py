@@ -75,6 +75,9 @@ class SolverConfig:
 
 
 _GLOBAL = SolverConfig(
+    # PDE_TPU_DEVICE=cpu is the only way to send a subprocess (the MCP
+    # server) to the CPU; unset, every entry point runs on the card
+    device=os.environ.get("PDE_TPU_DEVICE", "cuda"),
     precision=os.environ.get("PDE_TPU_PRECISION", "auto"),
     tol=float(os.environ.get("PDE_TPU_TOL", 1e-11)),
     transient_checkpoint_every=int(

@@ -105,7 +105,25 @@ def test_port_never_imports_jax():
             " pde_solver_tpu_torch.models.advection,"
             " pde_solver_tpu_torch.models.wave,"
             " pde_solver_tpu_torch.ops.floor_probes,"
-            " pde_solver_tpu_torch.ops.eigen;"
+            " pde_solver_tpu_torch.ops.eigen,"
+            " pde_solver_tpu_torch.viz.figjson,"
+            " pde_solver_tpu_torch.viz.resample,"
+            " pde_solver_tpu_torch.viz.plots,"
+            " pde_solver_tpu_torch.schema,"
+            " pde_solver_tpu_torch.mcp.server,"
+            " pde_solver_tpu_torch.mcp.client,"
+            " pde_solver_tpu_torch.agents.llm,"
+            " pde_solver_tpu_torch.agents.memory,"
+            " pde_solver_tpu_torch.agents.parser_agent,"
+            " pde_solver_tpu_torch.agents.dispatcher_agent,"
+            " pde_solver_tpu_torch.agents.orchestrator,"
+            " pde_solver_tpu_torch.app;"
+            "from pde_solver_tpu_torch.api import ("
+            " plot_time_series_field_from_file, plot_time_series_field);"
+            "assert len(pde_solver_tpu_torch.mcp.server.default_tools()) == 31;"
+            "pde_solver_tpu_torch.agents.dispatcher_agent.LocalToolSet();"
+            "pde_solver_tpu_torch.agents.orchestrator.MultiAgentOrchestrator("
+            " llm=None, memory_file=None);"
             "from pde_solver_tpu_torch.api import (solve_heat_3D,"
             " solve_heat_1D, solve_heat_2D, solve_heat_1D_cylindrical,"
             " solve_heat_1D_spherical, solve_heat_2D_cylindrical,"
