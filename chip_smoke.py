@@ -138,9 +138,9 @@
    main path, counts 0 before and read after: the entry point
    ``floor_probes.kernel_floor`` on the flagship's operator.
 10. The Newmark and modal tools, each run a main path of its own:
-   - full width, ``solve_wave_3D(nx=ny=nz=128, dt=0.01, num_steps=20)``
-     (2,146,689 DOF, the default sine mode): MG-PCG per step (counted),
-     ``PDE_TPU_CS`` 0 and 1 (CS levels exactly 129³ and 65³), against the
+   - ``solve_wave_3D(nx=ny=nz=96, dt=0.01, num_steps=20)`` (912,673 DOF,
+     the default sine mode; cut from 128³): MG-PCG per step (counted),
+     ``PDE_TPU_CS`` 0 and 1 (CS levels exactly 97³ and 49³), against the
      standing mode Π sin(πxᵢ) cos(√3πt) within a bound derived from the
      scheme's period error and the mesh's, against a float64 Newmark of
      the same M, K on the card (sparse CSR, Jacobi-PCG to 1e-12),
@@ -163,7 +163,33 @@
      ``solve_elasticity_2D_modal(nx=96, ny=24, num_modes=2)`` (4,850 DOF,
      flat CG on K1 v2), each against ``scipy.sparse.linalg.eigsh`` of the
      same pencil on the free DOFs (host float64), frequencies within 1e-6.
-11. The service layer (``service_phase``), the entry points a user reaches:
+11. The precision scheme (``precision_phase``), each run a main path of
+   its own (counts 0 before, read after):
+   - the flagship under ``precision="f64"``: MG-PCG (``solve_mg``) on a
+     float64 hierarchy, plain torch applies, no kernel launch at all;
+     prints the hierarchy and ``solve_mg`` seconds, the time an iteration,
+     the peak device memory, and the aten operations (each one kernel
+     launch or more) of one V-cycle and of its 60-iteration coarse CG;
+     holds the reported relres (the true residual, where the JAX package
+     reports CG's recurrence) against a host float64 recomputation from
+     the same x̂ within 1e-6 relative, ``converged`` exactly relres ≤
+     target, and, when converged, the field within 1e-6·max of the
+     "mixed" dense flagship of 6;
+   - the flagship under ``precision="f32"``: flat CG on K1 v3 f32 at
+     max(inner_tol, 1e-7), ``converged`` reported as it comes;
+   - ``solve_heat_3D`` at 128³ (20 steps) under "f64": MG-PCG on a float64
+     hierarchy to ``tol`` each step, within 3e-4·max|T| of the float32 run
+     of 6, no kernel launch; and the 40×6×6 transient of 5 within
+     1e-8·max|T| of its host float64 backward Euler;
+   - ``solve_elasticity_3D_dynamic`` on the flagship's mesh under "f64":
+     the energy share beside the float32 one of 10 (finite, and below it);
+   - checkpointed scans at the card's default precision: a 40×6×6 heat
+     transient and the 40×16×16 cantilever, checkpointed every 2 steps,
+     aborted after one chunk (``_CKPT_TEST_ABORT``) and resumed, bit for
+     bit the uncheckpointed run;
+   - the 16×8×8 cantilever of 5 with ``PDE_TPU_BF16_SMOOTHER`` 1 and 0:
+     at 0 no bf16 launch, more f32 ones, the same field within 1e-6.
+12. The service layer (``service_phase``), the entry points a user reaches:
    - the port's MCP server, ``python -m pde_solver_tpu_torch.mcp.server``,
      started with no ``PDE_TPU_DEVICE`` (the card), ``PDE_TPU_CS=0`` and
      INFO logging to ``build/service/server.log``, spoken to in raw
@@ -349,10 +375,12 @@ PROBE_REPLACES = {"wonly": "benchmarks/kernel_floor.py:63",
 PROBE_NO_LIBRARY = ("no single PyTorch call computes a shifted stencil sum "
                     "with tiled weights or masked face sets")
 FLOOR_REPS = 20
-# the Newmark slice at full width: the wave equation on 128³ cells (the
-# default sine mode, Π sin(πxᵢ) cos(√3πt)), and the flagship's cantilever
+# the Newmark slice: the wave equation on 96³ cells (the default sine
+# mode, Π sin(πxᵢ) cos(√3πt); cut from 128³, whose host projection of the
+# sine field took 41–50 s a run, to make room for the precision phase),
+# and the flagship's cantilever
 # released under gravity; the latter also at 40×16×16 against the host
-WAVE_3D = dict(nx=128, ny=128, nz=128, dt=0.01, num_steps=20)
+WAVE_3D = dict(nx=96, ny=96, nz=96, dt=0.01, num_steps=20)
 DYNAMIC_3D = dict(Lx=1.0, Ly=0.2, Lz=0.2, nx=160, ny=64, nz=64,
                   body_fz=-7.65e4, dt=1e-4, num_steps=10)
 DYNAMIC_SMALL = dict(DYNAMIC_3D, nx=40, ny=16, nz=16)
@@ -2545,7 +2573,8 @@ def newmark_phase(api, run, hold_cs, data_dir, wave=WAVE_3D,
     with its energy balance, and at a small size against a float64 Newmark
     (on ``device``, or by sparse LU on the host without one);
     ``solve_wave_1D`` / ``solve_wave_2D`` at
-    their default sizes against their standing modes."""
+    their default sizes against their standing modes.  Returns the
+    full-width cantilever's energy share."""
     import numpy as np
 
     from pde_solver_tpu_torch.config import config_overrides
@@ -2674,6 +2703,7 @@ def newmark_phase(api, run, hold_cs, data_dir, wave=WAVE_3D,
           f"against 2× the static deflection {static:.3e}")
     check(share <= ENERGY_TOL, f"{label}: energy balance off by "
           f"{share:.3e} of fᵀu")
+    beam_share = share
     del K_np, M_np, nres, mag
     del calls[:]
 
@@ -2735,6 +2765,7 @@ def newmark_phase(api, run, hold_cs, data_dir, wave=WAVE_3D,
               f"{tool} off its standing mode by {err:.3e}")
         check(launches.get("v1_f32", 0) > 0, f"{tool} launched no v1_f32")
         del calls[:]
+    return beam_share
 
 
 def modal_phase(api, drive, data_dir, box=MODAL_3D, plate=MODAL_2D):
@@ -2801,6 +2832,393 @@ def modal_phase(api, drive, data_dir, box=MODAL_3D, plate=MODAL_2D):
         for name in wanted:
             check(launches.get(name, 0) > 0, f"{tool} launched no {name}")
     linsolve._MG_CACHE.clear()
+
+
+# the precision phase.  The f64 flagship's reported relres (the true
+# residual, evaluated on the card) against a host float64 recomputation
+# from the same x̂.  Small meshes end their solve at ~2e-11 of ‖b̂‖, where
+# the residual is mostly rounding noise and two float64 evaluations of it
+# differ in the second or third digit, so a CPU rehearsal passes
+# FLOOR_RELRES_TOL; both bounds tell the true residual from CG's
+# recurrence, which ends below ``tol`` = 1e-11
+PRECISION_RELRES_TOL = 1e-6
+FLOOR_RELRES_TOL = 5e-2
+SMALL_HEAT_F64_TOL = 1e-8     # the 40×6×6 float64 scan, ·max|T|
+# the float64 Newmark energy share against the float32 one: a float64 scan
+# closes the balance to rounding (~1e-12), a float32 one to ~1e-4 or worse,
+# so a scan that ran float32 somewhere cannot pass
+DYNAMIC_F64_SHARE = 1e-6
+CKPT_EVERY = 2
+# aten operations that only make views: they launch no kernel
+VIEW_OPS = frozenset((
+    "view", "_unsafe_view", "slice", "select", "expand", "t", "transpose",
+    "reshape", "unsqueeze", "squeeze", "permute", "as_strided", "alias",
+    "detach", "_reshape_alias", "lift_fresh"))
+
+
+def spy_stats(linsolve):
+    """Record (scaled system, x̂ on the host, reported relres) of every
+    device solve of ``solve_stencil_system``'s f64 and f32 branches;
+    returns the list and the function that removes the spy."""
+    calls = []
+    orig = linsolve._stats_result
+
+    def spy(sysm, xh, k, relres, tol_used, cfg):
+        calls.append((sysm, xh.detach().cpu().numpy(), relres))
+        return orig(sysm, xh, k, relres, tol_used, cfg)
+
+    linsolve._stats_result = spy
+    return calls, lambda: setattr(linsolve, "_stats_result", orig)
+
+
+def timed_calls(module, name, device):
+    """Wall seconds of every call of ``module.name`` (the device
+    synchronised around it); returns the list and the undo function."""
+    import torch
+
+    secs = []
+    orig = getattr(module, name)
+
+    def timed(*a, **kw):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = orig(*a, **kw)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        return out
+
+    setattr(module, name, timed)
+    return secs, lambda: setattr(module, name, orig)
+
+
+def aten_ops(fn) -> int:
+    """The aten operations fn dispatches, views left out: each launches one
+    kernel or more on the card."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.overloadpacket.__name__ not in VIEW_OPS:
+                Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def host_relres_of(sysm, xh) -> float:
+    """‖b̂ − Â x̂‖/‖b̂‖ on the host in float64, from the solver's own x̂."""
+    import numpy as np
+
+    from pde_solver_tpu_torch.ops.linsolve import np_stencil_apply
+
+    vdim = xh.shape[-1] if sysm.scale_kind == "block" else 1
+    r = sysm.b_hat - np_stencil_apply(dict(zip(sysm.offsets, sysm.weights)),
+                                      xh, sysm.free.ndim - (vdim > 1), vdim)
+    return float(np.linalg.norm(r.reshape(-1))
+                 / np.linalg.norm(sysm.b_hat.reshape(-1)))
+
+
+def precision_phase(api, counted, data_dir, vm_mixed, T_f32, T_small_ref,
+                    share_f32, flagship=FLAGSHIP, heat=HEAT,
+                    small_heat=SMALL_HEAT, beam=DYNAMIC_3D,
+                    ckpt_beam=DYNAMIC_SMALL, small=SMALL, device="cuda",
+                    relres_tol=PRECISION_RELRES_TOL):
+    """The precision scheme through the API, each run counted by
+    ``counted(label, fn) → (result, launches, wall s)``: the flagship at
+    float64 and float32, the heat slice and the 40×6×6 transient at
+    float64, the released cantilever at float64, checkpointed scans
+    aborted and resumed, and the bf16-smoother switch.  ``vm_mixed``,
+    ``T_f32``: the "mixed" flagship's von Mises field and the float32 heat
+    trajectory of the main paths; ``T_small_ref``: the host float64
+    backward Euler of ``small_heat``; ``share_f32``: the float32 energy
+    share of ``beam``.  A CPU rehearsal passes small sizes,
+    ``device="cpu"`` (launches are then not counted) and
+    ``relres_tol=FLOOR_RELRES_TOL``.  Returns the numbers PERF.md keeps."""
+    import numpy as np
+    import torch
+
+    from pde_solver_tpu_torch.config import config_overrides, get_config
+    from pde_solver_tpu_torch.ops import linsolve, timestepping
+    from pde_solver_tpu_torch.ops import multigrid as mg
+
+    cuda = device == "cuda"
+    out = {}
+
+    def gap(a, b):
+        return float(np.abs(a - b).max() / np.abs(b).max())
+
+    def peak_gib():
+        return (torch.cuda.max_memory_allocated() / 2 ** 30 if cuda
+                else float("nan"))
+
+    # -- 1. the flagship at float64: solve_mg on a float64 hierarchy ----------
+    cells = (flagship["nx"], flagship["ny"], flagship["nz"])
+    nodes = int(np.prod([c + 1 for c in cells]))
+    solves, unspy = spy_stats(linsolve)
+    builds, unbuild = timed_calls(mg, "build_hierarchy", device)
+    mg_secs, unsolve = timed_calls(mg, "solve_mg", device)
+    linsolve._MG_CACHE.clear()
+    try:
+        with config_overrides(precision="f64"):
+            res, launches, wall = counted("flagship f64", lambda:
+                                          api.solve_elasticity_3D_static(
+                                              **flagship, data_dir=data_dir))
+    finally:
+        unspy(), unbuild(), unsolve()
+    peak = peak_gib()
+    st = res.meta["solver_stats"]
+    vm = field(res)[0]
+    # the elasticity solve (the von Mises projection's mass solve follows)
+    (sysm, xh, relres), = [c for c in solves if c[0].scale_kind == "block"]
+    del solves
+    t0 = time.perf_counter()
+    host = host_relres_of(sysm, xh)
+    host_s = time.perf_counter() - t0
+    (h, _), = [e for key, e in linsolve._MG_CACHE.items() if key[2] == "f64"]
+    h0 = h._replace(levels=tuple(lv._replace(Ainv=None) for lv in h.levels))
+    n_levels = len(h0.levels)
+    r0 = torch.as_tensor(sysm.b_hat, device=h0.levels[0].free.device)
+    rc = torch.ones_like(h0.levels[-1].free)
+    ops_v = aten_ops(lambda: mg.v_cycle(h0, r0))
+    ops_c = aten_ops(lambda: mg.v_cycle(h0, rc, level=n_levels - 1))
+    del h, h0, r0, rc, sysm, xh
+    linsolve._MG_CACHE.clear()
+    iters = int(st["cg_iterations"])
+    per_iter = mg_secs[0] / max(iters, 1)
+    vm_gap = gap(vm, vm_mixed)
+    print(f"precision flagship f64: dof={st['num_dofs']} {n_levels} "
+          f"levels, hierarchy {builds[0]:.3f} s, "
+          f"solve_mg {mg_secs[0]:.3f} s ({iters} iterations, "
+          f"{1e3 * per_iter:.3f} ms an iteration, {iters + 1} V-cycles), "
+          f"wall {wall:.3f} s; relres={st['relative_residual']:.6e} (true "
+          f"residual on the device) host f64 recomputation={host:.6e} "
+          f"({host_s:.3f} s) |Δ|/host={abs(relres - host) / host:.3e} "
+          f"(bound {relres_tol}); target="
+          f"{st['convergence_target']:.1e} converged={st['converged']}; "
+          f"peak device memory {peak:.2f} GiB; aten ops a V-cycle {ops_v}, "
+          f"of which the 60-iteration coarse CG {ops_c}; kernel launches "
+          f"{launches}; max|vm|={np.abs(vm).max():.6e} Pa, vs the mixed "
+          f"dense flagship max|Δvm|/max|vm|={vm_gap:.3e}", flush=True)
+    check(st["num_dofs"] == 3 * nodes, f"flagship f64: {st}")
+    check(not any(launches.values()), f"flagship f64 launched kernels: "
+          f"{launches}")
+    check(vm.shape == (1, nodes) and bool(np.all(np.isfinite(vm))),
+          f"flagship f64: field {vm.shape}")
+    check(relres == st["relative_residual"] and abs(relres - host)
+          <= relres_tol * host, f"flagship f64: relres {relres:.6e}"
+          f" against the host's {host:.6e}")
+    check(bool(st["converged"]) == bool(st["relative_residual"]
+                                        <= st["convergence_target"]),
+          f"flagship f64: converged={st['converged']} with {st}")
+    if st["converged"]:
+        check(vm_gap <= 1e-6, f"flagship f64 off the mixed flagship by "
+              f"{vm_gap:.3e}")
+    out["flagship_f64"] = dict(
+        iterations=iters, relres=st["relative_residual"], host_relres=host,
+        converged=bool(st["converged"]), hierarchy_s=builds[0],
+        solve_s=mg_secs[0], ms_per_iteration=1e3 * per_iter, wall_s=wall,
+        peak_gib=peak, aten_ops_vcycle=ops_v, aten_ops_coarse=ops_c,
+        vm_gap=vm_gap)
+    del vm
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # -- 2. the flagship at float32: flat CG on K1 v3 f32 ---------------------
+    with config_overrides(precision="f32"):
+        cfg = get_config()
+        res, launches, wall = counted("flagship f32", lambda:
+                                      api.solve_elasticity_3D_static(
+                                          **flagship, data_dir=data_dir))
+    st = res.meta["solver_stats"]
+    vm = field(res)[0]
+    vm_gap = gap(vm, vm_mixed)
+    tol32 = max(cfg.inner_tol, 1e-7)
+    print(f"precision flagship f32: iterations={st['cg_iterations']} (cap "
+          f"{cfg.resolved_maxiter(3 * nodes)}) relres="
+          f"{st['relative_residual']:.3e} (tolerance {tol32:.0e}) target="
+          f"{st['convergence_target']:.1e} converged={st['converged']} wall "
+          f"{wall:.3f} s peak device memory {peak_gib():.2f} GiB launches "
+          f"{launches}; vs the mixed dense flagship max|Δvm|/max|vm|="
+          f"{vm_gap:.3e}", flush=True)
+    check(vm.shape == (1, nodes) and bool(np.all(np.isfinite(vm))),
+          f"flagship f32: field {vm.shape}")
+    check(st["convergence_target"] == max(tol32, cfg.accuracy_target),
+          f"flagship f32: target {st['convergence_target']}")
+    if cuda:   # K1 v3 f32 for the solve, v1 f32 for the projection's
+        check(launches.get("v3_f32", 0) > 0 and not any(
+            v for k, v in launches.items() if k not in ("v3_f32", "v1_f32")),
+            f"flagship f32 launches {launches}")
+    out["flagship_f32"] = dict(
+        iterations=int(st["cg_iterations"]), relres=st["relative_residual"],
+        converged=bool(st["converged"]), wall_s=wall,
+        launches=launches.get("v3_f32", 0), vm_gap=vm_gap)
+    del vm
+
+    # -- 3. heat at float64: the 128³ slice and the 40×6×6 transient ----------
+    steps = heat.get("num_steps", HEAT_STEPS)
+    with config_overrides(precision="f64"):
+        res, launches, wall = counted("heat f64", lambda: api.solve_heat_3D(
+            **heat, data_dir=data_dir))
+    st = res.meta["solver_stats"]
+    T = field(res)[0]
+    os.remove(res.data_file)
+    heat_gap = gap(T, T_f32)
+    print(f"precision heat f64: dof={st['num_dofs']} scan "
+          f"{st['scan_seconds']:.3f} s setup {st['setup_seconds']:.3f} s "
+          f"({steps / st['scan_seconds']:.3f} steps/s) iterations/step="
+          f"{st['cg_iterations'] / steps:.2f} relres="
+          f"{st['relative_residual']:.3e} converged={st['converged']} wall "
+          f"{wall:.3f} s peak device memory {peak_gib():.2f} GiB launches "
+          f"{launches}; vs the float32 run max|ΔT|/max|T|={heat_gap:.3e} "
+          f"(bound {HEAT_F64_TOL})", flush=True)
+    check(not any(launches.values()), f"heat f64 launched kernels: "
+          f"{launches}")
+    check(bool(st["converged"]) and T.shape == T_f32.shape
+          and bool(np.all(np.isfinite(T))), f"heat f64: {st} {T.shape}")
+    check(heat_gap <= HEAT_F64_TOL, f"heat f64 off the float32 run by "
+          f"{heat_gap:.3e}")
+    out["heat_f64"] = dict(scan_s=st["scan_seconds"],
+                           iterations=int(st["cg_iterations"]))
+    del T
+    with config_overrides(precision="f64", transient_mg_threshold=100,
+                          mg_threshold=100):
+        res, launches, wall = counted("small heat f64", lambda:
+                                      api.solve_heat_3D(**small_heat,
+                                                        data_dir=data_dir))
+    st = res.meta["solver_stats"]
+    small_gap = gap(field(res)[0], T_small_ref)
+    print(f"precision small heat f64: 40x6x6 MG-PCG iterations="
+          f"{st['cg_iterations']} relres={st['relative_residual']:.3e} vs "
+          f"host f64 backward Euler max|ΔT|/max|T|={small_gap:.3e} (bound "
+          f"{SMALL_HEAT_F64_TOL}) launches {launches}", flush=True)
+    check(not any(launches.values()) and bool(st["converged"]),
+          f"small heat f64: {st} {launches}")
+    check(small_gap <= SMALL_HEAT_F64_TOL, f"small heat f64 off the host "
+          f"solve by {small_gap:.3e}")
+    out["heat_f64"].update(gap_f32=heat_gap, small_gap=small_gap)
+
+    # -- 4. the released cantilever at float64: its energy balance ------------
+    calls = spy_newmark()
+    with config_overrides(precision="f64"):
+        res, launches, wall = counted("dynamic f64", lambda:
+                                      api.solve_elasticity_3D_dynamic(
+                                          **beam, data_dir=data_dir))
+    os.remove(res.data_file)
+    st = res.meta["solver_stats"]
+    (K_np, M_np, _, _, f_np, *_), _, nres = calls[-1]
+    del calls[:]
+    share, energy, work = energy_share(K_np, M_np, f_np, nres, parts=True)
+    bsteps = beam["num_steps"]
+    newmark_line("precision dynamic f64", nres, bsteps, launches,
+                 f" wall {wall:.3f} s; energy balance ½vᵀMv + ½uᵀKu − fᵀu = "
+                 f"{energy:.6e} J against fᵀu = {work:.6e} J: share "
+                 f"{share:.3e} (float32: {share_f32:.3e})")
+    check(not any(launches.values()), f"dynamic f64 launched kernels: "
+          f"{launches}")
+    check(bool(st["converged"]) and bool(np.all(np.isfinite(nres.values)))
+          and np.isfinite(share) and share <= DYNAMIC_F64_SHARE * share_f32,
+          f"dynamic f64: share {share:.3e} against float32 {share_f32:.3e}, "
+          f"{st}")
+    out["dynamic_f64"] = dict(share=share, share_f32=share_f32,
+                              scan_s=nres.scan_seconds,
+                              iterations=nres.total_cg_iterations)
+    del K_np, M_np, nres
+
+    # -- 5. checkpointed scans at the card's default precision ----------------
+    ckpt_dir = os.path.join(data_dir, "checkpoints")
+    for label, tool, kw, frames in (
+            ("heat", "solve_heat_3D", small_heat,
+             lambda r: (field(r)[0],)),
+            ("dynamic", "solve_elasticity_3D_dynamic", ckpt_beam,
+             lambda r: (calls[-1][2].values, calls[-1][2].velocities))):
+        def call():
+            return getattr(api, tool)(**kw, data_dir=data_dir)
+
+        res, launches, wall = counted(f"ckpt {label} plain", call)
+        plain = frames(res)
+        timestepping._CKPT_TEST_ABORT = 1
+        try:
+            with config_overrides(transient_checkpoint_every=CKPT_EVERY,
+                                  checkpoint_dir=ckpt_dir):
+                call()
+        except RuntimeError as e:
+            check(str(e) == "checkpoint test abort", f"ckpt {label}: {e}")
+        else:
+            check(False, f"ckpt {label}: the run did not abort")
+        finally:
+            timestepping._CKPT_TEST_ABORT = 0
+        kept = os.listdir(ckpt_dir)
+        check(len(kept) == 1, f"ckpt {label}: checkpoint files {kept}")
+        with np.load(os.path.join(ckpt_dir, kept[0])) as z:
+            at = int(z["step"])
+        with config_overrides(transient_checkpoint_every=CKPT_EVERY,
+                              checkpoint_dir=ckpt_dir):
+            res, launches_r, wall_r = counted(f"ckpt {label} resumed", call)
+        same = all(np.array_equal(a, b) for a, b in zip(frames(res), plain))
+        print(f"precision checkpointed {label} {tool}"
+              f"({', '.join(f'{k}={v}' for k, v in kw.items())}): aborted "
+              f"at step {at} ({kept[0]}), resumed in {wall_r:.3f} s (plain "
+              f"{wall:.3f} s); bit-equal to the uncheckpointed run: {same}; "
+              f"launches plain {launches} resumed {launches_r}", flush=True)
+        check(at == CKPT_EVERY and same and not os.listdir(ckpt_dir),
+              f"ckpt {label}: resumed at {at}, bit-equal {same}")
+        if cuda:
+            want = "v1_f32" if label == "heat" else "v3_f32"
+            check(launches_r.get(want, 0) > 0, f"ckpt {label} launched no "
+                  f"{want}")
+        del calls[:]
+    out["checkpoint"] = True
+
+    # -- 6. the bf16-smoother switch ------------------------------------------
+    switch_prev = os.environ.get("PDE_TPU_BF16_SMOOTHER")
+    runs = {}
+    try:
+        for switch in ("1", "0"):
+            os.environ["PDE_TPU_BF16_SMOOTHER"] = switch
+            linsolve._MG_CACHE.clear()
+            with config_overrides(precision="mixed", host_direct_threshold=0,
+                                  mg_threshold=100):
+                res, launches, wall = counted(
+                    f"smoother {switch}", lambda:
+                    api.solve_elasticity_3D_static(**small,
+                                                   data_dir=data_dir))
+            (h, _), = linsolve._MG_CACHE.values()
+            smooth = sorted({str(lv.w_smooth.W.dtype) for lv in h.levels
+                             if hasattr(lv.w_smooth, "W")})
+            runs[switch] = (field(res)[0], launches, res.meta["solver_stats"],
+                            smooth)
+            del h
+    finally:
+        if switch_prev is None:
+            os.environ.pop("PDE_TPU_BF16_SMOOTHER", None)
+        else:
+            os.environ["PDE_TPU_BF16_SMOOTHER"] = switch_prev
+        linsolve._MG_CACHE.clear()
+    sw_gap = gap(runs["0"][0], runs["1"][0])
+    print("precision smoother switch (16x8x8 cantilever, mixed): " + "; ".join(
+        f"PDE_TPU_BF16_SMOOTHER={k}: smoother weights {smooth} iterations="
+        f"{st_['cg_iterations']} launches {ln}"
+        for k, (_, ln, st_, smooth) in runs.items())
+        + f"; max|Δvm|/max|vm|={sw_gap:.3e}", flush=True)
+    check(runs["0"][3] == ["torch.float32"]
+          and runs["1"][3] == ["torch.bfloat16"],
+          f"smoother weights: {runs['0'][3]} / {runs['1'][3]}")
+    check(all(r[2]["converged"] for r in runs.values()) and sw_gap <= 1e-6,
+          f"smoother switch: fields {sw_gap:.3e} apart")
+    if cuda:
+        l0, l1 = runs["0"][1], runs["1"][1]
+        check(not any(v for k, v in l0.items() if k.endswith("_bf16"))
+              and l1.get("v3_bf16", 0) > 0
+              and l0.get("v3_f32", 0) > l1.get("v3_f32", 0),
+              f"smoother switch launches: 0 → {l0}, 1 → {l1}")
+    out["smoother_gap"] = sw_gap
+    return out
 
 
 class JsonRpcPipe:
@@ -3400,11 +3818,21 @@ def main() -> int:
 
         # -- the Newmark and modal tools ---------------------------------------
         t0 = time.perf_counter()
-        newmark_phase(api, main_path, hold_cs, data_dir)
+        share_f32 = newmark_phase(api, main_path, hold_cs, data_dir)
         print(f"phase newmark: {time.perf_counter() - t0:.3f} s", flush=True)
         t0 = time.perf_counter()
         modal_phase(api, drive, data_dir)
         print(f"phase modal: {time.perf_counter() - t0:.3f} s", flush=True)
+
+        # -- the precision scheme: float64, float32, checkpoints, smoother --
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        precision = precision_phase(
+            api, lambda label, fn: paths.counted(label, "0", fn), data_dir,
+            served_ref[0], T_runs["0"], T_host, share_f32)
+        del T_runs, T_host
+        print(f"phase precision: {time.perf_counter() - t0:.3f} s; "
+              + json.dumps(precision), flush=True)
 
     # -- the service layer: MCP server, plot, chat examples ------------------
     t0 = time.perf_counter()

@@ -1,15 +1,15 @@
 """Solver configuration: device, precision policy, tolerances.
 
-Counterpart of ``pde_solver_tpu.config`` for the fields the ported slices
-read (static elasticity, transient heat), plus ``device``.  Configures *how* systems are
-solved, never *what* is solved (numeric defaults live in the ``api`` tool
-signatures).
+Counterpart of ``pde_solver_tpu.config`` for the fields the port reads,
+plus ``device``.  Configures *how* systems are solved, never *what* is
+solved (numeric defaults live in the ``api`` tool signatures).
 
 Precision policy ("auto"):
-* CPU: float64 (the JAX package's CPU default; this port does not carry the
-  f64 branch yet, see ROADMAP.md).
+* CPU: float64 (the JAX package's CPU default): float64 CG or MG-PCG on
+  plain torch tensors, float64 transient and Newmark scans.
 * CUDA: the mixed scheme — float32 MG-PCG inner solves and a double-float32
-  F-cycle for f64-grade residuals.
+  F-cycle for f64-grade residuals; transient scans run in float32.
+"f64" and "f32" may be asked for on either device.
 """
 
 from __future__ import annotations
@@ -30,6 +30,9 @@ class SolverConfig:
     maxiter: Optional[int] = None # None → 20·sqrt(N) + 2000 heuristic
     refine_rounds: int = 7        # f64 refinement rounds in mixed mode
     transient_inner_tol: float = 1e-6  # implicit steps are mass-dominated
+    transient_refine_rounds: int = 1  # inert, kept for parity with the
+                                  # JAX package's config: run_transient
+                                  # maps "mixed" to f32, so no scan reads it
     accuracy_target: float = 1e-6 # the per-solve accuracy contract:
                                   # SolveStats.converged reports
                                   # relres ≤ max(requested tol, this)
@@ -38,13 +41,20 @@ class SolverConfig:
     mg_threshold: int = 20000     # min DOF count before MG pays off
     transient_mg_threshold: Optional[int] = None  # min DOF for MG-PCG step
                                   # solves in transient scans; None → 250k
+    mg_maxiter: int = 300         # MG-PCG iteration cap of a float64 static
+                                  # solve (solve_mg)
+    snapshot_dtype: str = "f32"   # dtype of kept frames below float64
+                                  # scans ("f32", or the state's dtype)
     snapshot_budget_bytes: int = 2 << 30  # device bytes allowed for the
                                   # kept [Nt][N] trajectory; beyond it the
                                   # scan keeps every k-th frame (the final
                                   # state always)
     snapshot_max_frames: int = 0  # >0 → hard cap on kept frames (opt-in)
-    transient_checkpoint_every: int = 0  # >0 → checkpointed transients
-                                  # (not ported: raises NotImplementedError)
+    transient_checkpoint_every: int = 0  # >0 → persist the scan carry and
+                                  # the kept frames every N steps (atomic
+                                  # npz); a re-run of the same problem
+                                  # resumes from the last checkpoint
+    checkpoint_dir: str = "data/checkpoints"
     shard_devices: int = 0        # >1 → domain decomposition (not ported)
     shard_grid: str = ""          # "a,b" 2-D decomposition (not ported)
     theta: float = 1.0            # transient θ-scheme: 1 = backward Euler,
@@ -82,6 +92,8 @@ _GLOBAL = SolverConfig(
     tol=float(os.environ.get("PDE_TPU_TOL", 1e-11)),
     transient_checkpoint_every=int(
         os.environ.get("PDE_TPU_CHECKPOINT_EVERY", 0)),
+    checkpoint_dir=os.environ.get("PDE_TPU_CHECKPOINT_DIR",
+                                  "data/checkpoints"),
     theta={"backward_euler": 1.0, "crank_nicolson": 0.5}.get(
         os.environ.get("PDE_TPU_TIME_SCHEME", "backward_euler"), 1.0),
 )
@@ -94,6 +106,14 @@ _OVERRIDE: "contextvars.ContextVar[Optional[SolverConfig]]" = \
 def get_config() -> SolverConfig:
     ov = _OVERRIDE.get()
     return ov if ov is not None else _GLOBAL
+
+
+def set_config(**kwargs) -> SolverConfig:
+    """Replace fields of the process-wide configuration (scoped overrides
+    still win inside their context)."""
+    global _GLOBAL
+    _GLOBAL = replace(_GLOBAL, **kwargs)
+    return _GLOBAL
 
 
 class config_overrides:

@@ -13,19 +13,32 @@ JAX package unchanged, so both packages solve bit-identical scaled systems:
   block-Cholesky C^{-1} A C^{-T} for elasticity — identity (block-)diagonal;
 * the RHS lift b̃ = free ⊙ (b − A g) + g happens on host in float64.
 
-Ported solve branches: host sparse LU for tiny systems, and the "mixed"
-scheme — with a multigrid level builder the double-float32 F-cycle
-(``ops.multigrid.solve_fcycle_df2``), without one float32 CG inner solves
-plus a float64 host refinement loop.  The f64 and f32 branches and sharding
-raise ``NotImplementedError`` (ROADMAP queue 1).  The multigrid hierarchy
-and the F-cycle's weight ladder of the last ``_MG_CACHE_MAX`` operators
-stay in memory (``_MG_CACHE``), so repeated solves on one operator — a
-modal analysis makes dozens — build them once.
+Solve branches, by ``SolverConfig.resolve_precision()``, above host sparse
+LU for tiny systems:
+
+* "f64" — MG-PCG on a float64 hierarchy (``ops.multigrid.solve_mg``) when
+  a level builder is given and the system is large enough, else CG on
+  float64 weight tensors, both at ``cfg.tol``.  Plain shifted-slice applies
+  on float64 tensors: the JAX package runs no kernel at float64 either.
+  The reported relative residual is the true one, recomputed after the
+  solve (the JAX package reports CG's recurrence residual).
+* "f32" — CG on the kernel-backed flat operator (``_static_flat_op``), or
+  on float32 tensors below ``KERNEL_MIN_DOF``, at max(inner_tol, 1e-7).
+* "mixed" — with a multigrid level builder the double-float32 F-cycle
+  (``ops.multigrid.solve_fcycle_df2``), without one float32 CG inner solves
+  plus a float64 host refinement loop.
+
+Sharding raises ``NotImplementedError`` (ROADMAP queue 1, step I).  The
+multigrid hierarchy (and, for "mixed", the F-cycle's weight ladder) of the
+last ``_MG_CACHE_MAX`` operators stay in memory (``_MG_CACHE``), so
+repeated solves on one operator — a modal analysis makes dozens — build
+them once.
 """
 
 from __future__ import annotations
 
 import hashlib
+import time
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -40,6 +53,7 @@ from pde_solver_tpu_torch.ops.cs_kernels import (CSFlatStencilOperator,
                                                  cs_enabled, cs_wins)
 from pde_solver_tpu_torch.ops.stencil_kernels import (FlatStencilOperator,
                                                       kernel_wins)
+from pde_solver_tpu_torch.utils.observability import get_logger
 
 Offset = Tuple[int, ...]
 
@@ -374,10 +388,11 @@ def _mg_cache_key(mesh: StructuredMesh, vdim: int, prec: str,
     # the routing bakes into the built hierarchy's operators, and its
     # tensors live on one device: an entry of another routing or device
     # would silently keep the old kernels or hand over foreign tensors.
-    # The routing is PDE_TPU_CS and the two size gates (the reference's
-    # bf16-smoother switch has no counterpart here: dense levels always
-    # smooth with bf16 weights).
-    routing = (cs_kernels.cs_mode(), cs_kernels.CS_MIN_DOF,
+    # The routing is PDE_TPU_CS, the bf16-smoother switch and the two size
+    # gates.
+    from pde_solver_tpu_torch.ops.multigrid import bf16_smoother
+
+    routing = (cs_kernels.cs_mode(), bf16_smoother(), cs_kernels.CS_MIN_DOF,
                stencil_kernels.KERNEL_MIN_DOF)
     return (mesh.node_shape, vdim, prec, sysm.offsets, routing, str(device),
             h.hexdigest())
@@ -406,6 +421,18 @@ def _mg_cache_put(key, hierarchy, ladder):
 # ----------------------------------------------------------------------
 # Public facade
 # ----------------------------------------------------------------------
+
+def _stats_result(sysm: ScaledSystem, xh: torch.Tensor, k, relres,
+                  tol_used: float, cfg: SolverConfig):
+    """(x float64 numpy grid, stats) of a device solve of the scaled
+    system; "converged" = relres met max(tol_used, accuracy_target)."""
+    x = sysm.from_hat_x(xh.cpu().numpy().astype(np.float64))
+    target = max(tol_used, cfg.accuracy_target)
+    return x, SolveStats(iterations=np.int32(k),
+                         relative_residual=np.float64(relres),
+                         converged=bool(np.float64(relres) <= target),
+                         target=target)
+
 
 def solve_stencil_system(
     stencil_np: Dict,
@@ -445,60 +472,95 @@ def solve_stencil_system(
                              converged=np.bool_(relres <= 1e-9),
                              target=1e-9)
 
-    if prec != "mixed":
-        raise NotImplementedError(
-            f"precision {prec!r} is not ported yet; only 'mixed' is "
-            "(ROADMAP queue 1, item 2)")
+    from pde_solver_tpu_torch.ops import multigrid as mg   # imports this
 
     device = torch.device(cfg.device)
+    hierarchy = ladder_core = hier_key = None
+    # the "f32" branch never reads a hierarchy (the reference builds one
+    # there and leaves it unused): none is built for it
     if (mg_level_builder is not None and cfg.use_multigrid
-            and n >= cfg.mg_threshold):
-        import time as _time
-
-        from pde_solver_tpu_torch.ops import df32
-        from pde_solver_tpu_torch.ops import multigrid as mg
-        from pde_solver_tpu_torch.utils.observability import get_logger
-
-        t_h = _time.perf_counter()
+            and n >= cfg.mg_threshold and prec != "f32"):
+        t_h = time.perf_counter()
         hier_key = _mg_cache_key(mesh, vdim, prec, sysm, device)
         cached = _mg_cache_get(hier_key)
         if cached is not None:
             hierarchy, ladder_core = cached
             get_logger().info("hierarchy cache hit (%.3fs key, %d DOF)",
-                              _time.perf_counter() - t_h, n)
+                              time.perf_counter() - t_h, n)
         else:
-            ladder_core = None
-            hierarchy = mg.build_hierarchy(mesh, sysm, mg_level_builder,
-                                           vdim=vdim, device=device)
+            hierarchy = mg.build_hierarchy(
+                mesh, sysm, mg_level_builder, vdim=vdim, device=device,
+                dtype=torch.float64 if prec == "f64" else torch.float32)
+            if hierarchy is not None and prec == "f64":
+                _mg_cache_put(hier_key, hierarchy, None)
+            get_logger().info("hierarchy build: %.3fs (%d DOF)",
+                              time.perf_counter() - t_h, n)
+
+    if prec == "f64":
+        b64 = torch.as_tensor(sysm.b_hat, dtype=torch.float64, device=device)
         if hierarchy is not None:
-            # Double-float32 F-cycle: Galerkin ladder with an exact f64
-            # coarsest anchor and error-free-transformation defects at the
-            # finest level — beats the κ_eff·ε32 floor that stalls a plain
-            # f32 refinement loop on ill-conditioned problems.
-            t_l = _time.perf_counter()
-            if ladder_core is not None:
-                ladder = mg.ladder_with_b(ladder_core, sysm.b_hat)
-            else:
-                ladder = mg.build_df_ladder(hierarchy, sysm, sysm.b_hat)
-                _mg_cache_put(hier_key, hierarchy, ladder)
-            t_s = _time.perf_counter()
-            x_hi, x_lo, iters, relres = mg.solve_fcycle_df2(
-                hierarchy, ladder, max(cfg.tol, 1e-9),
-                max_rounds=max(cfg.refine_rounds, 8))
-            get_logger().info(
-                "hierarchy build: %.3fs, df ladder build: %.3fs, "
-                "df2 rounds: %.3fs (%d DOF)", t_l - t_h, t_s - t_l,
-                _time.perf_counter() - t_s, n)
-            x_hat = df32.df_to_f64(x_hi.cpu().numpy(), x_lo.cpu().numpy())
-            x = sysm.from_hat_x(x_hat)
-            target = max(cfg.tol, cfg.accuracy_target)
-            stats = SolveStats(
-                iterations=np.int32(iters),
-                relative_residual=np.float64(relres),
-                converged=bool(relres <= target),
-                target=target,
-            )
-            return x, stats
+            w64 = hierarchy.levels[0].weights
+            xh, k, _ = mg.solve_mg(hierarchy, sysm.b_hat, x0_hat, cfg.tol,
+                                   cfg.mg_maxiter)
+        else:
+            w64 = tuple(torch.tensor(W, dtype=torch.float64, device=device)
+                        for W in sysm.weights)   # a copy: W may be cached
+            xh, k, _ = _cg_unit_diag(
+                offsets, w64, b64, torch.as_tensor(x0_hat, device=device),
+                cfg.tol, maxiter, d, vdim)
+        # The reported residual is the true ‖b̂ − Â x̂‖/‖b̂‖ (one more
+        # apply), not CG's recurrence, which near the float64 floor reads
+        # far below it.  The JAX package reports the recurrence (ROADMAP
+        # queue 3).
+        r = b64 - _stencil_apply(offsets, w64, xh, d, vdim)
+        bnorm = float(torch.sqrt(_dot(b64, b64)))
+        relres = float(torch.sqrt(_dot(r, r))) / (bnorm if bnorm > 0 else 1.0)
+        return _stats_result(sysm, xh, k, relres, cfg.tol, cfg)
+    if prec == "f32":
+        w32 = _static_flat_op(sysm, mesh, vdim, device) or tuple(
+            torch.as_tensor(W, dtype=torch.float32, device=device)
+            for W in sysm.weights)
+        tol_used = max(cfg.inner_tol, 1e-7)
+
+        def f32(a):
+            return torch.as_tensor(a, dtype=torch.float32, device=device)
+
+        xh, k, relres = _cg_unit_diag(offsets, w32, f32(sysm.b_hat),
+                                      f32(x0_hat), tol_used, maxiter, d, vdim)
+        return _stats_result(sysm, xh, k, relres, tol_used, cfg)
+    if prec != "mixed":
+        raise ValueError(f"unknown precision {prec!r}")
+
+    if hierarchy is not None:
+        from pde_solver_tpu_torch.ops import df32
+
+        # Double-float32 F-cycle: Galerkin ladder with an exact f64
+        # coarsest anchor and error-free-transformation defects at the
+        # finest level — beats the κ_eff·ε32 floor that stalls a plain
+        # f32 refinement loop on ill-conditioned problems.
+        t_l = time.perf_counter()
+        if ladder_core is not None:
+            ladder = mg.ladder_with_b(ladder_core, sysm.b_hat)
+        else:
+            ladder = mg.build_df_ladder(hierarchy, sysm, sysm.b_hat)
+            _mg_cache_put(hier_key, hierarchy, ladder)
+        t_s = time.perf_counter()
+        x_hi, x_lo, iters, relres = mg.solve_fcycle_df2(
+            hierarchy, ladder, max(cfg.tol, 1e-9),
+            max_rounds=max(cfg.refine_rounds, 8))
+        get_logger().info("df ladder build: %.3fs, df2 rounds: %.3fs "
+                          "(%d DOF)", t_s - t_l, time.perf_counter() - t_s,
+                          n)
+        x_hat = df32.df_to_f64(x_hi.cpu().numpy(), x_lo.cpu().numpy())
+        x = sysm.from_hat_x(x_hat)
+        target = max(cfg.tol, cfg.accuracy_target)
+        stats = SolveStats(
+            iterations=np.int32(iters),
+            relative_residual=np.float64(relres),
+            converged=bool(relres <= target),
+            target=target,
+        )
+        return x, stats
 
     # mixed, no hierarchy: f32 CG inner solves on the device + float64
     # refinement residuals in host numpy against the host scaled weights

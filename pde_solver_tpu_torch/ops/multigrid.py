@@ -6,13 +6,18 @@ exact dense coarsest inverse, a Chebyshev-smoothed V-cycle, flexible MG-PCG
 (:func:`mg_pcg`), and the per-round double-float32 F-cycle
 (:func:`solve_fcycle_df2`).
 
-Every level applies through :class:`FlatStencilOperator` (the CUDA kernel
-on the card, its plain torch version on the CPU) while its DOF count is at
-least ``KERNEL_MIN_DOF``: float32 weights for true residuals and a bfloat16
-copy for the smoother.  With ``PDE_TPU_CS`` on, a level whose stencil is
+A float32 level applies through :class:`FlatStencilOperator` (the CUDA
+kernel on the card, its plain torch version on the CPU) while its DOF count
+is at least ``KERNEL_MIN_DOF``: float32 weights for true residuals and a
+bfloat16 copy for the smoother (``PDE_TPU_BF16_SMOOTHER=0``: the float32
+operator smooths too).  With ``PDE_TPU_CS`` on, a level whose stencil is
 constant-interior applies through :class:`CSFlatStencilOperator` instead,
 as the reference routes it.  Smoothing and the PCG state live in the flat
-``[v, N]`` layout; grid layout only at the transfer boundary.
+``[v, N]`` layout; grid layout only at the transfer boundary.  A float64
+level (``dtype=torch.float64``: the f64 static solve :func:`solve_mg` and
+the f64 scans) holds plain per-offset float64 tensors and applies through
+shifted slices, as the JAX package's float64 levels do: no kernel is built
+for it.
 
 Scaling-aware transfers: with x = S x̂ per level (S = diag(s), or S = C^{-T}
 for block-Cholesky scaling), Galerkin-consistent transfers are
@@ -26,6 +31,7 @@ convergence test (one device sync per iteration).
 from __future__ import annotations
 
 import itertools
+import os
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -114,7 +120,8 @@ class MGLevel(NamedTuple):
                                          # CSFlatStencilOperator or a tuple
                                          # of per-offset tensors — the true
                                          # operator (outer residuals)
-    free: torch.Tensor                   # f32 mask over DOFs (grid layout)
+    free: torch.Tensor                   # mask over DOFs (grid layout), in
+                                         # the level's dtype
     omega: float                         # 4/(3 λmax)
     s: Optional[torch.Tensor]            # scalar 1/sqrt(diag); None for block
     C: Optional[torch.Tensor]            # block Cholesky factor [.., v, v]
@@ -123,9 +130,10 @@ class MGLevel(NamedTuple):
     host_weights: Optional[list] = None  # f64 numpy copies (df ladder)
     host_Ainv: Optional[np.ndarray] = None
     host_scale: Optional[tuple] = None   # (s,) or (C, Cinv) f64 numpy
-    # Preconditioner-grade operator for smoothing (bf16 weights).  The
-    # V-cycle stays a fixed symmetric operator built from w_lo at every
-    # level; only mg_pcg's true residual needs the f32 weights.
+    # Preconditioner-grade operator for smoothing (bf16 weights; None on
+    # float64 levels and under PDE_TPU_BF16_SMOOTHER=0).  The V-cycle stays
+    # a fixed symmetric operator built from w_lo at every level; only
+    # mg_pcg's true residual needs the f32 weights.
     w_lo: Optional[object] = None
 
     @property
@@ -194,11 +202,19 @@ class _ShapeOnlyMesh:
         self.dim = len(self.node_shape)
 
 
+def bf16_smoother() -> bool:
+    """``PDE_TPU_BF16_SMOOTHER`` as the reference reads it: anything but
+    "0"/"off" smooths dense float32 levels with a bfloat16 weight copy."""
+    return os.environ.get("PDE_TPU_BF16_SMOOTHER", "1") not in ("0", "off")
+
+
 def _to_level(sysm: ScaledSystem, mesh, vdim: int, device,
-              omega: Optional[float] = None) -> MGLevel:
-    """One MG level's device operators from a scaled system: the
-    kernel-backed f32 operator plus its bf16 smoother copy (cast on the
-    device), or plain per-offset tensors below ``KERNEL_MIN_DOF``.
+              dtype=torch.float32, omega: Optional[float] = None) -> MGLevel:
+    """One MG level's device operators from a scaled system.  A float32
+    level of at least ``KERNEL_MIN_DOF`` unknowns gets the kernel-backed
+    operator plus its bf16 smoother copy (cast on the device); any other
+    level (float64, or below the gate) plain per-offset tensors in
+    ``dtype`` — the reference's gate ``use_pallas and dtype == float32``.
 
     ``PDE_TPU_CS`` as the reference reads it: "1" applies a
     constant-interior level through the CS operator for both residuals and
@@ -207,10 +223,12 @@ def _to_level(sysm: ScaledSystem, mesh, vdim: int, device,
     not CS-representable, or has fewer than ``CS_MIN_DOF`` unknowns, stays
     dense."""
     host_w = [np.asarray(W, dtype=np.float64) for W in sysm.weights]
-    free = torch.as_tensor(sysm.free, dtype=torch.float32, device=device)
+    # torch.tensor copies: the cached host arrays are read-only, and a CPU
+    # tensor of their own dtype would alias them
+    free = torch.tensor(sysm.free, dtype=dtype, device=device)
     n_dof = int(np.prod(mesh.node_shape)) * vdim
     w_lo = None
-    if kernel_wins(n_dof):
+    if dtype == torch.float32 and kernel_wins(n_dof):
         mode = cs_mode()
         cs = None
         if cs_enabled(mode) and cs_wins(n_dof):
@@ -228,13 +246,14 @@ def _to_level(sysm: ScaledSystem, mesh, vdim: int, device,
         else:
             w = FlatStencilOperator(sysm.offsets, sysm.weights,
                                     mesh.node_shape, vdim=vdim, device=device)
-            w_lo = w.as_weight_dtype(torch.bfloat16)
+            if bf16_smoother():
+                w_lo = w.as_weight_dtype(torch.bfloat16)
     else:
-        w = tuple(torch.as_tensor(W, dtype=torch.float32, device=device)
+        w = tuple(torch.tensor(W, dtype=dtype, device=device)
                   for W in sysm.weights)
 
     def dev(a):
-        return torch.as_tensor(a, dtype=torch.float32, device=device)
+        return torch.tensor(a, dtype=dtype, device=device)
 
     if sysm.scale_kind == "scalar":
         return MGLevel(sysm.offsets, w, free, omega, dev(sysm.s), None, None,
@@ -247,9 +266,10 @@ def _to_level(sysm: ScaledSystem, mesh, vdim: int, device,
                    host_scale=(C_np, Cinv_np), w_lo=w_lo)
 
 
-def _with_coarsest_inverse(levels, host_Ainv: np.ndarray, device):
+def _with_coarsest_inverse(levels, host_Ainv: np.ndarray, device,
+                           dtype=torch.float32):
     levels[-1] = levels[-1]._replace(
-        Ainv=torch.as_tensor(host_Ainv, dtype=torch.float32, device=device),
+        Ainv=torch.tensor(host_Ainv, dtype=dtype, device=device),
         host_Ainv=host_Ainv)
     return levels
 
@@ -264,13 +284,15 @@ def build_hierarchy(
     post_smooth: int = 2,
     coarse_iters: int = 60,
     device="cuda",
+    dtype=torch.float32,
 ) -> Optional[MGHierarchy]:
-    """Build the level stack (float32 device operators).
+    """Build the level stack, every level's tensors in ``dtype`` (float32:
+    kernel-backed operators; float64: plain tensors).
     ``level_builder(mesh_c)`` re-assembles the operator + BCs on a coarse
     mesh.  Returns None when the fine mesh cannot coarsen."""
     if not can_coarsen(mesh):
         return None
-    levels = [_to_level(fine_system, mesh, vdim, device)]
+    levels = [_to_level(fine_system, mesh, vdim, device, dtype)]
     meshes = [mesh]
     cur = mesh
     cur_sys = fine_system
@@ -279,7 +301,7 @@ def build_hierarchy(
         stencil_c, bc_c = level_builder(cur)
         shape_c = cur.node_shape + ((vdim,) if vdim > 1 else ())
         cur_sys = prepare_system(stencil_c, cur, bc_c, np.zeros(shape_c), vdim)
-        levels.append(_to_level(cur_sys, cur, vdim, device))
+        levels.append(_to_level(cur_sys, cur, vdim, device, dtype))
         meshes.append(cur)
     # λmax per level: Chebyshev smoothing diverges on any eigenvalue above
     # its assumed λmax, so it is estimated, with a 1.05 margin for the power
@@ -288,8 +310,8 @@ def build_hierarchy(
     for i, (lv, m) in enumerate(zip(levels, meshes)):
         rng = np.random.default_rng(0)
         full_shape = m.node_shape + ((vdim,) if vdim > 1 else ())
-        x = torch.as_tensor(rng.standard_normal(full_shape),
-                            dtype=torch.float32, device=device)
+        x = torch.as_tensor(rng.standard_normal(full_shape), dtype=dtype,
+                            device=device)
         lam = 1.05 * max(_power_iteration(lv.offsets, lv.weights, x,
                                           mesh.dim, vdim, 10), 1e-6)
         levels[i] = lv._replace(omega=float(4.0 / (3.0 * lam)))
@@ -299,7 +321,8 @@ def build_hierarchy(
     if n_coarse <= 20000:
         A_dense = dense_from_stencil(cur_sys.offsets, cur_sys.weights,
                                      cur.node_shape, vdim)
-        levels = _with_coarsest_inverse(levels, np.linalg.inv(A_dense), device)
+        levels = _with_coarsest_inverse(levels, np.linalg.inv(A_dense),
+                                        device, dtype)
     return MGHierarchy(tuple(levels), mesh.dim, vdim, pre_smooth,
                        post_smooth, coarse_iters)
 
@@ -477,6 +500,27 @@ def mg_pcg(h: MGHierarchy, b: torch.Tensor, x0: torch.Tensor, tol, maxiter,
     if op is not None:
         x = op.from_flat(x)
     return x, k, relres
+
+
+def solve_mg(h: MGHierarchy, b_hat: np.ndarray, x0_hat: Optional[np.ndarray],
+             tol: float, maxiter: int):
+    """Host entry of the float64 static solve: MG-PCG on the hierarchy's
+    device, in its dtype.  Returns (x̂ tensor, iterations, relres).
+
+    The levels go in without their dense coarsest inverse, as the JAX
+    package's ``_jit_mg_pcg`` takes them, so each V-cycle ends in the
+    ``coarse_iters`` CG fallback: a V-cycle that is not a fixed SPD
+    operator, which the flexible PCG tolerates.  Both packages break the
+    exact-coarse rule of :func:`build_hierarchy` here alike (ROADMAP
+    queue 3)."""
+    h = h._replace(levels=tuple(lv._replace(Ainv=None) for lv in h.levels))
+    free = h.levels[0].free
+    b = torch.as_tensor(np.asarray(b_hat), dtype=free.dtype,
+                        device=free.device)
+    x0 = (torch.zeros_like(b) if x0_hat is None
+          else torch.as_tensor(np.asarray(x0_hat), dtype=free.dtype,
+                               device=free.device))
+    return mg_pcg(h, b, x0, tol, maxiter)
 
 
 # ----------------------------------------------------------------------

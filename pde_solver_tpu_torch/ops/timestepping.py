@@ -17,13 +17,22 @@ at float32.
 
 Like the reference, "mixed" precision runs the scan in float32 (implicit
 stepping is contractive and every step is solved to
-``transient_inner_tol`` from a warm start).  Sinusoidal driving
+``transient_inner_tol`` from a warm start); "f64" runs a float64 state on
+float64 weight tensors (plain shifted slices, as the JAX package's float64
+scans) and solves every step to ``cfg.tol``, with float64 kept frames.  The
+reference's step body also has a "mixed" mode (float32 corrections with
+``transient_refine_rounds`` float64 refinement rounds) that its
+``run_transient`` never selects; the port leaves it out, so that knob is
+inert here as it is there.  Sinusoidal driving
 (``time_mod``) and explicit IMEX convection (``C_np``, folded into the
 explicit operator for "ab1" or extrapolated by Adams-Bashforth-2 for
-"cnab2") are operands of the same step.  Not ported, each raising
-``NotImplementedError``: float64 scans, checkpointing and sharding.  The
+"cnab2") are operands of the same step.  ``transient_checkpoint_every > 0``
+chunks either scan with atomic checkpoints in ``checkpoint_dir`` (content
+keyed as in the reference; a resume is bitwise the uninterrupted run).
+Sharding raises ``NotImplementedError`` (ROADMAP queue 1, step I).  The
 reference thins large trajectory pulls to bfloat16 frames for its slow host
-link; the port pulls everything at float32 (ROADMAP queue 3).
+link; the port pulls everything at the kept frames' precision (ROADMAP
+queue 3).
 
 :func:`run_newmark` integrates M ü + K u = f (elastodynamics, the scalar
 wave equation) in acceleration form:
@@ -41,8 +50,12 @@ with a zero right side there.
 
 from __future__ import annotations
 
+import hashlib
 import math
+import os
+import tempfile
 import time
+import zipfile
 from typing import Dict, NamedTuple, Optional
 
 import numpy as np
@@ -51,7 +64,8 @@ import torch
 from pde_solver_tpu_torch.config import SolverConfig, get_config
 from pde_solver_tpu_torch.mesh import StructuredMesh
 from pde_solver_tpu_torch.ops.bc import DirichletBC
-from pde_solver_tpu_torch.ops.linsolve import (_cg_unit_diag, _static_flat_op,
+from pde_solver_tpu_torch.ops.linsolve import (_cg_unit_diag,
+                                               _static_flat_op,
                                                _stencil_apply,
                                                np_stencil_apply,
                                                prepare_system)
@@ -113,6 +127,97 @@ def _snapshot_every(cfg: SolverConfig, num_steps: int, snap_bytes: int) -> int:
     return 1
 
 
+class _StepOperands(NamedTuple):
+    """Everything one implicit θ-step reads, on the device in the state's
+    dtype (``A32`` float32, ``A64`` float64; either may be None when the
+    step mode does not read it)."""
+
+    offsets: tuple
+    A32: object                # flat operator or f32 tensors (f32)
+    A64: Optional[tuple]       # f64 tensors (f64)
+    B_w: tuple                 # unmasked explicit-side operator
+    free: torch.Tensor
+    g: torch.Tensor            # Dirichlet values
+    Ag: torch.Tensor           # their lift A·g
+    b_src: torch.Tensor        # Δt·b
+    scale_ops: tuple           # (to_hat_b, to_hat_x, from_hat_x)
+    C_w: Optional[tuple]       # Δt·C for CNAB2, else None
+    tmod: Optional[tuple]      # (b1, g1, Ag1, omega, phase, dt, theta)
+    inner_tol: float
+    maxiter: int
+    grid_dim: int
+    vdim: int
+    h: object = None           # MG hierarchy of the implicit operator
+
+
+def _transient_step_body(ops: _StepOperands, mode: str, u, u_prev, n: int):
+    """One implicit θ-step n → n+1 on the scaled system; returns
+    (u_new, iterations, relres).  ``mode``: "f64" (CG on ``A64``) or "f32"
+    (CG on ``A32``); with a hierarchy either mode solves by MG-PCG.  ``n``
+    is a host integer, so the sinusoid costs no sync."""
+    d, vdim, offsets = ops.grid_dim, ops.vdim, ops.offsets
+    to_hat_b, to_hat_x, from_hat_x = ops.scale_ops
+    rhs = _stencil_apply(offsets, ops.B_w, u, d, vdim) + ops.b_src
+    Ag_t, g_t = ops.Ag, ops.g
+    if ops.tmod is not None:
+        # b(t) enters the θ-scheme as Δt·[θ s(t_{n+1}) + (1−θ) s(t_n)]·b1;
+        # Dirichlet data g(t) is enforced at the new time level, its lift
+        # A·g(t) scaling with the same sinusoid.  Evaluated on the host in
+        # float64 (the reference evaluates it in the state's dtype)
+        b1, g1, Ag1, omega, phase, dt, theta = ops.tmod
+        s_n = math.sin(omega * (n * dt) + phase)
+        s_np1 = math.sin(omega * (n * dt + dt) + phase)
+        if b1 is not None:
+            rhs = rhs + (theta * s_np1 + (1.0 - theta) * s_n) * b1
+        if g1 is not None:
+            Ag_t, g_t = ops.Ag + s_np1 * Ag1, ops.g + s_np1 * g1
+    if ops.C_w is not None:
+        # CNAB2: Adams-Bashforth-2 extrapolation of the convection term
+        # (C_w is pre-scaled by Δt); u_prev = u0 makes the first step AB1
+        rhs = rhs - (1.5 * _stencil_apply(offsets, ops.C_w, u, d, vdim)
+                     - 0.5 * _stencil_apply(offsets, ops.C_w, u_prev, d,
+                                            vdim))
+    b_hat = to_hat_b(ops.free * (rhs - Ag_t) + g_t)
+    x0_hat = to_hat_x(u)
+    if ops.h is not None:
+        from pde_solver_tpu_torch.ops import multigrid as mg
+
+        # resync_every=0: warm-started step solves take a handful of
+        # iterations and do not drift (the reference's choice)
+        xh, k, relres = mg.mg_pcg(ops.h, b_hat, x0_hat, ops.inner_tol,
+                                  ops.maxiter, resync_every=0)
+    else:
+        xh, k, relres = _cg_unit_diag(
+            offsets, ops.A64 if mode == "f64" else ops.A32, b_hat, x0_hat,
+            ops.inner_tol, ops.maxiter, d, vdim)
+    return from_hat_x(xh), k, relres
+
+
+def _transient_scan(ops: _StepOperands, mode: str, u, u_prev, step0: int,
+                    num_steps: int, snap_every: int, snap_dtype):
+    """``num_steps`` steps from global step ``step0``, keeping the state
+    after every ``snap_every``-th one.  Returns (frames [num_steps //
+    snap_every, ...] in ``snap_dtype``, u, u_prev, iterations, max relres);
+    ``u_prev`` None seeds the CNAB2 history with u."""
+    u_prev = u if u_prev is None else u_prev
+    snaps = torch.empty((num_steps // snap_every,) + tuple(u.shape),
+                        dtype=snap_dtype, device=u.device)
+    iters, res = 0, 0.0
+    for j in range(1, num_steps + 1):
+        u_new, k, relres = _transient_step_body(ops, mode, u, u_prev,
+                                                step0 + j - 1)
+        u_prev, u = u, u_new
+        iters += int(k)
+        res = max(res, float(relres))
+        if j % snap_every == 0:
+            snaps[j // snap_every - 1] = u
+    return snaps, u, u_prev, iters, res
+
+
+def _frames(snaps: torch.Tensor) -> np.ndarray:
+    return snaps.cpu().numpy().astype(np.float64)
+
+
 def run_transient(
     K_np: Dict,
     M_np: Dict,
@@ -151,23 +256,24 @@ def run_transient(
     (node-shaped Dirichlet amplitude: g(t) = g0 + sin(ωt+φ)·g_amp on
     constrained DOFs).  The sinusoid is evaluated on the host in float64
     per step (the reference evaluates it in the float32 state type; the
-    two differ by ~1e-7 relative)."""
+    two differ by ~1e-7 relative).
+
+    Precision: "f64" steps a float64 state with float64 weights to
+    ``cfg.tol``; "f32" and "mixed" step a float32 state to
+    ``transient_inner_tol``.  ``transient_checkpoint_every > 0`` runs the
+    checkpointed scan (:func:`_run_transient_checkpointed`)."""
     if convection_scheme not in ("ab1", "cnab2"):
         raise ValueError(f"unknown convection_scheme {convection_scheme!r}")
     cfg = config or get_config()
     cfg.resolved_shard_devices()  # raises when sharding is requested
-    if cfg.transient_checkpoint_every > 0:
-        raise NotImplementedError("checkpointed transients are not ported "
-                                  "yet (ROADMAP queue 1, item 8)")
     prec = cfg.resolve_precision()
     if prec == "mixed":
         prec = "f32"   # the reference's rule: no f64 inside the scan
-    if prec != "f32":
-        raise NotImplementedError(f"precision {prec!r} transient scans are not "
-                                  "ported yet; only 'f32' and 'mixed' are "
-                                  "(ROADMAP queue 1, item 2)")
+    if prec not in ("f32", "f64"):
+        raise ValueError(f"unknown precision {prec!r}")
     t_setup = time.perf_counter()
     device = torch.device(cfg.device)
+    state_dtype = torch.float64 if prec == "f64" else torch.float32
     d = mesh.dim
     n = int(np.prod(mesh.node_shape)) * vdim
     maxiter = cfg.resolved_maxiter(n)
@@ -195,10 +301,7 @@ def run_transient(
     # sinusoidal-driving operands: b1 pre-scaled by dt, g1 restricted to
     # constrained DOFs with its matching lift A·g1
     b1_np = g1_np = Ag1_np = None
-    omega = phase = 0.0
     if time_mod:
-        omega = float(time_mod["omega"])
-        phase = float(time_mod.get("phase", 0.0))
         if time_mod.get("source_amp") is not None:
             b1_np = dt * np.asarray(time_mod["source_amp"], np.float64)
         if time_mod.get("bc_amp_values") is not None:
@@ -216,114 +319,242 @@ def run_transient(
             return _combine(K_c, M_c, alpha=theta * dt, beta=1.0), bc_c
 
         h = mg.build_hierarchy(mesh, sysm, A_builder, vdim=vdim,
-                               device=device)
-    A32 = None
-    if h is None:
-        # The reference builds this operator on the MG branch too and never
-        # reads it there; the port builds it only for the plain-CG step.
+                               device=device, dtype=state_dtype)
+
+    def dev(a):   # a copy: cached host arrays are read-only
+        return torch.tensor(np.asarray(a), dtype=state_dtype, device=device)
+
+    # The reference builds the step operator on the MG branch too and never
+    # reads it there; the port builds it only for the plain-CG step
+    A32 = A64 = None
+    if h is None and prec == "f32":
         A32 = _static_flat_op(sysm, mesh, vdim, device) or tuple(
-            torch.as_tensor(W, dtype=torch.float32, device=device)
-            for W in scaled)
-
-    def dev(a):
-        return torch.as_tensor(np.asarray(a), dtype=torch.float32,
-                               device=device)
-
-    B_w = tuple(dev(W) for W in B_list)
-    free, g, Ag = dev(free_np), dev(gvals), dev(Ag_np)
-    b_src = dev(dt * np.asarray(b_source_np, np.float64))
-    C_w = None if C_list is None else tuple(dev(W) for W in C_list)
-    b1, g1, Ag1 = (None if a is None else dev(a)
-                   for a in (b1_np, g1_np, Ag1_np))
+            dev(W) for W in scaled)
+    elif h is None:
+        A64 = tuple(dev(W) for W in scaled)
     if sysm.scale_kind == "scalar":
         scale_ops = _make_scale_ops(dev(sysm.s), None, None)
     else:
         scale_ops = _make_scale_ops(None, dev(sysm.Ct), dev(sysm.CinvT))
-    to_hat_b, to_hat_x, from_hat_x = scale_ops
-    inner_tol = cfg.transient_inner_tol
-
-    def step(u, u_prev, n):
-        """Step n → n+1 (n a host integer: the sinusoid costs no sync)."""
-        rhs = _stencil_apply(offsets, B_w, u, d, vdim) + b_src
-        Ag_t, g_t = Ag, g
-        if time_mod:
-            # b(t) enters the θ-scheme as Δt·[θ s(t_{n+1}) + (1−θ) s(t_n)]·b1;
-            # Dirichlet data g(t) is enforced at the new time level, its
-            # lift A·g(t) scaling with the same sinusoid
-            s_n = math.sin(omega * (n * dt) + phase)
-            s_np1 = math.sin(omega * (n * dt + dt) + phase)
-            if b1 is not None:
-                rhs = rhs + (theta * s_np1 + (1.0 - theta) * s_n) * b1
-            if g1 is not None:
-                Ag_t, g_t = Ag + s_np1 * Ag1, g + s_np1 * g1
-        if C_w is not None:
-            # CNAB2: Adams-Bashforth-2 extrapolation of the convection term
-            # (C_w is pre-scaled by Δt)
-            rhs = rhs - (1.5 * _stencil_apply(offsets, C_w, u, d, vdim)
-                         - 0.5 * _stencil_apply(offsets, C_w, u_prev, d,
-                                                vdim))
-        b_hat = to_hat_b(free * (rhs - Ag_t) + g_t)
-        x0_hat = to_hat_x(u)
-        if h is not None:
-            # resync_every=0: warm-started step solves take a handful of
-            # iterations and do not drift (the reference's choice)
-            xh, k, relres = mg.mg_pcg(h, b_hat, x0_hat, inner_tol, maxiter,
-                                      resync_every=0)
-        else:
-            xh, k, relres = _cg_unit_diag(offsets, A32, b_hat, x0_hat,
-                                          inner_tol, maxiter, d, vdim)
-        return from_hat_x(xh), k, relres
-
-    # the frames kept: every snap_every-th step, and the final state always
-    snap_every = _snapshot_every(cfg, num_steps, n * 4)
-    main = (num_steps // snap_every) * snap_every
-    kept = list(range(snap_every, main + 1, snap_every))
-    if snap_every > 1:
-        times = [0.0] + [dt * snap_every * (j + 1)
-                         for j in range(main // snap_every)]
-        if main < num_steps:
-            kept.append(num_steps)
-            times.append(dt * num_steps)
-        times = np.asarray(times, np.float64)
-    else:
-        times = dt * np.arange(num_steps + 1, dtype=np.float64)
+    tmod = None
+    if time_mod:
+        tmod = tuple(None if a is None else dev(a)
+                     for a in (b1_np, g1_np, Ag1_np)) + (
+            float(time_mod["omega"]), float(time_mod.get("phase", 0.0)),
+            float(dt), float(theta))
+    inner_tol = cfg.tol if prec == "f64" else cfg.transient_inner_tol
+    ops = _StepOperands(
+        offsets, A32, A64, tuple(dev(W) for W in B_list), dev(free_np),
+        dev(gvals), dev(Ag_np), dev(dt * np.asarray(b_source_np, np.float64)),
+        scale_ops, None if C_list is None else tuple(dev(W) for W in C_list),
+        tmod, inner_tol, maxiter, d, vdim, h)
+    snap32 = cfg.snapshot_dtype == "f32" and prec != "f64"
+    snap_dtype = torch.float32 if snap32 else state_dtype
+    snap_every = _snapshot_every(cfg, num_steps,
+                                 n * (4 if snap_dtype == torch.float32 else 8))
     u = dev(u0_np)
-    snaps = torch.empty((len(kept),) + tuple(u.shape), dtype=torch.float32,
-                        device=device)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     setup_s = time.perf_counter() - t_setup
 
+    if cfg.transient_checkpoint_every > 0:
+        # The content key covers everything that determines the trajectory
+        # (operators, lift, BC data, state, source, numerics), hashed from
+        # the same float64 host arrays as the reference's, so both packages
+        # name a case's file alike (the 0 stands for the reference's
+        # refinement rounds, 0 at every precision its scan runs).  num_steps
+        # is left out so a longer target continues a shorter or killed run.
+        hsh = hashlib.blake2b(digest_size=12)
+        hsh.update(repr((mesh.node_shape, vdim, float(dt), float(theta),
+                         prec, float(inner_tol), 0, bool(snap32),
+                         int(maxiter))).encode())
+        for arr in ((u0_np, b_source_np, gvals, Ag_np, free_np)
+                    + tuple(scaled) + tuple(B_list)):
+            hsh.update(np.ascontiguousarray(np.asarray(arr, np.float64)))
+        if time_mod:
+            hsh.update(repr((float(time_mod["omega"]),
+                             float(time_mod.get("phase", 0.0)))).encode())
+            for key_m in ("source_amp", "bc_amp_values"):
+                if time_mod.get(key_m) is not None:
+                    hsh.update(np.ascontiguousarray(
+                        np.asarray(time_mod[key_m], np.float64)))
+        if cnab2:
+            # AB1's C folds into B_list (hashed above); the CNAB2 history
+            # scheme and its separate C operand must key distinctly
+            hsh.update(b"cnab2")
+            for arr in C_list:
+                hsh.update(np.ascontiguousarray(arr))
+        return _run_transient_checkpointed(
+            ops, prec, u, num_steps, cfg, dt, u0_np, setup_s,
+            hsh.hexdigest(), snap_every, snap_dtype, cnab2)
+
+    # the frames kept: every snap_every-th step, and the final state always
     t_scan = time.perf_counter()
-    iters, res = 0, 0.0
-    frame = 0
-    u_prev = u
-    for j in range(1, num_steps + 1):
-        u_new, k, relres = step(u, u_prev, j - 1)
-        u_prev, u = u, u_new
-        iters += int(k)
-        res = max(res, float(relres))
-        if frame < len(kept) and kept[frame] == j:
-            snaps[frame] = u
-            frame += 1
+    main = (num_steps // snap_every) * snap_every
+    snaps, u, u_prev, iters, res = _transient_scan(
+        ops, prec, u, None, 0, main, snap_every, snap_dtype)
+    times = [dt * snap_every * (j + 1) for j in range(main // snap_every)]
+    last = None
+    if main < num_steps:
+        last, u, _, k2, res2 = _transient_scan(
+            ops, prec, u, u_prev, main, num_steps - main, num_steps - main,
+            snap_dtype)
+        iters, res = iters + k2, max(res, res2)
+        times.append(dt * num_steps)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     scan_s = time.perf_counter() - t_scan
 
     t_fetch = time.perf_counter()
-    traj = snaps.cpu().numpy().astype(np.float64)
-    values = np.concatenate([np.asarray(u0_np, np.float64)[None], traj],
+    values = np.concatenate([np.asarray(u0_np, np.float64)[None],
+                             _frames(snaps)]
+                            + ([] if last is None else [_frames(last)]),
                             axis=0)
     fetch_s = time.perf_counter() - t_fetch
     get_logger().info("transient: %d steps, %d CG iterations, max relres "
                       "%.3e, setup %.3fs, scan %.3fs, fetch %.3fs (%d DOF, "
-                      "%s step solves)", num_steps, iters, res, setup_s,
-                      scan_s, fetch_s, n, "MG-PCG" if h is not None else "CG")
-    return TransientResult(values=values, times=times,
+                      "%s, %s step solves)", num_steps, iters, res, setup_s,
+                      scan_s, fetch_s, n, prec,
+                      "MG-PCG" if h is not None else "CG")
+    return TransientResult(values=values,
+                           times=np.asarray([0.0] + times, np.float64),
                            total_cg_iterations=iters,
                            max_relative_residual=res,
                            setup_seconds=setup_s, scan_seconds=scan_s,
                            fetch_seconds=fetch_s)
+
+
+# ----------------------------------------------------------------------
+# Checkpoint/resume for long scans
+# ----------------------------------------------------------------------
+
+_CKPT_TEST_ABORT = 0  # tests: raise after N chunk checkpoints (0 = off)
+# what reading a truncated or foreign npz can raise: such a file is
+# recomputed over, as the reference does
+_UNREADABLE = (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile)
+
+
+def _save_checkpoint(cfg: SolverConfig, path: str, **arrays) -> None:
+    """Atomic npz write: a temporary file in the checkpoint directory,
+    renamed over ``path``."""
+    os.makedirs(cfg.checkpoint_dir, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=cfg.checkpoint_dir, suffix=".tmp.npz")
+    os.close(fd)
+    np.savez(tmp, **arrays)
+    os.replace(tmp, path)
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A carry tensor on the host at its full precision."""
+    return t.detach().cpu().numpy()
+
+
+def _run_transient_checkpointed(ops: _StepOperands, prec: str, u0,
+                                num_steps: int, cfg: SolverConfig, dt: float,
+                                u0_np, setup_s: float, key: str,
+                                snap_every: int, snap_dtype,
+                                cnab2: bool) -> TransientResult:
+    """Host-chunked scan with atomic carry + trajectory checkpoints.
+
+    Every ``transient_checkpoint_every`` steps (rounded up to whole
+    snapshot intervals, so every chunk boundary is a kept frame) the carry,
+    at its full precision, and the kept frames persist to
+    ``checkpoint_dir``.  A re-run of the same problem (content-keyed, not
+    on num_steps) resumes from the last completed chunk; a checkpoint
+    ahead of a shorter request is recomputed from step 0; on completion
+    the file is removed.  Chunking does not change the per-step
+    arithmetic: the trajectory is bitwise the uncheckpointed one.  Each
+    stored frame carries its global step index, so a resume with another
+    thinning cadence stays consistent."""
+    t_scan = time.perf_counter()
+    dtype = u0.dtype
+    every = max(int(cfg.transient_checkpoint_every), snap_every)
+    every = -(-every // snap_every) * snap_every
+    path = os.path.join(cfg.checkpoint_dir, f"transient-{key}.npz")
+
+    def fresh():
+        return ([np.asarray(u0_np, np.float64)[None]], [], 0, 0, 0.0, u0,
+                None)
+
+    frames, snap_steps, start, iters, res, u, u_prev = fresh()
+    if os.path.exists(path):
+        try:
+            with np.load(path) as z:
+                snaps_prev = z["snaps"]
+                steps_prev = [int(t) for t in z["snap_steps"]]
+                start, iters, res = (int(z["step"]), int(z["iters"]),
+                                     float(z["res"]))
+                u = torch.as_tensor(z["carry"], dtype=dtype,
+                                    device=u0.device)
+                if "u_prev" in z.files:
+                    u_prev = torch.as_tensor(z["u_prev"], dtype=dtype,
+                                             device=u0.device)
+            if start > num_steps:
+                # the checkpoint is ahead of this (shorter) request: its
+                # carry cannot give u(num_steps)
+                get_logger().warning(
+                    "transient checkpoint at step %d exceeds requested "
+                    "num_steps=%d — recomputing from step 0", start,
+                    num_steps)
+                frames, snap_steps, start, iters, res, u, u_prev = fresh()
+            else:
+                frames.append(snaps_prev.astype(np.float64))
+                snap_steps.extend(steps_prev)
+                get_logger().info("transient resume: step %d/%d from %s",
+                                  start, num_steps, path)
+        except _UNREADABLE as e:
+            get_logger().warning("unreadable checkpoint %s (%s) — "
+                                 "recomputing from step 0", path, e)
+            frames, snap_steps, start, iters, res, u, u_prev = fresh()
+    chunks_done = 0
+    fetch_s = 0.0
+    main = start + ((num_steps - start) // snap_every) * snap_every
+    while start < main:
+        n = min(every, main - start)
+        snaps, u, u_prev_f, k, r = _transient_scan(
+            ops, prec, u, u_prev, start, n, snap_every, snap_dtype)
+        if cnab2:
+            u_prev = u_prev_f
+        iters, res = iters + k, max(res, r)
+        t_f = time.perf_counter()
+        frames.append(_frames(snaps))
+        fetch_s += time.perf_counter() - t_f
+        snap_steps.extend(start + snap_every * (j + 1)
+                          for j in range(n // snap_every))
+        start += n
+        # the AB2 history rides along on CNAB2 runs, so resumes stay bitwise
+        extra = {} if u_prev is None else {"u_prev": _host(u_prev)}
+        _save_checkpoint(
+            cfg, path, snaps=np.concatenate(frames[1:], axis=0).astype(
+                np.float32 if snap_dtype == torch.float32 else np.float64),
+            snap_steps=np.asarray(snap_steps, np.int64), carry=_host(u),
+            step=start, iters=iters, res=res, **extra)
+        chunks_done += 1
+        if _CKPT_TEST_ABORT and chunks_done >= _CKPT_TEST_ABORT \
+                and start < num_steps:
+            raise RuntimeError("checkpoint test abort")
+    if start < num_steps:
+        # the last sub-interval (num_steps not a multiple of snap_every):
+        # step to the end and keep only the final state
+        rem = num_steps - start
+        last, u, _, k, r = _transient_scan(ops, prec, u, u_prev, start, rem,
+                                           rem, snap_dtype)
+        iters, res = iters + k, max(res, r)
+        t_f = time.perf_counter()
+        frames.append(_frames(last))
+        fetch_s += time.perf_counter() - t_f
+        snap_steps.append(num_steps)
+    try:
+        os.remove(path)   # run complete
+    except OSError:
+        pass
+    return TransientResult(
+        values=np.concatenate(frames, axis=0),
+        times=dt * np.asarray([0] + snap_steps, dtype=np.float64),
+        total_cg_iterations=iters, max_relative_residual=res,
+        setup_seconds=setup_s,
+        scan_seconds=time.perf_counter() - t_scan - fetch_s,
+        fetch_seconds=fetch_s)
 
 
 # ----------------------------------------------------------------------
@@ -339,6 +570,63 @@ class NewmarkResult(NamedTuple):
     setup_seconds: float = 0.0  # host system prep + a0 + MG hierarchy
     scan_seconds: float = 0.0   # the stepping loop
     fetch_seconds: float = 0.0  # both trajectories device → host
+
+
+class _NewmarkOperands(NamedTuple):
+    """What one Newmark step reads, on the device in the state's dtype."""
+
+    offsets: tuple
+    A_w: object                # A_eff: flat operator or per-offset tensors
+    K_w: tuple                 # unscaled K (K ũ through shifted slices)
+    free: torch.Tensor
+    f_ext: torch.Tensor
+    scale_ops: tuple
+    dt: float
+    beta: float
+    gamma: float
+    inner_tol: float
+    maxiter: int
+    grid_dim: int
+    vdim: int
+    h: object = None           # MG hierarchy of A_eff
+
+
+def _newmark_scan(ops: _NewmarkOperands, u, v, a, num_steps: int,
+                  snap_dtype):
+    """``num_steps`` Newmark steps from the carry (u, v, a).  Returns
+    (displacements, velocities) [num_steps, ...] in ``snap_dtype``, the
+    final carry at full precision, iterations and max relres."""
+    d, vdim, offsets = ops.grid_dim, ops.vdim, ops.offsets
+    to_hat_b, to_hat_x, from_hat_x = ops.scale_ops
+    dt, gamma = ops.dt, ops.gamma
+    c1 = dt * dt * (0.5 - ops.beta)
+    c2 = ops.beta * dt * dt
+    us = torch.empty((num_steps,) + tuple(u.shape), dtype=snap_dtype,
+                     device=u.device)
+    vs = torch.empty_like(us)
+    iters, res = 0, 0.0
+    for j in range(num_steps):
+        u_pred = u + dt * v + c1 * a
+        bt = ops.free * (ops.f_ext - _stencil_apply(offsets, ops.K_w, u_pred,
+                                                    d, vdim))
+        if ops.h is not None:
+            from pde_solver_tpu_torch.ops import multigrid as mg
+
+            xh, k, relres = mg.mg_pcg(ops.h, to_hat_b(bt), to_hat_x(a),
+                                      ops.inner_tol, ops.maxiter,
+                                      resync_every=0)
+        else:
+            xh, k, relres = _cg_unit_diag(offsets, ops.A_w, to_hat_b(bt),
+                                          to_hat_x(a), ops.inner_tol,
+                                          ops.maxiter, d, vdim)
+        a_new = ops.free * from_hat_x(xh)
+        u = u_pred + c2 * a_new
+        v = v + dt * ((1.0 - gamma) * a + gamma * a_new)
+        a = a_new
+        us[j], vs[j] = u, v
+        iters += int(k)
+        res = max(res, float(relres))
+    return us, vs, (u, v, a), iters, res
 
 
 def run_newmark(
@@ -364,30 +652,29 @@ def run_newmark(
     ``mg_level_builder(mesh_c) -> (K_c, M_c, bc_c)`` (optional) enables
     MG-PCG step solves on A_eff = M + βΔt²K above
     ``transient_mg_threshold`` DOF; without a hierarchy every step is a
-    plain CG on the dense flat operator of A_eff.  K ũ applies the unscaled
-    K through plain shifted slices, as the explicit operators of
-    ``run_transient`` do.  Every step's displacement and velocity come
-    back (no frame thinning), float64 on the host from the float32 device
-    trajectory."""
+    plain CG on A_eff: the dense flat operator at float32, float64 tensors
+    at "f64".  K ũ applies the unscaled K through plain shifted slices, as
+    the explicit operators of ``run_transient`` do.  "f64" steps a float64
+    state to ``cfg.tol`` (the initial acceleration too); "f32" and "mixed"
+    a float32 state to ``transient_inner_tol``.  Every step's displacement
+    and velocity come back (no frame thinning), float64 on the host.
+    ``transient_checkpoint_every > 0`` runs the checkpointed scan
+    (:func:`_run_newmark_checkpointed`)."""
     cfg = config or get_config()
     cfg.resolved_shard_devices()  # raises when sharding is requested
-    if cfg.transient_checkpoint_every > 0:
-        raise NotImplementedError("checkpointed Newmark scans are not ported "
-                                  "yet (ROADMAP step H)")
     prec = cfg.resolve_precision()
     if prec == "mixed":
         prec = "f32"   # the reference's rule: no f64 inside the scan
-    if prec != "f32":
-        raise NotImplementedError(f"precision {prec!r} Newmark scans are not "
-                                  "ported yet; only 'f32' and 'mixed' are "
-                                  "(ROADMAP step H)")
+    if prec not in ("f32", "f64"):
+        raise ValueError(f"unknown precision {prec!r}")
     t_setup = time.perf_counter()
     device = torch.device(cfg.device)
+    state_dtype = torch.float64 if prec == "f64" else torch.float32
     d = mesh.dim
     n = int(np.prod(mesh.node_shape)) * vdim
     maxiter = cfg.resolved_maxiter(n)
     num_steps = int(num_steps)
-    inner_tol = cfg.transient_inner_tol
+    inner_tol = cfg.tol if prec == "f64" else cfg.transient_inner_tol
 
     A_np = _combine(K_np, M_np, alpha=beta * dt * dt, beta=1.0)
     # acceleration BC values are zero: a zero-valued mask of u's pattern
@@ -399,15 +686,15 @@ def run_newmark(
     K_list = [np.asarray(K_np.get(o, np.zeros(wshape)), np.float64)
               for o in offsets]
 
-    def dev(a):
-        return torch.as_tensor(np.asarray(a), dtype=torch.float32,
-                               device=device)
+    def dev(a):   # a copy: cached host arrays are read-only
+        return torch.tensor(np.asarray(a), dtype=state_dtype, device=device)
 
-    def flat_or_plain(system):
-        """The dense flat operator (never the constant-interior one: the
-        reference does not try it on this branch), or per-offset tensors
-        below ``KERNEL_MIN_DOF``."""
-        if kernel_wins(n):
+    def step_operator(system):
+        """The dense flat operator at float32 (never the constant-interior
+        one: the reference does not try it on this branch), else
+        per-offset tensors in the state's dtype (float64, or float32 below
+        ``KERNEL_MIN_DOF``)."""
+        if prec == "f32" and kernel_wins(n):
             return FlatStencilOperator(offsets, system.weights,
                                        mesh.node_shape, vdim=vdim,
                                        device=device)
@@ -419,9 +706,9 @@ def run_newmark(
         np.asarray(f_np, np.float64)
         - np_stencil_apply(K_np, np.asarray(u0_np, np.float64), d, vdim)),
         vdim)
-    xh0, _, _ = _cg_unit_diag(offsets, flat_or_plain(sys_m),
+    xh0, _, _ = _cg_unit_diag(offsets, step_operator(sys_m),
                               dev(sys_m.b_hat),
-                              torch.zeros(u0_np.shape, dtype=torch.float32,
+                              torch.zeros(u0_np.shape, dtype=state_dtype,
                                           device=device),
                               inner_tol, maxiter, d, vdim)
     a = dev(free_np * sys_m.from_hat_x(xh0.cpu().numpy().astype(np.float64)))
@@ -437,63 +724,138 @@ def run_newmark(
             return _combine(K_c, M_c, alpha=beta * dt * dt, beta=1.0), bc_c
 
         h = mg.build_hierarchy(mesh, sysm, A_builder, vdim=vdim,
-                               device=device)
-    A32 = flat_or_plain(sysm) if h is None else None
-
-    K_w = tuple(dev(W) for W in K_list)
-    free, f_ext = dev(free_np), dev(f_np)
+                               device=device, dtype=state_dtype)
     if sysm.scale_kind == "scalar":
         scale_ops = _make_scale_ops(dev(sysm.s), None, None)
     else:
         scale_ops = _make_scale_ops(None, dev(sysm.Ct), dev(sysm.CinvT))
-    to_hat_b, to_hat_x, from_hat_x = scale_ops
-    c1 = dt * dt * (0.5 - beta)
-    c2 = beta * dt * dt
-
+    ops = _NewmarkOperands(
+        offsets, step_operator(sysm) if h is None else None,
+        tuple(dev(W) for W in K_list), dev(free_np), dev(f_np), scale_ops,
+        float(dt), float(beta), float(gamma), inner_tol, maxiter, d, vdim, h)
+    snap32 = cfg.snapshot_dtype == "f32" and prec != "f64"
+    snap_dtype = torch.float32 if snap32 else state_dtype
     u, v = dev(u0_np), dev(v0_np)
-    us = torch.empty((num_steps,) + tuple(u.shape), dtype=torch.float32,
-                     device=device)
-    vs = torch.empty_like(us)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     setup_s = time.perf_counter() - t_setup
 
+    if cfg.transient_checkpoint_every > 0:
+        # the content key covers everything that determines the trajectory
+        # (operators, BC data, state, forcing, numerics) but not num_steps,
+        # hashed as the reference hashes it
+        hsh = hashlib.blake2b(digest_size=12)
+        hsh.update(repr((mesh.node_shape, vdim, float(dt), float(beta),
+                         float(gamma), prec, float(inner_tol), int(maxiter),
+                         bool(snap32))).encode())
+        for arr in ((u0_np, v0_np, f_np, free_np,
+                     np.asarray(bc.values, np.float64))
+                    + tuple(sysm.weights) + tuple(K_list)):
+            hsh.update(np.ascontiguousarray(np.asarray(arr, np.float64)))
+        return _run_newmark_checkpointed(ops, (u, v, a), num_steps, cfg,
+                                         u0_np, v0_np, setup_s,
+                                         hsh.hexdigest(), snap_dtype)
+
     t_scan = time.perf_counter()
-    iters, res = 0, 0.0
-    for j in range(num_steps):
-        u_pred = u + dt * v + c1 * a
-        bt = free * (f_ext - _stencil_apply(offsets, K_w, u_pred, d, vdim))
-        if h is not None:
-            xh, k, relres = mg.mg_pcg(h, to_hat_b(bt), to_hat_x(a),
-                                      inner_tol, maxiter, resync_every=0)
-        else:
-            xh, k, relres = _cg_unit_diag(offsets, A32, to_hat_b(bt),
-                                          to_hat_x(a), inner_tol, maxiter,
-                                          d, vdim)
-        a_new = free * from_hat_x(xh)
-        u = u_pred + c2 * a_new
-        v = v + dt * ((1.0 - gamma) * a + gamma * a_new)
-        a = a_new
-        us[j], vs[j] = u, v
-        iters += int(k)
-        res = max(res, float(relres))
+    us, vs, _, iters, res = _newmark_scan(ops, u, v, a, num_steps, snap_dtype)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     scan_s = time.perf_counter() - t_scan
 
     t_fetch = time.perf_counter()
     values = np.concatenate([np.asarray(u0_np, np.float64)[None],
-                             us.cpu().numpy().astype(np.float64)], axis=0)
+                             _frames(us)], axis=0)
     vels = np.concatenate([np.asarray(v0_np, np.float64)[None],
-                           vs.cpu().numpy().astype(np.float64)], axis=0)
+                           _frames(vs)], axis=0)
     fetch_s = time.perf_counter() - t_fetch
     get_logger().info("newmark: %d steps, %d CG iterations, max relres "
                       "%.3e, setup %.3fs, scan %.3fs, fetch %.3fs (%d DOF, "
-                      "%s step solves)", num_steps, iters, res, setup_s,
-                      scan_s, fetch_s, n, "MG-PCG" if h is not None else "CG")
+                      "%s, %s step solves)", num_steps, iters, res, setup_s,
+                      scan_s, fetch_s, n, prec,
+                      "MG-PCG" if h is not None else "CG")
     return NewmarkResult(values=values, velocities=vels,
                          times=dt * np.arange(num_steps + 1,
                                               dtype=np.float64),
                          total_cg_iterations=iters,
                          max_relative_residual=res, setup_seconds=setup_s,
                          scan_seconds=scan_s, fetch_seconds=fetch_s)
+
+
+def _run_newmark_checkpointed(ops: _NewmarkOperands, carry0, num_steps: int,
+                              cfg: SolverConfig, u0_np, v0_np,
+                              setup_s: float, key: str,
+                              snap_dtype) -> NewmarkResult:
+    """Host-chunked Newmark scan with atomic (u, v, a) checkpoints, as
+    :func:`_run_transient_checkpointed`: every
+    ``transient_checkpoint_every`` steps the full-precision carry and the
+    displacement and velocity frames persist to ``checkpoint_dir``; a
+    re-run of the same content-keyed problem resumes from the last
+    completed chunk; the file is removed on completion.  The acceleration
+    is carried explicitly, so chunking is bitwise the uninterrupted
+    scan."""
+    t_scan = time.perf_counter()
+    every = max(1, int(cfg.transient_checkpoint_every))
+    path = os.path.join(cfg.checkpoint_dir, f"newmark-{key}.npz")
+    dtype, device = carry0[0].dtype, carry0[0].device
+
+    def fresh():
+        return ([np.asarray(u0_np, np.float64)[None]],
+                [np.asarray(v0_np, np.float64)[None]], 0, 0, 0.0, carry0)
+
+    u_frames, v_frames, start, iters, res, carry = fresh()
+    if os.path.exists(path):
+        try:
+            with np.load(path) as z:
+                if int(z["step"]) > num_steps:
+                    get_logger().warning(
+                        "newmark checkpoint at step %d exceeds requested "
+                        "num_steps=%d — recomputing from step 0",
+                        int(z["step"]), num_steps)
+                else:
+                    u_frames.append(z["us"].astype(np.float64))
+                    v_frames.append(z["vs"].astype(np.float64))
+                    start, iters, res = (int(z["step"]), int(z["iters"]),
+                                         float(z["res"]))
+                    carry = tuple(torch.as_tensor(z[k], dtype=dtype,
+                                                  device=device)
+                                  for k in ("u", "v", "a"))
+                    get_logger().info("newmark resume: step %d/%d from %s",
+                                      start, num_steps, path)
+        except _UNREADABLE as e:
+            get_logger().warning("unreadable checkpoint %s (%s) — "
+                                 "recomputing from step 0", path, e)
+            u_frames, v_frames, start, iters, res, carry = fresh()
+    chunks_done = 0
+    fetch_s = 0.0
+    snap_np = np.float32 if snap_dtype == torch.float32 else np.float64
+    while start < num_steps:
+        n = min(every, num_steps - start)
+        us, vs, carry, k, r = _newmark_scan(ops, *carry, n, snap_dtype)
+        iters, res = iters + k, max(res, r)
+        t_f = time.perf_counter()
+        u_frames.append(_frames(us))
+        v_frames.append(_frames(vs))
+        fetch_s += time.perf_counter() - t_f
+        start += n
+        _save_checkpoint(
+            cfg, path,
+            us=np.concatenate(u_frames[1:], axis=0).astype(snap_np),
+            vs=np.concatenate(v_frames[1:], axis=0).astype(snap_np),
+            u=_host(carry[0]), v=_host(carry[1]), a=_host(carry[2]),
+            step=start, iters=iters, res=res)
+        chunks_done += 1
+        if _CKPT_TEST_ABORT and chunks_done >= _CKPT_TEST_ABORT \
+                and start < num_steps:
+            raise RuntimeError("checkpoint test abort")
+    try:
+        os.remove(path)   # run complete
+    except OSError:
+        pass
+    return NewmarkResult(
+        values=np.concatenate(u_frames, axis=0),
+        velocities=np.concatenate(v_frames, axis=0),
+        times=ops.dt * np.arange(num_steps + 1, dtype=np.float64),
+        total_cg_iterations=iters, max_relative_residual=res,
+        setup_seconds=setup_s,
+        scan_seconds=time.perf_counter() - t_scan - fetch_s,
+        fetch_seconds=fetch_s)

@@ -169,17 +169,12 @@ def _solve_example(orch_mod, load, q):
 
 @pytest.mark.parametrize("i", range(len(ref_app.EXAMPLES)))
 def test_example_end_to_end_matches_reference(i, tmp_path, monkeypatch):
-    """The port in its "mixed" policy (float32 transients, float32 CG with
-    f64 refinement) against the JAX package's float64 default: the port's
-    field is as close to the float64 one as the JAX package's own "mixed"
-    field is (×1.5, the Newmark family tests' rule), and within 1e-9 where
-    both are exact (host sparse LU)."""
+    """Both packages in their CPU default, "auto", which resolves to
+    float64: the port's field within 1e-9 of the JAX package's."""
     monkeypatch.chdir(tmp_path)
     q = ref_app.EXAMPLES[i]
     ref, v64 = _solve_example(ref_orchestrator, ref_load, q)
-    with ref_config.config_overrides(precision="mixed"):
-        _, v_mixed = _solve_example(ref_orchestrator, ref_load, q)
-    with config.config_overrides(**CPU):
+    with config.config_overrides(device="cpu"):
         port, v = _solve_example(orchestrator, load_field, q)
     assert port["pde_params"] == ref["pde_params"]
     meta = port["dispatch_result"]["solver_result"]["meta"]
@@ -189,10 +184,8 @@ def test_example_end_to_end_matches_reference(i, tmp_path, monkeypatch):
     assert os.path.basename(port["html_path"]).split("_")[:-1] == \
         os.path.basename(ref["html_path"]).split("_")[:-1]
     assert v.shape == v64.shape and np.all(np.isfinite(v))
-    scale = np.abs(v64).max()
-    gap = np.abs(v - v64).max() / scale
-    gap_ref = np.abs(v_mixed - v64).max() / scale
-    assert gap <= 1.5 * gap_ref + 1e-9, (gap, gap_ref)
+    gap = np.abs(v - v64).max() / np.abs(v64).max()
+    assert gap <= 1e-9, gap
 
 
 def test_crank_nicolson_override_uses_the_port_config(tmp_path, monkeypatch):

@@ -70,13 +70,26 @@ def test_below_kernel_threshold_levels_take_the_grid_route(tmp_path,
 
 
 def test_config_device_drives_precision_and_unported_paths_raise(tmp_path):
+    """The device picks "auto"'s precision; "f64" (which raised until the
+    float64 branch was ported) solves the slice by MG-PCG on a float64
+    hierarchy, held to the JAX package's float64 field at 1e-9; sharding
+    still raises."""
     assert config.SolverConfig().device == "cuda"
     assert config.SolverConfig().resolve_precision() == "mixed"
     assert config.SolverConfig(device="cpu").resolve_precision() == "f64"
-    with config.config_overrides(device="cpu", precision="f64"):
-        with pytest.raises(NotImplementedError):
-            api.solve_elasticity_3D_static(**FLAGSHIP,
-                                           data_dir=str(tmp_path))
+    f64 = dict(precision="f64", host_direct_threshold=0, mg_threshold=100)
+    with ref_config.config_overrides(**f64):
+        r_ref = ref_api.solve_elasticity_3D_static(
+            **FLAGSHIP, data_dir=str(tmp_path / "ref"))
+    with config.config_overrides(device="cpu", **f64):
+        r = api.solve_elasticity_3D_static(**FLAGSHIP,
+                                           data_dir=str(tmp_path / "port"))
+    s, s_ref = r.meta["solver_stats"], r_ref.meta["solver_stats"]
+    assert s["converged"] and s["cg_iterations"] == s_ref["cg_iterations"]
+    assert s["convergence_target"] == s_ref["convergence_target"]
+    vm, vm_ref = (load_field(r.data_file).values_array(),
+                  ref_load(r_ref.data_file).values_array())
+    assert np.abs(vm - vm_ref).max() <= 1e-9 * np.abs(vm_ref).max()
     with config.config_overrides(device="cpu", shard_devices=4):
         with pytest.raises(NotImplementedError):
             api.solve_elasticity_3D_static(**FLAGSHIP,
@@ -98,7 +111,11 @@ def test_host_direct_branch_matches_reference(tmp_path):
 
 def test_port_never_imports_jax():
     code = ("import sys, pde_solver_tpu_torch.api, pde_solver_tpu_torch.convert,"
+            " pde_solver_tpu_torch.config,"
+            " pde_solver_tpu_torch.ops.linsolve,"
+            " pde_solver_tpu_torch.ops.multigrid,"
             " pde_solver_tpu_torch.ops.timestepping,"
+            " pde_solver_tpu_torch.models.elasticity,"
             " pde_solver_tpu_torch.ops.cs_kernels,"
             " pde_solver_tpu_torch.ops.surface,"
             " pde_solver_tpu_torch.models.heat,"
@@ -139,6 +156,10 @@ def test_port_never_imports_jax():
             " solve_elasticity_3D_dynamic, solve_elasticity_2D_modal,"
             " solve_elasticity_3D_modal);"
             "pde_solver_tpu_torch.ops.timestepping.run_newmark;"
+            "pde_solver_tpu_torch.ops.timestepping._run_transient_checkpointed;"
+            "pde_solver_tpu_torch.ops.timestepping._run_newmark_checkpointed;"
+            "pde_solver_tpu_torch.ops.multigrid.solve_mg;"
+            "pde_solver_tpu_torch.config.set_config;"
             "pde_solver_tpu_torch.ops.eigen.smallest_modes;"
             "pde_solver_tpu_torch.ops.floor_probes.kernel_floor;"
             "pde_solver_tpu_torch.models.heat.solve_heat_nonlinear;"

@@ -4,6 +4,7 @@ routes at small sizes, the steady tool, snapshot thinning, what is not
 ported yet (and what since was), and ``mg_pcg``'s ``resync_every``."""
 
 import inspect
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -17,6 +18,7 @@ from pde_solver_tpu.mesh import box_mesh as ref_box
 from pde_solver_tpu.ops import assembly as ref_asm
 from pde_solver_tpu.ops import multigrid as ref_mg
 from pde_solver_tpu.ops import pallas_kernels
+from pde_solver_tpu.ops import timestepping as ref_ts
 from pde_solver_tpu.ops.bc import DirichletBC as RefBC
 from pde_solver_tpu.ops.linsolve import prepare_system as ref_prepare
 from pde_solver_tpu.ops.timestepping import _combine as ref_combine
@@ -182,24 +184,43 @@ def _small_heat():
 
 @pytest.mark.parametrize("what", ["time_mod", "C_np", "checkpoint", "shard",
                                   "f64", "robin", "mod_omega"])
-def test_unported_inputs_raise(what):
-    """Checkpointing, sharding and float64 scans raise; periodic driving,
-    explicit convection and Robin faces, which raised until they were
-    ported, now run and change the answer."""
+def test_unported_inputs_raise(what, tmp_path):
+    """Sharding raises.  Periodic driving, explicit convection and Robin
+    faces, which raised until they were ported, run and change the answer;
+    so do checkpointing (bitwise the uncheckpointed scan) and float64 scans
+    (held to the JAX package's float64 scan at 1e-9)."""
     K, M, mesh, bc, b, u0 = _small_heat()
     kw, cfg = {}, dict(device="cpu", precision="f32")
+    if what == "checkpoint":
+        with config.config_overrides(**cfg):
+            v0 = timestepping.run_transient(K, M, mesh, bc, b, u0, 0.01,
+                                            4).values
+        with config.config_overrides(transient_checkpoint_every=2,
+                                     checkpoint_dir=str(tmp_path), **cfg):
+            v = timestepping.run_transient(K, M, mesh, bc, b, u0, 0.01,
+                                           4).values
+        assert np.array_equal(v, v0) and not os.listdir(tmp_path)
+        return
+    if what == "f64":
+        rmesh = ref_box(6, 4, 4, (0, 0, 0), (1, 1, 1))
+        v_ref = ref_ts.run_transient(
+            ref_asm.assemble_scalar_stencil(rmesh, "stiffness"),
+            ref_asm.assemble_scalar_stencil(rmesh, "mass"), rmesh,
+            RefBC(bc.free_mask, bc.values), b, u0, 0.01, 2).values
+        with config.config_overrides(device="cpu", precision="f64"):
+            v = timestepping.run_transient(K, M, mesh, bc, b, u0, 0.01,
+                                           2).values
+        assert v.shape == v_ref.shape
+        assert np.abs(v - v_ref).max() <= 1e-9 * np.abs(v_ref).max()
+        return
     if what == "time_mod":
         kw["time_mod"] = {"omega": 1.0, "source_amp": b + 1.0}
     elif what == "C_np":
         kw["C_np"] = assembly.assemble_convection_stencil(
             mesh, np.array([1.0, 0.0, 0.0]))
-    elif what == "checkpoint":
-        cfg["transient_checkpoint_every"] = 2
     elif what == "shard":
         cfg["shard_devices"] = 4
-    elif what == "f64":
-        cfg["precision"] = "f64"
-    if what in ("checkpoint", "shard", "f64"):
+    if what == "shard":
         with config.config_overrides(**cfg), \
                 pytest.raises(NotImplementedError):
             timestepping.run_transient(K, M, mesh, bc, b, u0, 0.01, 2, **kw)
