@@ -4,6 +4,11 @@
     python3 chip_smoke.py
 
 1. Asserts a CUDA card and prints its name and power limit (nvidia-smi).
+   Starts cold, as a user's first call does: the run's own disk-cache
+   directory (``build/chip_smoke_cache``, ``PDE_TPU_CACHE_DIR``) is
+   emptied, its free bytes printed, and ``PDE_TPU_CACHE_MAX_GB`` set high
+   enough that no entry of the run is evicted.  The operators the kernel
+   checks of 3–4 build for themselves bypass the disk cache.
 2. Builds the three kernel sources from ``pde_solver_tpu_torch/csrc`` with
    nvcc for sm_90a, in parallel, and prints the build seconds and every
    kernel's ptxas report.
@@ -58,7 +63,12 @@
    Checks convergence, finite fields of the expected shape, that the
    routes agree, that each run launched its kernels, and that the CS
    routes built their operator on the two levels of at least 65,536 DOF
-   and no other.  Every dense
+   and no other.  The dense flagship is the cold call: it must store the
+   ``prep`` and ``mgh`` disk-cache entries of its system (printed: the
+   set-up seconds, prepare_system, hierarchy and ladder, and each
+   entry's store seconds and bytes); its von Mises must have run on the
+   card in float32 and lie within 1e-5·max of the host float64 path on the
+   same u (both times printed).  Every dense
    operator a run launched and every constant-interior operator it built
    (each MG level and weight dtype, each step operator, the projection)
    is then held against its plain version at its own shape (each CS
@@ -173,8 +183,11 @@
      holds the reported relres (the true residual, where the JAX package
      reports CG's recurrence) against a host float64 recomputation from
      the same x̂ within 1e-6 relative, ``converged`` exactly relres ≤
-     target, and, when converged, the field within 1e-6·max of the
-     "mixed" dense flagship of 6;
+     target, and, when converged, von Mises evaluated on the host in
+     float64 from its displacements within 1e-6·max of the same from the
+     "mixed" dense flagship's of 6 (the fields themselves carry float32
+     von Mises at either precision: ≥ 1M unknowns on the card); the cold
+     build bypasses the disk cache;
    - the flagship under ``precision="f32"``: flat CG on K1 v3 f32 at
      max(inner_tol, 1e-7), ``converged`` reported as it comes;
    - ``solve_heat_3D`` at 128³ (20 steps) under "f64": MG-PCG on a float64
@@ -197,10 +210,13 @@
      to the request just sent, and nothing may follow the last):
      initialize, tools/list (the 31 names of the port's ``LocalToolSet``),
      the flagship (2,040,675 DOF), which must converge in the iterations of
-     the in-process dense run of 6 and lie within 1e-6·max of its field
-     (printed: the gap, the served and in-process wall seconds, the
-     server's INFO lines and the kernel launches of its tool call, added
-     to the main paths' launches), then the plot of the served field (its
+     the in-process dense run of 6 and lie within 1e-6·max of its field,
+     answered from the disk cache 6 stored: its INFO lines must show a
+     ``prep`` and a hierarchy disk hit and no store (printed: the gap, the
+     served and in-process wall seconds, the served set-up seconds beside
+     the cold ones of 6, the server's INFO lines and the kernel launches
+     of its tool call, added to the main paths' launches), then the plot
+     of the served field (its
      seconds and bytes; the HTML holds ``Plotly.newPlot`` and the figure
      JSON), then an unknown tool (``isError``);
    - the nine chat examples of ``pde_solver_tpu_torch/app.py`` in process,
@@ -226,9 +242,12 @@ true, "device": {...}}``.  Needs no network; writes only under
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -409,11 +428,178 @@ MODAL_TOL = 1e-6
 SERVER_CMD = ("-m", "pde_solver_tpu_torch.mcp.server")
 SERVED_TOL = 1e-6        # served against in-process von Mises, ·max|vm|
 SERVE_TIMEOUT = 600.0    # seconds for one reply of the server
+# the disk cache (``utils.diskcache``): this run's own directory, emptied at
+# the start (a user's first call is cold), with a size bound that keeps
+# every entry the run writes, so the service phase finds the flagship's
+CACHE_DIR = os.path.join("build", "chip_smoke_cache")
+CACHE_MAX_GB = 64
+FLAGSHIP_DOF = 2_040_675
+VM_DEVICE_TOL = 1e-5     # device von Mises against host float64, ·max|vm|
+# the solver's INFO lines: set-up seconds, and the disk cache's events
+SETUP_LINES = (
+    ("prepare_system", r"prepare_system: ([0-9.]+)s \((\d+) DOF\)"),
+    ("hierarchy", r"hierarchy build: ([0-9.]+)s \((\d+) DOF\)"),
+    ("ladder", r"df ladder build: ([0-9.]+)s, df2 rounds: [0-9.]+s "
+               r"\((\d+) DOF\)"))
+DISK_LINE = (r"(prep|hierarchy) disk-cache (hit|store) \(([0-9.]+)s"
+             r"[a-z ]*, (\d+) bytes, (\d+) DOF\)")
 
 
 def check(ok: bool, msg: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+@contextlib.contextmanager
+def disk_cache_off():
+    """``PDE_TPU_DISK_CACHE=0`` within: operators a check builds for
+    itself, and runs that time a cold build, neither load nor store a
+    disk-cache entry."""
+    prev = os.environ.get("PDE_TPU_DISK_CACHE")
+    os.environ["PDE_TPU_DISK_CACHE"] = "0"
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop("PDE_TPU_DISK_CACHE", None)
+        else:
+            os.environ["PDE_TPU_DISK_CACHE"] = prev
+
+
+@contextlib.contextmanager
+def solver_log():
+    """The port logger's messages (INFO and up) while within."""
+    import logging
+
+    from pde_solver_tpu_torch.utils.observability import get_logger
+
+    lines = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    logger, keep = get_logger(), Keep()
+    logger.addHandler(keep)
+    try:
+        yield lines
+    finally:
+        logger.removeHandler(keep)
+
+
+def setup_seconds(lines, dof: int) -> dict:
+    """A solve's set-up seconds from its INFO lines: prepare_system, the
+    hierarchy (built or rebuilt from disk) and the df ladder, of the
+    system of ``dof`` unknowns, and their sum."""
+    out = {}
+    for name, pattern in SETUP_LINES:
+        for line in lines:
+            m = re.search(pattern, line)
+            if m and int(m.group(2)) == dof:
+                out[name] = float(m.group(1))
+                break
+    out["total"] = sum(out.values())
+    return out
+
+
+def disk_events(lines, dof: int) -> dict:
+    """{(kind, "hit" or "store"): (seconds, bytes)} of the disk-cache lines
+    of the system of ``dof`` unknowns."""
+    out = {}
+    for line in lines:
+        m = re.search(DISK_LINE, line)
+        if m and int(m.group(5)) == dof:
+            out[m.group(1), m.group(2)] = (float(m.group(3)),
+                                           int(m.group(4)))
+    return out
+
+
+def cache_listing(path) -> dict:
+    """{kind: (entries, bytes)} of a disk-cache directory."""
+    out = {}
+    for name in sorted(os.listdir(path)) if os.path.isdir(path) else ():
+        if name.endswith(".npz") and "-" in name:
+            kind = name.split("-", 1)[0]
+            n, b = out.get(kind, (0, 0))
+            out[kind] = (n + 1, b + os.path.getsize(os.path.join(path, name)))
+    return out
+
+
+def spy_von_mises():
+    """Record every call of ``elasticity.von_mises_fields``: its mesh, u,
+    λ, μ, prestress, device, output and seconds; returns the list and the
+    function that removes the spy."""
+    import numpy as np
+
+    from pde_solver_tpu_torch.models import elasticity as elast
+
+    calls = []
+    orig = elast.von_mises_fields
+
+    def spy(mesh, u_grid, lam, mu, iso=None, device=None):
+        t = time.perf_counter()
+        out = orig(mesh, u_grid, lam, mu, iso=iso, device=device)
+        calls.append(dict(mesh=mesh, u=np.asarray(u_grid), lam=lam, mu=mu,
+                          iso=iso, device=device, out=out,
+                          seconds=time.perf_counter() - t))
+        return out
+
+    elast.von_mises_fields = spy
+    return calls, lambda: setattr(elast, "von_mises_fields", orig)
+
+
+def host_von_mises(rec):
+    """The host float64 von Mises (stress, strain) of a recorded call's u."""
+    import numpy as np
+
+    from pde_solver_tpu_torch.models import elasticity as elast
+
+    G = elast._element_gradients(rec["mesh"], rec["u"])
+    return elast._vm_from_gradients(G, np, rec["mesh"].dim, rec["lam"],
+                                    rec["mu"], iso=rec["iso"])
+
+
+def device_von_mises_phase(rec, card_line, device="cuda"):
+    """The flagship's von Mises as the run computed it (on the card, float32)
+    against the host float64 path on the same u, within VM_DEVICE_TOL of
+    max|vm|; a second device evaluation must equal the run's bit for bit.
+    Returns the numbers PERF.md keeps.  A CPU rehearsal passes a call
+    recorded on the CPU's float32 device path and ``device="cpu"``."""
+    import numpy as np
+    import torch
+
+    from pde_solver_tpu_torch.models import elasticity as elast
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    run_out = rec["out"]
+    check(all(a.dtype == np.float32 for a in run_out),
+          f"the flagship's von Mises did not run on the card: "
+          f"{[a.dtype for a in run_out]}")
+    sync()
+    t = time.perf_counter()
+    again = elast._von_mises_device(rec["mesh"], rec["u"], rec["lam"],
+                                    rec["mu"], iso=rec["iso"], device=device)
+    sync()
+    device_s = time.perf_counter() - t
+    t = time.perf_counter()
+    host = host_von_mises(rec)
+    host_s = time.perf_counter() - t
+    gaps = [float(np.abs(d - h).max() / np.abs(h).max())
+            for d, h in zip(run_out, host)]
+    same = all(np.array_equal(a, b) for a, b in zip(again, run_out))
+    print(f"device von Mises ({card_line}): the flagship's u "
+          f"{rec['u'].shape}, on the card (float32) {rec['seconds']:.3f} s in "
+          f"the run, {device_s:.3f} s again (bit-equal: {same}); host "
+          f"float64 {host_s:.3f} s; max|Δ|/max|vm| stress {gaps[0]:.3e}, "
+          f"strain {gaps[1]:.3e} (bound {VM_DEVICE_TOL})", flush=True)
+    check(same, "the device von Mises is not reproducible")
+    check(max(gaps) <= VM_DEVICE_TOL, f"device von Mises off the host "
+          f"float64 one by {max(gaps):.3e}")
+    return dict(run_s=rec["seconds"], device_s=device_s, host_s=host_s,
+                gap_stress=gaps[0], gap_strain=gaps[1])
 
 
 def time_ms(fn, reps: int) -> float:
@@ -662,8 +848,9 @@ def heat_operator(cells, dt=0.01):
     M = assembly.assemble_scalar_stencil(mesh, "mass")
     bc = DirichletBC.from_masks([(mesh.boundary_mask(), 0.0)],
                                 mesh.node_shape)
-    return mesh, prepare_system(_combine(K, M, dt, 1.0), mesh, bc,
-                                np.zeros(mesh.node_shape), 1)
+    with disk_cache_off():
+        return mesh, prepare_system(_combine(K, M, dt, 1.0), mesh, bc,
+                                    np.zeros(mesh.node_shape), 1)
 
 
 def elasticity_operator(cells=FLAGSHIP_CELLS):
@@ -682,8 +869,9 @@ def elasticity_operator(cells=FLAGSHIP_CELLS):
     K = assembly.assemble_elasticity_stencil(mesh, lam, mu)
     bc = DirichletBC.from_masks([(mesh.face_mask(0, 0), 0.0)],
                                 mesh.node_shape, vdim=3)
-    return mesh, prepare_system(K, mesh, bc,
-                                np.zeros(mesh.node_shape + (3,)), 3)
+    with disk_cache_off():
+        return mesh, prepare_system(K, mesh, bc,
+                                    np.zeros(mesh.node_shape + (3,)), 3)
 
 
 def mass_operator():
@@ -698,8 +886,9 @@ def mass_operator():
 
     mesh = box_mesh(*FLAGSHIP_CELLS, (0.0, 0.0, 0.0), FLAGSHIP_EXTENT)
     M = assembly.assemble_scalar_stencil(mesh, "mass", quad_degree=2)
-    return mesh, prepare_system(M, mesh, _no_bc(mesh),
-                                np.zeros(mesh.node_shape), 1)
+    with disk_cache_off():
+        return mesh, prepare_system(M, mesh, _no_bc(mesh),
+                                    np.zeros(mesh.node_shape), 1)
 
 
 def rel_err(y, y_ref) -> float:
@@ -1284,8 +1473,9 @@ def plane_operator(cells, E=210e9, nu=0.3):
     K = assembly.assemble_elasticity_stencil(mesh, lam, mu)
     bc = DirichletBC.from_masks([(mesh.face_mask(0, 0), 0.0)],
                                 mesh.node_shape, vdim=2)
-    return mesh, prepare_system(K, mesh, bc,
-                                np.zeros(mesh.node_shape + (2,)), 2)
+    with disk_cache_off():
+        return mesh, prepare_system(K, mesh, bc,
+                                    np.zeros(mesh.node_shape + (2,)), 2)
 
 
 def plane_kernel_phase(sk):
@@ -1379,7 +1569,8 @@ def host_relres(call) -> float:
                                                    prepare_system)
 
     K, mesh, bc, b, vdim, x = call
-    sysm = prepare_system(K, mesh, bc, b, vdim)
+    with disk_cache_off():
+        sysm = prepare_system(K, mesh, bc, b, vdim)
     r = sysm.b_hat - np_stencil_apply(dict(zip(sysm.offsets, sysm.weights)),
                                       sysm.to_hat_x(x), mesh.dim, vdim)
     return float(np.linalg.norm(r.reshape(-1))
@@ -2793,8 +2984,9 @@ def modal_phase(api, drive, data_dir, box=MODAL_3D, plate=MODAL_2D):
              "plane_stress", 2, ("v2_f32",))):
         solves[0] = builds[0] = 0
         linsolve._MG_CACHE.clear()
-        res, st, launches = drive(tool, lambda: getattr(api, tool)(
-            **kw, data_dir=data_dir))
+        with disk_cache_off():     # one hierarchy build, counted
+            res, st, launches = drive(tool, lambda: getattr(api, tool)(
+                **kw, data_dir=data_dir))
         freqs = np.asarray(res.meta["frequencies_hz"])
         shapes, _ = field(res)
         t0 = time.perf_counter()
@@ -2924,8 +3116,8 @@ def host_relres_of(sysm, xh) -> float:
                  / np.linalg.norm(sysm.b_hat.reshape(-1)))
 
 
-def precision_phase(api, counted, data_dir, vm_mixed, T_f32, T_small_ref,
-                    share_f32, flagship=FLAGSHIP, heat=HEAT,
+def precision_phase(api, counted, data_dir, vm_mixed, vm_call, T_f32,
+                    T_small_ref, share_f32, flagship=FLAGSHIP, heat=HEAT,
                     small_heat=SMALL_HEAT, beam=DYNAMIC_3D,
                     ckpt_beam=DYNAMIC_SMALL, small=SMALL, device="cuda",
                     relres_tol=PRECISION_RELRES_TOL):
@@ -2935,7 +3127,9 @@ def precision_phase(api, counted, data_dir, vm_mixed, T_f32, T_small_ref,
     float64, the released cantilever at float64, checkpointed scans
     aborted and resumed, and the bf16-smoother switch.  ``vm_mixed``,
     ``T_f32``: the "mixed" flagship's von Mises field and the float32 heat
-    trajectory of the main paths; ``T_small_ref``: the host float64
+    trajectory of the main paths; ``vm_call``: the "mixed" flagship's
+    ``von_mises_fields`` call (``spy_von_mises``), whose u the float64
+    flagship is held against; ``T_small_ref``: the host float64
     backward Euler of ``small_heat``; ``share_f32``: the float32 energy
     share of ``beam``.  A CPU rehearsal passes small sizes,
     ``device="cpu"`` (launches are then not counted) and
@@ -2963,14 +3157,16 @@ def precision_phase(api, counted, data_dir, vm_mixed, T_f32, T_small_ref,
     solves, unspy = spy_stats(linsolve)
     builds, unbuild = timed_calls(mg, "build_hierarchy", device)
     mg_secs, unsolve = timed_calls(mg, "solve_mg", device)
+    vm_calls, unspy_vm = spy_von_mises()
     linsolve._MG_CACHE.clear()
     try:
-        with config_overrides(precision="f64"):
+        # a cold build, timed: the disk cache neither loads nor stores
+        with config_overrides(precision="f64"), disk_cache_off():
             res, launches, wall = counted("flagship f64", lambda:
                                           api.solve_elasticity_3D_static(
                                               **flagship, data_dir=data_dir))
     finally:
-        unspy(), unbuild(), unsolve()
+        unspy(), unbuild(), unsolve(), unspy_vm()
     peak = peak_gib()
     st = res.meta["solver_stats"]
     vm = field(res)[0]
@@ -2992,6 +3188,16 @@ def precision_phase(api, counted, data_dir, vm_mixed, T_f32, T_small_ref,
     iters = int(st["cg_iterations"])
     per_iter = mg_secs[0] / max(iters, 1)
     vm_gap = gap(vm, vm_mixed)
+    # the float64 claim is held where no float32 step intervenes: on the
+    # displacements, and on von Mises evaluated from them on the host in
+    # float64 (a solve of ≥ 1M unknowns on the card evaluates the field's
+    # von Mises in float32, at either precision, as the JAX package does)
+    (vm_f64,) = vm_calls
+    u_gap = gap(vm_f64["u"], vm_call["u"])
+    t0 = time.perf_counter()
+    host_gap = gap(host_von_mises(vm_f64)[0], host_von_mises(vm_call)[0])
+    host_vm_s = time.perf_counter() - t0
+    del vm_calls
     print(f"precision flagship f64: dof={st['num_dofs']} {n_levels} "
           f"levels, hierarchy {builds[0]:.3f} s, "
           f"solve_mg {mg_secs[0]:.3f} s ({iters} iterations, "
@@ -3004,7 +3210,10 @@ def precision_phase(api, counted, data_dir, vm_mixed, T_f32, T_small_ref,
           f"peak device memory {peak:.2f} GiB; aten ops a V-cycle {ops_v}, "
           f"of which the 60-iteration coarse CG {ops_c}; kernel launches "
           f"{launches}; max|vm|={np.abs(vm).max():.6e} Pa, vs the mixed "
-          f"dense flagship max|Δvm|/max|vm|={vm_gap:.3e}", flush=True)
+          f"dense flagship: max|Δu|/max|u|={u_gap:.3e}, host float64 von "
+          f"Mises of both u max|Δvm|/max|vm|={host_gap:.3e} ({host_vm_s:.3f}"
+          f" s, bound 1e-6), the fields as served (von Mises "
+          f"{vm_f64['out'][0].dtype}) {vm_gap:.3e}", flush=True)
     check(st["num_dofs"] == 3 * nodes, f"flagship f64: {st}")
     check(not any(launches.values()), f"flagship f64 launched kernels: "
           f"{launches}")
@@ -3017,14 +3226,14 @@ def precision_phase(api, counted, data_dir, vm_mixed, T_f32, T_small_ref,
                                         <= st["convergence_target"]),
           f"flagship f64: converged={st['converged']} with {st}")
     if st["converged"]:
-        check(vm_gap <= 1e-6, f"flagship f64 off the mixed flagship by "
-              f"{vm_gap:.3e}")
+        check(host_gap <= 1e-6, f"flagship f64 off the mixed flagship by "
+              f"{host_gap:.3e} (host float64 von Mises)")
     out["flagship_f64"] = dict(
         iterations=iters, relres=st["relative_residual"], host_relres=host,
         converged=bool(st["converged"]), hierarchy_s=builds[0],
         solve_s=mg_secs[0], ms_per_iteration=1e3 * per_iter, wall_s=wall,
         peak_gib=peak, aten_ops_vcycle=ops_v, aten_ops_coarse=ops_c,
-        vm_gap=vm_gap)
+        vm_gap=vm_gap, u_gap=u_gap, host_vm_gap=host_gap)
     del vm
     if cuda:
         torch.cuda.empty_cache()
@@ -3183,7 +3392,7 @@ def precision_phase(api, counted, data_dir, vm_mixed, T_f32, T_small_ref,
             os.environ["PDE_TPU_BF16_SMOOTHER"] = switch
             linsolve._MG_CACHE.clear()
             with config_overrides(precision="mixed", host_direct_threshold=0,
-                                  mg_threshold=100):
+                                  mg_threshold=100), disk_cache_off():
                 res, launches, wall = counted(
                     f"smoother {switch}", lambda:
                     api.solve_elasticity_3D_static(**small,
@@ -3335,7 +3544,9 @@ def read_figure(html_path):
 
 def service_phase(counted, flagship, vm_ref, ref_iterations, ref_wall,
                   work_dir, wanted=("v3_f32", "v3_bf16", "v1_f32"),
-                  device="cuda", server_env=None, examples=None):
+                  device="cuda", server_env=None, examples=None,
+                  disk_hits=("prep", "hierarchy"), cold_setup=None,
+                  card_line=""):
     """The system's entry points on the card.  The port's MCP server, started
     as ``python -m pde_solver_tpu_torch.mcp.server`` with no
     ``PDE_TPU_DEVICE`` (the card is its default) and INFO logging to
@@ -3344,7 +3555,11 @@ def service_phase(counted, flagship, vm_ref, ref_iterations, ref_wall,
     (``flagship``, the dense route, ``PDE_TPU_CS=0``) held against the
     in-process field ``vm_ref`` of the same solve and its iterations, the
     plot of the served field, a call of an unknown tool (``isError``); its
-    stdout must hold the replies and nothing else.  Then the nine chat
+    stdout must hold the replies and nothing else.  The served flagship is
+    a fresh process's first call, answered from the disk cache the
+    in-process run stored: its INFO lines must show a disk hit of each
+    kind in ``disk_hits``; its set-up seconds are printed beside
+    ``cold_setup``, the in-process run's.  Then the nine chat
     examples of ``pde_solver_tpu_torch/app.py`` in process, each through a
     ``MultiAgentOrchestrator(llm=None, memory_file=None)`` on the port's
     ``LocalToolSet``, each a main path of its own (``counted(label, fn)`` →
@@ -3393,10 +3608,27 @@ def service_phase(counted, flagship, vm_ref, ref_iterations, ref_wall,
             server_s, launches = call_launches(lines,
                                                "solve_elasticity_3D_static")
             for line in lines:
-                if any(w in line for w in ("hierarchy", "df2 round",
+                if any(w in line for w in ("hierarchy", "df2 round", "prep",
                                            "elasticity solve", "tools/call")):
                     print(f"  server: {line}", flush=True)
             st = payload["meta"]["solver_stats"]
+            events = disk_events(lines, st["num_dofs"])
+            warm = dict(setup_seconds(lines, st["num_dofs"]),
+                        postprocess=st["postprocess_seconds"])
+            print(f"service flagship set-up ({card_line}), served from the "
+                  f"disk cache: " + " ".join(f"{k}={v:.3f}"
+                                             for k, v in warm.items())
+                  + " s; " + "; ".join(f"{kind} {ev} {sec:.3f} s {b} bytes"
+                                       for (kind, ev), (sec, b)
+                                       in sorted(events.items()))
+                  + "; cold in process: " + " ".join(
+                      f"{k}={v:.3f}" for k, v in (cold_setup or {}).items()
+                      if not isinstance(v, tuple)), flush=True)
+            for kind in disk_hits:
+                check((kind, "hit") in events, f"the served flagship's "
+                      f"{kind} was not a disk-cache hit: {events}")
+            check(not any(ev == "store" for _, ev in events),
+                  f"the served flagship stored entries: {events}")
             vm = load_field(payload["data_file"]).values_array()
             gap = float(np.abs(vm - vm_ref).max() / np.abs(vm_ref).max())
             print(f"service flagship: served {wall:.3f} s wall ({server_s:.3f}"
@@ -3563,8 +3795,14 @@ def main() -> int:
     # seconds to stderr
     os.environ.setdefault("PDE_TPU_LOG_LEVEL", "INFO")
     root = os.path.dirname(os.path.abspath(__file__))
-    os.environ.setdefault("PDE_TPU_CACHE_DIR",
-                          os.path.join(root, "build", "chip_smoke_cache"))
+    # start cold, as a user's first call does: the run's own cache
+    # directory, emptied, and a bound that evicts none of its entries
+    cache_dir = os.path.join(root, CACHE_DIR)
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    os.makedirs(cache_dir)
+    os.environ["PDE_TPU_CACHE_DIR"] = cache_dir
+    os.environ["PDE_TPU_CACHE_MAX_GB"] = str(CACHE_MAX_GB)
+    os.environ.pop("PDE_TPU_DISK_CACHE", None)
     from pde_solver_tpu_torch import api
     from pde_solver_tpu_torch.config import config_overrides
     from pde_solver_tpu_torch.mesh import box_mesh
@@ -3582,6 +3820,9 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} device {kind}", flush=True)
     print(card_line, flush=True)
+    print(f"disk cache: {cache_dir} emptied, "
+          f"{shutil.disk_usage(cache_dir).free} bytes free there, "
+          f"PDE_TPU_CACHE_MAX_GB={CACHE_MAX_GB}", flush=True)
     data_dir = os.path.join(root, "build", "chip_smoke")
 
     # -- build: one nvcc per source, all at once ----------------------------
@@ -3677,8 +3918,10 @@ def main() -> int:
     cs_level_ms = paths.cs_level_ms
 
     vm_runs = {}
+    vm_calls, unspy_vm = spy_von_mises()
     for cs in ("0", "1", "hybrid"):
-        with config_overrides(device="cuda"):
+        del vm_calls[:]
+        with config_overrides(device="cuda"), solver_log() as log:
             res, st, launches, cs_built = main_path(
                 f"flagship PDE_TPU_CS={cs}", cs,
                 lambda: api.solve_elasticity_3D_static(**FLAGSHIP,
@@ -3686,11 +3929,27 @@ def main() -> int:
         vm = field(res)[0]
         vm_runs[cs] = vm
         if cs == "0":
+            # the cold call: it stores the prep and hierarchy entries
+            cold = dict(setup_seconds(log, FLAGSHIP_DOF),
+                        postprocess=st["postprocess_seconds"])
+            events = disk_events(log, FLAGSHIP_DOF)
+            print(f"flagship disk cache, cold ({card_line}): set-up "
+                  + " ".join(f"{k}={v:.3f}" for k, v in cold.items())
+                  + " s; " + "; ".join(f"{kind} {ev} {sec:.3f} s {b} bytes"
+                                       for (kind, ev), (sec, b)
+                                       in sorted(events.items()))
+                  + f"; directory {cache_listing(cache_dir)}", flush=True)
+            check(set(events) == {("prep", "store"), ("hierarchy", "store")},
+                  f"the cold flagship's disk-cache events: {events}")
+            cold.update({f"{kind}_{ev}": v
+                         for (kind, ev), v in events.items()})
             served_ref = (vm, st["cg_iterations"],
-                          paths.walls[f"flagship PDE_TPU_CS={cs}"])
+                          paths.walls[f"flagship PDE_TPU_CS={cs}"], cold)
+            (vm_call,) = vm_calls
+            device_vm = device_von_mises_phase(vm_call, card_line)
         print(f"flagship PDE_TPU_CS={cs}: max_von_mises="
               f"{np.abs(vm).max():.6e} Pa", flush=True)
-        check(st["num_dofs"] == 2_040_675, f"dof count {st['num_dofs']}")
+        check(st["num_dofs"] == FLAGSHIP_DOF, f"dof count {st['num_dofs']}")
         check(bool(st["converged"]), f"flagship did not converge: {st}")
         check(st["relative_residual"] <= 1e-6,
               f"flagship relres {st['relative_residual']:.3e} > 1e-6")
@@ -3711,6 +3970,8 @@ def main() -> int:
             check_built(ck, sk, cs_built, f"flagship PDE_TPU_CS={cs}",
                         cs_level_ms)
         del cs_built
+    unspy_vm()
+    del vm_calls
     for cs in ("1", "hybrid"):
         gap = float(np.abs(vm_runs[cs] - vm_runs["0"]).max()
                     / np.abs(vm_runs["0"]).max())
@@ -3829,8 +4090,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         precision = precision_phase(
             api, lambda label, fn: paths.counted(label, "0", fn), data_dir,
-            served_ref[0], T_runs["0"], T_host, share_f32)
-        del T_runs, T_host
+            served_ref[0], vm_call, T_runs["0"], T_host, share_f32)
+        del T_runs, T_host, vm_call
         print(f"phase precision: {time.perf_counter() - t0:.3f} s; "
               + json.dumps(precision), flush=True)
 
@@ -3839,7 +4100,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     served = service_phase(
         lambda label, fn: paths.counted(label, "0", fn), FLAGSHIP,
-        *served_ref, os.path.join(root, "build", "service"))
+        *served_ref[:3], os.path.join(root, "build", "service"),
+        cold_setup=served_ref[3], card_line=card_line)
     del served_ref
     paths.path_launches["service flagship (server process)"] = served
     for k, v in served.items():
@@ -3883,6 +4145,8 @@ def main() -> int:
                 f"{sum(n * ms for n, ms in cs_ops):.2f} ms)")
         print(f"{run}: SpMV device time of the run, estimated as Σ launches "
               f"× per-level device ms: " + "; ".join(parts), flush=True)
+    print(f"disk cache at the end: {cache_listing(cache_dir)}; device von "
+          f"Mises {json.dumps(device_vm)}", flush=True)
     print(f"total: {time.perf_counter() - t_start:.3f} s", flush=True)
     print(card_line)
     entries = [(f"flat_stencil_spmv[{name}]", name, FLAT_SOURCE,

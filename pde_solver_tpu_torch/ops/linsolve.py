@@ -32,12 +32,16 @@ Sharding raises ``NotImplementedError`` (ROADMAP queue 1, step I).  The
 multigrid hierarchy (and, for "mixed", the F-cycle's weight ladder) of the
 last ``_MG_CACHE_MAX`` operators stay in memory (``_MG_CACHE``), so
 repeated solves on one operator — a modal analysis makes dozens — build
-them once.
+them once.  Across processes, the scaled system's operator part (kind
+"prep") and the "mixed" branch's float32 hierarchy (kind "mgh",
+``multigrid.build_hierarchy_cached``) persist on disk
+(``utils.diskcache``), as in the JAX package.
 """
 
 from __future__ import annotations
 
 import hashlib
+import os
 import time
 from typing import Dict, NamedTuple, Optional, Tuple
 
@@ -108,10 +112,15 @@ class ScaledSystem(NamedTuple):
         return np.einsum("...ij,...j->...i", self.Ct, x)
 
 
-# In-memory operator-part cache for prepare_system: the masked+scaled
-# weights and scale factors depend on (stencil, free-mask pattern) only, not
-# on the RHS or the BC values, and cost tens of seconds of 1-core numpy at
-# 2M-DOF elasticity.  Content-keyed; only systems above _PREP_CACHE_MIN_DOF.
+# Operator-part cache for prepare_system: the masked+scaled weights and
+# scale factors depend on (stencil, free-mask pattern) only, not on the RHS
+# or the BC values, and cost tens of seconds of 1-core numpy at 2M-DOF
+# elasticity.  Content-keyed; only systems above _PREP_CACHE_MIN_DOF (below
+# it prepare is fast, and per-level coarse systems would churn the LRU).
+# Memory first, then disk (``utils.diskcache``, kind "prep"), so a fresh
+# process — each new MCP server — skips the host prep.  The key and the
+# array names are the JAX package's: an entry either package writes, the
+# other reads.
 _PREP_CACHE: Dict = {}
 _PREP_CACHE_MAX = 2
 _PREP_CACHE_MIN_DOF = 100_000
@@ -122,23 +131,81 @@ def _prep_cache_key(stencil: Dict, free: np.ndarray, node_shape, vdim: int):
     for off in sorted(stencil.keys()):
         h.update(np.ascontiguousarray(np.asarray(stencil[off], np.float64)))
     h.update(np.ascontiguousarray(free))
-    # contiguous C/Cinv are cached (not transposed views): einsum rounding
-    # depends on memory layout, so every path hands the SAME layout to the
-    # b̂ computation for bitwise-reproducible results
+    # "v2": contiguous C/Cinv are cached (not transposed views) — einsum
+    # rounding depends on memory layout, so every path hands the SAME
+    # layout to the b̂ computation for bitwise-reproducible results
     return (tuple(node_shape), vdim, tuple(sorted(stencil.keys())),
             h.hexdigest(), "v2")
 
 
-def _prep_core_put(key, core):
-    """Cache (scaled, s, C, Cinv), marked read-only: the cache hands the same
-    objects to every ScaledSystem that hits it."""
+def _entry_bytes(kind: str, key) -> int:
+    """Bytes of a disk-cache entry on disk (0 when there is none)."""
+    from pde_solver_tpu_torch.utils import diskcache
+
+    try:
+        return os.path.getsize(diskcache._path(kind, key))
+    except OSError:
+        return 0
+
+
+def _freeze(core):
+    """Mark the arrays of (scaled, s, C, Cinv) read-only: the cache hands
+    the same objects to every ScaledSystem that hits it."""
     scaled, s, C, Cinv = core
     for a in list(scaled) + [s, C, Cinv]:
         if a is not None:
             a.setflags(write=False)
-    _PREP_CACHE[key] = core
+    return core
+
+
+def _prep_core_get(key, n_off: int, vdim: int):
+    """Memory first, then disk.  Returns (scaled, s, C, Cinv) — C/Cinv
+    contiguous, exactly as the fresh compute produces them — or None."""
+    core = _PREP_CACHE.pop(key, None)
+    if core is not None:
+        _PREP_CACHE[key] = core  # LRU refresh
+        return core
+    from pde_solver_tpu_torch.utils import diskcache
+
+    t = time.perf_counter()
+    ent = diskcache.load("prep", key)
+    if ent is None:
+        return None
+    try:
+        scaled = [ent[f"w{i}"] for i in range(n_off)]
+        if vdim == 1:
+            core = (scaled, ent["s"], None, None)
+        else:
+            core = (scaled, None, ent["C"], ent["Cinv"])
+    except KeyError:
+        return None
+    _prep_core_put(key, _freeze(core), disk=False)
+    get_logger().info("prep disk-cache hit (%.3fs load, %d bytes, %d DOF)",
+                      time.perf_counter() - t, _entry_bytes("prep", key),
+                      int(np.prod(key[0])) * vdim)
+    return core
+
+
+def _prep_core_put(key, core, disk: bool = True):
+    """Cache (scaled, s, C, Cinv) in memory, frozen, and on disk."""
+    _PREP_CACHE[key] = _freeze(core)
     while len(_PREP_CACHE) > _PREP_CACHE_MAX:
         _PREP_CACHE.pop(next(iter(_PREP_CACHE)))
+    if disk:
+        from pde_solver_tpu_torch.utils import diskcache
+
+        if not diskcache.enabled():
+            return
+        t = time.perf_counter()
+        scaled, s, C, Cinv = core
+        arrays = {f"w{i}": np.asarray(W) for i, W in enumerate(scaled)}
+        for name, a in (("s", s), ("C", C), ("Cinv", Cinv)):
+            if a is not None:
+                arrays[name] = np.asarray(a)
+        diskcache.store("prep", key, arrays)
+        get_logger().info("prep disk-cache store (%.3fs, %d bytes, %d DOF)",
+                          time.perf_counter() - t, _entry_bytes("prep", key),
+                          int(np.prod(key[0])) * key[1])
 
 
 def prepare_system(stencil: Dict[Offset, np.ndarray], mesh: StructuredMesh,
@@ -164,9 +231,8 @@ def prepare_system(stencil: Dict[Offset, np.ndarray], mesh: StructuredMesh,
     key = None
     if n >= _PREP_CACHE_MIN_DOF:
         key = _prep_cache_key(stencil, free, mesh.node_shape, vdim)
-        core = _PREP_CACHE.pop(key, None)
+        core = _prep_core_get(key, len(offsets), vdim)
         if core is not None:
-            _PREP_CACHE[key] = core  # LRU refresh
             scaled, s, C, Cinv = core
             if vdim == 1:
                 return ScaledSystem(offsets, scaled, s * b_t, gvals, free,
@@ -303,6 +369,15 @@ def _cg_unit_diag(offsets, weights, b, x0, tol, maxiter, grid_dim, vdim):
     return x, k, relres
 
 
+# Flat-operator cache of the static (non-MG) f32 CG paths — the "f32"
+# branch, and the "mixed" branch without a hierarchy, which the projection's
+# mass solve takes: keyed on the system's content key, so follow-up solves
+# of one operator skip the host pack and the weight upload.  Only systems
+# with a content key (``ScaledSystem.ckey``) cache.
+_FLAT_OP_CACHE: Dict = {}
+_FLAT_OP_CACHE_MAX = 2
+
+
 def _static_flat_op(sysm: ScaledSystem, mesh: StructuredMesh, vdim: int,
                     device):
     """Kernel-backed flat operator for the f32 CG paths (static, and the
@@ -314,14 +389,23 @@ def _static_flat_op(sysm: ScaledSystem, mesh: StructuredMesh, vdim: int,
     n = int(np.prod(mesh.node_shape)) * vdim
     if not kernel_wins(n):
         return None
-    if cs_enabled() and cs_wins(n):
+    mode = cs_kernels.cs_mode()
+    use_cs = cs_enabled(mode) and cs_wins(n)
+    key = (sysm.ckey, tuple(mesh.node_shape), vdim, mode, use_cs,
+           str(torch.device(device)))
+    op = _FLAT_OP_CACHE.pop(key, None) if sysm.ckey is not None else None
+    if op is None and use_cs:
         op = CSFlatStencilOperator.try_build(
             sysm.offsets, sysm.weights, mesh.node_shape, vdim=vdim,
             device=device, cache_key=sysm.ckey)
-        if op is not None:
-            return op
-    return FlatStencilOperator(sysm.offsets, sysm.weights, mesh.node_shape,
-                               vdim=vdim, device=device)
+    if op is None:
+        op = FlatStencilOperator(sysm.offsets, sysm.weights, mesh.node_shape,
+                                 vdim=vdim, device=device)
+    if sysm.ckey is not None:
+        _FLAT_OP_CACHE[key] = op  # LRU refresh / insert
+        while len(_FLAT_OP_CACHE) > _FLAT_OP_CACHE_MAX:
+            _FLAT_OP_CACHE.pop(next(iter(_FLAT_OP_CACHE)))
+    return op
 
 
 def _host_direct_solve(sysm: ScaledSystem, node_shape, vdim: int):
@@ -458,7 +542,10 @@ def solve_stencil_system(
     maxiter = cfg.resolved_maxiter(n)
     cfg.resolved_shard_devices()  # raises when sharding is requested
 
+    t_p = time.perf_counter()
     sysm = prepare_system(stencil_np, mesh, bc, rhs_np, vdim)
+    get_logger().info("prepare_system: %.3fs (%d DOF)",
+                      time.perf_counter() - t_p, n)
     offsets = sysm.offsets
     x0_hat = (np.zeros_like(sysm.b_hat) if x0 is None
               else sysm.to_hat_x(np.asarray(x0, dtype=np.float64)))
@@ -488,9 +575,11 @@ def solve_stencil_system(
             get_logger().info("hierarchy cache hit (%.3fs key, %d DOF)",
                               time.perf_counter() - t_h, n)
         else:
-            hierarchy = mg.build_hierarchy(
+            # the disk layer serves float32 hierarchies only
+            hierarchy = mg.build_hierarchy_cached(
                 mesh, sysm, mg_level_builder, vdim=vdim, device=device,
-                dtype=torch.float64 if prec == "f64" else torch.float32)
+                dtype=torch.float64 if prec == "f64" else torch.float32,
+                cache_key=sysm.ckey)
             if hierarchy is not None and prec == "f64":
                 _mg_cache_put(hier_key, hierarchy, None)
             get_logger().info("hierarchy build: %.3fs (%d DOF)",

@@ -3,8 +3,9 @@
 Counterpart of ``pde_solver_tpu.ops.multigrid`` for what the static
 elasticity flagship runs: simplicial transfers, the level hierarchy with an
 exact dense coarsest inverse, a Chebyshev-smoothed V-cycle, flexible MG-PCG
-(:func:`mg_pcg`), and the per-round double-float32 F-cycle
-(:func:`solve_fcycle_df2`).
+(:func:`mg_pcg`), the per-round double-float32 F-cycle
+(:func:`solve_fcycle_df2`), and the float32 hierarchy's disk-cache layer
+(:func:`build_hierarchy_cached`, dense entries only).
 
 A float32 level applies through :class:`FlatStencilOperator` (the CUDA
 kernel on the card, its plain torch version on the CPU) while its DOF count
@@ -32,6 +33,7 @@ from __future__ import annotations
 
 import itertools
 import os
+import time
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -43,8 +45,9 @@ from pde_solver_tpu_torch.ops.cs_kernels import (CSFlatStencilOperator,
                                                  cs_enabled, cs_mode,
                                                  cs_wins)
 from pde_solver_tpu_torch.ops.linsolve import (ScaledSystem, _dot,
-                                               _is_flat_op, _pad1,
-                                               _stencil_apply, prepare_system)
+                                               _entry_bytes, _is_flat_op,
+                                               _pad1, _stencil_apply,
+                                               prepare_system)
 from pde_solver_tpu_torch.ops.stencil_kernels import (FlatStencilOperator,
                                                       kernel_wins)
 from pde_solver_tpu_torch.utils.observability import get_logger
@@ -135,6 +138,10 @@ class MGLevel(NamedTuple):
     # a fixed symmetric operator built from w_lo at every level; only
     # mg_pcg's true residual needs the f32 weights.
     w_lo: Optional[object] = None
+    # (hi, lo) float32 numpy pairs of host_weights, set by the disk-cache
+    # layer (a rebuild, or a fresh build it stored) so build_df_ladder skips
+    # its own split: the pair is what the ladder uploads.
+    host_pairs: Optional[tuple] = None
 
     @property
     def w_smooth(self):
@@ -209,7 +216,8 @@ def bf16_smoother() -> bool:
 
 
 def _to_level(sysm: ScaledSystem, mesh, vdim: int, device,
-              dtype=torch.float32, omega: Optional[float] = None) -> MGLevel:
+              dtype=torch.float32, omega: Optional[float] = None,
+              pairs: Optional[tuple] = None) -> MGLevel:
     """One MG level's device operators from a scaled system.  A float32
     level of at least ``KERNEL_MIN_DOF`` unknowns gets the kernel-backed
     operator plus its bf16 smoother copy (cast on the device); any other
@@ -221,8 +229,13 @@ def _to_level(sysm: ScaledSystem, mesh, vdim: int, device,
     smoothing (it streams no weights, so a bf16 copy buys nothing);
     "hybrid" keeps the dense bf16 operator for smoothing.  A level that is
     not CS-representable, or has fewer than ``CS_MIN_DOF`` unknowns, stays
-    dense."""
+    dense.
+
+    ``pairs``: the level's (hi, lo) float32 split (a disk-cache rebuild);
+    the device weights are built from ``hi``, which is the float32 rounding
+    of the float64 weights, so they are the fresh build's bit for bit."""
     host_w = [np.asarray(W, dtype=np.float64) for W in sysm.weights]
+    w_src = pairs[0] if pairs is not None else sysm.weights
     # torch.tensor copies: the cached host arrays are read-only, and a CPU
     # tensor of their own dtype would alias them
     free = torch.tensor(sysm.free, dtype=dtype, device=device)
@@ -233,24 +246,24 @@ def _to_level(sysm: ScaledSystem, mesh, vdim: int, device,
         cs = None
         if cs_enabled(mode) and cs_wins(n_dof):
             cs = CSFlatStencilOperator.try_build(
-                sysm.offsets, sysm.weights, mesh.node_shape, vdim=vdim,
+                sysm.offsets, w_src, mesh.node_shape, vdim=vdim,
                 device=device, cache_key=sysm.ckey)
         if cs is not None and mode == "hybrid":
             w = cs
-            w_lo = FlatStencilOperator(sysm.offsets, sysm.weights,
+            w_lo = FlatStencilOperator(sysm.offsets, w_src,
                                        mesh.node_shape, vdim=vdim,
                                        device=device,
                                        weight_dtype=torch.bfloat16)
         elif cs is not None:
             w = w_lo = cs
         else:
-            w = FlatStencilOperator(sysm.offsets, sysm.weights,
+            w = FlatStencilOperator(sysm.offsets, w_src,
                                     mesh.node_shape, vdim=vdim, device=device)
             if bf16_smoother():
                 w_lo = w.as_weight_dtype(torch.bfloat16)
     else:
         w = tuple(torch.tensor(W, dtype=dtype, device=device)
-                  for W in sysm.weights)
+                  for W in w_src)
 
     def dev(a):
         return torch.tensor(a, dtype=dtype, device=device)
@@ -258,12 +271,12 @@ def _to_level(sysm: ScaledSystem, mesh, vdim: int, device,
     if sysm.scale_kind == "scalar":
         return MGLevel(sysm.offsets, w, free, omega, dev(sysm.s), None, None,
                        host_weights=host_w, host_scale=(np.asarray(sysm.s),),
-                       w_lo=w_lo)
+                       w_lo=w_lo, host_pairs=pairs)
     C_np = np.swapaxes(sysm.Ct, -1, -2)
     Cinv_np = np.swapaxes(sysm.CinvT, -1, -2)
     return MGLevel(sysm.offsets, w, free, omega, None, dev(C_np),
                    dev(Cinv_np), host_weights=host_w,
-                   host_scale=(C_np, Cinv_np), w_lo=w_lo)
+                   host_scale=(C_np, Cinv_np), w_lo=w_lo, host_pairs=pairs)
 
 
 def _with_coarsest_inverse(levels, host_Ainv: np.ndarray, device,
@@ -325,6 +338,153 @@ def build_hierarchy(
                                         device, dtype)
     return MGHierarchy(tuple(levels), mesh.dim, vdim, pre_smooth,
                        post_smooth, coarse_iters)
+
+
+# ----------------------------------------------------------------------
+# Disk-backed hierarchy build (fresh-process set-up skip)
+# ----------------------------------------------------------------------
+#
+# A float32 hierarchy is a pure function of the fine scaled system, so it
+# persists across processes (``utils.diskcache``, kind "mgh") keyed by the
+# fine system's content key (``ScaledSystem.ckey``).  The entry holds per
+# level the double-float32 weight pair (hi is the float32 device weights;
+# hi + lo carries the float64 operator to 2⁻⁴⁸ — what the df ladder
+# uploads), the transfer scales, the free mask and ω, and the dense
+# coarsest inverse.  A rebuild does no assembly, prepare or power
+# iteration: each level goes through :func:`_to_level` with its stored ω
+# and pair, so the routing (kernel size gate, bf16 smoother copy, device)
+# is applied at load, not baked into the entry.  Dense entries only: the
+# JAX package's constant-interior level form (``meta["cs"]``) is a miss.
+
+def _hierarchy_to_arrays(h: MGHierarchy):
+    """Serialize a hierarchy (host side) → (arrays, meta, per-level (hi, lo)
+    pairs), the JAX package's dense entry format."""
+    from pde_solver_tpu_torch.ops import df32
+
+    arrays = {}
+    omegas, shapes, all_pairs = [], [], []
+    scale_kind = "scalar" if h.levels[0].s is not None else "block"
+    for i, lv in enumerate(h.levels):
+        if lv.host_pairs is not None:
+            his, los = lv.host_pairs
+        else:
+            his, los = [], []
+            for W in lv.host_weights:
+                hi, lo = df32.df_from_f64(W)
+                his.append(hi)
+                los.append(lo)
+        all_pairs.append((list(his), list(los)))
+        arrays[f"hi{i}"] = np.stack(his)
+        arrays[f"lo{i}"] = np.stack(los)
+        arrays[f"off{i}"] = np.asarray(lv.offsets, dtype=np.int64)
+        arrays[f"free{i}"] = lv.free.cpu().numpy().astype(np.float32)
+        if scale_kind == "scalar":
+            arrays[f"s{i}"] = np.asarray(lv.host_scale[0])
+        else:
+            arrays[f"C{i}"] = np.asarray(lv.host_scale[0])
+            arrays[f"Cinv{i}"] = np.asarray(lv.host_scale[1])
+        omegas.append(float(lv.omega))
+        shapes.append([int(n) for n in lv.free.shape[:h.grid_dim]])
+    if h.levels[-1].host_Ainv is not None:
+        arrays["Ainv"] = np.asarray(h.levels[-1].host_Ainv)
+    meta = {"n_levels": len(h.levels), "grid_dim": h.grid_dim,
+            "vdim": h.vdim, "pre": h.pre_smooth, "post": h.post_smooth,
+            "coarse_iters": h.coarse_iters, "scale_kind": scale_kind,
+            "omegas": omegas, "node_shapes": shapes,
+            "cs": [False] * len(h.levels)}
+    return arrays, meta, all_pairs
+
+
+def _level_from_disk_dense(ent, i: int, meta, device) -> MGLevel:
+    """Rebuild one dense-stored level from its (hi, lo) float32 pair."""
+    hi, lo = ent[f"hi{i}"], ent[f"lo{i}"]
+    n_off = hi.shape[0]
+    offsets = tuple(tuple(int(x) for x in row) for row in ent[f"off{i}"])
+    host_w = [hi[k].astype(np.float64) + lo[k] for k in range(n_off)]
+    free = ent[f"free{i}"].astype(np.float64)
+    node_shape = tuple(int(s) for s in meta["node_shapes"][i])
+    if meta["scale_kind"] == "scalar":
+        sysm = ScaledSystem(offsets, host_w, None, None, free, "scalar",
+                            ent[f"s{i}"], None, None)
+    else:
+        C, Cinv = ent[f"C{i}"], ent[f"Cinv{i}"]
+        sysm = ScaledSystem(offsets, host_w, None, None, free, "block",
+                            None, np.swapaxes(C, -1, -2),
+                            np.swapaxes(Cinv, -1, -2))
+    pairs = ([hi[k] for k in range(n_off)], [lo[k] for k in range(n_off)])
+    return _to_level(sysm, _ShapeOnlyMesh(node_shape), int(meta["vdim"]),
+                     device, omega=float(meta["omegas"][i]), pairs=pairs)
+
+
+def _hierarchy_from_arrays_disk(ent, device) -> MGHierarchy:
+    """Rebuild a hierarchy from a dense disk entry, level by level."""
+    meta = ent["meta"]
+    n_levels = int(meta["n_levels"])
+    levels = [_level_from_disk_dense(ent, i, meta, device)
+              for i in range(n_levels)]
+    if "Ainv" in ent:
+        levels = _with_coarsest_inverse(levels, ent["Ainv"], device)
+    return MGHierarchy(tuple(levels), int(meta["grid_dim"]),
+                       int(meta["vdim"]), int(meta["pre"]),
+                       int(meta["post"]), int(meta["coarse_iters"]))
+
+
+def load_hierarchy_from_disk(cache_key, vdim: int, device="cuda"
+                             ) -> Optional[MGHierarchy]:
+    """Rebuild a float32 hierarchy purely from its disk entry (uploads
+    only).  None on a miss, a constant-interior entry or an unusable
+    one."""
+    from pde_solver_tpu_torch.utils import diskcache
+
+    ent = diskcache.load("mgh", (cache_key, vdim))
+    if ent is None:
+        return None
+    if any(ent["meta"].get("cs") or ()):
+        get_logger().info("hierarchy disk entry holds constant-interior "
+                          "levels (not ported): a miss")
+        return None
+    try:
+        return _hierarchy_from_arrays_disk(ent, device)
+    except Exception as e:  # corrupt entry → the caller builds afresh
+        get_logger().warning("hierarchy disk entry unusable (%s)", e)
+        return None
+
+
+def build_hierarchy_cached(mesh: StructuredMesh, fine_system: ScaledSystem,
+                           level_builder, vdim: int = 1, device="cuda",
+                           dtype=torch.float32, cache_key=None,
+                           **kw) -> Optional[MGHierarchy]:
+    """:func:`build_hierarchy` behind the disk-cache layer: float32
+    hierarchies only, ``cache_key`` the fine system's content key.  While
+    ``PDE_TPU_CS`` is on the layer is skipped both ways (a hit would bypass
+    the constant-interior route)."""
+    from pde_solver_tpu_torch.utils import diskcache
+
+    cacheable = (cache_key is not None and dtype == torch.float32
+                 and diskcache.enabled() and not cs_enabled())
+    n_dof = int(np.prod(mesh.node_shape)) * vdim
+    if cacheable:
+        t = time.perf_counter()
+        h = load_hierarchy_from_disk(cache_key, vdim, device)
+        if h is not None:
+            get_logger().info("hierarchy disk-cache hit (%.3fs rebuild, %d "
+                              "bytes, %d DOF)", time.perf_counter() - t,
+                              _entry_bytes("mgh", (cache_key, vdim)), n_dof)
+            return h
+    h = build_hierarchy(mesh, fine_system, level_builder, vdim=vdim,
+                        device=device, dtype=dtype, **kw)
+    if h is not None and cacheable:
+        t = time.perf_counter()
+        arrays, meta, all_pairs = _hierarchy_to_arrays(h)
+        # the freshly split pairs ride along, so this process's ladder
+        # skips its own split
+        h = h._replace(levels=tuple(lv._replace(host_pairs=p)
+                                    for lv, p in zip(h.levels, all_pairs)))
+        diskcache.store("mgh", (cache_key, vdim), arrays, meta)
+        get_logger().info("hierarchy disk-cache store (%.3fs, %d bytes, %d "
+                          "DOF)", time.perf_counter() - t,
+                          _entry_bytes("mgh", (cache_key, vdim)), n_dof)
+    return h
 
 
 # ----------------------------------------------------------------------
@@ -573,7 +733,14 @@ def build_df_ladder(h: MGHierarchy, sysm, b_hat: np.ndarray) -> DFLadder:
     device = h.levels[0].free.device
     Whis, Wlos, scales, frees = [], [], [], []
     for lv in h.levels:
-        Whi, Wlo = df32.pack_df_weights(lv.host_weights, device)
+        if lv.host_pairs is not None:
+            # disk-cache layer: the (hi, lo) split is already on hand
+            Whi = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                        for a in lv.host_pairs[0])
+            Wlo = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                        for a in lv.host_pairs[1])
+        else:
+            Whi, Wlo = df32.pack_df_weights(lv.host_weights, device)
         Whis.append(Whi)
         Wlos.append(Wlo)
         scales.append(tuple(torch.as_tensor(S, dtype=torch.float32,

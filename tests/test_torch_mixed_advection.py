@@ -378,10 +378,13 @@ def test_nonlinear_matches_reference(tool, path, tmp_path):
     assert port[3]["solver_stats"]["nonlinear"] is True
 
 
-def test_nonlinear_prepare_cache_is_bounded_and_never_stale(monkeypatch):
+def test_nonlinear_prepare_cache_is_bounded_and_never_stale(monkeypatch,
+                                                            tmp_path):
     """Every Picard iteration solves a new K.  With the content-keyed
     ``prepare_system`` cache switched on for small systems, the result is
     bit-equal to the uncached one and the cache stays within its bound."""
+    # the cache's disk entries go to this test's own directory
+    monkeypatch.setenv("PDE_TPU_CACHE_DIR", str(tmp_path))
     m = port_mesh.rectangle_mesh(10, 8, (0, 0), (1.0, 1.0))
 
     def solve():

@@ -1204,9 +1204,14 @@ def test_chip_smoke_precision_phase_rehearsal(tmp_path):
 
     with config.config_overrides(host_direct_threshold=0, mg_threshold=100,
                                  transient_mg_threshold=100):
-        with config.config_overrides(precision="mixed"):
-            vm_mixed = cs.field(api.solve_elasticity_3D_static(
-                **flag, data_dir=d))[0]
+        vm_calls, unspy = cs.spy_von_mises()
+        try:
+            with config.config_overrides(precision="mixed"):
+                vm_mixed = cs.field(api.solve_elasticity_3D_static(
+                    **flag, data_dir=d))[0]
+        finally:
+            unspy()
+        (vm_call,) = vm_calls
         with config.config_overrides(precision="f32"):
             T_f32 = cs.field(api.solve_heat_3D(**heat3, data_dir=d))[0]
             calls = cs.spy_newmark()
@@ -1217,10 +1222,11 @@ def test_chip_smoke_precision_phase_rehearsal(tmp_path):
         T_small = cs.theta_scheme_f64(m, [(m.boundary_mask(), 0.0)], 0.01,
                                       cs.SMALL_HEAT["num_steps"])
         out = cs.precision_phase(
-            api, counted, d, vm_mixed, T_f32, T_small, share32,
+            api, counted, d, vm_mixed, vm_call, T_f32, T_small, share32,
             flagship=flag, heat=heat3, beam=beam,
             ckpt_beam=dict(beam, nx=4, ny=2, nz=2, num_steps=6),
             device="cpu", relres_tol=cs.FLOOR_RELRES_TOL)
     assert out["flagship_f64"]["converged"]
+    assert out["flagship_f64"]["host_vm_gap"] <= 1e-6
     assert out["dynamic_f64"]["share"] < 1e-6 * share32
     assert out["checkpoint"] and out["smoother_gap"] <= 1e-6

@@ -284,7 +284,8 @@ def test_chip_smoke_service_phase_rehearsal(tmp_path):
             ref.meta["solver_stats"]["cg_iterations"], wall,
             str(tmp_path / "service"), wanted=(), device="cpu",
             server_env={"PDE_TPU_DEVICE": "cpu",
-                        "PDE_TPU_PRECISION": "mixed"})
+                        "PDE_TPU_PRECISION": "mixed"},
+            disk_hits=())       # 6,561 DOF: under the prep cache's gate
     assert launches == {}
     # the served plot and the nine examples' plots
     assert len(list((tmp_path / "service" / "plots").glob("*.html"))) == 10
