@@ -107,7 +107,7 @@
    read > 1e-4), and timed at 257² and 1025² as in 3.
 8. The ``_mixed``, nonlinear and advection tools, each run a main path of
    its own:
-   - full width, ``solve_heat_3D_mixed(nx=ny=nz=128)``: 20 steps with a
+   - ``solve_heat_3D_mixed(nx=ny=nz=96)`` (cut from 128³): 20 steps with a
      sinusoidally driven Dirichlet face, a Robin face and a flux face,
      MG-PCG per step (counted), ``PDE_TPU_CS`` 0 and 1 (a refusal of the CS
      build is printed and the run then must have stayed on the dense
@@ -115,7 +115,7 @@
      the weak form (face mass, surface load, g(t) at the new time level),
      solved on the card; ``solve_heat_2D_mixed`` at 256² against the same
      stepping on the host;
-   - full width, ``solve_advection_3D(nx=ny=nz=128)``: 20 CNAB2 steps, flat
+   - ``solve_advection_3D(nx=ny=nz=96)`` (cut from 128³): 20 CNAB2 steps, flat
      CG on K1 at 15 offsets, ``PDE_TPU_CS`` 0 and 1, against a float64
      CNAB2 stepping on the card; one ``scheme="ab1"`` run at 64³ the same
      way; ``solve_advection_2D`` at 256² against the host stepping;
@@ -202,7 +202,31 @@
      bit the uncheckpointed run;
    - the 16×8×8 cantilever of 5 with ``PDE_TPU_BF16_SMOOTHER`` 1 and 0:
      at 0 no bf16 launch, more f32 ones, the same field within 1e-6.
-12. The service layer (``service_phase``), the entry points a user reaches:
+12. The sharding layer (``shard_phase``), over 8 virtual copies of the card
+   (``PDE_TPU_VIRTUAL_DEVICES=8``, set for this phase only; printed: the
+   physical card count, the card's name and power limit, and on every line
+   "virtual shards on one card: not multi-GPU speed"):
+   - the eight legs of ``MULTICHIP_r05.json`` (the JAX package's dry run,
+     ``__graft_entry__.dryrun_multichip``) at their sizes under "f64": the
+     heat step (400 nodes), elasticity CG (1,350 DOF), sharded MG-PCG
+     (1,275), the transient scan (1,078 × 5), Newmark (672 × 4), the scalar
+     wave (648 × 4), CNAB2 advection with sinusoidal driving (720 × 5) and
+     the 4×2 mesh (1,200), each within 1e-9 relative of the same solve
+     unsharded, its iterations printed beside the record's;
+   - the flagship on 4 shards (161 planes padded to 164) through the API,
+     a main path each: under "f64" within 1e-9·max|u| of the unsharded
+     "f64" flagship of 11 (iterations printed beside its, at most one
+     more), and at the card's default ("mixed": host float64 refinement
+     around sharded float32 MG inner solves, with ``refine_rounds=12``:
+     the reference's default 7 stop at relres ~6e-5 on the flagship, each
+     round's relres printed) converged, its von Mises
+     within 1e-6·max of the dense flagship of 6; each run's reported relres
+     against a host float64 recomputation from the solver's x̂, no K1 or CS
+     launch, and printed: wall, set-up and solve seconds, iterations and ms
+     an iteration, peak device memory, halo bytes an apply, the aten
+     operations of one sharded V-cycle.  The NCCL leg of
+     ``parallel.distributed`` needs two cards: printed as not run.
+13. The service layer (``service_phase``), the entry points a user reaches:
    - the port's MCP server, ``python -m pde_solver_tpu_torch.mcp.server``,
      started with no ``PDE_TPU_DEVICE`` (the card), ``PDE_TPU_CS=0`` and
      INFO logging to ``build/service/server.log``, spoken to in raw
@@ -346,17 +370,19 @@ CS_RAGGED = ((1, (40, 12, 14)), (3, (44, 10, 12)), (1, (64, 64, 66)),
 # the readings and what a wrong route gives
 HEAT_ROUTE_TOL = 1e-5
 HEAT_F64_TOL = 3e-4
-# the _mixed slice at full width: solve_heat_3D_mixed on 128³ cells, all
-# three face kinds and the driving at once (every face not named insulated)
-MIXED_3D = dict(nx=128, ny=128, nz=128, num_steps=20, dt=0.01,
+# the _mixed slice: solve_heat_3D_mixed on 96³ cells (cut from 128³ to make
+# room for the shard phase), all three face kinds and the driving at once
+# (every face not named insulated)
+MIXED_3D = dict(nx=96, ny=96, nz=96, num_steps=20, dt=0.01,
                 boundary_conditions={
                     "left": {"type": "dirichlet", "value": 100.0,
                              "amplitude": 20.0, "period": 0.1},
                     "right": {"type": "robin", "h": 5.0, "T_ambient": 20.0},
                     "top": {"type": "neumann", "flux": 50.0}})
-# the advection slice at full width: solve_advection_3D on 128³ cells, CNAB2
-# (CFL 0.64, cell Péclet 0.39), and one "ab1" run at 64³
-ADVECTION_3D = dict(nx=128, ny=128, nz=128, dt=0.005, num_steps=20)
+# the advection slice: solve_advection_3D on 96³ cells (cut from 128³ to make
+# room for the shard phase), CNAB2 (CFL 0.48, cell Péclet 0.52), and one
+# "ab1" run at 64³
+ADVECTION_3D = dict(nx=96, ny=96, nz=96, dt=0.005, num_steps=20)
 ADVECTION_AB1 = dict(nx=64, ny=64, nz=64, dt=0.005, num_steps=20,
                      scheme="ab1")
 MIXED_2D = dict(nx=256, ny=256)               # 50 steps of Δt = 0.01
@@ -3120,7 +3146,7 @@ def precision_phase(api, counted, data_dir, vm_mixed, vm_call, T_f32,
                     T_small_ref, share_f32, flagship=FLAGSHIP, heat=HEAT,
                     small_heat=SMALL_HEAT, beam=DYNAMIC_3D,
                     ckpt_beam=DYNAMIC_SMALL, small=SMALL, device="cuda",
-                    relres_tol=PRECISION_RELRES_TOL):
+                    relres_tol=PRECISION_RELRES_TOL, refs=None):
     """The precision scheme through the API, each run counted by
     ``counted(label, fn) → (result, launches, wall s)``: the flagship at
     float64 and float32, the heat slice and the 40×6×6 transient at
@@ -3133,7 +3159,9 @@ def precision_phase(api, counted, data_dir, vm_mixed, vm_call, T_f32,
     backward Euler of ``small_heat``; ``share_f32``: the float32 energy
     share of ``beam``.  A CPU rehearsal passes small sizes,
     ``device="cpu"`` (launches are then not counted) and
-    ``relres_tol=FLOOR_RELRES_TOL``.  Returns the numbers PERF.md keeps."""
+    ``relres_tol=FLOOR_RELRES_TOL``.  Returns the numbers PERF.md keeps;
+    ``refs`` (a dict), when given, receives the float64 flagship's u and
+    iterations (``u_f64``, ``iters_f64``) for the shard phase."""
     import numpy as np
     import torch
 
@@ -3193,6 +3221,8 @@ def precision_phase(api, counted, data_dir, vm_mixed, vm_call, T_f32,
     # float64 (a solve of ≥ 1M unknowns on the card evaluates the field's
     # von Mises in float32, at either precision, as the JAX package does)
     (vm_f64,) = vm_calls
+    if refs is not None:
+        refs.update(u_f64=vm_f64["u"], iters_f64=iters)
     u_gap = gap(vm_f64["u"], vm_call["u"])
     t0 = time.perf_counter()
     host_gap = gap(host_von_mises(vm_f64)[0], host_von_mises(vm_call)[0])
@@ -3427,6 +3457,419 @@ def precision_phase(api, counted, data_dir, vm_mixed, vm_call, T_f32,
               and l0.get("v3_f32", 0) > l1.get("v3_f32", 0),
               f"smoother switch launches: 0 → {l0}, 1 → {l1}")
     out["smoother_gap"] = sw_gap
+    return out
+
+
+# the shard phase.  The legs of the JAX package's multi-device dry run
+# (``__graft_entry__.dryrun_multichip``, recorded in MULTICHIP_r05.json over
+# 8 virtual CPU devices) at their sizes, each against the same solve
+# unsharded; then the flagship on 4 shards.  Shards are virtual copies of
+# the one card (PDE_TPU_VIRTUAL_DEVICES): the run checks the decomposition,
+# the halos and the reductions there, never multi-GPU speed
+SHARD_RECORD = "MULTICHIP_r05.json"
+SHARD_VIRTUAL = 8
+SHARD_FLAGSHIP = 4
+SHARD_LEG_TOL = 1e-9       # sharded against unsharded, float64, ·max
+SHARD_F64_TOL = 1e-9       # the f64 flagship against unsharded, ·max|u|
+SHARD_VM_TOL = 1e-6        # the "mixed" flagship's von Mises against the dense
+SHARD_LABEL = "virtual shards on one card: not multi-GPU speed"
+# the "mixed" flagship's refinement rounds.  Its host float64 refinement
+# around float32 inner solves gains a factor ~0.2 a round on the flagship
+# (the float32 operator's rounding times its conditioning), so the
+# reference's default of 7 rounds stops at relres ~6e-5, not converged;
+# 12 reach ~2e-8.  The run prints every round's relres, the 7th included
+SHARD_MIXED_ROUNDS = 12
+REFINE_LINE = (r"refinement round (\d+): relres before ([0-9.e+-]+), (\d+) "
+               r"inner iterations \((\d+) DOF\)")
+SHARD_LEG_DOF = (400, 1350, 1275, 1078, 672, 648, 720, 1200)
+
+
+def record_iterations(root):
+    """The CG / MG iterations of each leg of the JAX package's dry-run
+    record, in leg order (None where the record is missing)."""
+    path = os.path.join(root, SHARD_RECORD)
+    if not os.path.exists(path):
+        return [None] * len(SHARD_LEG_DOF)
+    with open(path) as f:
+        tail = json.load(f)["tail"]
+    return [int(m.group(1)) for m in re.finditer(r"iters=(\d+)", tail)]
+
+
+@contextlib.contextmanager
+def virtual_devices(n):
+    """``PDE_TPU_VIRTUAL_DEVICES=n`` within, the previous value after."""
+    prev = os.environ.get("PDE_TPU_VIRTUAL_DEVICES")
+    os.environ["PDE_TPU_VIRTUAL_DEVICES"] = str(n)
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop("PDE_TPU_VIRTUAL_DEVICES", None)
+        else:
+            os.environ["PDE_TPU_VIRTUAL_DEVICES"] = prev
+
+
+def shard_legs(n=SHARD_VIRTUAL):
+    """The eight legs at float64 on the configured device, each sharded
+    over ``n`` shards (the 2-D leg over an n/2 × 2 mesh) and unsharded.
+    Returns [(label, DOF, steps, sharded iterations, unsharded iterations,
+    max|Δ|/max|unsharded|, seconds)]."""
+    import numpy as np
+    import torch
+
+    from pde_solver_tpu_torch.config import config_overrides, get_config
+    from pde_solver_tpu_torch.mesh import box_mesh
+    from pde_solver_tpu_torch.models import elasticity as elast
+    from pde_solver_tpu_torch.models import heat
+    from pde_solver_tpu_torch.models.wave import (WaveProblem,
+                                                  solve_wave_problem)
+    from pde_solver_tpu_torch.ops import assembly, linsolve, timestepping
+    from pde_solver_tpu_torch.ops.bc import DirichletBC, all_boundary
+    from pde_solver_tpu_torch.parallel import shard as psh
+
+    lam, mu = elast.lame_parameters(210e9, 0.3, "3d")
+    g = np.array([0.0, 0.0, -9.81 * 7800.0])
+    device = get_config().device
+    beam = (1.0, 0.2, 0.2)
+
+    def clamped(m):
+        return DirichletBC.from_masks([(m.face_mask(0, 0), 0.0)],
+                                      m.node_shape, vdim=3)
+
+    def heat_step():
+        m = box_mesh(2 * n - 1, 4, 4, (0, 0, 0), (1.0, 1.0, 1.0))
+        bc = DirichletBC.from_masks([(all_boundary(m), 0.0)], m.node_shape)
+        u0 = bc.apply_values(np.full(m.node_shape, 20.0))
+        out = []
+        for k in (n, 1):
+            step, inputs = psh.build_sharded_heat_step(
+                m, psh.device_mesh(k), 1.0, 0.01, bc, dtype=torch.float64,
+                tol=1e-6, maxiter=200)
+            u1, iters, _ = step(u0, *inputs)
+            out.append((u1.cpu().numpy(), iters))
+        return m.num_nodes, 1, out
+
+    def elasticity_cg():
+        m = box_mesh(2 * n + 1, 4, 4, (0, 0, 0), beam)
+        cg, sysm = psh.build_sharded_elasticity_solve(
+            m, psh.device_mesh(n), lam, mu, g, clamped(m),
+            dtype=torch.float64)
+        x, k, _ = cg.solve(tol=1e-6, maxiter=2000)
+        b = torch.tensor(sysm.b_hat, device=device)
+        w = tuple(torch.tensor(W, device=device) for W in sysm.weights)
+        xr, kr, _ = linsolve._cg_unit_diag(sysm.offsets, w, b,
+                                           torch.zeros_like(b), 1e-6, 2000,
+                                           3, 3)
+        return 3 * m.num_nodes, 1, [
+            (sysm.from_hat_x(x.cpu().numpy()), k),
+            (sysm.from_hat_x(xr.cpu().numpy()), kr)]
+
+    def sharded_mg():
+        m = box_mesh(16, 4, 4, (0, 0, 0), beam)
+
+        def builder(mc):
+            return (assembly.assemble_elasticity_stencil(mc, lam, mu),
+                    clamped(mc))
+
+        out = []
+        for k in (n, 0):
+            with config_overrides(shard_devices=k, mg_threshold=100,
+                                  host_direct_threshold=0):
+                x, st = linsolve.solve_stencil_system(
+                    assembly.assemble_elasticity_stencil(m, lam, mu), m,
+                    clamped(m), assembly.assemble_vector_load(m, g), vdim=3,
+                    mg_level_builder=builder)
+            out.append((x, int(st.iterations)))
+        return 3 * m.num_nodes, 1, out
+
+    def transient():
+        p = heat.HeatProblem(
+            mesh=box_mesh(21, 6, 6, (0, 0, 0), (1.0, 1.0, 1.0)),
+            diffusivity=1.0, bc_builder=lambda m: [(all_boundary(m), 0.0)],
+            T_initial=20.0, dt=0.01, num_steps=5)
+        out = []
+        for k in (n, 0):
+            with config_overrides(shard_devices=k, host_direct_threshold=0):
+                _, values, info = heat.solve_heat_problem(p)
+            out.append((values, info["cg_iterations"]))
+        return p.mesh.num_nodes, 5, out
+
+    def newmark():
+        m = box_mesh(13, 3, 3, (0, 0, 0), beam)
+        args = (assembly.assemble_elasticity_stencil(m, lam, mu),
+                elast.assemble_vector_mass(m, 7800.0), m, clamped(m),
+                assembly.assemble_vector_load(m, g),
+                np.zeros(m.node_shape + (3,)), np.zeros(m.node_shape + (3,)))
+        out = []
+        for k in (n, 0):
+            with config_overrides(shard_devices=k):
+                r = timestepping.run_newmark(*args, dt=1e-5, num_steps=4,
+                                             vdim=3)
+            out.append((np.concatenate([r.values, r.velocities]),
+                        r.total_cg_iterations))
+        return 3 * m.num_nodes, 4, out
+
+    def wave():
+        pw = WaveProblem(mesh=box_mesh(2 * n + 1, 5, 5, (0, 0, 0),
+                                       (1.0, 1.0, 1.0)),
+                         wave_speed=2.0, initial_type="sine",
+                         initial_wavenumber=np.pi, dt=0.005, num_steps=4)
+        out = []
+        for k in (n, 0):
+            with config_overrides(shard_devices=k):
+                _, values, info = solve_wave_problem(pw)
+            out.append((values, info["cg_iterations"]))
+        return pw.mesh.num_nodes, 4, out
+
+    def cnab2():
+        m = box_mesh(2 * n + 3, 5, 5, (0, 0, 0), (1.0, 1.0, 1.0))
+        K = {o: 0.05 * W for o, W in assembly.assemble_scalar_stencil(
+            m, "stiffness").items()}
+        bc = DirichletBC.from_masks([(all_boundary(m), 0.0)], m.node_shape)
+        b = assembly.assemble_load(m)
+        xc = m.node_coords
+        u0 = bc.apply_values(np.exp(-((xc[..., 0] - 0.5) ** 2
+                                      + (xc[..., 1] - 0.5) ** 2
+                                      + (xc[..., 2] - 0.5) ** 2) / 0.05))
+        kw = dict(dt=0.004, num_steps=5, theta=0.5,
+                  C_np=assembly.assemble_convection_stencil(
+                      m, [0.8, -0.3, 0.2]),
+                  convection_scheme="cnab2",
+                  time_mod={"omega": 5.0, "phase": 0.2,
+                            "source_amp": 0.5 * b})
+        out = []
+        for k in (n, 0):
+            with config_overrides(shard_devices=k):
+                r = timestepping.run_transient(
+                    K, assembly.assemble_scalar_stencil(m, "mass"), m, bc, b,
+                    u0, **kw)
+            out.append((r.values, r.total_cg_iterations))
+        return m.num_nodes, 5, out
+
+    def mesh_2d():
+        a = n // 2
+        m = box_mesh(2 * a + 1, 7, 4, (0, 0, 0), (1.0, 0.5, 0.5))
+        out = []
+        for kw in (dict(shard_grid=f"{a},2"), dict(shard_devices=0)):
+            with config_overrides(host_direct_threshold=0, **kw):
+                x, st = linsolve.solve_stencil_system(
+                    assembly.assemble_elasticity_stencil(m, lam, mu), m,
+                    clamped(m), assembly.assemble_vector_load(m, g), vdim=3)
+            out.append((x, int(st.iterations)))
+        return 3 * m.num_nodes, 1, out
+
+    legs = []
+    with config_overrides(precision="f64"):
+        for label, fn in (("heat step", heat_step),
+                          ("elasticity CG", elasticity_cg),
+                          ("sharded MG-PCG", sharded_mg),
+                          ("transient", transient), ("Newmark", newmark),
+                          ("scalar wave", wave),
+                          ("CNAB2 advection + tmod", cnab2),
+                          (f"{n // 2}x2 mesh elasticity", mesh_2d)):
+            t = time.perf_counter()
+            dof, steps, ((sh, k_sh), (plain, k_plain)) = fn()
+            sh, plain = np.asarray(sh), np.asarray(plain)
+            check(sh.shape == plain.shape and bool(np.all(np.isfinite(sh))),
+                  f"shard leg {label}: {sh.shape} against {plain.shape}")
+            gap = float(np.abs(sh - plain).max() / np.abs(plain).max())
+            legs.append((label, dof, steps, int(k_sh), int(k_plain), gap,
+                         time.perf_counter() - t))
+    return legs
+
+
+def spy_from_hat():
+    """Record (scaled system, x̂) of every block system's
+    ``ScaledSystem.from_hat_x`` call; returns the list and the undo."""
+    from pde_solver_tpu_torch.ops.linsolve import ScaledSystem
+
+    calls = []
+    orig = ScaledSystem.from_hat_x
+
+    def spy(self, x_hat):
+        if self.scale_kind == "block":
+            calls.append((self, x_hat))
+        return orig(self, x_hat)
+
+    ScaledSystem.from_hat_x = spy
+    return calls, lambda: setattr(ScaledSystem, "from_hat_x", orig)
+
+
+def halo_bytes(solver) -> int:
+    """Bytes one sharded apply moves between neighbouring shards: two node
+    layers (all components: the free mask has the state's shape) across
+    each inner interface of the 1-D mesh."""
+    blk = solver.free.parts[0]
+    return 2 * (solver.mesh_dev.size - 1) * blk[0].numel() \
+        * blk.element_size()
+
+
+def shard_phase(api, counted, data_dir, u_f64, iters_f64, vm_dense,
+                card_line, root, flagship=FLAGSHIP, legs_n=SHARD_VIRTUAL,
+                shards=SHARD_FLAGSHIP, device="cuda",
+                relres_tol=PRECISION_RELRES_TOL):
+    """The sharding layer on the card, over ``legs_n`` virtual copies of it
+    (``PDE_TPU_VIRTUAL_DEVICES``, set for this phase only): the eight legs
+    of the JAX package's dry-run record against the same solves unsharded
+    (``shard_legs``), then the flagship on ``shards`` shards through the
+    API, (a) under "f64" against the unsharded float64 flagship of the
+    precision phase (``u_f64``, ``iters_f64``), (b) at the card's default
+    ("mixed": the host float64 refinement around sharded float32 MG
+    inner solves) against the dense flagship's von Mises ``vm_dense``.
+    ``counted(label, fn) → (result, launches, wall s)``.  A CPU rehearsal
+    passes small sizes and ``device="cpu"``.  Returns the numbers PERF.md
+    keeps."""
+    import numpy as np
+    import torch
+
+    from pde_solver_tpu_torch.config import config_overrides
+    from pde_solver_tpu_torch.ops import linsolve
+    from pde_solver_tpu_torch.parallel import shard_mg
+
+    cuda = device == "cuda"
+    out = {"label": SHARD_LABEL}
+    n_cards = torch.cuda.device_count() if cuda else 0
+    print(f"shard phase ({card_line}): {n_cards} physical card(s), "
+          f"PDE_TPU_VIRTUAL_DEVICES={legs_n} for this phase; {SHARD_LABEL}",
+          flush=True)
+    with virtual_devices(legs_n):
+        # -- 1. the eight legs of the dry-run record --------------------------
+        record = record_iterations(root)
+        legs, launches, wall = counted("shard legs", lambda: shard_legs(
+            legs_n))
+        for (label, dof, steps, k_sh, k_plain, gap, secs), k_rec, want in \
+                zip(legs, record, SHARD_LEG_DOF):
+            print(f"shard leg {label}: {dof} DOF x {steps} step(s), "
+                  f"{legs_n} shards (f64): iterations {k_sh}, unsharded "
+                  f"{k_plain}, JAX record {k_rec}; max|Δ|/max|unsharded|="
+                  f"{gap:.3e} (bound {SHARD_LEG_TOL}); {secs:.3f} s "
+                  f"({SHARD_LABEL})", flush=True)
+            check(dof == want, f"shard leg {label}: {dof} DOF, the record "
+                  f"has {want}")
+            check(gap <= SHARD_LEG_TOL, f"shard leg {label}: sharded off "
+                  f"unsharded by {gap:.3e}")
+        check(len(legs) == len(SHARD_LEG_DOF), f"shard legs: {len(legs)}")
+        check(not any(launches.values()), f"shard legs launched kernels: "
+              f"{launches}")
+        out["legs"] = {label: dict(dof=dof, iterations=k_sh,
+                                   unsharded=k_plain, record=k_rec, gap=gap,
+                                   seconds=secs)
+                       for (label, dof, _, k_sh, k_plain, gap, secs), k_rec
+                       in zip(legs, record)}
+        out["legs_s"] = wall
+
+        # -- 2. the flagship on ``shards`` shards -----------------------------
+        cells = (flagship["nx"], flagship["ny"], flagship["nz"])
+        dof = 3 * int(np.prod([c + 1 for c in cells]))
+        for prec in ("f64", "mixed"):
+            label = f"flagship sharded {prec}"
+            vm_calls, unspy_vm = spy_von_mises()
+            hats, unspy_hat = spy_from_hat()
+            secs, unsolve = timed_calls(shard_mg, "solve_mg_sharded", device)
+            linsolve._MG_CACHE.clear()
+            shard_mg._SOLVER_CACHE.clear()
+            # "mixed" is the card's default precision
+            rounds = dict(refine_rounds=SHARD_MIXED_ROUNDS) \
+                if prec == "mixed" else {}
+            try:
+                with config_overrides(shard_devices=shards, precision=prec,
+                                      **rounds), solver_log() as log:
+                    res, launches, wall = counted(
+                        label, lambda: api.solve_elasticity_3D_static(
+                            **flagship, data_dir=data_dir))
+            finally:
+                unspy_vm(), unspy_hat(), unsolve()
+            peak = (torch.cuda.max_memory_allocated() / 2 ** 30 if cuda
+                    else float("nan"))
+            st = res.meta["solver_stats"]
+            vm = field(res)[0]
+            (solver_h, solver), = shard_mg._SOLVER_CACHE.values()
+            ops_v = aten_ops(lambda: solver._precondition(solver.free))
+            halo = halo_bytes(solver)
+            rows = [p.shape[0] for p in solver.free.parts]
+            del solver_h, solver
+            shard_mg._SOLVER_CACHE.clear()
+            linsolve._MG_CACHE.clear()
+            (sysm, xh), = hats
+            host = host_relres_of(sysm, np.asarray(xh, np.float64))
+            del hats
+            setup = setup_seconds(log, dof)
+            iters = int(st["cg_iterations"])
+            solve_s = sum(secs)
+            (vm_rec,) = vm_calls
+            u = vm_rec["u"]
+            del vm_calls
+            line = (f"{label} ({card_line}; {SHARD_LABEL}): {shards} shards "
+                    f"of {rows} planes ({cells[0] + 1} padded to "
+                    f"{sum(rows)}), dof={st['num_dofs']}; wall {wall:.3f} s, "
+                    f"set-up {setup['total']:.3f} s ("
+                    + " ".join(f"{k}={v:.3f}" for k, v in setup.items()
+                               if k != "total")
+                    + f"), solve_mg_sharded {solve_s:.3f} s in {len(secs)} "
+                    f"call(s); iterations {iters} "
+                    f"({1e3 * solve_s / max(iters, 1):.3f} ms an iteration);"
+                    f" relres={st['relative_residual']:.6e}"
+                    f" host f64 recomputation={host:.6e} converged="
+                    f"{st['converged']}; peak device memory {peak:.2f} GiB; "
+                    f"halo bytes an apply {halo}; aten ops of one sharded "
+                    f"V-cycle {ops_v}; kernel launches {launches}")
+            check(st["num_dofs"] == dof and vm.shape == (1, dof // 3)
+                  and bool(np.all(np.isfinite(vm))), f"{label}: {st}")
+            check(bool(st["converged"]), f"{label} did not converge: {st}")
+            check(abs(st["relative_residual"] - host) <= relres_tol * host,
+                  f"{label}: relres {st['relative_residual']:.6e} against "
+                  f"the host's {host:.6e}")
+            check(not any(v for k, v in launches.items()
+                          if k.startswith(("v1_", "v2_", "v3_", "cs_"))),
+                  f"{label} launched K1 or CS kernels: {launches}")
+            numbers = dict(wall_s=wall, setup_s=setup["total"],
+                           solve_s=solve_s, iterations=iters,
+                           ms_per_iteration=1e3 * solve_s / max(iters, 1),
+                           relres=st["relative_residual"], host_relres=host,
+                           peak_gib=peak, halo_bytes=halo,
+                           aten_ops_vcycle=ops_v)
+            if prec == "f64":
+                u_gap = float(np.abs(u - u_f64).max() / np.abs(u_f64).max())
+                relation = ("equal" if iters == iters_f64 else
+                            "within one" if abs(iters - iters_f64) == 1 else
+                            f"{iters_f64 - iters} fewer" if iters < iters_f64
+                            else f"{iters - iters_f64} more")
+                print(line + f"; against the unsharded f64 flagship: "
+                      f"max|Δu|/max|u|={u_gap:.3e} (bound {SHARD_F64_TOL}),"
+                      f" iterations {iters} against {iters_f64}: {relation}"
+                      f" (the sharded solver keeps the dense coarsest "
+                      f"inverse, as the JAX package's does; solve_mg drops "
+                      f"it)", flush=True)
+                check(u_gap <= SHARD_F64_TOL, f"{label} off the unsharded "
+                      f"f64 flagship by {u_gap:.3e}")
+                check(iters <= iters_f64 + 1, f"{label}: {iters} iterations"
+                      f" against {iters_f64} unsharded")
+                numbers.update(u_gap=u_gap, iters_unsharded=iters_f64)
+            else:
+                vm_gap = float(np.abs(vm - vm_dense).max()
+                               / np.abs(vm_dense).max())
+                before = [float(m.group(2)) for m in
+                          (re.search(REFINE_LINE, x) for x in log)
+                          if m and int(m.group(4)) == dof]
+                after7 = (before[7] if len(before) > 7
+                          else st["relative_residual"])
+                print(line + f"; against the dense flagship's von Mises: "
+                      f"max|Δvm|/max|vm|={vm_gap:.3e} (bound {SHARD_VM_TOL})"
+                      f"; refine_rounds={SHARD_MIXED_ROUNDS}, relres before "
+                      f"each round {['%.3e' % r for r in before]} (after the"
+                      f" default 7 rounds: {after7:.3e})", flush=True)
+                numbers.update(relres_by_round=before)
+                check(vm_gap <= SHARD_VM_TOL, f"{label} off the dense "
+                      f"flagship by {vm_gap:.3e}")
+                numbers.update(vm_gap=vm_gap)
+            out[label] = numbers
+            del vm, u
+            if cuda:
+                torch.cuda.empty_cache()
+    print(f"shard phase: the NCCL leg of parallel.distributed was not run: "
+          f"it needs two cards or more, this machine has {n_cards} (its gloo "
+          f"leg runs on the CPU in tests/test_torch_distributed.py)",
+          flush=True)
     return out
 
 
@@ -4088,12 +4531,24 @@ def main() -> int:
         # -- the precision scheme: float64, float32, checkpoints, smoother --
         t0 = time.perf_counter()
         torch.cuda.empty_cache()
+        refs = {}
         precision = precision_phase(
             api, lambda label, fn: paths.counted(label, "0", fn), data_dir,
-            served_ref[0], vm_call, T_runs["0"], T_host, share_f32)
+            served_ref[0], vm_call, T_runs["0"], T_host, share_f32,
+            refs=refs)
         del T_runs, T_host, vm_call
         print(f"phase precision: {time.perf_counter() - t0:.3f} s; "
               + json.dumps(precision), flush=True)
+
+        # -- the sharding layer: the dry-run legs, the flagship on 4 shards -
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        sharded = shard_phase(
+            api, lambda label, fn: paths.counted(label, "0", fn), data_dir,
+            refs["u_f64"], refs["iters_f64"], served_ref[0], card_line, root)
+        del refs
+        print(f"phase shard: {time.perf_counter() - t0:.3f} s; "
+              + json.dumps(sharded), flush=True)
 
     # -- the service layer: MCP server, plot, chat examples ------------------
     t0 = time.perf_counter()

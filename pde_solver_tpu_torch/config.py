@@ -10,6 +10,11 @@ Precision policy ("auto"):
 * CUDA: the mixed scheme — float32 MG-PCG inner solves and a double-float32
   F-cycle for f64-grade residuals; transient scans run in float32.
 "f64" and "f32" may be asked for on either device.
+
+Sharding (``shard_devices``, ``shard_grid``; ``PDE_TPU_SHARD_DEVICES``,
+``PDE_TPU_SHARD_GRID``) decomposes the grid over the devices of
+``parallel.shard.available_devices()``, clipped to their count as the JAX
+package clips to ``len(jax.devices())``.
 """
 
 from __future__ import annotations
@@ -42,7 +47,9 @@ class SolverConfig:
     transient_mg_threshold: Optional[int] = None  # min DOF for MG-PCG step
                                   # solves in transient scans; None → 250k
     mg_maxiter: int = 300         # MG-PCG iteration cap of a float64 static
-                                  # solve (solve_mg)
+                                  # solve (solve_mg) and of a sharded one
+    mg_inner_tol: float = 1e-4    # sharded "mixed" MG-PCG inner solves'
+                                  # target per refinement round
     snapshot_dtype: str = "f32"   # dtype of kept frames below float64
                                   # scans ("f32", or the state's dtype)
     snapshot_budget_bytes: int = 2 << 30  # device bytes allowed for the
@@ -55,18 +62,53 @@ class SolverConfig:
                                   # npz); a re-run of the same problem
                                   # resumes from the last checkpoint
     checkpoint_dir: str = "data/checkpoints"
-    shard_devices: int = 0        # >1 → domain decomposition (not ported)
-    shard_grid: str = ""          # "a,b" 2-D decomposition (not ported)
+    shard_devices: int = 0        # >1 → domain-decompose grid axis 0 over
+                                  # that many devices (parallel.shard); 0 off
+    shard_grid: str = ""          # "a,b" (or "axb") → decompose grid axes 0
+                                  # and 1 over an a×b device mesh; implies
+                                  # a·b shards when shard_devices is unset
     theta: float = 1.0            # transient θ-scheme: 1 = backward Euler,
                                   # 0.5 = Crank–Nicolson (opt-in via
                                   # PDE_TPU_TIME_SCHEME=crank_nicolson)
 
+    def _n_available(self) -> int:
+        from pde_solver_tpu_torch.parallel.shard import available_devices
+
+        return len(available_devices(self.device))
+
     def resolved_shard_devices(self) -> int:
-        if self.shard_devices > 1 or self.shard_grid.strip():
-            raise NotImplementedError(
-                "sharded solves are not ported yet (ROADMAP queue 1, item 11: "
-                "step I)")
-        return 0
+        """Shards of a sharded solve, 0 when off: ``shard_grid`` alone
+        implies a·b; the request is clipped to the available devices, as
+        the JAX package clips it (logged)."""
+        n = self.shard_devices
+        grid = self.resolved_shard_grid()
+        if grid is not None and n <= 1:
+            n = grid[0] * grid[1]
+        if n <= 1:
+            return 0
+        avail = self._n_available()
+        if n > avail:
+            from pde_solver_tpu_torch.utils.observability import get_logger
+
+            get_logger().warning(
+                "shard_devices=%d clipped to the %d available device(s) of "
+                "%r", n, avail, self.device)
+        return min(n, avail)
+
+    def resolved_shard_grid(self) -> Optional[tuple]:
+        """(a, b) for a requested 2-D decomposition, or None (the 1-D
+        split): a malformed grid, b < 2 or a·b above the available devices
+        fall back to None."""
+        s = self.shard_grid.strip().replace("x", ",")
+        if not s:
+            return None
+        try:
+            a, b = (int(t) for t in s.split(","))
+        except ValueError:
+            return None
+        if a < 1 or b < 2 or a * b > self._n_available():
+            return None
+        return (a, b)
 
     def resolve_precision(self) -> str:
         p = self.precision
@@ -90,6 +132,8 @@ _GLOBAL = SolverConfig(
     device=os.environ.get("PDE_TPU_DEVICE", "cuda"),
     precision=os.environ.get("PDE_TPU_PRECISION", "auto"),
     tol=float(os.environ.get("PDE_TPU_TOL", 1e-11)),
+    shard_devices=int(os.environ.get("PDE_TPU_SHARD_DEVICES", 0)),
+    shard_grid=os.environ.get("PDE_TPU_SHARD_GRID", ""),
     transient_checkpoint_every=int(
         os.environ.get("PDE_TPU_CHECKPOINT_EVERY", 0)),
     checkpoint_dir=os.environ.get("PDE_TPU_CHECKPOINT_DIR",

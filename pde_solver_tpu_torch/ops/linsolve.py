@@ -28,8 +28,13 @@ LU for tiny systems:
   (``ops.multigrid.solve_fcycle_df2``), without one float32 CG inner solves
   plus a float64 host refinement loop.
 
-Sharding raises ``NotImplementedError`` (ROADMAP queue 1, step I).  The
-multigrid hierarchy (and, for "mixed", the F-cycle's weight ladder) of the
+``SolverConfig.shard_devices`` / ``shard_grid`` decompose the solve over a
+mesh of shard devices (``parallel``), where the JAX package does: with a
+hierarchy, sharded MG-PCG (``parallel.shard_mg``, the hierarchy built with
+plain weights); without one, sharded CG (``parallel.shard.
+ShardedScaledCG``, 1-D or a×b); in "mixed", as the inner solves of the
+host float64 refinement loop.  A sharding request skips host sparse LU.
+The multigrid hierarchy (and, for "mixed", the F-cycle's weight ladder) of the
 last ``_MG_CACHE_MAX`` operators stay in memory (``_MG_CACHE``), so
 repeated solves on one operator — a modal analysis makes dozens — build
 them once.  Across processes, the scaled system's operator part (kind
@@ -540,7 +545,7 @@ def solve_stencil_system(
     d = mesh.dim
     n = int(np.prod(mesh.node_shape)) * vdim
     maxiter = cfg.resolved_maxiter(n)
-    cfg.resolved_shard_devices()  # raises when sharding is requested
+    nshard = cfg.resolved_shard_devices()
 
     t_p = time.perf_counter()
     sysm = prepare_system(stencil_np, mesh, bc, rhs_np, vdim)
@@ -550,8 +555,9 @@ def solve_stencil_system(
     x0_hat = (np.zeros_like(sysm.b_hat) if x0 is None
               else sysm.to_hat_x(np.asarray(x0, dtype=np.float64)))
 
-    # Tiny systems: host sparse LU, no device round-trips.
-    if 0 < n <= cfg.host_direct_threshold:
+    # Tiny systems: host sparse LU, no device round-trips (a sharding
+    # request still wins, as in the JAX package)
+    if 0 < n <= cfg.host_direct_threshold and nshard <= 1:
         xh, relres = _host_direct_solve(sysm, mesh.node_shape, vdim)
         x = sysm.from_hat_x(xh)
         return x, SolveStats(iterations=np.int32(1),
@@ -563,64 +569,119 @@ def solve_stencil_system(
 
     device = torch.device(cfg.device)
     hierarchy = ladder_core = hier_key = None
-    # the "f32" branch never reads a hierarchy (the reference builds one
-    # there and leaves it unused): none is built for it
+    # the unsharded "f32" branch never reads a hierarchy (the reference
+    # builds one there and leaves it unused): none is built for it
     if (mg_level_builder is not None and cfg.use_multigrid
-            and n >= cfg.mg_threshold and prec != "f32"):
+            and n >= cfg.mg_threshold and (prec != "f32" or nshard > 1)):
         t_h = time.perf_counter()
-        hier_key = _mg_cache_key(mesh, vdim, prec, sysm, device)
+        hier_key = _mg_cache_key(mesh, vdim, prec, sysm, device) + (
+            nshard > 1,)
         cached = _mg_cache_get(hier_key)
         if cached is not None:
             hierarchy, ladder_core = cached
             get_logger().info("hierarchy cache hit (%.3fs key, %d DOF)",
                               time.perf_counter() - t_h, n)
         else:
-            # the disk layer serves float32 hierarchies only
+            # the disk layer serves float32 hierarchies only; the kernels'
+            # flat layout does not decompose along a grid axis, so a
+            # sharded hierarchy keeps plain weights
             hierarchy = mg.build_hierarchy_cached(
                 mesh, sysm, mg_level_builder, vdim=vdim, device=device,
                 dtype=torch.float64 if prec == "f64" else torch.float32,
-                cache_key=sysm.ckey)
-            if hierarchy is not None and prec == "f64":
+                cache_key=sysm.ckey, use_kernel=nshard <= 1)
+            if hierarchy is not None and (prec == "f64" or nshard > 1):
                 _mg_cache_put(hier_key, hierarchy, None)
             get_logger().info("hierarchy build: %.3fs (%d DOF)",
                               time.perf_counter() - t_h, n)
 
+    # Domain decomposition over a mesh of shard devices: with a hierarchy,
+    # sharded MG-PCG; without one, sharded CG (1-D, or a×b when asked for
+    # and the problem has a second grid axis)
+    sharded = sharded_mg = None
+    if nshard > 1 and hierarchy is not None:
+        from pde_solver_tpu_torch.parallel.shard import device_mesh
+        from pde_solver_tpu_torch.parallel.shard_mg import shard_hierarchy
+
+        sharded_mg = shard_hierarchy(
+            hierarchy, device_mesh(nshard, device=device), key=hier_key)
+        get_logger().info("sharded MG-PCG: V-cycle + domain decomposition "
+                          "over %d devices", nshard)
+    elif nshard > 1:
+        from pde_solver_tpu_torch.parallel.shard import (ShardedScaledCG,
+                                                         device_mesh)
+
+        grid2d = cfg.resolved_shard_grid() if d >= 2 else None
+        mesh_dev = (device_mesh(shape=grid2d, device=device)
+                    if grid2d is not None
+                    else device_mesh(nshard, device=device))
+        sharded = ShardedScaledCG(
+            sysm, d, vdim, mesh_dev,
+            dtype=torch.float64 if prec == "f64" else torch.float32)
+        get_logger().info("sharded CG: domain decomposition over a %s mesh",
+                          "x".join(str(a) for a in mesh_dev.shape))
+
     if prec == "f64":
-        b64 = torch.as_tensor(sysm.b_hat, dtype=torch.float64, device=device)
-        if hierarchy is not None:
-            w64 = hierarchy.levels[0].weights
-            xh, k, _ = mg.solve_mg(hierarchy, sysm.b_hat, x0_hat, cfg.tol,
-                                   cfg.mg_maxiter)
-        else:
-            w64 = tuple(torch.tensor(W, dtype=torch.float64, device=device)
-                        for W in sysm.weights)   # a copy: W may be cached
-            xh, k, _ = _cg_unit_diag(
-                offsets, w64, b64, torch.as_tensor(x0_hat, device=device),
-                cfg.tol, maxiter, d, vdim)
         # The reported residual is the true ‖b̂ − Â x̂‖/‖b̂‖ (one more
         # apply), not CG's recurrence, which near the float64 floor reads
         # far below it.  The JAX package reports the recurrence (ROADMAP
         # queue 3).
-        r = b64 - _stencil_apply(offsets, w64, xh, d, vdim)
-        bnorm = float(torch.sqrt(_dot(b64, b64)))
-        relres = float(torch.sqrt(_dot(r, r))) / (bnorm if bnorm > 0 else 1.0)
+        if sharded_mg is not None:
+            from pde_solver_tpu_torch.parallel.shard_mg import \
+                solve_mg_sharded
+
+            xh, k, _ = solve_mg_sharded(sharded_mg, sysm.b_hat, x0_hat,
+                                        cfg.tol, cfg.mg_maxiter)
+            relres = sharded_mg.relres(xh, sysm.b_hat)
+        elif sharded is not None:
+            xh, k, _ = sharded.solve(x0=x0_hat, tol=cfg.tol, maxiter=maxiter)
+            relres = sharded.relres(xh)
+        else:
+            b64 = torch.as_tensor(sysm.b_hat, dtype=torch.float64,
+                                  device=device)
+            if hierarchy is not None:
+                w64 = hierarchy.levels[0].weights
+                xh, k, _ = mg.solve_mg(hierarchy, sysm.b_hat, x0_hat,
+                                       cfg.tol, cfg.mg_maxiter)
+            else:
+                w64 = tuple(torch.tensor(W, dtype=torch.float64,
+                                         device=device)
+                            for W in sysm.weights)   # a copy: W may be cached
+                xh, k, _ = _cg_unit_diag(
+                    offsets, w64, b64, torch.as_tensor(x0_hat, device=device),
+                    cfg.tol, maxiter, d, vdim)
+            r = b64 - _stencil_apply(offsets, w64, xh, d, vdim)
+            bnorm = float(torch.sqrt(_dot(b64, b64)))
+            relres = (float(torch.sqrt(_dot(r, r)))
+                      / (bnorm if bnorm > 0 else 1.0))
         return _stats_result(sysm, xh, k, relres, cfg.tol, cfg)
     if prec == "f32":
-        w32 = _static_flat_op(sysm, mesh, vdim, device) or tuple(
-            torch.as_tensor(W, dtype=torch.float32, device=device)
-            for W in sysm.weights)
         tol_used = max(cfg.inner_tol, 1e-7)
+        b32 = sysm.b_hat.astype(np.float32)
+        x32 = x0_hat.astype(np.float32)
+        if sharded_mg is not None:
+            from pde_solver_tpu_torch.parallel.shard_mg import \
+                solve_mg_sharded
 
-        def f32(a):
-            return torch.as_tensor(a, dtype=torch.float32, device=device)
+            xh, k, relres = solve_mg_sharded(sharded_mg, b32, x32, tol_used,
+                                             cfg.mg_maxiter)
+        elif sharded is not None:
+            xh, k, relres = sharded.solve(x0=x32, tol=tol_used,
+                                          maxiter=maxiter)
+        else:
+            w32 = _static_flat_op(sysm, mesh, vdim, device) or tuple(
+                torch.as_tensor(W, dtype=torch.float32, device=device)
+                for W in sysm.weights)
 
-        xh, k, relres = _cg_unit_diag(offsets, w32, f32(sysm.b_hat),
-                                      f32(x0_hat), tol_used, maxiter, d, vdim)
+            def f32(a):
+                return torch.as_tensor(a, dtype=torch.float32, device=device)
+
+            xh, k, relres = _cg_unit_diag(offsets, w32, f32(b32), f32(x32),
+                                          tol_used, maxiter, d, vdim)
         return _stats_result(sysm, xh, k, relres, tol_used, cfg)
     if prec != "mixed":
         raise ValueError(f"unknown precision {prec!r}")
 
-    if hierarchy is not None:
+    if hierarchy is not None and sharded_mg is None:
         from pde_solver_tpu_torch.ops import df32
 
         # Double-float32 F-cycle: Galerkin ladder with an exact f64
@@ -651,16 +712,28 @@ def solve_stencil_system(
         )
         return x, stats
 
-    # mixed, no hierarchy: f32 CG inner solves on the device + float64
-    # refinement residuals in host numpy against the host scaled weights
-    w32 = _static_flat_op(sysm, mesh, vdim, device) or tuple(
-        torch.as_tensor(W, dtype=torch.float32, device=device)
-        for W in sysm.weights)
+    # mixed, no unsharded hierarchy: f32 inner solves on the device (sharded
+    # MG-PCG, sharded CG, or CG) + float64 refinement residuals in host
+    # numpy against the host scaled weights
+    if sharded_mg is not None:
+        from pde_solver_tpu_torch.parallel.shard_mg import solve_mg_sharded
 
-    def inner_solve(r32):
-        b = torch.as_tensor(r32, dtype=torch.float32, device=device)
-        return _cg_unit_diag(offsets, w32, b, torch.zeros_like(b),
-                             cfg.inner_tol, maxiter, d, vdim)
+        def inner_solve(r32):
+            return solve_mg_sharded(sharded_mg, r32, None, cfg.mg_inner_tol,
+                                    cfg.mg_maxiter)
+    elif sharded is not None:
+        def inner_solve(r32):
+            return sharded.solve(b_hat=r32, tol=cfg.inner_tol,
+                                 maxiter=maxiter)
+    else:
+        w32 = _static_flat_op(sysm, mesh, vdim, device) or tuple(
+            torch.as_tensor(W, dtype=torch.float32, device=device)
+            for W in sysm.weights)
+
+        def inner_solve(r32):
+            b = torch.as_tensor(r32, dtype=torch.float32, device=device)
+            return _cg_unit_diag(offsets, w32, b, torch.zeros_like(b),
+                                 cfg.inner_tol, maxiter, d, vdim)
 
     scaled_np = {o: W for o, W in zip(offsets, sysm.weights)}
     x_hat = np.asarray(x0_hat, dtype=np.float64)
@@ -672,7 +745,7 @@ def solve_stencil_system(
         x_hat = np.zeros_like(sysm.b_hat)
         relres = 0.0
     else:
-        for _ in range(cfg.refine_rounds):
+        for rnd in range(cfg.refine_rounds):
             r = sysm.b_hat - np_stencil_apply(scaled_np, x_hat, d, vdim)
             relres = float(np.linalg.norm(r.reshape(-1))) / bnorm
             if relres <= cfg.tol or not np.isfinite(relres):
@@ -681,6 +754,8 @@ def solve_stencil_system(
             d32, k, _ = inner_solve(np.asarray(r / scale, dtype=np.float32))
             x_hat = x_hat + scale * d32.cpu().numpy().astype(np.float64)
             iters += int(k)
+            get_logger().info("refinement round %d: relres before %.3e, %d "
+                              "inner iterations (%d DOF)", rnd, relres, k, n)
         else:
             r = sysm.b_hat - np_stencil_apply(scaled_np, x_hat, d, vdim)
             relres = float(np.linalg.norm(r.reshape(-1))) / bnorm

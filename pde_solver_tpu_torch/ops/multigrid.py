@@ -217,12 +217,15 @@ def bf16_smoother() -> bool:
 
 def _to_level(sysm: ScaledSystem, mesh, vdim: int, device,
               dtype=torch.float32, omega: Optional[float] = None,
-              pairs: Optional[tuple] = None) -> MGLevel:
+              pairs: Optional[tuple] = None,
+              use_kernel: bool = True) -> MGLevel:
     """One MG level's device operators from a scaled system.  A float32
     level of at least ``KERNEL_MIN_DOF`` unknowns gets the kernel-backed
     operator plus its bf16 smoother copy (cast on the device); any other
-    level (float64, or below the gate) plain per-offset tensors in
-    ``dtype`` — the reference's gate ``use_pallas and dtype == float32``.
+    level (float64, below the gate, or ``use_kernel=False``) plain
+    per-offset tensors in ``dtype`` — the reference's gate ``use_pallas
+    and dtype == float32``.  A sharded hierarchy is built with
+    ``use_kernel=False`` (``parallel.shard_mg`` cuts the grid tensors).
 
     ``PDE_TPU_CS`` as the reference reads it: "1" applies a
     constant-interior level through the CS operator for both residuals and
@@ -241,7 +244,7 @@ def _to_level(sysm: ScaledSystem, mesh, vdim: int, device,
     free = torch.tensor(sysm.free, dtype=dtype, device=device)
     n_dof = int(np.prod(mesh.node_shape)) * vdim
     w_lo = None
-    if dtype == torch.float32 and kernel_wins(n_dof):
+    if use_kernel and dtype == torch.float32 and kernel_wins(n_dof):
         mode = cs_mode()
         cs = None
         if cs_enabled(mode) and cs_wins(n_dof):
@@ -298,14 +301,17 @@ def build_hierarchy(
     coarse_iters: int = 60,
     device="cuda",
     dtype=torch.float32,
+    use_kernel: bool = True,
 ) -> Optional[MGHierarchy]:
     """Build the level stack, every level's tensors in ``dtype`` (float32:
-    kernel-backed operators; float64: plain tensors).
+    kernel-backed operators unless ``use_kernel=False``; float64: plain
+    tensors).
     ``level_builder(mesh_c)`` re-assembles the operator + BCs on a coarse
     mesh.  Returns None when the fine mesh cannot coarsen."""
     if not can_coarsen(mesh):
         return None
-    levels = [_to_level(fine_system, mesh, vdim, device, dtype)]
+    levels = [_to_level(fine_system, mesh, vdim, device, dtype,
+                        use_kernel=use_kernel)]
     meshes = [mesh]
     cur = mesh
     cur_sys = fine_system
@@ -314,7 +320,8 @@ def build_hierarchy(
         stencil_c, bc_c = level_builder(cur)
         shape_c = cur.node_shape + ((vdim,) if vdim > 1 else ())
         cur_sys = prepare_system(stencil_c, cur, bc_c, np.zeros(shape_c), vdim)
-        levels.append(_to_level(cur_sys, cur, vdim, device, dtype))
+        levels.append(_to_level(cur_sys, cur, vdim, device, dtype,
+                                use_kernel=use_kernel))
         meshes.append(cur)
     # λmax per level: Chebyshev smoothing diverges on any eigenvalue above
     # its assumed λmax, so it is estimated, with a 1.05 margin for the power
@@ -395,7 +402,8 @@ def _hierarchy_to_arrays(h: MGHierarchy):
     return arrays, meta, all_pairs
 
 
-def _level_from_disk_dense(ent, i: int, meta, device) -> MGLevel:
+def _level_from_disk_dense(ent, i: int, meta, device,
+                          use_kernel: bool = True) -> MGLevel:
     """Rebuild one dense-stored level from its (hi, lo) float32 pair."""
     hi, lo = ent[f"hi{i}"], ent[f"lo{i}"]
     n_off = hi.shape[0]
@@ -413,14 +421,16 @@ def _level_from_disk_dense(ent, i: int, meta, device) -> MGLevel:
                             np.swapaxes(Cinv, -1, -2))
     pairs = ([hi[k] for k in range(n_off)], [lo[k] for k in range(n_off)])
     return _to_level(sysm, _ShapeOnlyMesh(node_shape), int(meta["vdim"]),
-                     device, omega=float(meta["omegas"][i]), pairs=pairs)
+                     device, omega=float(meta["omegas"][i]), pairs=pairs,
+                     use_kernel=use_kernel)
 
 
-def _hierarchy_from_arrays_disk(ent, device) -> MGHierarchy:
+def _hierarchy_from_arrays_disk(ent, device,
+                                use_kernel: bool = True) -> MGHierarchy:
     """Rebuild a hierarchy from a dense disk entry, level by level."""
     meta = ent["meta"]
     n_levels = int(meta["n_levels"])
-    levels = [_level_from_disk_dense(ent, i, meta, device)
+    levels = [_level_from_disk_dense(ent, i, meta, device, use_kernel)
               for i in range(n_levels)]
     if "Ainv" in ent:
         levels = _with_coarsest_inverse(levels, ent["Ainv"], device)
@@ -429,11 +439,13 @@ def _hierarchy_from_arrays_disk(ent, device) -> MGHierarchy:
                        int(meta["post"]), int(meta["coarse_iters"]))
 
 
-def load_hierarchy_from_disk(cache_key, vdim: int, device="cuda"
+def load_hierarchy_from_disk(cache_key, vdim: int, device="cuda",
+                             use_kernel: bool = True
                              ) -> Optional[MGHierarchy]:
     """Rebuild a float32 hierarchy purely from its disk entry (uploads
     only).  None on a miss, a constant-interior entry or an unusable
-    one."""
+    one.  The entry is layout-agnostic: ``use_kernel`` only picks the
+    rebuilt levels' operators."""
     from pde_solver_tpu_torch.utils import diskcache
 
     ent = diskcache.load("mgh", (cache_key, vdim))
@@ -444,7 +456,7 @@ def load_hierarchy_from_disk(cache_key, vdim: int, device="cuda"
                           "levels (not ported): a miss")
         return None
     try:
-        return _hierarchy_from_arrays_disk(ent, device)
+        return _hierarchy_from_arrays_disk(ent, device, use_kernel)
     except Exception as e:  # corrupt entry → the caller builds afresh
         get_logger().warning("hierarchy disk entry unusable (%s)", e)
         return None
@@ -453,6 +465,7 @@ def load_hierarchy_from_disk(cache_key, vdim: int, device="cuda"
 def build_hierarchy_cached(mesh: StructuredMesh, fine_system: ScaledSystem,
                            level_builder, vdim: int = 1, device="cuda",
                            dtype=torch.float32, cache_key=None,
+                           use_kernel: bool = True,
                            **kw) -> Optional[MGHierarchy]:
     """:func:`build_hierarchy` behind the disk-cache layer: float32
     hierarchies only, ``cache_key`` the fine system's content key.  While
@@ -465,14 +478,15 @@ def build_hierarchy_cached(mesh: StructuredMesh, fine_system: ScaledSystem,
     n_dof = int(np.prod(mesh.node_shape)) * vdim
     if cacheable:
         t = time.perf_counter()
-        h = load_hierarchy_from_disk(cache_key, vdim, device)
+        h = load_hierarchy_from_disk(cache_key, vdim, device, use_kernel)
         if h is not None:
             get_logger().info("hierarchy disk-cache hit (%.3fs rebuild, %d "
                               "bytes, %d DOF)", time.perf_counter() - t,
                               _entry_bytes("mgh", (cache_key, vdim)), n_dof)
             return h
     h = build_hierarchy(mesh, fine_system, level_builder, vdim=vdim,
-                        device=device, dtype=dtype, **kw)
+                        device=device, dtype=dtype, use_kernel=use_kernel,
+                        **kw)
     if h is not None and cacheable:
         t = time.perf_counter()
         arrays, meta, all_pairs = _hierarchy_to_arrays(h)

@@ -29,10 +29,12 @@ explicit operator for "ab1" or extrapolated by Adams-Bashforth-2 for
 "cnab2") are operands of the same step.  ``transient_checkpoint_every > 0``
 chunks either scan with atomic checkpoints in ``checkpoint_dir`` (content
 keyed as in the reference; a resume is bitwise the uninterrupted run).
-Sharding raises ``NotImplementedError`` (ROADMAP queue 1, step I).  The
-reference thins large trajectory pulls to bfloat16 frames for its slow host
-link; the port pulls everything at the kept frames' precision (ROADMAP
-queue 3).
+``SolverConfig.shard_devices > 1`` runs either scan sharded
+(``parallel.shard.ShardedThetaScan`` / ``ShardedNewmarkScan``: grid axis 0
+cut over a mesh of shard devices, CG step solves, every step kept; no
+checkpoints there, as in the JAX package).  The reference thins large
+trajectory pulls to bfloat16 frames for its slow host link; the port
+pulls everything at the kept frames' precision (ROADMAP queue 3).
 
 :func:`run_newmark` integrates M ü + K u = f (elastodynamics, the scalar
 wave equation) in acceleration form:
@@ -265,7 +267,6 @@ def run_transient(
     if convection_scheme not in ("ab1", "cnab2"):
         raise ValueError(f"unknown convection_scheme {convection_scheme!r}")
     cfg = config or get_config()
-    cfg.resolved_shard_devices()  # raises when sharding is requested
     prec = cfg.resolve_precision()
     if prec == "mixed":
         prec = "f32"   # the reference's rule: no f64 inside the scan
@@ -278,6 +279,7 @@ def run_transient(
     n = int(np.prod(mesh.node_shape)) * vdim
     maxiter = cfg.resolved_maxiter(n)
     num_steps = int(num_steps)
+    inner_tol = cfg.tol if prec == "f64" else cfg.transient_inner_tol
 
     cnab2 = bool(C_np) and convection_scheme == "cnab2"
     A_np = _combine(K_np, M_np, alpha=theta * dt, beta=1.0)
@@ -308,6 +310,47 @@ def run_transient(
             g1_np = (1.0 - free_np) * np.asarray(time_mod["bc_amp_values"],
                                                  np.float64)
             Ag1_np = np_stencil_apply(A_np, g1_np, d, vdim)
+
+    nshard = cfg.resolved_shard_devices()
+    if nshard > 1:
+        # the whole scan decomposed over the shards (identity-row padding,
+        # halo-exchange applies, sharded CG step solves); every step kept
+        from pde_solver_tpu_torch.parallel.shard import (ShardedThetaScan,
+                                                         device_mesh)
+
+        get_logger().info("sharded transient scan: %d devices, %d steps",
+                          nshard, num_steps)
+        if cfg.transient_checkpoint_every > 0:
+            get_logger().warning(
+                "transient_checkpoint_every=%d is not supported on the "
+                "sharded scan path (shard_devices=%d) — running without "
+                "mid-solve checkpoints", cfg.transient_checkpoint_every,
+                nshard)
+        tmod_np = None
+        if time_mod:
+            tmod_np = {"b1": b1_np, "g1": g1_np, "Ag1": Ag1_np,
+                       "omega": float(time_mod["omega"]),
+                       "phase": float(time_mod.get("phase", 0.0)),
+                       "dt": float(dt), "theta": float(theta)}
+        scan = ShardedThetaScan(
+            sysm, B_list, free_np, Ag_np,
+            dt * np.asarray(b_source_np, np.float64), u0_np.shape, d, vdim,
+            device_mesh(nshard, device=device), dtype=state_dtype,
+            inner_tol=inner_tol, maxiter=maxiter, C_list=C_list,
+            tmod=tmod_np)
+        setup_s = time.perf_counter() - t_setup
+        t_scan = time.perf_counter()
+        snaps, iters, res = scan.run(u0_np, num_steps)
+        scan_s = time.perf_counter() - t_scan
+        t_fetch = time.perf_counter()
+        values = np.concatenate([np.asarray(u0_np, np.float64)[None],
+                                 snaps.numpy().astype(np.float64)], axis=0)
+        return TransientResult(
+            values=values, times=dt * np.arange(num_steps + 1,
+                                                dtype=np.float64),
+            total_cg_iterations=iters, max_relative_residual=res,
+            setup_seconds=setup_s, scan_seconds=scan_s,
+            fetch_seconds=time.perf_counter() - t_fetch)
 
     h = None
     if (mg_level_builder is not None and cfg.use_multigrid
@@ -342,7 +385,6 @@ def run_transient(
                      for a in (b1_np, g1_np, Ag1_np)) + (
             float(time_mod["omega"]), float(time_mod.get("phase", 0.0)),
             float(dt), float(theta))
-    inner_tol = cfg.tol if prec == "f64" else cfg.transient_inner_tol
     ops = _StepOperands(
         offsets, A32, A64, tuple(dev(W) for W in B_list), dev(free_np),
         dev(gvals), dev(Ag_np), dev(dt * np.asarray(b_source_np, np.float64)),
@@ -661,7 +703,6 @@ def run_newmark(
     ``transient_checkpoint_every > 0`` runs the checkpointed scan
     (:func:`_run_newmark_checkpointed`)."""
     cfg = config or get_config()
-    cfg.resolved_shard_devices()  # raises when sharding is requested
     prec = cfg.resolve_precision()
     if prec == "mixed":
         prec = "f32"   # the reference's rule: no f64 inside the scan
@@ -713,6 +754,43 @@ def run_newmark(
                               inner_tol, maxiter, d, vdim)
     a = dev(free_np * sys_m.from_hat_x(xh0.cpu().numpy().astype(np.float64)))
     del sys_m
+
+    nshard = cfg.resolved_shard_devices()
+    if nshard > 1:
+        # the whole Newmark scan decomposed over the shards, as
+        # run_transient's sharded scan
+        from pde_solver_tpu_torch.parallel.shard import (ShardedNewmarkScan,
+                                                         device_mesh)
+
+        if cfg.transient_checkpoint_every > 0:
+            get_logger().warning(
+                "transient_checkpoint_every=%d is not supported on the "
+                "sharded Newmark path — running without mid-solve "
+                "checkpoints", cfg.transient_checkpoint_every)
+        get_logger().info("sharded Newmark scan: %d devices, %d steps",
+                          nshard, num_steps)
+        scan = ShardedNewmarkScan(
+            sysm, K_list, free_np, np.asarray(f_np, np.float64), d, vdim,
+            device_mesh(nshard, device=device), dt, beta, gamma,
+            dtype=state_dtype, inner_tol=inner_tol, maxiter=maxiter)
+        setup_s = time.perf_counter() - t_setup
+        t_scan = time.perf_counter()
+        us, vs, iters, res = scan.run(np.asarray(u0_np, np.float64),
+                                      np.asarray(v0_np, np.float64),
+                                      a.cpu().numpy().astype(np.float64),
+                                      num_steps)
+        scan_s = time.perf_counter() - t_scan
+        t_fetch = time.perf_counter()
+        values = np.concatenate([np.asarray(u0_np, np.float64)[None],
+                                 us.numpy().astype(np.float64)], axis=0)
+        vels = np.concatenate([np.asarray(v0_np, np.float64)[None],
+                               vs.numpy().astype(np.float64)], axis=0)
+        return NewmarkResult(
+            values=values, velocities=vels,
+            times=dt * np.arange(num_steps + 1, dtype=np.float64),
+            total_cg_iterations=iters, max_relative_residual=res,
+            setup_seconds=setup_s, scan_seconds=scan_s,
+            fetch_seconds=time.perf_counter() - t_fetch)
 
     h = None
     if (mg_level_builder is not None and cfg.use_multigrid

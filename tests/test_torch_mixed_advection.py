@@ -185,10 +185,13 @@ def test_value_errors_as_reference(tool, kw, match, tmp_path):
                 getattr(pkg, tool)(**kw, data_dir=str(tmp_path))
 
 
-def test_unknown_convection_scheme_and_unsteady_nonlinear_raise(tmp_path):
-    """Bad inputs raise, and so does sharding.  Checkpointed and float64
-    scans, which raised until ported, run: the checkpointed scan bitwise
-    the plain one, the float64 scan within 1e-9 of the JAX package's."""
+def test_unknown_convection_scheme_and_unsteady_nonlinear_raise(
+        tmp_path, monkeypatch):
+    """Bad inputs raise.  Checkpointed, float64 and sharded scans, which
+    raised until ported, run: the checkpointed scan bitwise the plain one,
+    the float64 scan within 1e-9 of the JAX package's, the sharded float64
+    scan (2 virtual shards) within 1e-9 of the port's unsharded one and of
+    the JAX package's sharded one."""
     m = port_mesh.interval_mesh(8, 0.0, 1.0)
     K = assembly.assemble_scalar_stencil(m, "stiffness")
     M = assembly.assemble_scalar_stencil(m, "mass")
@@ -199,11 +202,6 @@ def test_unknown_convection_scheme_and_unsteady_nonlinear_raise(tmp_path):
                                        0.1, 1, convection_scheme="rk4")
         with pytest.raises(ValueError, match="steady"):
             heat.solve_heat_nonlinear(heat.HeatProblem(mesh=m), 1.0, 0.01)
-        # what stays unported keeps raising
-        with config.config_overrides(shard_devices=2):
-            with pytest.raises(NotImplementedError, match="step I"):
-                timestepping.run_transient(K, M, m, bc, np.zeros(9),
-                                           np.zeros(9), 0.1, 1)
         u0 = np.sin(np.pi * m.axis_nodes(0))
         plain = timestepping.run_transient(K, M, m, bc, np.zeros(9), u0,
                                            0.1, 3).values
@@ -221,6 +219,19 @@ def test_unknown_convection_scheme_and_unsteady_nonlinear_raise(tmp_path):
         v = timestepping.run_transient(K, M, m, bc, np.zeros(9), u0, 0.1,
                                        3).values
     assert np.abs(v - v_ref).max() <= 1e-9 * np.abs(v_ref).max()
+    monkeypatch.setenv("PDE_TPU_VIRTUAL_DEVICES", "2")
+    with config.config_overrides(device="cpu", precision="f64",
+                                 shard_devices=2):
+        v_sh = timestepping.run_transient(K, M, m, bc, np.zeros(9), u0, 0.1,
+                                          3).values
+    with ref_config.config_overrides(precision="f64", shard_devices=2):
+        v_sh_ref = ref_ts.run_transient(
+            ref_asm.assemble_scalar_stencil(rm, "stiffness"),
+            ref_asm.assemble_scalar_stencil(rm, "mass"), rm,
+            RefBC(bc.free_mask, bc.values), np.zeros(9), u0, 0.1, 3).values
+    for ref in (v, v_sh_ref):
+        assert v_sh.shape == ref.shape
+        assert np.abs(v_sh - ref).max() <= 1e-9 * np.abs(ref).max()
 
 
 # ----------------------------------------------------------------------

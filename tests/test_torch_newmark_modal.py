@@ -428,7 +428,7 @@ def test_mg_cache_third_operator_evicts_the_first(builds):
 
 
 # ----------------------------------------------------------------------
-# The options of step H (ported) run; those of step I still raise
+# The options of steps H and I (ported) run
 # ----------------------------------------------------------------------
 
 @pytest.mark.parametrize("cfg,match", [
@@ -438,22 +438,33 @@ def test_mg_cache_third_operator_evicts_the_first(builds):
     (dict(shard_devices=4), "step I"),
     (dict(shard_grid="2,2"), "step I"),
 ])
-def test_unported_newmark_options_raise(cfg, match, tmp_path):
-    """Sharding (step I) raises.  Checkpointed and float64 Newmark scans
-    (step H, which raised until ported) run and are held to the JAX
+def test_unported_newmark_options_raise(cfg, match, tmp_path, monkeypatch):
+    """Checkpointed and float64 Newmark scans (step H) and sharded ones
+    (step I), which raised until ported, run and are held to the JAX
     package: its checkpointed float32 run within the float32 bounds of the
     tool tests above (1e-6 for the wave, 1e-5 for the cantilever, whose
     two float32 scans lie 2.4e-6 apart here), its float64 run ("f64", and
-    "auto", which the CPU resolves to f64) within 1e-9."""
+    "auto", which the CPU resolves to f64) within 1e-9; a sharded float64
+    run (4 virtual shards, ``shard_devices`` or a ``shard_grid`` implying
+    them) within 1e-9 of the JAX package's sharded run and of the port's
+    unsharded one, with the same iterations."""
     cfg = dict(dict(device="cpu", precision="f32"), **cfg)
     for tool, kw, tol32 in (
             ("solve_wave_1D", dict(nx=8, num_steps=4), 1e-6),
             ("solve_elasticity_3D_dynamic",
              dict(nx=4, ny=2, nz=2, num_steps=4, **BEAM), 1e-5)):
         if match == "step I":
-            with config.config_overrides(**cfg), \
-                    pytest.raises(NotImplementedError, match=match):
-                getattr(api, tool)(**kw, data_dir=str(tmp_path))
+            monkeypatch.setenv("PDE_TPU_VIRTUAL_DEVICES", "4")
+            sh = dict(cfg, precision="f64")
+            port, ref = _run(tool, tmp_path, sh,
+                             {k: x for k, x in sh.items() if k != "device"},
+                             **kw)
+            _check(port, ref, 1e-9)
+            plain, _ = _run(tool, tmp_path, dict(precision="f64"), **kw)
+            _check(port, plain, 1e-9)
+            assert port[3]["solver_stats"]["cg_iterations"] == \
+                ref[3]["solver_stats"]["cg_iterations"] == \
+                plain[3]["solver_stats"]["cg_iterations"]
             continue
         cfg["checkpoint_dir"] = str(tmp_path / "checkpoints")
         ref_cfg = {k: x for k, x in cfg.items() if k != "device"}

@@ -69,11 +69,14 @@ def test_below_kernel_threshold_levels_take_the_grid_route(tmp_path,
     assert np.abs(vm_g - vm_f).max() <= 1e-6 * np.abs(vm_f).max()
 
 
-def test_config_device_drives_precision_and_unported_paths_raise(tmp_path):
+def test_config_device_drives_precision_and_unported_paths_raise(
+        tmp_path, monkeypatch):
     """The device picks "auto"'s precision; "f64" (which raised until the
     float64 branch was ported) solves the slice by MG-PCG on a float64
-    hierarchy, held to the JAX package's float64 field at 1e-9; sharding
-    still raises."""
+    hierarchy, held to the JAX package's float64 field at 1e-9; so does
+    sharding (which raised until ported): 4 virtual shards, sharded
+    MG-PCG, within 1e-9 of the unsharded port and of the JAX package's
+    sharded run, with its iterations."""
     assert config.SolverConfig().device == "cuda"
     assert config.SolverConfig().resolve_precision() == "mixed"
     assert config.SolverConfig(device="cpu").resolve_precision() == "f64"
@@ -90,10 +93,19 @@ def test_config_device_drives_precision_and_unported_paths_raise(tmp_path):
     vm, vm_ref = (load_field(r.data_file).values_array(),
                   ref_load(r_ref.data_file).values_array())
     assert np.abs(vm - vm_ref).max() <= 1e-9 * np.abs(vm_ref).max()
-    with config.config_overrides(device="cpu", shard_devices=4):
-        with pytest.raises(NotImplementedError):
-            api.solve_elasticity_3D_static(**FLAGSHIP,
-                                           data_dir=str(tmp_path))
+    monkeypatch.setenv("PDE_TPU_VIRTUAL_DEVICES", "4")
+    with ref_config.config_overrides(shard_devices=4, **f64):
+        r_sh_ref = ref_api.solve_elasticity_3D_static(
+            **FLAGSHIP, data_dir=str(tmp_path / "ref_sh"))
+    with config.config_overrides(device="cpu", shard_devices=4, **f64):
+        r_sh = api.solve_elasticity_3D_static(
+            **FLAGSHIP, data_dir=str(tmp_path / "port_sh"))
+    s_sh = r_sh.meta["solver_stats"]
+    assert s_sh["converged"] and s_sh["cg_iterations"] == \
+        r_sh_ref.meta["solver_stats"]["cg_iterations"]
+    vm_sh = load_field(r_sh.data_file).values_array()
+    for ref in (vm, ref_load(r_sh_ref.data_file).values_array()):
+        assert np.abs(vm_sh - ref).max() <= 1e-9 * np.abs(ref).max()
 
 
 def test_host_direct_branch_matches_reference(tmp_path):

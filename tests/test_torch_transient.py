@@ -184,11 +184,13 @@ def _small_heat():
 
 @pytest.mark.parametrize("what", ["time_mod", "C_np", "checkpoint", "shard",
                                   "f64", "robin", "mod_omega"])
-def test_unported_inputs_raise(what, tmp_path):
-    """Sharding raises.  Periodic driving, explicit convection and Robin
-    faces, which raised until they were ported, run and change the answer;
-    so do checkpointing (bitwise the uncheckpointed scan) and float64 scans
-    (held to the JAX package's float64 scan at 1e-9)."""
+def test_unported_inputs_raise(what, tmp_path, monkeypatch):
+    """Periodic driving, explicit convection and Robin faces, which raised
+    until they were ported, run and change the answer; so do checkpointing
+    (bitwise the uncheckpointed scan), float64 scans (held to the JAX
+    package's float64 scan at 1e-9) and sharded scans (4 virtual shards at
+    float64: within 1e-9 of the unsharded port and of the JAX package's
+    sharded scan, with the same iterations)."""
     K, M, mesh, bc, b, u0 = _small_heat()
     kw, cfg = {}, dict(device="cpu", precision="f32")
     if what == "checkpoint":
@@ -218,12 +220,25 @@ def test_unported_inputs_raise(what, tmp_path):
     elif what == "C_np":
         kw["C_np"] = assembly.assemble_convection_stencil(
             mesh, np.array([1.0, 0.0, 0.0]))
-    elif what == "shard":
-        cfg["shard_devices"] = 4
     if what == "shard":
-        with config.config_overrides(**cfg), \
-                pytest.raises(NotImplementedError):
-            timestepping.run_transient(K, M, mesh, bc, b, u0, 0.01, 2, **kw)
+        monkeypatch.setenv("PDE_TPU_VIRTUAL_DEVICES", "4")
+        rmesh = ref_box(6, 4, 4, (0, 0, 0), (1, 1, 1))
+        with ref_config.config_overrides(precision="f64", shard_devices=4):
+            r_ref = ref_ts.run_transient(
+                ref_asm.assemble_scalar_stencil(rmesh, "stiffness"),
+                ref_asm.assemble_scalar_stencil(rmesh, "mass"), rmesh,
+                RefBC(bc.free_mask, bc.values), b, u0, 0.01, 2)
+        runs = []
+        for n in (4, 0):
+            with config.config_overrides(device="cpu", precision="f64",
+                                         shard_devices=n):
+                runs.append(timestepping.run_transient(K, M, mesh, bc, b, u0,
+                                                       0.01, 2))
+        sh, plain = runs
+        for ref in (plain, r_ref):
+            assert sh.values.shape == ref.values.shape
+            assert _gap(sh.values, ref.values) <= 1e-9
+            assert sh.total_cg_iterations == ref.total_cg_iterations
         return
     with config.config_overrides(**cfg):
         if what == "robin":
