@@ -53,7 +53,9 @@
    route's size gate ``cs_kernels.CS_MIN_DOF`` lowered for this check)
    against a float64 backward Euler with scipy (within 1e-6·max|T|).
 6. The main paths through the public API, each with the launch counts set
-   to 0 just before and read just after:
+   to 0 just before and read just after (a launch recorded into a CUDA
+   graph counts at each replay; every main-path line also prints the solve
+   loops' host reads):
    - the flagship, 3D static elasticity of a 1 m × 0.2 m × 0.2 m
      cantilever under gravity on 160×64×64 cells (2,040,675 DOF), with
      ``PDE_TPU_CS`` 0 (dense kernels), 1 (constant-interior kernels) and
@@ -202,7 +204,24 @@
      bit the uncheckpointed run;
    - the 16×8×8 cantilever of 5 with ``PDE_TPU_BF16_SMOOTHER`` 1 and 0:
      at 0 no bf16 launch, more f32 ones, the same field within 1e-6.
-12. The sharding layer (``shard_phase``), over 8 virtual copies of the card
+12. The solve loops as CUDA graphs (``graphs_phase``, ``ops.device_loop``),
+   each captured path against the same path run uncaptured
+   (``device_loop._uncaptured``, which no entry point of the package
+   enters), at full width: the flagship's double-float32 rounds ("mixed":
+   the flagship through the API, its hierarchy and ladder then solved
+   directly uncaptured, captured anew and replayed), its "f64"
+   ``solve_mg`` on the hierarchy the precision phase built (the same
+   three ways), the heat slice's 20-step scan (the captured run is 6's
+   dense one), the modal 3D tool (the captured run is 10's) and the
+   flagship's projection (flat CG on K1 v1, the same three ways).  Each:
+   the same iterations, fields within 1e-6 relative (the gap printed), at
+   most one host read a block (one a df2 round, plus ‖b‖), launches with
+   the replays counted, seconds both ways, peak device memory above the
+   run's start with graphs and without, what the graph pools hold; the
+   heat scan's device-busy share both ways under torch.profiler.  Last, a
+   device synchronise planted in a captured CG body must make the solve
+   raise (no fallback to the uncaptured loop).
+13. The sharding layer (``shard_phase``), over 8 virtual copies of the card
    (``PDE_TPU_VIRTUAL_DEVICES=8``, set for this phase only; printed: the
    physical card count, the card's name and power limit, and on every line
    "virtual shards on one card: not multi-GPU speed"):
@@ -226,7 +245,7 @@
      an iteration, peak device memory, halo bytes an apply, the aten
      operations of one sharded V-cycle.  The NCCL leg of
      ``parallel.distributed`` needs two cards: printed as not run.
-13. The service layer (``service_phase``), the entry points a user reaches:
+14. The service layer (``service_phase``), the entry points a user reaches:
    - the port's MCP server, ``python -m pde_solver_tpu_torch.mcp.server``,
      started with no ``PDE_TPU_DEVICE`` (the card), ``PDE_TPU_CS=0`` and
      INFO logging to ``build/service/server.log``, spoken to in raw
@@ -469,6 +488,14 @@ SETUP_LINES = (
                r"\((\d+) DOF\)"))
 DISK_LINE = (r"(prep|hierarchy) disk-cache (hit|store) \(([0-9.]+)s"
              r"[a-z ]*, (\d+) bytes, (\d+) DOF\)")
+
+
+def peak_gib() -> float:
+    """Peak device memory since the last reset, GiB (NaN without a card)."""
+    import torch
+
+    return (torch.cuda.max_memory_allocated() / 2 ** 30
+            if torch.cuda.is_available() else float("nan"))
 
 
 def check(ok: bool, msg: str) -> None:
@@ -1423,15 +1450,19 @@ def spy_flat_launches(sk):
     """Record every FlatStencilOperator that launches its kernel, once
     each, with the launches it had made before (an operator of a cached
     hierarchy outlives the run that built it); returns the dict
-    (id -> (operator, launches before)) it fills."""
+    (id -> (operator, launches before)) it fills.  The spy sits on
+    ``count_launch``, which a launch, its recording into a CUDA graph and
+    each replay of that graph call, so an operator that only replays in
+    a run is recorded too."""
     launched = {}
-    orig = sk.FlatStencilOperator._launch
+    orig = sk.count_launch
 
-    def spy(self, x):
-        launched.setdefault(id(self), (self, self.launches))
-        return orig(self, x)
+    def spy(variant, op=None, n=1):
+        if isinstance(op, sk.FlatStencilOperator):
+            launched.setdefault(id(op), (op, op.launches))
+        return orig(variant, op, n)
 
-    sk.FlatStencilOperator._launch = spy
+    sk.count_launch = spy
     return launched
 
 
@@ -2985,18 +3016,21 @@ def newmark_phase(api, run, hold_cs, data_dir, wave=WAVE_3D,
     return beam_share
 
 
-def modal_phase(api, drive, data_dir, box=MODAL_3D, plate=MODAL_2D):
+def modal_phase(api, drive, data_dir, box=MODAL_3D, plate=MODAL_2D,
+                refs=None, peaks=None):
     """The modal tools on the card against ``scipy.sparse.linalg.eigsh`` of
     the same pencil on the free DOFs (shift-invert at 0, host float64):
     3D above ``mg_threshold`` (MG + the double-float32 F-cycle, one
     hierarchy build and then cache hits, both counted), 2D under it (flat
-    CG with float64 refinement)."""
+    CG with float64 refinement).  ``refs`` (a dict) receives the 3D run's
+    frequencies, mode shapes, stats, launches and host reads: the graphs
+    phase holds the same run uncaptured against them."""
     import numpy as np
     import scipy.sparse.linalg as spla
 
     from pde_solver_tpu_torch.mesh import box_mesh, rectangle_mesh
     from pde_solver_tpu_torch.models import elasticity as elast
-    from pde_solver_tpu_torch.ops import assembly, eigen, linsolve
+    from pde_solver_tpu_torch.ops import assembly, device_loop, eigen, linsolve
     from pde_solver_tpu_torch.ops import multigrid as mg
 
     solves = count_calls(eigen, "solve_stencil_system")
@@ -3015,6 +3049,12 @@ def modal_phase(api, drive, data_dir, box=MODAL_3D, plate=MODAL_2D):
                 **kw, data_dir=data_dir))
         freqs = np.asarray(res.meta["frequencies_hz"])
         shapes, _ = field(res)
+        if refs is not None and vdim == 3:
+            refs["modal"] = dict(freqs=freqs, shapes=shapes, stats=st,
+                                 launches=launches,
+                                 reads=dict(device_loop.HOST_READS),
+                                 peak=float("nan") if peaks is None
+                                 else peaks.get(tool, float("nan")))
         t0 = time.perf_counter()
         lam, mu = elast.lame_parameters(210e9, 0.3, mode)
         K = block_stencil_csr(assembly.assemble_elasticity_stencil(
@@ -3211,6 +3251,9 @@ def precision_phase(api, counted, data_dir, vm_mixed, vm_call, T_f32,
     rc = torch.ones_like(h0.levels[-1].free)
     ops_v = aten_ops(lambda: mg.v_cycle(h0, r0))
     ops_c = aten_ops(lambda: mg.v_cycle(h0, rc, level=n_levels - 1))
+    if refs is not None:
+        # the graphs phase solves this system again, uncaptured and captured
+        refs.update(h_f64=h, b_f64=sysm.b_hat, solve_mg_s=mg_secs[0])
     del h, h0, r0, rc, sysm, xh
     linsolve._MG_CACHE.clear()
     iters = int(st["cg_iterations"])
@@ -3873,6 +3916,358 @@ def shard_phase(api, counted, data_dir, u_f64, iters_f64, vm_dense,
     return out
 
 
+# the graphs phase: each captured solve loop against the same loop run
+# uncaptured (``device_loop._uncaptured``), max|Δ|/max of the fields.  Both
+# runs launch the same kernels in the same order on the same stream
+GRAPH_TOL = 1e-6
+
+
+def graphs_phase(api, counted, data_dir, card_line, refs, walls, peaks,
+                 flagship=FLAGSHIP, heat=HEAT, heat_steps=HEAT_STEPS,
+                 modal=MODAL_3D, device="cuda", profiled=True):
+    """The solve loops as captured CUDA graphs (``ops.device_loop``) against
+    the same loops uncaptured, at full width: the flagship's double-float32
+    rounds ("mixed"), its float64 ``solve_mg`` (the hierarchy and right
+    side the precision phase left in ``refs``), the heat slice's scan (the
+    captured run is phase 6's dense one, ``refs["heat"]``), the modal 3D
+    tool (the modal phase's run, ``refs["modal"]``) and the flagship's
+    projection (flat CG).  Each pair: the same iterations, fields within
+    ``GRAPH_TOL``, host reads at most one a block (one a round for df2),
+    launches with the replays counted, seconds both ways, peak device
+    memory with graphs and without (and what the graph pools hold); the
+    heat scan's device-busy share both ways under torch.profiler
+    (``profiled``).  Last, a planted capture fault must raise.  Returns
+    the numbers by path."""
+    import contextlib as ctx
+    import gc
+
+    import numpy as np
+    import torch
+
+    from pde_solver_tpu_torch.config import get_config
+    from pde_solver_tpu_torch.mesh import box_mesh
+    from pde_solver_tpu_torch.ops import device_loop, linsolve, projection
+    from pde_solver_tpu_torch.ops import multigrid as mg
+    from pde_solver_tpu_torch.ops import stencil_kernels as sk
+
+    cuda = device == "cuda"
+    cfg = get_config()
+    out = {}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def gib(b):
+        return b / 2 ** 30
+
+    def allocated():
+        return torch.cuda.memory_allocated() if cuda else 0
+
+    def peak():
+        return gib(torch.cuda.max_memory_allocated()) if cuda else float("nan")
+
+    def gap(a, b):
+        a, b = (np.asarray(t.detach().cpu() if torch.is_tensor(t) else t,
+                           np.float64) for t in (a, b))
+        return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+
+    def mode(captured):
+        return ctx.nullcontext() if captured else device_loop._uncaptured()
+
+    def direct(fn, captured):
+        """fn() once: (result, seconds, launches, host reads, peak GiB of
+        device memory above what was allocated when it began)."""
+        sync()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        start = allocated()
+        sk.reset_launch_counts()
+        device_loop.HOST_READS.clear()
+        with mode(captured):
+            t = time.perf_counter()
+            res = fn()
+            sync()
+            sec = time.perf_counter() - t
+        return (res, sec, dict(sk.KERNEL_LAUNCHES),
+                dict(device_loop.HOST_READS), peak() - gib(start))
+
+    def tidy():
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+    def pool_gib(store):
+        """What the graph pools of ``store`` hold: the allocated bytes its
+        clearing frees."""
+        sync()
+        before = allocated()
+        store.clear()
+        sync()
+        return gib(before - allocated())
+
+    def report(label, runs, iters, field_gap, extra=""):
+        print(f"graphs {label} ({card_line}): iterations "
+              + " / ".join(str(i) for i in iters) + f"; field gap captured "
+              f"vs uncaptured {field_gap:.3e} (bound {GRAPH_TOL}); "
+              + "; ".join(f"{name} {sec:.3f} s, host reads {reads}, "
+                          f"launches {launches}, peak {pk:.3f} GiB"
+                          for name, (sec, launches, reads, pk)
+                          in runs.items()) + extra, flush=True)
+        check(len(set(iters)) == 1, f"graphs {label}: iterations {iters}")
+        check(field_gap <= GRAPH_TOL, f"graphs {label}: captured and "
+              f"uncaptured fields differ by {field_gap:.3e}")
+        out[label] = dict(iterations=iters[0], gap=field_gap, extra=extra,
+                          runs={k: dict(zip(("s", "launches", "reads",
+                                             "peak_gib"), v))
+                                for k, v in runs.items()})
+
+    # -- the flagship's double-float32 rounds ("mixed") ---------------------
+    tidy()
+    grabbed = []
+    solve_df2 = mg.solve_fcycle_df2
+
+    def spy(h, ladder, tol, **kw):
+        sync()
+        t = time.perf_counter()
+        res = solve_df2(h, ladder, tol, **kw)
+        sync()
+        grabbed.append((h, ladder, tol, kw, res, time.perf_counter() - t))
+        return res
+
+    mg.solve_fcycle_df2 = spy
+    try:
+        res, launches, wall = counted("graphs flagship", lambda:
+                                      api.solve_elasticity_3D_static(
+                                          **flagship, data_dir=data_dir))
+    finally:
+        mg.solve_fcycle_df2 = solve_df2
+    api_reads = dict(device_loop.HOST_READS)
+    api_peak = peaks.get("graphs flagship", float("nan"))
+    (h, ladder, tol, kw, (hi, lo, it, _), api_s), = grabbed
+    del grabbed, res
+    pools = pool_gib(h.graphs)
+
+    def df2():
+        return solve_df2(h, ladder, tol, **kw)
+
+    runs, xs, iters = {}, {}, [it]
+    for name, captured in (("uncaptured", False), ("captured", True),
+                           ("replayed", True)):
+        (r_hi, r_lo, r_it, _), sec, n, reads, pk = direct(df2, captured)
+        runs[name] = (sec, n, reads, pk)
+        xs[name] = r_hi.double() + r_lo.double()
+        iters.append(r_it)
+        check(reads.get("df2", 0) <= 2 + kw.get("max_rounds", 12),
+              f"graphs flagship df2 ({name}): host reads {reads}")
+    field_gap = max(gap(xs["captured"], xs["uncaptured"]),
+                    gap(hi.double() + lo.double(), xs["uncaptured"]))
+    report("flagship mixed df2", runs, iters, field_gap,
+           f"; through the API (captured, first capture included): df2 "
+           f"{api_s:.3f} s, wall {wall:.3f} s, host reads {api_reads}, "
+           f"launches {launches}, peak {api_peak:.2f} GiB; graph pools of "
+           f"the hierarchy {pools:.3f} GiB")
+    check(runs["uncaptured"][2] == runs["replayed"][2],
+          f"graphs flagship df2: host reads differ: {runs}")
+    del h, ladder, hi, lo, xs
+
+    tidy()
+    # -- the flagship at "f64": solve_mg ------------------------------------
+    h64, b64 = refs.pop("h_f64"), refs.pop("b_f64")
+    pools = pool_gib(h64.graphs)
+    runs, xs, iters = {}, {}, []
+    for name, captured in (("uncaptured", False), ("captured", True),
+                           ("replayed", True)):
+        (x, k, _), sec, n, reads, pk = direct(
+            lambda: mg.solve_mg(h64, b64, None, cfg.tol, cfg.mg_maxiter),
+            captured)
+        runs[name] = (sec, n, reads, pk)
+        xs[name] = x
+        iters.append(k)
+        check(reads.get("mg_pcg", 0) == max(1, -(-k // mg.PCG_BLOCK)),
+              f"graphs f64 ({name}): {reads} host reads for {k} iterations")
+    report("flagship f64 solve_mg", runs, iters,
+           gap(xs["captured"], xs["uncaptured"]),
+           f"; ms an iteration " + " / ".join(
+               f"{name} {1e3 * v[0] / max(iters[0], 1):.3f}"
+               for name, v in runs.items())
+           + f"; the precision phase's captured solve_mg "
+           f"{refs.get('solve_mg_s', float('nan')):.3f} s; graph pools "
+           f"{pools:.3f} GiB")
+    pool_gib(h64.graphs)
+    del h64, b64, xs
+
+    tidy()
+    # -- the heat slice's scan ----------------------------------------------
+    ref = refs.pop("heat")
+    with device_loop._uncaptured():
+        res, launches, wall = counted("graphs heat uncaptured", lambda:
+                                      api.solve_heat_3D(**heat,
+                                                        data_dir=data_dir))
+    reads = dict(device_loop.HOST_READS)
+    T, _ = field(res)
+    st = res.meta["solver_stats"]
+    os.remove(res.data_file)
+    runs = {"captured": (ref["stats"]["scan_seconds"], ref["launches"],
+                         ref["reads"], ref["peak"]),
+            "uncaptured": (st["scan_seconds"], launches, reads,
+                           peaks.get("graphs heat uncaptured",
+                                     float("nan")))}
+    iters = [ref["stats"]["cg_iterations"], st["cg_iterations"]]
+    for name, (_, _, r, _) in runs.items():
+        check(r.get("mg_pcg", 0) <= iters[0] // mg.STEP_BLOCK + heat_steps,
+              f"graphs heat ({name}): host reads {r} for {iters[0]} "
+              f"iterations in {heat_steps} steps")
+    busy = ""
+    if profiled:
+        import profile_heat
+
+        shares = {}
+        for name, captured in (("captured", True), ("uncaptured", False)):
+            shares[name] = heat_busy(api, profile_heat, data_dir, heat,
+                                     captured, runs[name][0])
+        busy = "; device-busy share of the scan " + ", ".join(
+            f"{k} {v}" for k, v in shares.items())
+        out["heat_busy"] = shares
+    report("heat 3D scan", runs, iters, gap(ref["T"], T),
+           f" (scan seconds; wall captured "
+           f"{walls.get('heat PDE_TPU_CS=0', float('nan')):.3f} s, "
+           f"uncaptured {wall:.3f} s){busy}")
+    del ref, T
+
+    tidy()
+    # -- the modal 3D tool --------------------------------------------------
+    ref = refs.pop("modal")
+    linsolve._MG_CACHE.clear()
+    with disk_cache_off(), device_loop._uncaptured():
+        res, launches, wall = counted("graphs modal 3D uncaptured", lambda:
+                                      api.solve_elasticity_3D_modal(
+                                          **modal, data_dir=data_dir))
+    linsolve._MG_CACHE.clear()
+    st = res.meta["solver_stats"]
+    shapes, _ = field(res)
+    freqs = np.asarray(res.meta["frequencies_hz"])
+    runs = {"captured": (walls.get("solve_elasticity_3D_modal",
+                                   float("nan")), ref["launches"],
+                         ref["reads"], ref["peak"]),
+            "uncaptured": (wall, launches, dict(device_loop.HOST_READS),
+                           peaks.get("graphs modal 3D uncaptured",
+                                     float("nan")))}
+    report("modal 3D", runs, [ref["stats"]["cg_iterations"],
+                              st["cg_iterations"]],
+           max(gap(ref["freqs"], freqs), gap(ref["shapes"], shapes)),
+           f" (wall seconds; subspace iterations "
+           f"{ref['stats']['iterations']} / {st['iterations']})")
+    del ref
+
+    tidy()
+    # -- the flagship's projection: flat CG on K1 v1 ------------------------
+    cells = (flagship["nx"], flagship["ny"], flagship["nz"])
+    mesh = box_mesh(*cells, (0.0, 0.0, 0.0), (flagship["Lx"], flagship["Ly"],
+                                              flagship["Lz"]))
+    values = np.random.default_rng(14).standard_normal(
+        (len(mesh.subelems),) + tuple(mesh.cell_shape))
+    cg_calls = []
+    cg = linsolve._cg_unit_diag
+
+    def timed_cg(*a, **kw):
+        sync()
+        t = time.perf_counter()
+        res = cg(*a, **kw)
+        sync()
+        cg_calls.append((res[1], time.perf_counter() - t))
+        return res
+
+    linsolve._cg_unit_diag = timed_cg
+    runs, xs, iters = {}, {}, []
+    try:
+        for name, captured in (("uncaptured", False), ("captured", True),
+                               ("replayed", True)):
+            del cg_calls[:]
+            xs[name], sec, n, reads, pk = direct(
+                lambda: projection.project_cellwise(mesh, values), captured)
+            k = sum(c[0] for c in cg_calls)
+            runs[name] = (sum(c[1] for c in cg_calls), n, reads, pk)
+            iters.append(k)
+            check(reads.get("cg", 0) <= sum(-(-c[0] // linsolve.CG_BLOCK) + 1
+                                            for c in cg_calls),
+                  f"graphs projection ({name}): host reads {reads}")
+    finally:
+        linsolve._cg_unit_diag = cg
+    report("projection flat CG", runs, iters,
+           gap(xs["captured"], xs["uncaptured"]),
+           f" (seconds of the CG solves, {len(cg_calls)} a projection)")
+    del xs
+
+    tidy()
+    # -- no fallback: a planted capture fault raises -------------------------
+    raised = None
+    op = sk.FlatStencilOperator(((-1,), (0,), (1,)),
+                                [np.full(4096, w) for w in (-1.0, 2.5, -1.0)],
+                                (4096,), device=device)
+    orig = sk.FlatStencilOperator.apply_flat
+
+    def syncing(self, x):
+        if self is op and cuda:
+            torch.cuda.synchronize()
+        return orig(self, x)
+
+    sk.FlatStencilOperator.apply_flat = syncing
+    b = torch.ones((4096,), device=device)
+    try:
+        linsolve._cg_unit_diag(((-1,), (0,), (1,)), op, b,
+                               torch.zeros_like(b), 1e-6, 100, 1, 1)
+    except RuntimeError as e:
+        raised = str(e).splitlines()[0]
+    finally:
+        sk.FlatStencilOperator.apply_flat = orig
+    sync()
+    print(f"graphs planted capture fault (a device synchronise inside the "
+          f"captured CG body): raised {raised!r}", flush=True)
+    check(raised is not None or not cuda, "graphs: a capture with a "
+          "synchronise inside did not raise")
+    check(sk._CAPTURED is None, "graphs: the launch recording was left on")
+    out["planted_fault_raised"] = raised
+    return out
+
+
+def heat_busy(api, profile_heat, data_dir, heat, captured, scan_s):
+    """The heat scan's device-busy share under torch.profiler: the device
+    time of the kernels that started within its step solves over the
+    unprofiled scan seconds ``scan_s``; "not measured" when the trace
+    holds no device kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from pde_solver_tpu_torch.ops import device_loop
+    from pde_solver_tpu_torch.ops import multigrid as mg
+
+    orig = mg.mg_pcg
+
+    def marked(*a, **kw):
+        with record_function(profile_heat.MARK):
+            return orig(*a, **kw)
+
+    mg.mg_pcg = marked
+    try:
+        with contextlib.ExitStack() as stack:
+            if not captured:
+                stack.enter_context(device_loop._uncaptured())
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                res = api.solve_heat_3D(**heat, data_dir=data_dir)
+                torch.cuda.synchronize()
+        os.remove(res.data_file)
+    finally:
+        mg.mg_pcg = orig
+    table, _ = profile_heat.kernel_table(prof)
+    kernel_ms = sum(ms for ms, _ in table.values())
+    if not table:
+        return "not measured (no device kernel in the trace)"
+    return (f"{kernel_ms / 1e3 / scan_s:.3f} ({kernel_ms:.1f} ms of device "
+            f"kernels in {sum(n for _, n in table.values())} launches)")
+
+
 class JsonRpcPipe:
     """Raw JSON-RPC 2.0 lines to and from a server subprocess.  Every line
     the server writes to stdout must be the JSON-RPC reply to the request
@@ -4170,10 +4565,16 @@ class MainPaths:
         self.level_ms = {}
         self.cs_level_ms = {}
         self.walls = {}
+        self.reads = {}
+        self.peaks = {}
 
     def counted(self, label, cs, fn):
-        """fn() with ``PDE_TPU_CS`` = cs: (result, launches, wall s)."""
+        """fn() with ``PDE_TPU_CS`` = cs: (result, launches, wall s); the
+        solve loops' host reads of the run are left in
+        ``device_loop.HOST_READS``."""
         import torch
+
+        from pde_solver_tpu_torch.ops import device_loop
 
         os.environ["PDE_TPU_CS"] = cs
         del self.built[:]
@@ -4181,6 +4582,8 @@ class MainPaths:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         self.sk.reset_launch_counts()
+        device_loop.HOST_READS.clear()
+        start = torch.cuda.memory_allocated()
         t = time.perf_counter()
         res = fn()
         torch.cuda.synchronize()
@@ -4191,7 +4594,13 @@ class MainPaths:
             self.main_launches[k] = self.main_launches.get(k, 0) + v
         self.path_launches[label] = launches
         self.walls[label] = wall
+        self.reads[label] = dict(device_loop.HOST_READS)
+        # the run's own peak: above what was allocated when it began
+        self.peaks[label] = peak_gib() - start / 2 ** 30
         return res, launches, wall
+
+    def reads_of(self, label):
+        return self.reads.get(label, {})
 
     def run(self, label, cs, fn):
         """One main-path run of an API tool: (result, solver stats,
@@ -4209,7 +4618,8 @@ class MainPaths:
               f"converged={st['converged']} peak_device_mem="
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
               f"cs_builds={[(s, op is not None) for s, op, *_ in self.built]} "
-              f"launches={launches}", flush=True)
+              f"launches={launches} host_reads={self.reads_of(label)}",
+              flush=True)
         check_launched(self.sk, self.launched, label, self.kernels,
                        self.by_operator, self.level_ms)
         cs_built = list(self.built)
@@ -4425,6 +4835,7 @@ def main() -> int:
     del vm_runs
 
     T_runs = {}
+    refs = {}     # the captured runs the graphs phase holds uncaptured ones to
     for cs in ("0", "1"):
         with config_overrides(device="cuda"):
             res, st, launches, cs_built = main_path(
@@ -4433,6 +4844,12 @@ def main() -> int:
         T, times = field(res)
         os.remove(res.data_file)
         T_runs[cs] = T
+        if cs == "0":
+            # the graphs phase holds this run against the same uncaptured
+            refs["heat"] = dict(T=T, stats=st, launches=launches,
+                                reads=dict(paths.reads_of(
+                                    f"heat PDE_TPU_CS={cs}")),
+                                peak=paths.peaks[f"heat PDE_TPU_CS={cs}"])
         target = st["convergence_target"]
         print(f"heat PDE_TPU_CS={cs}: steps/s="
               f"{HEAT_STEPS / st['scan_seconds']:.3f} CG iterations/step="
@@ -4525,13 +4942,12 @@ def main() -> int:
         share_f32 = newmark_phase(api, main_path, hold_cs, data_dir)
         print(f"phase newmark: {time.perf_counter() - t0:.3f} s", flush=True)
         t0 = time.perf_counter()
-        modal_phase(api, drive, data_dir)
+        modal_phase(api, drive, data_dir, refs=refs, peaks=paths.peaks)
         print(f"phase modal: {time.perf_counter() - t0:.3f} s", flush=True)
 
         # -- the precision scheme: float64, float32, checkpoints, smoother --
         t0 = time.perf_counter()
         torch.cuda.empty_cache()
-        refs = {}
         precision = precision_phase(
             api, lambda label, fn: paths.counted(label, "0", fn), data_dir,
             served_ref[0], vm_call, T_runs["0"], T_host, share_f32,
@@ -4539,6 +4955,15 @@ def main() -> int:
         del T_runs, T_host, vm_call
         print(f"phase precision: {time.perf_counter() - t0:.3f} s; "
               + json.dumps(precision), flush=True)
+
+        # -- the solve loops captured against uncaptured ------------------
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        graphs = graphs_phase(
+            api, lambda label, fn: paths.counted(label, "0", fn), data_dir,
+            card_line, refs, paths.walls, paths.peaks)
+        print(f"phase graphs: {time.perf_counter() - t0:.3f} s; "
+              + json.dumps(graphs, default=str), flush=True)
 
         # -- the sharding layer: the dry-run legs, the flagship on 4 shards -
         t0 = time.perf_counter()

@@ -15,6 +15,7 @@ import torch
 
 from pde_solver_tpu_torch.ops.cs_kernels import (CSFlatStencilOperator,
                                                  _masks_np)
+from pde_solver_tpu_torch.ops.device_loop import GraphStore
 from pde_solver_tpu_torch.ops.linsolve import ScaledSystem
 from pde_solver_tpu_torch.ops.multigrid import (MGHierarchy, _ShapeOnlyMesh,
                                                 _to_level,
@@ -67,7 +68,7 @@ def hierarchy_from_numpy(levels: Sequence[Mapping], grid_dim: int, vdim: int,
         out = _with_coarsest_inverse(out, np.asarray(host_Ainv, np.float64),
                                      device)
     return MGHierarchy(tuple(out), grid_dim, vdim, pre_smooth, post_smooth,
-                       coarse_iters)
+                       coarse_iters, GraphStore())
 
 
 def _descs_from_masks(masks: np.ndarray, node_shape) -> list:

@@ -470,8 +470,7 @@ class CSFlatStencilOperator:
             raise RuntimeError(f"cs_stencil_apply launch failed: CUDA error "
                                f"{rc} (vdim={self.vdim}, N={self.N}, "
                                f"{len(self.sets)} sets, {self.n_win} windows)")
-        self.launches += 1
-        count_launch(f"cs_apply_v{self.vdim}")
+        count_launch(f"cs_apply_v{self.vdim}", self)
         return y
 
     def masks(self) -> torch.Tensor:

@@ -55,7 +55,7 @@ import torch
 
 from pde_solver_tpu_torch.config import SolverConfig, get_config
 from pde_solver_tpu_torch.mesh import StructuredMesh
-from pde_solver_tpu_torch.ops import cs_kernels, stencil_kernels
+from pde_solver_tpu_torch.ops import cs_kernels, device_loop, stencil_kernels
 from pde_solver_tpu_torch.ops.bc import DirichletBC
 from pde_solver_tpu_torch.ops.cg import SolveStats
 from pde_solver_tpu_torch.ops.cs_kernels import (CSFlatStencilOperator,
@@ -333,45 +333,89 @@ def _dot(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return torch.dot(a.reshape(-1), c.reshape(-1))
 
 
-def _cg_unit_diag(offsets, weights, b, x0, tol, maxiter, grid_dim, vdim):
+# Masked blocks of :func:`_cg_unit_diag`: a static float32 CG takes
+# hundreds to thousands of iterations (the flagship at "f32": 4,995), so
+# 32 a block keeps its reads few at an average 16 masked iterations; a
+# warm-started step solve of a scan takes a handful (``STEP_BLOCK``).
+CG_BLOCK = 32
+STEP_BLOCK = 8
+
+
+def _where1(t: torch.Tensor) -> torch.Tensor:
+    """t with its zeros replaced by ones: a guarded divisor."""
+    return torch.where(t == 0, torch.ones_like(t), t)
+
+
+def _loop_parts(offsets, weights, grid_dim: int, vdim: int):
+    """(to_flat, from_flat, A) of a solve loop on ``weights``: a flat
+    operator's ``[v, N]`` layout, else the grid layout unchanged."""
+    if _is_flat_op(weights):
+        return weights.to_flat, weights.from_flat, weights.apply_flat
+
+    def A(x):
+        return _stencil_apply(offsets, weights, x, grid_dim, vdim)
+
+    def same(t):
+        return t
+    return same, same, A
+
+
+def _cg_program(offsets, weights, grid_dim: int, vdim: int):
+    """The masked CG of :func:`_cg_unit_diag` as (prologue, step, status,
+    from_flat) for ``ops.device_loop``.  State: (x, r, p, ‖r‖², k,
+    active, tol², ‖b‖², maxiter), in the flat layout of a flat operator;
+    ``step`` keeps an iteration only while ``active``."""
+    to_flat, from_flat, A = _loop_parts(offsets, weights, grid_dim, vdim)
+
+    def prologue(b, x0, tol, maxiter):
+        b, x = to_flat(b), to_flat(x0)
+        r = b - A(x)
+        rz = _dot(r, r)
+        bnorm2 = _where1(_dot(b, b))
+        tol2 = (tol * tol) * bnorm2.to(torch.float64)
+        k = torch.zeros((), dtype=torch.int64, device=b.device)
+        active = (rz.to(torch.float64) > tol2) & (k < maxiter)
+        return (x, r, r, rz, k, active, tol2, bnorm2, maxiter)
+
+    def step(state, g: int):
+        x, r, p, rz, k, active, tol2, bnorm2, maxiter = state
+        Ap = A(p)
+        alpha = rz / _where1(_dot(p, Ap))
+        x_n = x + alpha * p
+        r_n = r - alpha * Ap
+        rz_n = _dot(r_n, r_n)
+        p_n = r_n + (rz_n / _where1(rz)) * p
+        x, r = torch.where(active, x_n, x), torch.where(active, r_n, r)
+        p, rz = torch.where(active, p_n, p), torch.where(active, rz_n, rz)
+        k = k + active.to(k.dtype)
+        active = (rz.to(torch.float64) > tol2) & (k < maxiter)
+        return (x, r, p, rz, k, active, tol2, bnorm2, maxiter)
+
+    def status(state):
+        rz, k, active, bnorm2 = state[3], state[4], state[5], state[7]
+        return device_loop.status_of(active, k, torch.sqrt(rz / bnorm2))
+
+    return prologue, step, status, from_flat
+
+
+def _cg_unit_diag(offsets, weights, b, x0, tol, maxiter, grid_dim, vdim,
+                  block: int = CG_BLOCK, graphs=None):
     """CG on the scaled (identity-diagonal) system — no preconditioner.
 
     With a flat operator (dense or constant-interior) the whole iteration
     runs in the kernel's flat layout: one conversion per solve instead of
-    two per iteration.  The convergence test reads ‖r‖² on the host each
-    iteration (one device sync per iteration)."""
-    flat = _is_flat_op(weights)
-    if flat:
-        b = weights.to_flat(b)
-        x0 = weights.to_flat(x0)
-        A = weights.apply_flat
-    else:
-        def A(x):
-            return _stencil_apply(offsets, weights, x, grid_dim, vdim)
-
-    x = x0
-    r = b - A(x)
-    p = r
-    rz = _dot(r, r)
-    bnorm2 = float(_dot(b, b))
-    bnorm2 = 1.0 if bnorm2 == 0 else bnorm2
-    tol2 = (tol * tol) * bnorm2
-    k = 0
-    while float(rz) > tol2 and k < maxiter:
-        Ap = A(p)
-        pAp = _dot(p, Ap)
-        alpha = rz / torch.where(pAp == 0, torch.ones_like(pAp), pAp)
-        x = x + alpha * p
-        r = r - alpha * Ap
-        rz_new = _dot(r, r)
-        beta = rz_new / torch.where(rz == 0, torch.ones_like(rz), rz)
-        p = r + beta * p
-        rz = rz_new
-        k += 1
-    relres = float(torch.sqrt(rz / bnorm2))
-    if flat:
-        x = weights.from_flat(x)
-    return x, k, relres
+    two per iteration.  The iterations run as masked blocks of ``block``
+    (``ops.device_loop``), captured on the card, the host reading once a
+    block; the convergence test compares ‖r‖² with tol²·‖b‖² in float64
+    on the device.  The graphs live in ``graphs`` (a ``GraphStore`` whose
+    owner outlives the weights), else in a flat operator's own store, else
+    for this call only."""
+    if graphs is None:
+        graphs = (device_loop.store_of(weights) if _is_flat_op(weights)
+                  else device_loop.GraphStore())
+    return device_loop.solve(graphs, ("cg", block, tuple(b.shape), b.dtype),
+                             _cg_program(offsets, weights, grid_dim, vdim),
+                             b, x0, tol, maxiter, block)
 
 
 # Flat-operator cache of the static (non-MG) f32 CG paths — the "f32"
@@ -409,7 +453,8 @@ def _static_flat_op(sysm: ScaledSystem, mesh: StructuredMesh, vdim: int,
     if sysm.ckey is not None:
         _FLAT_OP_CACHE[key] = op  # LRU refresh / insert
         while len(_FLAT_OP_CACHE) > _FLAT_OP_CACHE_MAX:
-            _FLAT_OP_CACHE.pop(next(iter(_FLAT_OP_CACHE)))
+            # its captured solve loops go with it
+            device_loop.release(_FLAT_OP_CACHE.pop(next(iter(_FLAT_OP_CACHE))))
     return op
 
 
@@ -504,7 +549,8 @@ def _mg_cache_put(key, hierarchy, ladder):
                 a.setflags(write=False)
     _MG_CACHE[key] = (hierarchy, ladder)
     while len(_MG_CACHE) > _MG_CACHE_MAX:
-        _MG_CACHE.pop(next(iter(_MG_CACHE)))
+        # the evicted hierarchy's captured solve loops go with it
+        device_loop.release(_MG_CACHE.pop(next(iter(_MG_CACHE)))[0])
 
 
 # ----------------------------------------------------------------------

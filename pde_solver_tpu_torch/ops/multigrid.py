@@ -25,8 +25,12 @@ for block-Cholesky scaling), Galerkin-consistent transfers are
 P̂ = S_f^{-1} P S_c and R̂ = P̂ᵀ.  Per-node 3×3 blocks multiply as broadcast
 + sum, never as batched GEMMs (no TF32 route).
 
-Control flow is host Python: each CG iteration reads one scalar for its
-convergence test (one device sync per iteration).
+The solve loops run on the device (``ops.device_loop``): :func:`mg_pcg`
+is a loop of masked iterations, captured on the card as CUDA graphs of
+``block`` iterations, the host reading one status per block; a
+double-float32 round (:func:`_jit_round_df`, its inner solves
+:func:`_mg_pcg_inline` of a fixed count) and its residual pre-check are
+one graph each, read once a round.
 """
 
 from __future__ import annotations
@@ -40,13 +44,15 @@ import numpy as np
 import torch
 
 from pde_solver_tpu_torch.mesh import StructuredMesh
+from pde_solver_tpu_torch.ops import device_loop
 from pde_solver_tpu_torch.ops.bc import DirichletBC
 from pde_solver_tpu_torch.ops.cs_kernels import (CSFlatStencilOperator,
                                                  cs_enabled, cs_mode,
                                                  cs_wins)
 from pde_solver_tpu_torch.ops.linsolve import (ScaledSystem, _dot,
                                                _entry_bytes, _is_flat_op,
-                                               _pad1, _stencil_apply,
+                                               _loop_parts, _pad1,
+                                               _stencil_apply, _where1,
                                                prepare_system)
 from pde_solver_tpu_torch.ops.stencil_kernels import (FlatStencilOperator,
                                                       kernel_wins)
@@ -155,6 +161,10 @@ class MGHierarchy(NamedTuple):
     pre_smooth: int
     post_smooth: int
     coarse_iters: int  # fallback only — used when no dense inverse fits
+    # the captured solve loops over these levels (``ops.device_loop``);
+    # copies made with ``_replace`` share it, so its keys name the levels
+    # a program runs on.  None: each solve captures for itself
+    graphs: Optional[device_loop.GraphStore] = None
 
 
 def dense_from_stencil(offsets, weights, node_shape, vdim: int) -> np.ndarray:
@@ -344,7 +354,7 @@ def build_hierarchy(
         levels = _with_coarsest_inverse(levels, np.linalg.inv(A_dense),
                                         device, dtype)
     return MGHierarchy(tuple(levels), mesh.dim, vdim, pre_smooth,
-                       post_smooth, coarse_iters)
+                       post_smooth, coarse_iters, device_loop.GraphStore())
 
 
 # ----------------------------------------------------------------------
@@ -436,7 +446,8 @@ def _hierarchy_from_arrays_disk(ent, device,
         levels = _with_coarsest_inverse(levels, ent["Ainv"], device)
     return MGHierarchy(tuple(levels), int(meta["grid_dim"]),
                        int(meta["vdim"]), int(meta["pre"]),
-                       int(meta["post"]), int(meta["coarse_iters"]))
+                       int(meta["post"]), int(meta["coarse_iters"]),
+                       device_loop.GraphStore())
 
 
 def load_hierarchy_from_disk(cache_key, vdim: int, device="cuda",
@@ -605,8 +616,80 @@ def v_cycle(h: MGHierarchy, r_hat: torch.Tensor, level: int = 0,
     return cheb(x, r_hat, h.post_smooth)
 
 
+# Masked blocks of :func:`mg_pcg`.  A static solve resyncs every 16
+# iterations, so its block is 16 and the resync falls on position 15 of
+# every block; a warm-started transient or Newmark step (resync_every=0)
+# takes a handful of iterations (heat 3D 128³: 6.1), so 8 keeps a step to
+# one block and one read.
+PCG_BLOCK = 16
+STEP_BLOCK = 8
+
+
+def _pcg_program(h: MGHierarchy, resync_every: int):
+    """The masked flexible PCG of :func:`mg_pcg` on the finest level of
+    ``h``, as (prologue, step, status, from_flat) for ``ops.device_loop``.
+
+    State: (x, r, p, rz, ‖r‖², k, active, b, free, tol², ‖b‖², maxiter),
+    in the flat ``[v, N]`` layout when the finest level is kernel-backed.
+    ``step(state, g)`` is one iteration, kept only while ``active``; ``g``
+    is its global index (the resync falls on g % resync_every ==
+    resync_every − 1, which is k while the loop is active).  The
+    convergence test compares ‖r‖² with tol²·‖b‖² in float64, as a host
+    loop comparing ``float(rr) > tol2`` does."""
+    lv = h.levels[0]
+    to_flat, from_flat, A = _loop_parts(lv.offsets, lv.weights, h.grid_dim,
+                                        h.vdim)
+    flat_io = _is_flat_op(lv.weights)
+
+    def M(r, free):
+        z = v_cycle(h, r * free, flat_io=flat_io)
+        return z * free + (1.0 - free) * r
+
+    def prologue(b, x0, tol, maxiter):
+        free = to_flat(lv.free)
+        b, x = to_flat(b), to_flat(x0)
+        r = b - A(x)
+        z = M(r, free)
+        rz = _dot(r, z)
+        bnorm2 = _where1(_dot(b, b).to(torch.float64))
+        tol2 = (tol * tol) * bnorm2
+        rr = _dot(r, r)
+        k = torch.zeros((), dtype=torch.int64, device=b.device)
+        active = (rr.to(torch.float64) > tol2) & (k < maxiter)
+        return (x, r, z, rz, rr, k, active, b, free, tol2, bnorm2, maxiter)
+
+    def step(state, g: int):
+        x, r, p, rz, rr, k, active, b, free, tol2, bnorm2, maxiter = state
+        Ap = A(p)
+        alpha = rz / _where1(_dot(p, Ap))
+        x_n = x + alpha * p
+        r_n = r - alpha * Ap
+        if resync_every > 0 and g % resync_every == resync_every - 1:
+            # true-residual resync: the recurrence drifts from b − A x in
+            # f32 once conjugacy degrades
+            r_n = b - A(x_n)
+        z_n = M(r_n, free)
+        # Polak-Ribière: β = z·(r_new − r)/rz — robust to inexact M
+        rz_n = _dot(r_n, z_n)
+        beta = torch.clamp((rz_n - _dot(z_n, r)) / _where1(rz), min=0.0)
+        p_n = z_n + beta * p
+        x, r = torch.where(active, x_n, x), torch.where(active, r_n, r)
+        p, rz = torch.where(active, p_n, p), torch.where(active, rz_n, rz)
+        k = k + active.to(k.dtype)
+        rr = _dot(r, r)
+        active = (rr.to(torch.float64) > tol2) & (k < maxiter)
+        return (x, r, p, rz, rr, k, active, b, free, tol2, bnorm2, maxiter)
+
+    def status(state):
+        rr, k, active, bnorm2 = state[4], state[5], state[6], state[10]
+        return device_loop.status_of(
+            active, k, torch.sqrt(rr.to(torch.float64) / bnorm2))
+
+    return prologue, step, status, from_flat
+
+
 def mg_pcg(h: MGHierarchy, b: torch.Tensor, x0: torch.Tensor, tol, maxiter,
-           resync_every: int = 16):
+           resync_every: int = 16, block: Optional[int] = None):
     """Flexible PCG on the finest scaled system, one V-cycle per application.
 
     Flexible (Polak-Ribière β = z·(r−r_prev)/rz_prev), robust to a V-cycle
@@ -615,65 +698,28 @@ def mg_pcg(h: MGHierarchy, b: torch.Tensor, x0: torch.Tensor, tol, maxiter,
     iterations (0: never — warm-started transient steps take a handful of
     iterations and do not drift, so the extra apply would be wasted).
     With a kernel-backed finest level the whole CG state lives in the flat
-    layout.  Returns (x, iterations, relres)."""
-    lv = h.levels[0]
-    d, vdim = h.grid_dim, h.vdim
+    layout.  The iterations run as masked blocks of ``block`` (default
+    ``PCG_BLOCK``, or ``STEP_BLOCK`` without resync), captured on the card
+    in ``h.graphs``; the host reads once a block.  Returns (x, iterations,
+    relres)."""
+    block = block or (PCG_BLOCK if resync_every > 0 else STEP_BLOCK)
+    store = h.graphs if h.graphs is not None else device_loop.GraphStore()
+    key = ("mg_pcg", len(h.levels), h.levels[-1].Ainv is not None, block,
+           resync_every, tuple(b.shape), b.dtype)
+    return device_loop.solve(store, key, _pcg_program(h, resync_every), b,
+                             x0, tol, maxiter, block, resync_every)
 
-    if _is_flat_op(lv.weights):
-        op = lv.weights
-        free = op.to_flat(lv.free)
-        b = op.to_flat(b)
-        x0 = op.to_flat(x0)
-        A = op.apply_flat
 
-        def M(r):
-            z = v_cycle(h, r * free, flat_io=True)
-            return z * free + (1.0 - free) * r
-    else:
-        op = None
-        free = lv.free
-
-        def A(x):
-            return _stencil_apply(lv.offsets, lv.weights, x, d, vdim)
-
-        def M(r):
-            z = v_cycle(h, r * free)
-            return z * free + (1.0 - free) * r
-
-    x = x0
-    r = b - A(x)
-    z = M(r)
-    p = z
-    rz = _dot(r, z)
-    bnorm2 = float(_dot(b, b))
-    bnorm2 = 1.0 if bnorm2 == 0 else bnorm2
-    tol2 = (tol * tol) * bnorm2
-    k = 0
-    rr = float(_dot(r, r))
-    while rr > tol2 and k < maxiter:
-        Ap = A(p)
-        pAp = _dot(p, Ap)
-        alpha = rz / torch.where(pAp == 0, torch.ones_like(pAp), pAp)
-        x = x + alpha * p
-        r_new = r - alpha * Ap
-        if resync_every > 0 and k % resync_every == resync_every - 1:
-            # true-residual resync: the recurrence drifts from b − A x in
-            # f32 once conjugacy degrades
-            r_new = b - A(x)
-        z_new = M(r_new)
-        # Polak-Ribière: β = z·(r_new − r)/rz — robust to inexact M
-        rz_new = _dot(r_new, z_new)
-        beta = (rz_new - _dot(z_new, r)) / torch.where(
-            rz == 0, torch.ones_like(rz), rz)
-        beta = torch.clamp(beta, min=0.0)  # restart guard
-        p = z_new + beta * p
-        r, rz = r_new, rz_new
-        k += 1
-        rr = float(_dot(r, r))
-    relres = float(np.sqrt(rr / bnorm2))
-    if op is not None:
-        x = op.from_flat(x)
-    return x, k, relres
+def _mg_pcg_inline(h: MGHierarchy, b: torch.Tensor, x0: torch.Tensor,
+                   tol: float, iters: int, resync_every: int = 16):
+    """:func:`mg_pcg` as ``iters`` masked iterations with no read (the
+    counterpart of a ``while_loop`` with ``maxiter`` = ``iters`` inside a
+    jitted program): returns (x, iterations, relres) as device tensors."""
+    prologue, step, status, from_flat = _pcg_program(h, resync_every)
+    state = prologue(b, x0, tol, iters)
+    for g in range(iters):
+        state = step(state, g)
+    return from_flat(state[0]), state[5], status(state)[2]
 
 
 def solve_mg(h: MGHierarchy, b_hat: np.ndarray, x0_hat: Optional[np.ndarray],
@@ -779,14 +825,18 @@ def ladder_with_b(ladder: DFLadder, b_hat: np.ndarray) -> DFLadder:
 
 
 def _jit_round_df(h: MGHierarchy, ladder: DFLadder, Ainv32: torch.Tensor,
-                  x_hi, x_lo, inner_iters):
+                  x_hi, x_lo, bhi, blo, inner_iters: int):
     """One complete F-cycle round: df32 defect → descend → dense f32
-    coarsest solve → df-refreshed ascends → pair update.  Returns
-    (x_hi, x_lo, ‖r‖², iters).
+    coarsest solve → df-refreshed ascends → pair update, with the right
+    side (bhi, blo).  Returns (x_hi, x_lo, ‖r‖², iters), all on the device:
+    every inner solve is :func:`_mg_pcg_inline` (``inner_iters`` masked
+    iterations), so the round reads nothing and is captured whole.
 
     The JAX package fences ``mg_pcg`` with ``optimization_barrier``s against
-    an XLA-on-TPU miscompile; eager torch compiles nothing, so they have no
-    counterpart (the caller keeps the finite-relres stop)."""
+    an XLA-on-TPU miscompile.  The port has no counterpart: eager torch and
+    a captured graph run the same kernels in the same order and fuse
+    nothing, so there is nothing to fence (the caller keeps the
+    finite-relres stop)."""
     from pde_solver_tpu_torch.ops.df32 import df_scale_add, df_stencil_residual
 
     grid_dim, vdim = h.grid_dim, h.vdim
@@ -796,14 +846,13 @@ def _jit_round_df(h: MGHierarchy, ladder: DFLadder, Ainv32: torch.Tensor,
                                  ladder.free32)
 
     r32, rnorm2 = df_stencil_residual(levels[0].offsets, Whi[0], Wlo[0],
-                                      ladder.bhi0, ladder.blo0, x_hi, x_lo,
-                                      grid_dim, vdim)
+                                      bhi, blo, x_hi, x_lo, grid_dim, vdim)
     rs = [r32]
     for m in range(L):
         rs.append(_jit_restrict_hat64(scale32[m], scale32[m + 1],
                                       free32[m + 1], rs[m], grid_dim))
     e = (Ainv32 @ rs[L].reshape(-1)).reshape(rs[L].shape)
-    iters = 0
+    iters = torch.zeros((), dtype=torch.int64, device=e.device)
     for m in range(L - 1, -1, -1):
         e = _jit_prolong_hat64(scale32[m], scale32[m + 1], free32[m], e,
                                grid_dim)
@@ -813,13 +862,72 @@ def _jit_round_df(h: MGHierarchy, ladder: DFLadder, Ainv32: torch.Tensor,
             rho, _ = df_stencil_residual(levels[m].offsets, Whi[m], Wlo[m],
                                          rs[m], zero, e, zero, grid_dim, vdim)
             scale = torch.clamp(torch.sqrt(_dot(rho, rho)), min=1e-30)
-            d32, k, _ = mg_pcg(sub, rho / scale, torch.zeros_like(rho), 1e-5,
-                               inner_iters)
+            d32, k, _ = _mg_pcg_inline(sub, rho / scale,
+                                       torch.zeros_like(rho), 1e-5,
+                                       inner_iters)
             e = e + scale * d32
-            iters += k
+            iters = iters + k
     one = torch.ones((), dtype=torch.float32, device=e.device)
     x_hi, x_lo = df_scale_add(x_hi, x_lo, one, e)
     return x_hi, x_lo, rnorm2, iters
+
+
+class _DF2Programs:
+    """The two programs of :func:`solve_fcycle_df2` over one set of static
+    buffers (x_hi, x_lo, bhi, blo, the iterations so far, the check
+    [‖r‖², iterations]): ``round`` (:func:`_jit_round_df`, adding its
+    iterations) and ``residual`` (the pre-check's defect, writing the
+    check).  ``whi`` is the ladder's weight tuple the programs read."""
+
+    def __init__(self, h: MGHierarchy, ladder: DFLadder, inner_iters: int,
+                 capture: bool, store: device_loop.GraphStore):
+        from pde_solver_tpu_torch.ops.df32 import jit_df_residual
+
+        Ainv32 = h.levels[-1].Ainv   # float32 on the device since the build
+        d, vdim = h.grid_dim, h.vdim
+        self.whi = ladder.Whi
+        z = torch.zeros_like(ladder.bhi0)
+        self.buffers = (z, z.clone(), z.clone(), z.clone(),
+                        torch.zeros((), dtype=torch.int64, device=z.device),
+                        torch.zeros(2, dtype=torch.float64, device=z.device))
+
+        def round_fn(n):
+            def fn(g0, x_hi, x_lo, bhi, blo, total, check):
+                x_hi, x_lo, _, k = _jit_round_df(h, ladder, Ainv32, x_hi,
+                                                 x_lo, bhi, blo, n)
+                return x_hi, x_lo, None, None, total + k, None
+            return fn
+
+        def residual(g0, x_hi, x_lo, bhi, blo, total, check):
+            _, rnorm2 = jit_df_residual(h.levels[0].offsets, ladder.Whi[0],
+                                        ladder.Wlo[0], bhi, blo, x_hi, x_lo,
+                                        d, vdim)
+            return (None,) * 5 + (torch.stack(
+                [rnorm2.to(torch.float64), total.to(torch.float64)]),)
+
+        if capture:
+            # warm-up: a round of one inner iteration runs every kernel
+            # the captured round does
+            device_loop._side_stream(lambda: (round_fn(1)(0, *self.buffers),
+                                              residual(0, *self.buffers)))
+        self.round = device_loop.Program(round_fn(inner_iters), self.buffers,
+                                         capture, store)
+        self.residual = device_loop.Program(residual, self.buffers, capture,
+                                            store)
+
+    def start(self, ladder: DFLadder) -> None:
+        x_hi, x_lo, bhi, blo, total, _ = self.buffers
+        for t in (x_hi, x_lo, total):
+            t.zero_()
+        bhi.copy_(ladder.bhi0)
+        blo.copy_(ladder.blo0)
+
+    def check(self):
+        """Run the residual; (‖r‖², iterations so far): one read."""
+        self.residual.run()
+        device_loop.count_read("df2")
+        rnorm2, total = self.buffers[5].tolist()
+        return rnorm2, int(total)
 
 
 def solve_fcycle_df2(h: MGHierarchy, ladder: DFLadder, tol: float,
@@ -827,33 +935,41 @@ def solve_fcycle_df2(h: MGHierarchy, ladder: DFLadder, tol: float,
     """Double-float32 F-cycle rounds until relres ≤ tol, a non-finite
     residual, two consecutive sub-2× rounds (the df32 floor) or
     ``max_rounds``.  Returns (x_hi, x_lo, iters, relres); convert with
-    ``df32.df_to_f64``."""
-    from pde_solver_tpu_torch.ops.df32 import jit_df_residual
+    ``df32.df_to_f64``.
 
-    d, vdim = h.grid_dim, h.vdim
-    Ainv32 = h.levels[-1].Ainv    # float32 on the device since the build
+    Each round and each pre-check is a program of ``h.graphs`` (captured on
+    the card): the host reads ‖b‖ once, then one check a round (the
+    residual and the iterations so far)."""
+    device_loop.count_read("df2")
     bnorm = float(torch.sqrt(_dot(ladder.bhi0, ladder.bhi0)))
     if bnorm == 0.0:
         z = torch.zeros_like(ladder.bhi0)
         return z, z, 0, 0.0
-    x_hi = torch.zeros_like(ladder.bhi0)
-    x_lo = torch.zeros_like(ladder.bhi0)
+    store = h.graphs if h.graphs is not None else device_loop.GraphStore()
+    capture = device_loop.captures(ladder.bhi0.device)
+    key = ("df2", inner_iters, tuple(ladder.bhi0.shape), capture)
+    progs = store.get(key)
+    if progs is None or progs.whi is not ladder.Whi:
+        progs = _DF2Programs(h, ladder, inner_iters, capture, store)
+        store.put(key, progs)
+    progs.start(ladder)
     total = 0
     relres = 1.0
     prev = np.inf
     stalled = 0
-    offsets0 = h.levels[0].offsets
 
-    def residual_norm():
-        _, rnorm2 = jit_df_residual(offsets0, ladder.Whi[0], ladder.Wlo[0],
-                                    ladder.bhi0, ladder.blo0, x_hi, x_lo,
-                                    d, vdim)
-        return float(np.sqrt(float(rnorm2))) / bnorm
+    def check(rnd):
+        """The residual after round ``rnd``: (relres, iterations so far),
+        with the round's INFO line."""
+        rnorm2, iters = progs.check()
+        get_logger().info("df2 round %d: relres before %.3e, %d inner "
+                          "iterations", rnd, relres, iters - total)
+        return float(np.sqrt(rnorm2)) / bnorm, iters
 
     for rnd in range(max_rounds):
         if rnd > 0:
             # convergence pre-check (one df residual) before spending a round
-            relres = residual_norm()
+            relres, total = check(rnd - 1)
             if relres <= tol or not np.isfinite(relres):
                 break
             if relres > 0.5 * prev:
@@ -863,14 +979,10 @@ def solve_fcycle_df2(h: MGHierarchy, ladder: DFLadder, tol: float,
             else:
                 stalled = 0
             prev = relres
-        x_hi, x_lo, _, k = _jit_round_df(h, ladder, Ainv32, x_hi, x_lo,
-                                         inner_iters)
-        total += int(k)
-        get_logger().info("df2 round %d: relres before %.3e, %d inner "
-                          "iterations", rnd, relres, k)
+        progs.round.run()
     else:
-        rnd = max_rounds
-    if rnd == max_rounds or relres > tol:
-        # final residual reflects the last executed round
-        relres = residual_norm()
+        # final residual reflects the last executed round (a stop at a
+        # pre-check has it already)
+        relres, total = check(max_rounds - 1)
+    x_hi, x_lo = (t.clone() for t in progs.buffers[:2])
     return x_hi, x_lo, total, relres

@@ -55,8 +55,13 @@ PLANE_ALIGN = 128
 # module's "v3_f32", "v3_bf16", "v2_f32", "v2_bf16", "v1_f32", "v1_bf16",
 # and the constant-interior kernel of ``ops.cs_kernels`` ("cs_apply_v1",
 # "cs_apply_v3").  Only a kernel launch counts: the CPU plain path
-# never does.
+# never does.  A launch recorded into a CUDA graph counts each time the
+# graph is replayed (``ops.device_loop``), not when it is captured.
 KERNEL_LAUNCHES: Dict[str, int] = {}
+
+# While ``ops.device_loop`` captures a graph: the list the wrappers record
+# their launches into, (variant, operator), instead of counting them.
+_CAPTURED: Optional[list] = None
 
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -70,8 +75,15 @@ def reset_launch_counts() -> None:
     KERNEL_LAUNCHES.clear()
 
 
-def count_launch(variant: str) -> None:
-    KERNEL_LAUNCHES[variant] = KERNEL_LAUNCHES.get(variant, 0) + 1
+def count_launch(variant: str, op=None, n: int = 1) -> None:
+    """Count ``n`` launches of ``variant`` (and in ``op.launches``); during
+    a graph capture record one instead, for the replays to count."""
+    if _CAPTURED is not None:
+        _CAPTURED.append((variant, op))
+        return
+    KERNEL_LAUNCHES[variant] = KERNEL_LAUNCHES.get(variant, 0) + n
+    if op is not None:
+        op.launches += n
 
 
 def build_library() -> ctypes.CDLL:
@@ -203,6 +215,7 @@ class FlatStencilOperator:
         op = copy.copy(self)
         op.W = self.W.to(weight_dtype)
         op.launches = 0
+        op._graphs = None     # graphs captured on self read self.W
         return op
 
     @property
@@ -261,6 +274,5 @@ class FlatStencilOperator:
             raise RuntimeError(f"flat_stencil_spmv launch failed: CUDA error "
                                f"{rc} (vdim={self.vdim}, N={self.N}, "
                                f"{W.dtype})")
-        self.launches += 1
-        count_launch(self.variant)
+        count_launch(self.variant, self)
         return y

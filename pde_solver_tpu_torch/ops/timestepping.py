@@ -11,9 +11,13 @@ the host (``ops.linsolve.prepare_system``); each step solves the scaled
 unit-diagonal system from a warm start — by MG-PCG when the system has at
 least ``resolved_transient_mg_threshold()`` DOF and a level builder, else
 by plain CG on the flat operator (dense, or constant-interior with
-``PDE_TPU_CS``).  The reference's ``lax.scan`` becomes a Python loop; the
-kept frames stack on the device and come back to the host once, whole and
-at float32.
+``PDE_TPU_CS``).  The reference's ``lax.scan`` becomes a Python loop over
+steps whose step solve is a device loop (``ops.device_loop``: masked blocks
+of ``STEP_BLOCK`` iterations, captured on the card, one read a block, the
+graphs kept for the whole scan in the operands' ``graphs`` store); the
+iterations and the worst relres come with that read, so the scan adds no
+read of its own.  The kept frames stack on the device and come back to the
+host once, whole and at float32.
 
 Like the reference, "mixed" precision runs the scan in float32 (implicit
 stepping is contractive and every step is solved to
@@ -66,7 +70,8 @@ import torch
 from pde_solver_tpu_torch.config import SolverConfig, get_config
 from pde_solver_tpu_torch.mesh import StructuredMesh
 from pde_solver_tpu_torch.ops.bc import DirichletBC
-from pde_solver_tpu_torch.ops.linsolve import (_cg_unit_diag,
+from pde_solver_tpu_torch.ops import device_loop
+from pde_solver_tpu_torch.ops.linsolve import (STEP_BLOCK, _cg_unit_diag,
                                                _static_flat_op,
                                                _stencil_apply,
                                                np_stencil_apply,
@@ -150,6 +155,7 @@ class _StepOperands(NamedTuple):
     grid_dim: int
     vdim: int
     h: object = None           # MG hierarchy of the implicit operator
+    graphs: object = None      # the CG step solve's captured loops
 
 
 def _transient_step_body(ops: _StepOperands, mode: str, u, u_prev, n: int):
@@ -191,7 +197,8 @@ def _transient_step_body(ops: _StepOperands, mode: str, u, u_prev, n: int):
     else:
         xh, k, relres = _cg_unit_diag(
             offsets, ops.A64 if mode == "f64" else ops.A32, b_hat, x0_hat,
-            ops.inner_tol, ops.maxiter, d, vdim)
+            ops.inner_tol, ops.maxiter, d, vdim, block=STEP_BLOCK,
+            graphs=ops.graphs)
     return from_hat_x(xh), k, relres
 
 
@@ -209,8 +216,8 @@ def _transient_scan(ops: _StepOperands, mode: str, u, u_prev, step0: int,
         u_new, k, relres = _transient_step_body(ops, mode, u, u_prev,
                                                 step0 + j - 1)
         u_prev, u = u, u_new
-        iters += int(k)
-        res = max(res, float(relres))
+        iters += k
+        res = max(res, relres)
         if j % snap_every == 0:
             snaps[j // snap_every - 1] = u
     return snaps, u, u_prev, iters, res
@@ -389,7 +396,7 @@ def run_transient(
         offsets, A32, A64, tuple(dev(W) for W in B_list), dev(free_np),
         dev(gvals), dev(Ag_np), dev(dt * np.asarray(b_source_np, np.float64)),
         scale_ops, None if C_list is None else tuple(dev(W) for W in C_list),
-        tmod, inner_tol, maxiter, d, vdim, h)
+        tmod, inner_tol, maxiter, d, vdim, h, device_loop.GraphStore())
     snap32 = cfg.snapshot_dtype == "f32" and prec != "f64"
     snap_dtype = torch.float32 if snap32 else state_dtype
     snap_every = _snapshot_every(cfg, num_steps,
@@ -631,6 +638,7 @@ class _NewmarkOperands(NamedTuple):
     grid_dim: int
     vdim: int
     h: object = None           # MG hierarchy of A_eff
+    graphs: object = None      # the CG step solve's captured loops
 
 
 def _newmark_scan(ops: _NewmarkOperands, u, v, a, num_steps: int,
@@ -660,14 +668,15 @@ def _newmark_scan(ops: _NewmarkOperands, u, v, a, num_steps: int,
         else:
             xh, k, relres = _cg_unit_diag(offsets, ops.A_w, to_hat_b(bt),
                                           to_hat_x(a), ops.inner_tol,
-                                          ops.maxiter, d, vdim)
+                                          ops.maxiter, d, vdim,
+                                          block=STEP_BLOCK, graphs=ops.graphs)
         a_new = ops.free * from_hat_x(xh)
         u = u_pred + c2 * a_new
         v = v + dt * ((1.0 - gamma) * a + gamma * a_new)
         a = a_new
         us[j], vs[j] = u, v
-        iters += int(k)
-        res = max(res, float(relres))
+        iters += k
+        res = max(res, relres)
     return us, vs, (u, v, a), iters, res
 
 
@@ -810,7 +819,8 @@ def run_newmark(
     ops = _NewmarkOperands(
         offsets, step_operator(sysm) if h is None else None,
         tuple(dev(W) for W in K_list), dev(free_np), dev(f_np), scale_ops,
-        float(dt), float(beta), float(gamma), inner_tol, maxiter, d, vdim, h)
+        float(dt), float(beta), float(gamma), inner_tol, maxiter, d, vdim, h,
+        device_loop.GraphStore())
     snap32 = cfg.snapshot_dtype == "f32" and prec != "f64"
     snap_dtype = torch.float32 if snap32 else state_dtype
     u, v = dev(u0_np), dev(v0_np)
