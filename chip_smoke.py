@@ -211,16 +211,32 @@
    the flagship through the API, its hierarchy and ladder then solved
    directly uncaptured, captured anew and replayed), its "f64"
    ``solve_mg`` on the hierarchy the precision phase built (the same
-   three ways), the heat slice's 20-step scan (the captured run is 6's
-   dense one), the modal 3D tool (the captured run is 10's) and the
+   three ways), the modal 3D tool (the captured run is 10's) and the
    flagship's projection (flat CG on K1 v1, the same three ways).  Each:
    the same iterations, fields within 1e-6 relative (the gap printed), at
    most one host read a block (one a df2 round, plus ‖b‖), launches with
    the replays counted, seconds both ways, peak device memory above the
-   run's start with graphs and without, what the graph pools hold; the
-   heat scan's device-busy share both ways under torch.profiler.  Last, a
-   device synchronise planted in a captured CG body must make the solve
-   raise (no fallback to the uncaptured loop).
+   run's start with graphs and without, what the graph pools hold.  Then
+   the scans (``scans_leg``: each step one captured step program, one
+   read a chunk of ``SCAN_CHUNK`` steps after the first step, which is
+   solved on its own and sets the budget): the heat slice at 128³ with
+   ``PDE_TPU_CS`` 0 (K1) and 1 (CS), ``solve_heat_3D_mixed`` and
+   ``solve_advection_3D`` (CNAB2) at 96³, ``solve_wave_3D`` at 96³ (driven
+   by a source from rest: no host projection), ``solve_elasticity_3D_
+   dynamic`` at 60×24×24 for 24 steps (MG-PCG steps, a bf16 smoother on
+   its finest level) and the heat slice at "f64" at 32³ (MG-PCG steps,
+   the thresholds lowered): each the tool through the API (the step
+   programs),
+   then its scan's call again through the per-step path (``device_loop.
+   _per_step``) and the step programs uncaptured: the same iterations, a
+   field gap of 0 both ways, the reads one a chunk plus reruns, and per
+   way the reruns, the masked iterations past convergence, the capture
+   and scan seconds, the device-busy share of the scan under
+   torch.profiler (the step programs, and the per-step path for the K1
+   heat) and the launches; the K1 heat program's run also
+   against 6's.  Last, a device synchronise planted in a captured CG body,
+   and one in a step's body, must each make the solve raise (no fallback
+   to the uncaptured loop or the per-step path).
 13. The sharding layer (``shard_phase``), over 8 virtual copies of the card
    (``PDE_TPU_VIRTUAL_DEVICES=8``, set for this phase only; printed: the
    physical card count, the card's name and power limit, and on every line
@@ -1892,6 +1908,25 @@ def scan_line(label, st, steps, launches, extra=""):
           flush=True)
 
 
+def count_mg_steps():
+    """Count the scan steps whose step solve is MG-PCG (the step program's
+    masked loop, or a rerun's ``mg_pcg``: ``device_loop.run_scan`` with
+    ``multigrid._pcg_program``'s loop); returns the one-element list it
+    counts in."""
+    from pde_solver_tpu_torch.ops import device_loop
+
+    n = [0]
+    orig = device_loop.run_scan
+
+    def counted(store, key, step, program, *a):
+        if program[0].__module__.endswith(".multigrid"):
+            n[0] += a[-2]
+        return orig(store, key, step, program, *a)
+
+    device_loop.run_scan = counted
+    return n
+
+
 def count_calls(module, name):
     """Count the calls of ``module.name``; returns the one-element list it
     counts in."""
@@ -1920,11 +1955,10 @@ def mixed_phase(api, run, hold_cs, data_dir, full=MIXED_3D, flat=MIXED_2D):
 
     from pde_solver_tpu_torch.config import config_overrides
     from pde_solver_tpu_torch.mesh import box_mesh, rectangle_mesh
-    from pde_solver_tpu_torch.ops import multigrid as mg
 
     steps, dt = full["num_steps"], full["dt"]
     n = (full["nx"] + 1) * (full["ny"] + 1) * (full["nz"] + 1)
-    mg_calls = count_calls(mg, "mg_pcg")
+    mg_calls = count_mg_steps()
     tols = (("", {}), (f" tol={MIXED_TIGHT_TOL:.0e}",
                        dict(transient_inner_tol=MIXED_TIGHT_TOL)))
     T_runs = {}
@@ -2755,6 +2789,7 @@ def spy_newmark():
         calls.append((a, kw, res))
         return res
 
+    spy.__wrapped__ = orig
     timestepping.run_newmark = spy     # elasticity imports it at call time
     wave.run_newmark = spy
     return calls
@@ -2828,10 +2863,9 @@ def newmark_phase(api, run, hold_cs, data_dir, wave=WAVE_3D,
     from pde_solver_tpu_torch.config import config_overrides
     from pde_solver_tpu_torch.mesh import (box_mesh, flatten_values,
                                            interval_mesh, rectangle_mesh)
-    from pde_solver_tpu_torch.ops import multigrid as mg
 
     calls = spy_newmark()
-    mg_calls = count_calls(mg, "mg_pcg")
+    mg_calls = count_mg_steps()
 
     # -- wave 3D at full width ------------------------------------------------
     steps, dt = wave["num_steps"], wave["dt"]
@@ -2984,7 +3018,13 @@ def newmark_phase(api, run, hold_cs, data_dir, wave=WAVE_3D,
                  f"{DYNAMIC_F64_TOL})")
     check(bool(st["converged"]) and max(gap_u, gap_v) <= DYNAMIC_F64_TOL,
           f"{label} off the float64 Newmark by {gap_u:.3e} / {gap_v:.3e}")
-    check(launches.get("v3_f32", 0) > 0 and launches.get("v3_bf16", 0) > 0,
+    # its 35,547 DOF lie under the bf16 smoother copy's size gate
+    # (``multigrid.BF16_MIN_DOF``): every level smooths in float32
+    from pde_solver_tpu_torch.ops.multigrid import BF16_MIN_DOF
+
+    bf16 = launches.get("v3_bf16", 0) > 0
+    check(launches.get("v3_f32", 0) > 0
+          and bf16 == (3 * int(np.prod(shape)) >= BF16_MIN_DOF),
           f"{label}: launches {launches}")
     del calls[:], K_np, M_np, u_ref, v_ref
 
@@ -3035,10 +3075,12 @@ def modal_phase(api, drive, data_dir, box=MODAL_3D, plate=MODAL_2D,
 
     solves = count_calls(eigen, "solve_stencil_system")
     builds = count_calls(mg, "build_hierarchy")
+    # 24,843 DOF lie under the bf16 smoother copy's size gate
+    # (``multigrid.BF16_MIN_DOF``): no v3_bf16 launch
     for tool, kw, mesh, mode, vdim, wanted in (
             ("solve_elasticity_3D_modal", box,
              box_mesh(box["nx"], box["ny"], box["nz"], (0.0, 0.0, 0.0),
-                      (1.0, 0.2, 0.2)), "3d", 3, ("v3_f32", "v3_bf16")),
+                      (1.0, 0.2, 0.2)), "3d", 3, ("v3_f32",)),
             ("solve_elasticity_2D_modal", plate,
              rectangle_mesh(plate["nx"], plate["ny"], (0.0, 0.0), (1.0, 0.2)),
              "plane_stress", 2, ("v2_f32",))):
@@ -3458,7 +3500,12 @@ def precision_phase(api, counted, data_dir, vm_mixed, vm_call, T_f32,
     out["checkpoint"] = True
 
     # -- 6. the bf16-smoother switch ------------------------------------------
+    # the 16×8×8 levels lie under the bf16 copy's size gate
+    # (``multigrid.BF16_MIN_DOF``), lowered for this leg
+    from pde_solver_tpu_torch.ops import multigrid as mg_mod
+
     switch_prev = os.environ.get("PDE_TPU_BF16_SMOOTHER")
+    gate_prev, mg_mod.BF16_MIN_DOF = mg_mod.BF16_MIN_DOF, 0
     runs = {}
     try:
         for switch in ("1", "0"):
@@ -3477,13 +3524,15 @@ def precision_phase(api, counted, data_dir, vm_mixed, vm_call, T_f32,
                             smooth)
             del h
     finally:
+        mg_mod.BF16_MIN_DOF = gate_prev
         if switch_prev is None:
             os.environ.pop("PDE_TPU_BF16_SMOOTHER", None)
         else:
             os.environ["PDE_TPU_BF16_SMOOTHER"] = switch_prev
         linsolve._MG_CACHE.clear()
     sw_gap = gap(runs["0"][0], runs["1"][0])
-    print("precision smoother switch (16x8x8 cantilever, mixed): " + "; ".join(
+    print("precision smoother switch (16x8x8 cantilever, mixed, bf16 gate "
+          "lowered to 0 DOF): " + "; ".join(
         f"PDE_TPU_BF16_SMOOTHER={k}: smoother weights {smooth} iterations="
         f"{st_['cg_iterations']} launches {ln}"
         for k, (_, ln, st_, smooth) in runs.items())
@@ -3923,21 +3972,22 @@ GRAPH_TOL = 1e-6
 
 
 def graphs_phase(api, counted, data_dir, card_line, refs, walls, peaks,
-                 flagship=FLAGSHIP, heat=HEAT, heat_steps=HEAT_STEPS,
-                 modal=MODAL_3D, device="cuda", profiled=True):
+                 flagship=FLAGSHIP, modal=MODAL_3D, scans=None,
+                 device="cuda", profiled=True):
     """The solve loops as captured CUDA graphs (``ops.device_loop``) against
     the same loops uncaptured, at full width: the flagship's double-float32
     rounds ("mixed"), its float64 ``solve_mg`` (the hierarchy and right
-    side the precision phase left in ``refs``), the heat slice's scan (the
-    captured run is phase 6's dense one, ``refs["heat"]``), the modal 3D
-    tool (the modal phase's run, ``refs["modal"]``) and the flagship's
-    projection (flat CG).  Each pair: the same iterations, fields within
+    side the precision phase left in ``refs``), the modal 3D tool (the
+    modal phase's run, ``refs["modal"]``, against ``modal`` run here
+    uncaptured) and the flagship's projection (flat CG).  Each pair: the
+    same iterations, fields within
     ``GRAPH_TOL``, host reads at most one a block (one a round for df2),
     launches with the replays counted, seconds both ways, peak device
-    memory with graphs and without (and what the graph pools hold); the
-    heat scan's device-busy share both ways under torch.profiler
-    (``profiled``).  Last, a planted capture fault must raise.  Returns
-    the numbers by path."""
+    memory with graphs and without (and what the graph pools hold).  Then
+    the scans of ``scans`` (default :func:`scan_cases`) by
+    :func:`scans_leg`, the heat slice's K1 run held against phase 6's
+    (``refs["heat"]``).  Last, a planted capture fault must raise.
+    Returns the numbers by path."""
     import contextlib as ctx
     import gc
 
@@ -4098,44 +4148,6 @@ def graphs_phase(api, counted, data_dir, card_line, refs, walls, peaks,
     del h64, b64, xs
 
     tidy()
-    # -- the heat slice's scan ----------------------------------------------
-    ref = refs.pop("heat")
-    with device_loop._uncaptured():
-        res, launches, wall = counted("graphs heat uncaptured", lambda:
-                                      api.solve_heat_3D(**heat,
-                                                        data_dir=data_dir))
-    reads = dict(device_loop.HOST_READS)
-    T, _ = field(res)
-    st = res.meta["solver_stats"]
-    os.remove(res.data_file)
-    runs = {"captured": (ref["stats"]["scan_seconds"], ref["launches"],
-                         ref["reads"], ref["peak"]),
-            "uncaptured": (st["scan_seconds"], launches, reads,
-                           peaks.get("graphs heat uncaptured",
-                                     float("nan")))}
-    iters = [ref["stats"]["cg_iterations"], st["cg_iterations"]]
-    for name, (_, _, r, _) in runs.items():
-        check(r.get("mg_pcg", 0) <= iters[0] // mg.STEP_BLOCK + heat_steps,
-              f"graphs heat ({name}): host reads {r} for {iters[0]} "
-              f"iterations in {heat_steps} steps")
-    busy = ""
-    if profiled:
-        import profile_heat
-
-        shares = {}
-        for name, captured in (("captured", True), ("uncaptured", False)):
-            shares[name] = heat_busy(api, profile_heat, data_dir, heat,
-                                     captured, runs[name][0])
-        busy = "; device-busy share of the scan " + ", ".join(
-            f"{k} {v}" for k, v in shares.items())
-        out["heat_busy"] = shares
-    report("heat 3D scan", runs, iters, gap(ref["T"], T),
-           f" (scan seconds; wall captured "
-           f"{walls.get('heat PDE_TPU_CS=0', float('nan')):.3f} s, "
-           f"uncaptured {wall:.3f} s){busy}")
-    del ref, T
-
-    tidy()
     # -- the modal 3D tool --------------------------------------------------
     ref = refs.pop("modal")
     linsolve._MG_CACHE.clear()
@@ -4200,6 +4212,12 @@ def graphs_phase(api, counted, data_dir, card_line, refs, walls, peaks,
     del xs
 
     tidy()
+    # -- the scans: one step program a step, one read a chunk ---------------
+    out["scans"] = scans_leg(api, counted, data_dir, card_line,
+                             refs.pop("heat"), scans or scan_cases(),
+                             device=device, profiled=profiled)
+
+    tidy()
     # -- no fallback: a planted capture fault raises -------------------------
     raised = None
     op = sk.FlatStencilOperator(((-1,), (0,), (1,)),
@@ -4231,41 +4249,298 @@ def graphs_phase(api, counted, data_dir, card_line, refs, walls, peaks,
     return out
 
 
-def heat_busy(api, profile_heat, data_dir, heat, captured, scan_s):
-    """The heat scan's device-busy share under torch.profiler: the device
-    time of the kernels that started within its step solves over the
-    unprofiled scan seconds ``scan_s``; "not measured" when the trace
-    holds no device kernel."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
+SCAN_WAVE = dict(WAVE_3D, initial_type="zero", source_value=1.0)
+# 114,375 DOF: its finest level (≥ ``multigrid.BF16_MIN_DOF``) smooths
+# with the bf16 copy inside the step program
+SCAN_DYNAMIC = dict(DYNAMIC_3D, nx=60, ny=24, nz=24, num_steps=24)
+SCAN_HEAT_F64 = dict(nx=32, ny=32, nz=32)
+# the step programs of every scan are profiled; the per-step path (the
+# busy share they are compared with) of these too (each trace costs a
+# repeat of the scan)
+SCAN_PROFILE_PER_STEP = ("heat 3D K1",)
+SCAN_WAYS = ("program", "per step", "uncaptured")
+# the MG thresholds lowered: the step solves take MG-PCG under the default
+# ``transient_mg_threshold``
+SCAN_MG = {"transient_mg_threshold": 100, "mg_threshold": 100}
 
+
+def scan_cases(heat=HEAT, mixed=MIXED_3D, advection=ADVECTION_3D,
+               wave=SCAN_WAVE, dynamic=SCAN_DYNAMIC,
+               heat_f64=SCAN_HEAT_F64):
+    """The scans of :func:`scans_leg`: (label, ``PDE_TPU_CS``, tool name,
+    keyword arguments, config overrides, the kernel variants its step
+    programs must launch on the card, steps).  The wave is driven by a
+    source from rest (the sine mode's host projection takes ~48 s at 96³);
+    the released cantilever runs 24 steps at 60×24×24 with MG-PCG step
+    solves, as the flagship's mesh takes them (that mesh sets up in ~25 s
+    a run), its first step far longer than the rest; the "f64" heat runs
+    at 32³ with MG-PCG step solves (at 128³ its uncaptured scan runs ~1.2M
+    aten operations; the precision phase runs it at 128³ through the
+    API), whose steps take more than one block."""
+    heat_steps = heat.get("num_steps", HEAT_STEPS)
+    return [("heat 3D K1", "0", "solve_heat_3D", heat, {},
+             ("v1_f32", "v1_bf16"), heat_steps),
+            ("heat 3D CS", "1", "solve_heat_3D", heat, {},
+             ("cs_apply_v1", "v1_f32"), heat_steps),
+            ("mixed 3D", "0", "solve_heat_3D_mixed", mixed, {},
+             ("v1_f32", "v1_bf16"), mixed["num_steps"]),
+            ("advection 3D", "0", "solve_advection_3D", advection, {},
+             ("v1_f32",), advection["num_steps"]),
+            ("wave 3D", "0", "solve_wave_3D", wave, {},
+             ("v1_f32", "v1_bf16"), wave["num_steps"]),
+            ("dynamic 3D", "0", "solve_elasticity_3D_dynamic", dynamic,
+             SCAN_MG, ("v3_f32", "v3_bf16"), dynamic["num_steps"]),
+            ("heat 3D f64", "0", "solve_heat_3D", heat_f64,
+             dict(SCAN_MG, precision="f64"), (),
+             heat_f64.get("num_steps", HEAT_STEPS))]
+
+
+def scan_way(way):
+    """The context a scan runs in: its step programs (captured on the
+    card), the per-step path, or its step programs uncaptured."""
     from pde_solver_tpu_torch.ops import device_loop
-    from pde_solver_tpu_torch.ops import multigrid as mg
 
-    orig = mg.mg_pcg
+    if way == "per step":
+        return device_loop._per_step()
+    if way == "uncaptured":
+        return device_loop._uncaptured()
+    return contextlib.nullcontext()
 
-    def marked(*a, **kw):
-        with record_function(profile_heat.MARK):
-            return orig(*a, **kw)
 
-    mg.mg_pcg = marked
-    try:
-        with contextlib.ExitStack() as stack:
-            if not captured:
-                stack.enter_context(device_loop._uncaptured())
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                res = api.solve_heat_3D(**heat, data_dir=data_dir)
+def scan_busy(run, way, scan_s):
+    """A scan's device-busy share: the device time of the kernels that ran
+    while its scans (``_transient_scan`` / ``_newmark_scan``) ran, each
+    traced alone by torch.profiler (device activity only, so a trace of
+    ~10⁵ launches stays cheap to read), over the unprofiled scan seconds
+    ``scan_s``.  Copies of ≥ 1 ms (a frame fetch) are left out, as
+    ``profile_heat.kernel_table`` leaves them; "not measured" when the
+    traces hold no device kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pde_solver_tpu_torch.ops import timestepping
+
+    traces = []
+    origs = {name: getattr(timestepping, name)
+             for name in ("_transient_scan", "_newmark_scan")}
+
+    def traced(fn):
+        def scan(*a, **kw):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                res = fn(*a, **kw)
                 torch.cuda.synchronize()
-        os.remove(res.data_file)
+            traces.append(prof)
+            return res
+        return scan
+
+    for name, fn in origs.items():
+        setattr(timestepping, name, traced(fn))
+    try:
+        with scan_way(way):
+            run()
     finally:
-        mg.mg_pcg = orig
-    table, _ = profile_heat.kernel_table(prof)
-    kernel_ms = sum(ms for ms, _ in table.values())
-    if not table:
+        for name, fn in origs.items():
+            setattr(timestepping, name, fn)
+    kernel_ms, n = 0.0, 0
+    for prof in traces:
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() != DeviceType.CUDA:
+                continue
+            ms = e.duration_ns() / 1e6
+            if "Memcpy" in e.name() and ms >= 1.0:
+                continue
+            kernel_ms, n = kernel_ms + ms, n + 1
+    if not n:
         return "not measured (no device kernel in the trace)"
     return (f"{kernel_ms / 1e3 / scan_s:.3f} ({kernel_ms:.1f} ms of device "
-            f"kernels in {sum(n for _, n in table.values())} launches)")
+            f"kernels in {n} launches)")
+
+
+def record_scans():
+    """Keep the call of every ``run_transient`` / ``run_newmark`` (the
+    tools' modules import them by name); returns (the list of (function,
+    args, kwargs, result), a function that undoes the spies).  The function
+    kept is the package's own, under any earlier spy."""
+    import inspect
+
+    from pde_solver_tpu_torch.models import advection, heat, wave
+    from pde_solver_tpu_torch.ops import timestepping
+
+    calls, undo = [], []
+    for module in (timestepping, heat, advection, wave):
+        for name in ("run_transient", "run_newmark"):
+            fn = getattr(module, name, None)
+            if fn is None:
+                continue
+
+            def spy(*a, _fn=fn, **kw):
+                res = _fn(*a, **kw)
+                calls.append((inspect.unwrap(_fn), a, kw, res))
+                return res
+
+            setattr(module, name, spy)
+            undo.append((module, name, fn))
+
+    def unspy():
+        for module, name, fn in undo:
+            setattr(module, name, fn)
+    return calls, unspy
+
+
+def scans_leg(api, counted, data_dir, card_line, heat_ref, cases,
+              device="cuda", profiled=True):
+    """Each scan of ``cases`` (:func:`scan_cases`) three ways
+    (:data:`SCAN_WAYS`): its step programs (the tool through the API, its
+    ``run_transient`` / ``run_newmark`` call kept), then that call again
+    through the per-step path and through its step programs uncaptured.
+    Checks: the same iterations, a field gap of 0 between the ways, the
+    reads one a chunk run by a step program (``device_loop.scan_chunks``;
+    the chunks run step by step and the reruns counted apart), the kernel variants each scan's step programs
+    must launch, and the K1 heat program's run against ``heat_ref``
+    (phase 6's).  Prints per way the iterations, host reads, reruns, masked
+    iterations past convergence, warm-up and capture seconds, scan
+    seconds, the device-busy share (with ``profiled``: the same call again
+    under the profiler; the step programs, and the per-step path only for
+    :data:`SCAN_PROFILE_PER_STEP`) and launches.  Then a device synchronise planted in a step's body must
+    make the scan raise.  Returns the rows by label."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from pde_solver_tpu_torch.config import config_overrides
+    from pde_solver_tpu_torch.ops import device_loop, timestepping
+    from pde_solver_tpu_torch.ops import stencil_kernels as sk
+
+    cuda = device == "cuda"
+    rows = {}
+
+    def gap(a, b):
+        return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+
+    def fields_of(res):
+        return [res.values] + ([res.velocities]
+                               if hasattr(res, "velocities") else [])
+
+    def with_cs(cs, fn):
+        prev = os.environ.get("PDE_TPU_CS", "0")
+        os.environ["PDE_TPU_CS"] = cs
+        try:
+            return fn()
+        finally:
+            os.environ["PDE_TPU_CS"] = prev
+
+    for label, cs, tool, kw, cfg, wanted, steps in cases:
+        ways, results = {}, {}
+        for way in SCAN_WAYS:
+            if way == "program":
+                calls, unspy = record_scans()
+                try:
+                    def call():
+                        with config_overrides(**cfg):
+                            return getattr(api, tool)(**kw,
+                                                      data_dir=data_dir)
+                    res, launches, wall = counted(
+                        f"scans {label} ({way})", lambda: with_cs(cs, call))
+                finally:
+                    unspy()
+                api_field = field(res)[0]
+                os.remove(res.data_file)
+                (fn, a, k, res), = calls
+
+                def again(fn=fn, a=a, k=k):
+                    return with_cs(cs, lambda: fn(*a, **k))
+            else:
+                with scan_way(way):
+                    res, launches, wall = counted(f"scans {label} ({way})",
+                                                  again)
+            results[way] = res
+            ways[way] = dict(
+                iterations=res.total_cg_iterations,
+                reads=dict(device_loop.HOST_READS), reruns=res.scan_reruns,
+                stepwise=res.scan_stepwise_chunks,
+                past=res.scan_past_iterations,
+                capture_s=res.scan_capture_seconds, scan_s=res.scan_seconds,
+                wall=wall, launches=launches)
+            if profiled and (way == "program"
+                             or (way == "per step"
+                                 and label in SCAN_PROFILE_PER_STEP)):
+                ways[way]["busy"] = scan_busy(again, way, res.scan_seconds)
+        gaps = {way: max(gap(f0, f) for f0, f in
+                         zip(fields_of(results["program"]),
+                             fields_of(results[way])))
+                for way in SCAN_WAYS[1:]}
+        prog = ways["program"]
+        extra = ""
+        if label == "heat 3D K1" and heat_ref is not None:
+            gaps["phase 6"] = gap(api_field, heat_ref["T"])
+            extra = (f"; phase 6's run: iterations "
+                     f"{heat_ref['stats']['cg_iterations']}, scan "
+                     f"{heat_ref['stats']['scan_seconds']:.3f} s, reads "
+                     f"{heat_ref['reads']}")
+            check(heat_ref["stats"]["cg_iterations"] == prog["iterations"],
+                  f"scans {label}: iterations {prog['iterations']} against "
+                  f"phase 6's {heat_ref['stats']['cg_iterations']}")
+        print(f"scans {label} ({card_line}): {steps} steps; field gap "
+              + ", ".join(f"vs {k} {v:.3e}" for k, v in gaps.items())
+              + "; " + "; ".join(
+                  f"{way}: iterations {w['iterations']}, host reads "
+                  f"{w['reads']}, reruns {w['reruns']}, chunks step by step "
+                  f"{w['stepwise']}, masked iterations "
+                  f"past convergence {w['past']}, capture "
+                  f"{w['capture_s']:.3f} s, scan {w['scan_s']:.3f} s, wall "
+                  f"{w['wall']:.3f} s, busy {w.get('busy', 'not profiled')}"
+                  f", launches {w['launches']}"
+                  for way, w in ways.items()) + extra, flush=True)
+        iters = {w["iterations"] for w in ways.values()}
+        check(len(iters) == 1, f"scans {label}: iterations {iters}")
+        check(all(g == 0.0 for g in gaps.values()),
+              f"scans {label}: field gaps {gaps}")
+        for way in ("program", "uncaptured"):
+            r = ways[way]["reads"]
+            chunks = device_loop.scan_chunks(steps, first=True)
+            check(r.get("scan", 0) == len(chunks) - ways[way]["stepwise"]
+                  and r.get("scan_redo", 0) == ways[way]["reruns"],
+                  f"scans {label} ({way}): host reads {r} for {steps} "
+                  f"steps")
+        missing = [v for v in wanted if not prog["launches"].get(v)]
+        check(not cuda or not missing, f"scans {label}: the step programs "
+              f"launched no {missing}: {prog['launches']}")
+        check("scan" not in ways["per step"]["reads"],
+              f"scans {label}: the per-step path read as a scan")
+        rows[label] = dict(steps=steps, gaps=gaps, ways=ways)
+        del results, api_field
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+    # -- no fallback: a synchronise planted in a step's body raises ---------
+    raised = None
+    orig = timestepping._transient_step_body
+
+    def syncing(*a, **kw):
+        if cuda:
+            torch.cuda.synchronize()
+        return orig(*a, **kw)
+
+    timestepping._transient_step_body = syncing
+    try:
+        with config_overrides(transient_mg_threshold=100, mg_threshold=100):
+            api.solve_heat_3D(**SMALL_HEAT, data_dir=data_dir)
+    except RuntimeError as e:
+        raised = str(e).splitlines()[0]
+    finally:
+        timestepping._transient_step_body = orig
+    if cuda:
+        torch.cuda.synchronize()
+    print(f"scans planted capture fault (a device synchronise inside a "
+          f"step's body): raised {raised!r}", flush=True)
+    check(raised is not None or not cuda, "scans: a step program captured "
+          "with a synchronise inside did not raise")
+    check(sk._CAPTURED is None, "scans: the launch recording was left on")
+    rows["planted_fault_raised"] = raised
+    return rows
 
 
 class JsonRpcPipe:

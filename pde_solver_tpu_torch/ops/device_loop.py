@@ -40,8 +40,10 @@ launches, by variant and to each operator's ``launches``.
 from __future__ import annotations
 
 import contextlib
+import gc
+import time
 import weakref
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -73,6 +75,24 @@ def _uncaptured():
         yield
     finally:
         _EAGER = prev
+
+
+# Internal: True inside :func:`_per_step`, which runs every scan step by
+# step, each step solve with a read a block (the path a rerun takes).  Only
+# ``chip_smoke.py`` and the tests enter it, to hold the step programs
+# against it; no entry point of the package does.
+_PER_STEP = False
+
+
+@contextlib.contextmanager
+def _per_step():
+    """Run the scans started inside this block step by step."""
+    global _PER_STEP
+    prev, _PER_STEP = _PER_STEP, True
+    try:
+        yield
+    finally:
+        _PER_STEP = prev
 
 
 def captures(device) -> bool:
@@ -193,6 +213,12 @@ class Program:
 
     def _capture(self, store: GraphStore) -> None:
         graph = torch.cuda.CUDAGraph()
+        # Python's cyclic collector stays off while the graph is captured:
+        # a graph it freed meanwhile (one held in a dead reference cycle)
+        # would release its pool, a call that is not permitted during a
+        # capture and invalidates it
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with _recording() as launches:
                 with torch.cuda.graph(graph, pool=store.pool()):
@@ -200,6 +226,9 @@ class Program:
         except BaseException:
             store.forget_pool()
             raise
+        finally:
+            if collecting:
+                gc.enable()
         # the closure is not needed to replay; dropping it keeps the
         # owner → store → program → closure → owner cycle from forming
         self.graph, self.launches, self.fn = graph, tuple(launches), None
@@ -322,3 +351,221 @@ def status_of(active: torch.Tensor, k: torch.Tensor,
     """The status a block ends with: float64 [active, iterations, relres]."""
     return torch.stack([active.to(torch.float64), k.to(torch.float64),
                         relres.to(torch.float64)])
+
+
+# ----------------------------------------------------------------------
+# Scans: one step a program, one read a chunk of steps
+# ----------------------------------------------------------------------
+#
+# The counterpart of the JAX package's ``lax.scan`` over time steps.  A step
+# (its eager body, its step solve, the carry update) is one
+# :class:`StepLoop`, replayed once a step with no read; the host reads the
+# scan's accumulators once every ``SCAN_CHUNK`` steps.  The step solve runs
+# its prologue and a fixed ``budget`` of masked iterations: a step that
+# converges within it gives the per-step solve's answer bit for bit, since
+# a finished state passes masked iterations unchanged.  The budget is the
+# worst step of the chunk before, rounded up to whole ``STEP_BLOCK`` s.  A
+# chunk with no budget runs step by step through the per-step solves (one
+# read a block, the same kernels on the same device, the same answer):
+# a scan's first step, which no chunk precedes, and every chunk after one
+# whose worst step passed ``STEP_BUDGET_MAX``.  A read that shows a step
+# still active after the budget reruns its chunk step by step from the
+# carry it started with and counts the rerun in
+# ``HOST_READS["scan_redo"]``.  A scan keeps one step program in its
+# store, captured anew only when the budget changes.
+
+SCAN_CHUNK = 16
+STEP_BLOCK = 8
+# The most masked iterations a step program gives its step solve.  Steps
+# that need more (the first steps of a rod heated from one end take ~250,
+# a 1D thermal wave's 51, a step capped at maxiter thousands) are solved
+# step by step: a program's capture grows with its budget, and a program
+# whose steps outrun it runs every chunk twice.
+STEP_BUDGET_MAX = 4 * STEP_BLOCK
+
+
+class ScanTally(NamedTuple):
+    """What a scan did: its iterations and max relres, the chunks run again
+    step by step after an overflow, the chunks run step by step with no
+    budget (the first step, and after a worst step past the cap), the
+    masked iterations its step programs ran past their step's
+    convergence, and the seconds spent warming up and capturing its step
+    programs."""
+    iterations: int = 0
+    relres: float = 0.0
+    reruns: int = 0
+    stepwise: int = 0
+    past: int = 0
+    capture_seconds: float = 0.0
+
+    def plus(self, other: "ScanTally") -> "ScanTally":
+        return ScanTally(*(max(a, b) if name == "relres" else a + b
+                           for name, a, b in zip(self._fields, self, other)))
+
+
+def inline_solve(program, budget: int, tol: torch.Tensor,
+                 maxiter: torch.Tensor, box: list) -> Callable:
+    """The masked loop ``program`` as a step solve with no read: its
+    prologue and ``budget`` masked iterations.  ``solve(b, x0)`` returns
+    (x, iterations, relres) as device tensors and appends the status to
+    ``box``."""
+    prologue, step, status, from_flat = program
+
+    def solve(b, x0):
+        state = prologue(b, x0, tol, maxiter)
+        for g in range(budget):
+            state = step(state, g)
+        st = status(state)
+        box.append(st)
+        return from_flat(state[0]), st[1], st[2]
+    return solve
+
+
+class StepLoop:
+    """One step of a scan as a :class:`Program` over static buffers: the
+    carry, the device step counter ``n`` and the accumulators ``acc``
+    (float64 [iterations, max relres, steps still active after the
+    budget, most iterations of one step]).
+
+    ``step(carry, n, solve)`` → (new carry, iterations, relres) is the
+    step's body around its step solve, ``n`` the counter as a 0-d int64
+    tensor; the loop passes :func:`inline_solve` of ``program`` at
+    ``budget``.  Captured once on the card (after a warm-up step on a side
+    stream; ``capture_seconds`` is what both took) and replayed once a
+    step; elsewhere run eagerly over the same buffers."""
+
+    def __init__(self, step: Callable, program, carry, tol: float,
+                 maxiter: int, budget: int, capture: bool,
+                 store: Optional[GraphStore] = None):
+        self.budget = int(budget)
+        device = carry[0].device
+        self.carry = tuple(t.clone() for t in carry)
+        self.n = torch.zeros((), dtype=torch.int64, device=device)
+        self.acc = torch.zeros(4, dtype=torch.float64, device=device)
+        consts = (torch.full((), float(tol), dtype=torch.float64,
+                             device=device),
+                  torch.full((), int(maxiter), dtype=torch.int64,
+                             device=device))
+        nc = len(self.carry)
+
+        def body(bufs, budget):
+            carry, (n, acc, tol_t, maxiter_t) = bufs[:nc], bufs[nc:]
+            box = []
+            new, k, relres = step(carry, n, inline_solve(
+                program, budget, tol_t, maxiter_t, box))
+            # a carry entry passed on unchanged is a buffer the writes
+            # below may already have overwritten
+            new = tuple(t.clone() if any(t is c for c in carry) else t
+                        for t in new)
+            k = k.to(torch.float64)
+            acc_n = torch.stack([acc[0] + k,
+                                 torch.maximum(acc[1],
+                                               relres.to(torch.float64)),
+                                 acc[2] + box[0][0],
+                                 torch.maximum(acc[3], k)])
+            return new + (n + 1, acc_n, None, None)
+
+        bufs = self.carry + (self.n, self.acc) + consts
+        t = time.perf_counter()
+        if capture:
+            # the warm-up: a step whose solve runs one masked iteration
+            # launches every kernel the program holds
+            _side_stream(lambda: body(bufs, 1))
+        self.program = Program(lambda g0, *b: body(b, self.budget), bufs,
+                               capture, store)
+        self.capture_seconds = time.perf_counter() - t if capture else 0.0
+
+    def run(self, carry, n: int, m: int, keep: Callable, j0: int):
+        """``m`` steps from ``carry`` at global step ``n``, accumulators
+        zero; ``keep(j, carry)`` after the scan's step j (from ``j0``)."""
+        for buf, t in zip(self.carry, carry):
+            buf.copy_(t)
+        self.n.fill_(int(n))
+        self.acc.zero_()
+        for j in range(j0, j0 + m):
+            self.program.run()
+            keep(j, self.carry)
+
+
+def run_steps(step: Callable, per_step, carry, step0: int, num_steps: int,
+              keep: Callable, j0: int = 0):
+    """Steps ``j0`` … ``j0 + num_steps − 1`` of a scan one at a time, each
+    solved by ``per_step``.  Returns (carry, iterations, max relres, the
+    most iterations of one step)."""
+    iters, res, kmax = 0, 0.0, 0
+    for j in range(j0, j0 + num_steps):
+        carry, k, r = step(carry, step0 + j, per_step)
+        keep(j, carry)
+        iters, res, kmax = iters + int(k), max(res, float(r)), max(kmax,
+                                                                   int(k))
+    return carry, iters, res, kmax
+
+
+def step_budget(k) -> Optional[int]:
+    """The budget after a chunk whose worst step took ``k`` iterations:
+    ``k`` rounded up to whole ``STEP_BLOCK`` s, at least one block; None
+    (the next chunk step by step) past ``STEP_BUDGET_MAX``."""
+    budget = max(1, -(-int(k) // STEP_BLOCK)) * STEP_BLOCK
+    return budget if budget <= STEP_BUDGET_MAX else None
+
+
+def scan_chunks(num_steps: int, first: bool = False) -> list:
+    """The chunks (steps between reads) of ``num_steps`` steps: with
+    ``first`` (a scan with no step program yet) its first step alone, then
+    ``SCAN_CHUNK`` steps each, the last what is left."""
+    out = [min(1, num_steps)] if first else []
+    rest = num_steps - sum(out)
+    out += [SCAN_CHUNK] * (rest // SCAN_CHUNK)
+    return out + ([rest % SCAN_CHUNK] if rest % SCAN_CHUNK else [])
+
+
+def run_scan(store: GraphStore, key, step: Callable, program, per_step,
+             carry, tol: float, maxiter: int, step0: int, num_steps: int,
+             keep: Callable):
+    """``num_steps`` steps of a scan from ``carry`` at global step
+    ``step0`` through the :class:`StepLoop` of ``key`` in ``store``.
+
+    ``step`` and ``program`` as :class:`StepLoop` takes them; ``per_step``
+    solves a step on its own (``solve(b, x0)`` → (x, iterations, relres)
+    with a read a block), for a chunk with no budget and for a rerun;
+    ``keep(j, carry)`` is called after the scan's step j (0-based) with
+    the carry it left, to copy frames.  ``key[0]`` names the scan in
+    ``HOST_READS``.  Returns (the final carry, a :class:`ScanTally`)."""
+    if _PER_STEP:
+        carry, k, r, _ = run_steps(step, per_step, carry, step0, num_steps,
+                                   keep)
+        return carry, ScanTally(k, r)
+    loop, tally, done = store.get(key), ScanTally(), 0
+    budget = None if loop is None else loop.budget
+    for m in scan_chunks(num_steps, first=loop is None):
+        if budget is None:
+            carry, k, r, kmax = run_steps(step, per_step, carry, step0, m,
+                                          keep, done)
+            tally = tally.plus(ScanTally(k, r, stepwise=1))
+        else:
+            if loop is None or loop.budget != budget:
+                loop = StepLoop(step, program, carry, tol, maxiter, budget,
+                                captures(carry[0].device), store)
+                store.put(key, loop)
+                tally = tally.plus(ScanTally(
+                    capture_seconds=loop.capture_seconds))
+            loop.run(carry, step0 + done, m, keep, done)
+            count_read(key[0])
+            k, r, over, kmax = loop.acc.tolist()
+            past = m * budget - int(k)
+            if over:
+                # a step outran the budget: the chunk again, step by step
+                count_read(key[0] + "_redo")
+                carry, k, r, kmax = run_steps(step, per_step, carry, step0,
+                                              m, keep, done)
+            else:
+                carry = tuple(t.clone() for t in loop.carry)
+            tally = tally.plus(ScanTally(int(k), r, int(over > 0),
+                                         past=past))
+        done += m
+        budget = step_budget(kmax)
+        if budget is None and loop is not None:
+            # a program is kept only while the scan's steps fit the cap
+            store.put(key, None)
+            loop = None
+    return carry, tally

@@ -338,7 +338,7 @@ def _dot(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 # 32 a block keeps its reads few at an average 16 masked iterations; a
 # warm-started step solve of a scan takes a handful (``STEP_BLOCK``).
 CG_BLOCK = 32
-STEP_BLOCK = 8
+STEP_BLOCK = device_loop.STEP_BLOCK
 
 
 def _where1(t: torch.Tensor) -> torch.Tensor:
@@ -522,12 +522,13 @@ def _mg_cache_key(mesh: StructuredMesh, vdim: int, prec: str,
     # the routing bakes into the built hierarchy's operators, and its
     # tensors live on one device: an entry of another routing or device
     # would silently keep the old kernels or hand over foreign tensors.
-    # The routing is PDE_TPU_CS, the bf16-smoother switch and the two size
-    # gates.
-    from pde_solver_tpu_torch.ops.multigrid import bf16_smoother
+    # The routing is PDE_TPU_CS, the bf16-smoother switch and the three
+    # size gates.
+    from pde_solver_tpu_torch.ops.multigrid import (BF16_MIN_DOF,
+                                                    bf16_smoother)
 
     routing = (cs_kernels.cs_mode(), bf16_smoother(), cs_kernels.CS_MIN_DOF,
-               stencil_kernels.KERNEL_MIN_DOF)
+               stencil_kernels.KERNEL_MIN_DOF, BF16_MIN_DOF)
     return (mesh.node_shape, vdim, prec, sysm.offsets, routing, str(device),
             h.hexdigest())
 

@@ -9,9 +9,9 @@ exact dense coarsest inverse, a Chebyshev-smoothed V-cycle, flexible MG-PCG
 
 A float32 level applies through :class:`FlatStencilOperator` (the CUDA
 kernel on the card, its plain torch version on the CPU) while its DOF count
-is at least ``KERNEL_MIN_DOF``: float32 weights for true residuals and a
-bfloat16 copy for the smoother (``PDE_TPU_BF16_SMOOTHER=0``: the float32
-operator smooths too).  With ``PDE_TPU_CS`` on, a level whose stencil is
+is at least ``KERNEL_MIN_DOF``: float32 weights for true residuals and,
+from ``BF16_MIN_DOF`` unknowns up, a bfloat16 copy for the smoother
+(``PDE_TPU_BF16_SMOOTHER=0``: the float32 operator smooths too).  With ``PDE_TPU_CS`` on, a level whose stencil is
 constant-interior applies through :class:`CSFlatStencilOperator` instead,
 as the reference routes it.  Smoothing and the PCG state live in the flat
 ``[v, N]`` layout; grid layout only at the transfer boundary.  A float64
@@ -219,6 +219,13 @@ class _ShapeOnlyMesh:
         self.dim = len(self.node_shape)
 
 
+# The reference makes its bf16 smoother copy only on the levels its flat
+# kernel takes (``pallas_wins``: ``PALLAS_MIN_DOF`` = 65,536 unknowns); a
+# smaller level smooths with its float32 weights.  Below this gate a bf16
+# copy made the float32 MG-PCG with resync stall on the 16×8×8 cantilever.
+BF16_MIN_DOF = 65_536
+
+
 def bf16_smoother() -> bool:
     """``PDE_TPU_BF16_SMOOTHER`` as the reference reads it: anything but
     "0"/"off" smooths dense float32 levels with a bfloat16 weight copy."""
@@ -231,7 +238,8 @@ def _to_level(sysm: ScaledSystem, mesh, vdim: int, device,
               use_kernel: bool = True) -> MGLevel:
     """One MG level's device operators from a scaled system.  A float32
     level of at least ``KERNEL_MIN_DOF`` unknowns gets the kernel-backed
-    operator plus its bf16 smoother copy (cast on the device); any other
+    operator, plus its bf16 smoother copy (cast on the device) from
+    ``BF16_MIN_DOF`` unknowns up, as the reference's; any other
     level (float64, below the gate, or ``use_kernel=False``) plain
     per-offset tensors in ``dtype`` — the reference's gate ``use_pallas
     and dtype == float32``.  A sharded hierarchy is built with
@@ -272,7 +280,7 @@ def _to_level(sysm: ScaledSystem, mesh, vdim: int, device,
         else:
             w = FlatStencilOperator(sysm.offsets, w_src,
                                     mesh.node_shape, vdim=vdim, device=device)
-            if bf16_smoother():
+            if bf16_smoother() and n_dof >= BF16_MIN_DOF:
                 w_lo = w.as_weight_dtype(torch.bfloat16)
     else:
         w = tuple(torch.tensor(W, dtype=dtype, device=device)
@@ -622,7 +630,7 @@ def v_cycle(h: MGHierarchy, r_hat: torch.Tensor, level: int = 0,
 # takes a handful of iterations (heat 3D 128³: 6.1), so 8 keeps a step to
 # one block and one read.
 PCG_BLOCK = 16
-STEP_BLOCK = 8
+STEP_BLOCK = device_loop.STEP_BLOCK
 
 
 def _pcg_program(h: MGHierarchy, resync_every: int):

@@ -11,13 +11,19 @@ the host (``ops.linsolve.prepare_system``); each step solves the scaled
 unit-diagonal system from a warm start — by MG-PCG when the system has at
 least ``resolved_transient_mg_threshold()`` DOF and a level builder, else
 by plain CG on the flat operator (dense, or constant-interior with
-``PDE_TPU_CS``).  The reference's ``lax.scan`` becomes a Python loop over
-steps whose step solve is a device loop (``ops.device_loop``: masked blocks
-of ``STEP_BLOCK`` iterations, captured on the card, one read a block, the
-graphs kept for the whole scan in the operands' ``graphs`` store); the
-iterations and the worst relres come with that read, so the scan adds no
-read of its own.  The kept frames stack on the device and come back to the
-host once, whole and at float32.
+``PDE_TPU_CS``).  The reference's ``lax.scan`` becomes a step program
+(``ops.device_loop.StepLoop``): the step's body, its step solve as a fixed
+budget of masked iterations and the carry update, captured once on the
+card and replayed once a step with no read.  The first step is solved on
+its own (a device loop with a read a block) and sets the budget; the host
+reads the iterations, the worst relres and an overflow count once every
+``SCAN_CHUNK`` steps after it, and sets the budget for the next chunk from
+the worst step read (``device_loop.step_budget``); a chunk after one whose
+worst step passed the cap runs step by step.  A chunk in which a step
+outran the budget runs again step by step from the carry it started with
+and is counted as a rerun.  The graphs live for the whole
+scan in the operands' ``graphs`` store.  The kept frames are copied on the device
+after their step and come back to the host once, whole.
 
 Like the reference, "mixed" precision runs the scan in float32 (implicit
 stepping is contractive and every step is solved to
@@ -71,7 +77,8 @@ from pde_solver_tpu_torch.config import SolverConfig, get_config
 from pde_solver_tpu_torch.mesh import StructuredMesh
 from pde_solver_tpu_torch.ops.bc import DirichletBC
 from pde_solver_tpu_torch.ops import device_loop
-from pde_solver_tpu_torch.ops.linsolve import (STEP_BLOCK, _cg_unit_diag,
+from pde_solver_tpu_torch.ops.linsolve import (STEP_BLOCK, _cg_program,
+                                               _cg_unit_diag,
                                                _static_flat_op,
                                                _stencil_apply,
                                                np_stencil_apply,
@@ -90,6 +97,24 @@ class TransientResult(NamedTuple):
     scan_seconds: float = 0.0   # the stepping loop (throughput =
                                 # num_steps / scan_seconds)
     fetch_seconds: float = 0.0  # trajectory device → host
+    scan_reruns: int = 0        # chunks run again step by step (a step
+                                # outran the step program's budget)
+    scan_stepwise_chunks: int = 0   # chunks run step by step with no
+                                    # budget (the first step; after a
+                                    # step past the budget's cap)
+    scan_past_iterations: int = 0   # masked iterations the step programs
+                                    # ran past their step's convergence
+    scan_capture_seconds: float = 0.0   # warming up and capturing them
+
+
+def _tallied(tally: device_loop.ScanTally) -> Dict:
+    """A result's fields from its scans' tally."""
+    return dict(total_cg_iterations=tally.iterations,
+                max_relative_residual=tally.relres,
+                scan_reruns=tally.reruns,
+                scan_stepwise_chunks=tally.stepwise,
+                scan_past_iterations=tally.past,
+                scan_capture_seconds=tally.capture_seconds)
 
 
 def _combine(K: Dict, M: Dict, alpha: float, beta: float) -> Dict:
@@ -149,20 +174,65 @@ class _StepOperands(NamedTuple):
     b_src: torch.Tensor        # Δt·b
     scale_ops: tuple           # (to_hat_b, to_hat_x, from_hat_x)
     C_w: Optional[tuple]       # Δt·C for CNAB2, else None
-    tmod: Optional[tuple]      # (b1, g1, Ag1, omega, phase, dt, theta)
+    tmod: Optional[tuple]      # (b1, g1, Ag1, table [steps, 2])
     inner_tol: float
     maxiter: int
     grid_dim: int
     vdim: int
     h: object = None           # MG hierarchy of the implicit operator
-    graphs: object = None      # the CG step solve's captured loops
+    graphs: object = None      # the scan's step programs, and the CG
+                               # step solve's captured loops
 
 
-def _transient_step_body(ops: _StepOperands, mode: str, u, u_prev, n: int):
+def _sinusoid_table(omega: float, phase: float, dt: float, theta: float,
+                    num_steps: int) -> np.ndarray:
+    """Per step n the driving's weights [θ s(t_{n+1}) + (1−θ) s(t_n),
+    s(t_{n+1})], s(t) = sin(ωt + φ), in float64 on the host (the reference
+    evaluates them in the state's dtype)."""
+    steps = range(int(num_steps))
+    s_n = np.array([math.sin(omega * (k * dt) + phase) for k in steps])
+    s_np1 = np.array([math.sin(omega * (k * dt + dt) + phase)
+                      for k in steps])
+    return np.stack([theta * s_np1 + (1.0 - theta) * s_n, s_np1], axis=1)
+
+
+def _row(table: torch.Tensor, n) -> torch.Tensor:
+    """Row ``n`` of a per-step table: ``n`` a host integer, or the step
+    program's device step counter (read on the device, no sync)."""
+    if torch.is_tensor(n):
+        return table.index_select(0, n.reshape(1))[0]
+    return table[n]
+
+
+def _step_solvers(ops, A):
+    """(per-step solve, masked loop) of a scan's step solve: MG-PCG on
+    ``ops.h``, else CG on ``A``.  The per-step solve runs its device loop
+    in blocks of ``STEP_BLOCK`` with a read a block; the masked loop is
+    what a step program inlines."""
+    if ops.h is not None:
+        from pde_solver_tpu_torch.ops import multigrid as mg
+
+        def per_step(b, x0):
+            # resync_every=0: warm-started step solves take a handful of
+            # iterations and do not drift (the reference's choice)
+            return mg.mg_pcg(ops.h, b, x0, ops.inner_tol, ops.maxiter,
+                             resync_every=0)
+        return per_step, mg._pcg_program(ops.h, 0)
+
+    def per_step(b, x0):
+        return _cg_unit_diag(ops.offsets, A, b, x0, ops.inner_tol,
+                             ops.maxiter, ops.grid_dim, ops.vdim,
+                             block=STEP_BLOCK, graphs=ops.graphs)
+    return per_step, _cg_program(ops.offsets, A, ops.grid_dim, ops.vdim)
+
+
+def _transient_step_body(ops: _StepOperands, mode: str, u, u_prev, n,
+                         solve):
     """One implicit θ-step n → n+1 on the scaled system; returns
     (u_new, iterations, relres).  ``mode``: "f64" (CG on ``A64``) or "f32"
-    (CG on ``A32``); with a hierarchy either mode solves by MG-PCG.  ``n``
-    is a host integer, so the sinusoid costs no sync."""
+    (CG on ``A32``); with a hierarchy either mode solves by MG-PCG, through
+    ``solve(b̂, x̂0)`` (one of :func:`_step_solvers`).  ``n`` is a host
+    integer or the step program's device counter."""
     d, vdim, offsets = ops.grid_dim, ops.vdim, ops.offsets
     to_hat_b, to_hat_x, from_hat_x = ops.scale_ops
     rhs = _stencil_apply(offsets, ops.B_w, u, d, vdim) + ops.b_src
@@ -170,15 +240,14 @@ def _transient_step_body(ops: _StepOperands, mode: str, u, u_prev, n: int):
     if ops.tmod is not None:
         # b(t) enters the θ-scheme as Δt·[θ s(t_{n+1}) + (1−θ) s(t_n)]·b1;
         # Dirichlet data g(t) is enforced at the new time level, its lift
-        # A·g(t) scaling with the same sinusoid.  Evaluated on the host in
-        # float64 (the reference evaluates it in the state's dtype)
-        b1, g1, Ag1, omega, phase, dt, theta = ops.tmod
-        s_n = math.sin(omega * (n * dt) + phase)
-        s_np1 = math.sin(omega * (n * dt + dt) + phase)
+        # A·g(t) scaling with the same sinusoid (the weights: row n of the
+        # table, :func:`_sinusoid_table`)
+        b1, g1, Ag1, table = ops.tmod
+        w = _row(table, n)
         if b1 is not None:
-            rhs = rhs + (theta * s_np1 + (1.0 - theta) * s_n) * b1
+            rhs = rhs + w[0] * b1
         if g1 is not None:
-            Ag_t, g_t = ops.Ag + s_np1 * Ag1, ops.g + s_np1 * g1
+            Ag_t, g_t = ops.Ag + w[1] * Ag1, ops.g + w[1] * g1
     if ops.C_w is not None:
         # CNAB2: Adams-Bashforth-2 extrapolation of the convection term
         # (C_w is pre-scaled by Δt); u_prev = u0 makes the first step AB1
@@ -186,41 +255,38 @@ def _transient_step_body(ops: _StepOperands, mode: str, u, u_prev, n: int):
                      - 0.5 * _stencil_apply(offsets, ops.C_w, u_prev, d,
                                             vdim))
     b_hat = to_hat_b(ops.free * (rhs - Ag_t) + g_t)
-    x0_hat = to_hat_x(u)
-    if ops.h is not None:
-        from pde_solver_tpu_torch.ops import multigrid as mg
-
-        # resync_every=0: warm-started step solves take a handful of
-        # iterations and do not drift (the reference's choice)
-        xh, k, relres = mg.mg_pcg(ops.h, b_hat, x0_hat, ops.inner_tol,
-                                  ops.maxiter, resync_every=0)
-    else:
-        xh, k, relres = _cg_unit_diag(
-            offsets, ops.A64 if mode == "f64" else ops.A32, b_hat, x0_hat,
-            ops.inner_tol, ops.maxiter, d, vdim, block=STEP_BLOCK,
-            graphs=ops.graphs)
+    xh, k, relres = solve(b_hat, to_hat_x(u))
     return from_hat_x(xh), k, relres
 
 
 def _transient_scan(ops: _StepOperands, mode: str, u, u_prev, step0: int,
                     num_steps: int, snap_every: int, snap_dtype):
-    """``num_steps`` steps from global step ``step0``, keeping the state
-    after every ``snap_every``-th one.  Returns (frames [num_steps //
-    snap_every, ...] in ``snap_dtype``, u, u_prev, iterations, max relres);
-    ``u_prev`` None seeds the CNAB2 history with u."""
-    u_prev = u if u_prev is None else u_prev
+    """``num_steps`` steps from global step ``step0`` through the step
+    program (``device_loop.run_scan``), keeping the state after every
+    ``snap_every``-th one.  Returns (frames [num_steps // snap_every, ...]
+    in ``snap_dtype``, u, u_prev, its ``device_loop.ScanTally``).  The
+    carry is u, and (u_prev, u) for CNAB2, whose ``u_prev`` None seeds the
+    history with u; the u_prev returned is None without CNAB2."""
+    cnab2 = ops.C_w is not None
+    carry = (u if u_prev is None else u_prev, u) if cnab2 else (u,)
     snaps = torch.empty((num_steps // snap_every,) + tuple(u.shape),
                         dtype=snap_dtype, device=u.device)
-    iters, res = 0, 0.0
-    for j in range(1, num_steps + 1):
-        u_new, k, relres = _transient_step_body(ops, mode, u, u_prev,
-                                                step0 + j - 1)
-        u_prev, u = u, u_new
-        iters += k
-        res = max(res, relres)
-        if j % snap_every == 0:
-            snaps[j // snap_every - 1] = u
-    return snaps, u, u_prev, iters, res
+
+    def step(c, n, solve):
+        u_new, k, relres = _transient_step_body(ops, mode, c[-1], c[0], n,
+                                                solve)
+        return ((c[-1], u_new) if cnab2 else (u_new,)), k, relres
+
+    def keep(j, c):
+        if (j + 1) % snap_every == 0:
+            snaps[(j + 1) // snap_every - 1].copy_(c[-1])
+
+    per_step, program = _step_solvers(
+        ops, ops.A64 if mode == "f64" else ops.A32)
+    c, tally = device_loop.run_scan(
+        ops.graphs, ("scan", mode), step, program, per_step, carry,
+        ops.inner_tol, ops.maxiter, step0, num_steps, keep)
+    return snaps, c[-1], (c[0] if cnab2 else None), tally
 
 
 def _frames(snaps: torch.Tensor) -> np.ndarray:
@@ -264,8 +330,9 @@ def run_transient(
     amplitude b1: b(t) = b0 + sin(ωt+φ)·b1) and/or ``bc_amp_values``
     (node-shaped Dirichlet amplitude: g(t) = g0 + sin(ωt+φ)·g_amp on
     constrained DOFs).  The sinusoid is evaluated on the host in float64
-    per step (the reference evaluates it in the float32 state type; the
-    two differ by ~1e-7 relative).
+    for every step (a table the step program reads at its step counter;
+    the reference evaluates it in the float32 state type; the two differ
+    by ~1e-7 relative).
 
     Precision: "f64" steps a float64 state with float64 weights to
     ``cfg.tol``; "f32" and "mixed" step a float32 state to
@@ -390,8 +457,9 @@ def run_transient(
     if time_mod:
         tmod = tuple(None if a is None else dev(a)
                      for a in (b1_np, g1_np, Ag1_np)) + (
-            float(time_mod["omega"]), float(time_mod.get("phase", 0.0)),
-            float(dt), float(theta))
+            dev(_sinusoid_table(float(time_mod["omega"]),
+                                float(time_mod.get("phase", 0.0)),
+                                float(dt), float(theta), num_steps)),)
     ops = _StepOperands(
         offsets, A32, A64, tuple(dev(W) for W in B_list), dev(free_np),
         dev(gvals), dev(Ag_np), dev(dt * np.asarray(b_source_np, np.float64)),
@@ -440,15 +508,15 @@ def run_transient(
     # the frames kept: every snap_every-th step, and the final state always
     t_scan = time.perf_counter()
     main = (num_steps // snap_every) * snap_every
-    snaps, u, u_prev, iters, res = _transient_scan(
+    snaps, u, u_prev, tally = _transient_scan(
         ops, prec, u, None, 0, main, snap_every, snap_dtype)
     times = [dt * snap_every * (j + 1) for j in range(main // snap_every)]
     last = None
     if main < num_steps:
-        last, u, _, k2, res2 = _transient_scan(
+        last, u, _, t2 = _transient_scan(
             ops, prec, u, u_prev, main, num_steps - main, num_steps - main,
             snap_dtype)
-        iters, res = iters + k2, max(res, res2)
+        tally = tally.plus(t2)
         times.append(dt * num_steps)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -462,15 +530,17 @@ def run_transient(
     fetch_s = time.perf_counter() - t_fetch
     get_logger().info("transient: %d steps, %d CG iterations, max relres "
                       "%.3e, setup %.3fs, scan %.3fs, fetch %.3fs (%d DOF, "
-                      "%s, %s step solves)", num_steps, iters, res, setup_s,
+                      "%s, %s step solves; step programs: %d reruns, %d "
+                      "chunks step by step, %d masked iterations past "
+                      "convergence, capture %.3fs)",
+                      num_steps, tally.iterations, tally.relres, setup_s,
                       scan_s, fetch_s, n, prec,
-                      "MG-PCG" if h is not None else "CG")
+                      "MG-PCG" if h is not None else "CG", tally.reruns,
+                      tally.stepwise, tally.past, tally.capture_seconds)
     return TransientResult(values=values,
                            times=np.asarray([0.0] + times, np.float64),
-                           total_cg_iterations=iters,
-                           max_relative_residual=res,
                            setup_seconds=setup_s, scan_seconds=scan_s,
-                           fetch_seconds=fetch_s)
+                           fetch_seconds=fetch_s, **_tallied(tally))
 
 
 # ----------------------------------------------------------------------
@@ -555,16 +625,17 @@ def _run_transient_checkpointed(ops: _StepOperands, prec: str, u0,
             get_logger().warning("unreadable checkpoint %s (%s) — "
                                  "recomputing from step 0", path, e)
             frames, snap_steps, start, iters, res, u, u_prev = fresh()
+    tally = device_loop.ScanTally(iters, res)
     chunks_done = 0
     fetch_s = 0.0
     main = start + ((num_steps - start) // snap_every) * snap_every
     while start < main:
         n = min(every, main - start)
-        snaps, u, u_prev_f, k, r = _transient_scan(
+        snaps, u, u_prev_f, t = _transient_scan(
             ops, prec, u, u_prev, start, n, snap_every, snap_dtype)
         if cnab2:
             u_prev = u_prev_f
-        iters, res = iters + k, max(res, r)
+        tally = tally.plus(t)
         t_f = time.perf_counter()
         frames.append(_frames(snaps))
         fetch_s += time.perf_counter() - t_f
@@ -577,7 +648,7 @@ def _run_transient_checkpointed(ops: _StepOperands, prec: str, u0,
             cfg, path, snaps=np.concatenate(frames[1:], axis=0).astype(
                 np.float32 if snap_dtype == torch.float32 else np.float64),
             snap_steps=np.asarray(snap_steps, np.int64), carry=_host(u),
-            step=start, iters=iters, res=res, **extra)
+            step=start, iters=tally.iterations, res=tally.relres, **extra)
         chunks_done += 1
         if _CKPT_TEST_ABORT and chunks_done >= _CKPT_TEST_ABORT \
                 and start < num_steps:
@@ -586,9 +657,9 @@ def _run_transient_checkpointed(ops: _StepOperands, prec: str, u0,
         # the last sub-interval (num_steps not a multiple of snap_every):
         # step to the end and keep only the final state
         rem = num_steps - start
-        last, u, _, k, r = _transient_scan(ops, prec, u, u_prev, start, rem,
-                                           rem, snap_dtype)
-        iters, res = iters + k, max(res, r)
+        last, u, _, t = _transient_scan(ops, prec, u, u_prev, start, rem,
+                                        rem, snap_dtype)
+        tally = tally.plus(t)
         t_f = time.perf_counter()
         frames.append(_frames(last))
         fetch_s += time.perf_counter() - t_f
@@ -600,10 +671,9 @@ def _run_transient_checkpointed(ops: _StepOperands, prec: str, u0,
     return TransientResult(
         values=np.concatenate(frames, axis=0),
         times=dt * np.asarray([0] + snap_steps, dtype=np.float64),
-        total_cg_iterations=iters, max_relative_residual=res,
         setup_seconds=setup_s,
         scan_seconds=time.perf_counter() - t_scan - fetch_s,
-        fetch_seconds=fetch_s)
+        fetch_seconds=fetch_s, **_tallied(tally))
 
 
 # ----------------------------------------------------------------------
@@ -619,6 +689,10 @@ class NewmarkResult(NamedTuple):
     setup_seconds: float = 0.0  # host system prep + a0 + MG hierarchy
     scan_seconds: float = 0.0   # the stepping loop
     fetch_seconds: float = 0.0  # both trajectories device → host
+    scan_reruns: int = 0        # these four as TransientResult's
+    scan_stepwise_chunks: int = 0
+    scan_past_iterations: int = 0
+    scan_capture_seconds: float = 0.0
 
 
 class _NewmarkOperands(NamedTuple):
@@ -638,14 +712,16 @@ class _NewmarkOperands(NamedTuple):
     grid_dim: int
     vdim: int
     h: object = None           # MG hierarchy of A_eff
-    graphs: object = None      # the CG step solve's captured loops
+    graphs: object = None      # the scan's step programs, and the CG
+                               # step solve's captured loops
 
 
 def _newmark_scan(ops: _NewmarkOperands, u, v, a, num_steps: int,
                   snap_dtype):
-    """``num_steps`` Newmark steps from the carry (u, v, a).  Returns
-    (displacements, velocities) [num_steps, ...] in ``snap_dtype``, the
-    final carry at full precision, iterations and max relres."""
+    """``num_steps`` Newmark steps from the carry (u, v, a) through the
+    step program (``device_loop.run_scan``).  Returns (displacements,
+    velocities) [num_steps, ...] in ``snap_dtype``, the final carry at full
+    precision and its ``device_loop.ScanTally``."""
     d, vdim, offsets = ops.grid_dim, ops.vdim, ops.offsets
     to_hat_b, to_hat_x, from_hat_x = ops.scale_ops
     dt, gamma = ops.dt, ops.gamma
@@ -654,30 +730,27 @@ def _newmark_scan(ops: _NewmarkOperands, u, v, a, num_steps: int,
     us = torch.empty((num_steps,) + tuple(u.shape), dtype=snap_dtype,
                      device=u.device)
     vs = torch.empty_like(us)
-    iters, res = 0, 0.0
-    for j in range(num_steps):
+
+    def step(c, n, solve):
+        u, v, a = c
         u_pred = u + dt * v + c1 * a
         bt = ops.free * (ops.f_ext - _stencil_apply(offsets, ops.K_w, u_pred,
                                                     d, vdim))
-        if ops.h is not None:
-            from pde_solver_tpu_torch.ops import multigrid as mg
-
-            xh, k, relres = mg.mg_pcg(ops.h, to_hat_b(bt), to_hat_x(a),
-                                      ops.inner_tol, ops.maxiter,
-                                      resync_every=0)
-        else:
-            xh, k, relres = _cg_unit_diag(offsets, ops.A_w, to_hat_b(bt),
-                                          to_hat_x(a), ops.inner_tol,
-                                          ops.maxiter, d, vdim,
-                                          block=STEP_BLOCK, graphs=ops.graphs)
+        xh, k, relres = solve(to_hat_b(bt), to_hat_x(a))
         a_new = ops.free * from_hat_x(xh)
-        u = u_pred + c2 * a_new
-        v = v + dt * ((1.0 - gamma) * a + gamma * a_new)
-        a = a_new
-        us[j], vs[j] = u, v
-        iters += k
-        res = max(res, relres)
-    return us, vs, (u, v, a), iters, res
+        return ((u_pred + c2 * a_new,
+                 v + dt * ((1.0 - gamma) * a + gamma * a_new), a_new),
+                k, relres)
+
+    def keep(j, c):
+        us[j].copy_(c[0])
+        vs[j].copy_(c[1])
+
+    per_step, program = _step_solvers(ops, ops.A_w)
+    carry, tally = device_loop.run_scan(
+        ops.graphs, ("scan", "newmark"), step, program, per_step, (u, v, a),
+        ops.inner_tol, ops.maxiter, 0, num_steps, keep)
+    return us, vs, carry, tally
 
 
 def run_newmark(
@@ -845,7 +918,7 @@ def run_newmark(
                                          hsh.hexdigest(), snap_dtype)
 
     t_scan = time.perf_counter()
-    us, vs, _, iters, res = _newmark_scan(ops, u, v, a, num_steps, snap_dtype)
+    us, vs, _, tally = _newmark_scan(ops, u, v, a, num_steps, snap_dtype)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     scan_s = time.perf_counter() - t_scan
@@ -858,15 +931,18 @@ def run_newmark(
     fetch_s = time.perf_counter() - t_fetch
     get_logger().info("newmark: %d steps, %d CG iterations, max relres "
                       "%.3e, setup %.3fs, scan %.3fs, fetch %.3fs (%d DOF, "
-                      "%s, %s step solves)", num_steps, iters, res, setup_s,
+                      "%s, %s step solves; step programs: %d reruns, %d "
+                      "chunks step by step, %d masked iterations past "
+                      "convergence, capture %.3fs)",
+                      num_steps, tally.iterations, tally.relres, setup_s,
                       scan_s, fetch_s, n, prec,
-                      "MG-PCG" if h is not None else "CG")
+                      "MG-PCG" if h is not None else "CG", tally.reruns,
+                      tally.stepwise, tally.past, tally.capture_seconds)
     return NewmarkResult(values=values, velocities=vels,
                          times=dt * np.arange(num_steps + 1,
                                               dtype=np.float64),
-                         total_cg_iterations=iters,
-                         max_relative_residual=res, setup_seconds=setup_s,
-                         scan_seconds=scan_s, fetch_seconds=fetch_s)
+                         setup_seconds=setup_s, scan_seconds=scan_s,
+                         fetch_seconds=fetch_s, **_tallied(tally))
 
 
 def _run_newmark_checkpointed(ops: _NewmarkOperands, carry0, num_steps: int,
@@ -913,13 +989,14 @@ def _run_newmark_checkpointed(ops: _NewmarkOperands, carry0, num_steps: int,
             get_logger().warning("unreadable checkpoint %s (%s) — "
                                  "recomputing from step 0", path, e)
             u_frames, v_frames, start, iters, res, carry = fresh()
+    tally = device_loop.ScanTally(iters, res)
     chunks_done = 0
     fetch_s = 0.0
     snap_np = np.float32 if snap_dtype == torch.float32 else np.float64
     while start < num_steps:
         n = min(every, num_steps - start)
-        us, vs, carry, k, r = _newmark_scan(ops, *carry, n, snap_dtype)
-        iters, res = iters + k, max(res, r)
+        us, vs, carry, t = _newmark_scan(ops, *carry, n, snap_dtype)
+        tally = tally.plus(t)
         t_f = time.perf_counter()
         u_frames.append(_frames(us))
         v_frames.append(_frames(vs))
@@ -930,7 +1007,7 @@ def _run_newmark_checkpointed(ops: _NewmarkOperands, carry0, num_steps: int,
             us=np.concatenate(u_frames[1:], axis=0).astype(snap_np),
             vs=np.concatenate(v_frames[1:], axis=0).astype(snap_np),
             u=_host(carry[0]), v=_host(carry[1]), a=_host(carry[2]),
-            step=start, iters=iters, res=res)
+            step=start, iters=tally.iterations, res=tally.relres)
         chunks_done += 1
         if _CKPT_TEST_ABORT and chunks_done >= _CKPT_TEST_ABORT \
                 and start < num_steps:
@@ -943,7 +1020,6 @@ def _run_newmark_checkpointed(ops: _NewmarkOperands, carry0, num_steps: int,
         values=np.concatenate(u_frames, axis=0),
         velocities=np.concatenate(v_frames, axis=0),
         times=ops.dt * np.arange(num_steps + 1, dtype=np.float64),
-        total_cg_iterations=iters, max_relative_residual=res,
         setup_seconds=setup_s,
         scan_seconds=time.perf_counter() - t_scan - fetch_s,
-        fetch_seconds=fetch_s)
+        fetch_seconds=fetch_s, **_tallied(tally))

@@ -7,13 +7,14 @@ Runs ``api.solve_heat_3D(nx=ny=nz=n, num_steps=steps)`` (every other
 argument at its default) of the PyTorch/CUDA port four times unprofiled,
 with ``PDE_TPU_CS`` 0, 1, 0, 1, and prints each run's setup, scan and fetch
 seconds.  Then it runs each route once under ``torch.profiler`` (CPU and
-CUDA), with every step solve marked by ``record_function("step_solve")``,
-and prints the device time of the kernels that started within the step
-solves, summed per kernel, and that total as a share of the unprofiled
-scans.  Every device copy of at least 1 ms in that span is kept out of
-those sums and listed with its start after the first step solve began,
-whether it started within a step solve, and the port's Python frames of the
-CPU operator that was running when it started.  The per-kernel table goes to ``build/profile_heat.json``
+CUDA), with the scan (``timestepping._transient_scan``: its step programs
+and reads) marked by ``record_function("scan")``, and prints the device
+time of the kernels that started within the scan, summed per kernel, and
+that total as a share of the unprofiled scans.  Every device copy of at
+least 1 ms in that span is kept out of those sums and listed with its
+start after the scan began, whether it started within a marked scan, and
+the port's Python frames of the CPU operator that was running when it
+started.  The per-kernel table goes to ``build/profile_heat.json``
 as well.
 Needs a CUDA card; writes only under ``build/``.
 """
@@ -26,7 +27,7 @@ import os
 import sys
 import time
 
-MARK = "step_solve"
+MARK = "scan"
 
 
 def solve(api, config_overrides, cs: str, n: int, steps: int, data_dir: str):
@@ -39,7 +40,7 @@ def solve(api, config_overrides, cs: str, n: int, steps: int, data_dir: str):
 
 
 def kernel_table(prof, min_copy_ms: float = 1.0):
-    """Device kernels that started within the marked step solves:
+    """Device kernels that started within the marked scans:
     {name: [ms, launches]}, and the marked span in ms.  Copies of at least
     ``min_copy_ms`` are left out (``long_copies`` lists them): the one such
     copy is the trajectory's fetch after the last step, whose start on the
@@ -68,8 +69,8 @@ def kernel_table(prof, min_copy_ms: float = 1.0):
 
 def long_copies(prof, min_ms: float = 1.0):
     """Device copies of at least ``min_ms`` that started within the span of
-    the marked step solves: (name, ms, start after the span began in ms,
-    inside a step solve?, the package's frames of the innermost CPU operator
+    the marked scans: (name, ms, start after the span began in ms,
+    inside a scan?, the package's frames of the innermost CPU operator
     with a Python stack that was running when the copy started)."""
     from torch.autograd import DeviceType
 
@@ -117,7 +118,7 @@ def main() -> int:
 
     from pde_solver_tpu_torch import api
     from pde_solver_tpu_torch.config import config_overrides
-    from pde_solver_tpu_torch.ops import multigrid as mg
+    from pde_solver_tpu_torch.ops import timestepping
 
     data_dir = os.path.join(build, "profile_heat")
     scans = {"0": [], "1": []}
@@ -131,13 +132,13 @@ def main() -> int:
               f"{st['fetch_seconds']:.4f} s wall {wall:.3f} s iterations "
               f"{st['cg_iterations']}", flush=True)
 
-    orig = mg.mg_pcg
+    orig = timestepping._transient_scan
 
     def marked(*a, **kw):
         with record_function(MARK):
             return orig(*a, **kw)
 
-    mg.mg_pcg = marked
+    timestepping._transient_scan = marked
     out = {"n": args.n, "steps": args.steps, "unprofiled_scan_s": scans,
            "routes": {}}
     for cs in "01":
@@ -149,21 +150,21 @@ def main() -> int:
         total = sum(ms for ms, _ in table.values())
         launches = sum(k for _, k in table.values())
         share = ", ".join(f"{total / 1e3 / s:.3f}" for s in scans[cs])
-        print(f"PDE_TPU_CS={cs} profiled: step solves span {span_ms:.2f} ms; "
+        print(f"PDE_TPU_CS={cs} profiled: scan span {span_ms:.2f} ms; "
               f"device kernels {total:.2f} ms in {launches} launches; "
               f"share of the unprofiled scans: {share}", flush=True)
         for name, (ms, k) in sorted(table.items(), key=lambda kv: -kv[1][0]):
             print(f"  {ms:10.3f} ms {k:7d}  {name[:90]}")
         copies = long_copies(prof)
         for name, ms, at, inside, frames in copies:
-            print(f"  copy {name}: {ms:.3f} ms, {at:.2f} ms after the first "
-                  f"step solve began, {'inside' if inside else 'outside'} a "
-                  f"step solve; running: {' <- '.join(frames) or 'unknown'}",
+            print(f"  copy {name}: {ms:.3f} ms, {at:.2f} ms after the scan "
+                  f"began, {'inside' if inside else 'outside'} the scan; "
+                  f"running: {' <- '.join(frames) or 'unknown'}",
                   flush=True)
         out["routes"][cs] = {"span_ms": span_ms, "kernel_ms": total,
                              "launches": launches, "kernels": table,
                              "copies": copies}
-    mg.mg_pcg = orig
+    timestepping._transient_scan = orig
     os.makedirs(build, exist_ok=True)
     with open(os.path.join(build, "profile_heat.json"), "w") as f:
         json.dump(out, f, indent=1)

@@ -243,3 +243,135 @@ def test_graphs_are_freed_on_cache_eviction(card):
     finally:
         linsolve._MG_CACHE.clear()
         linsolve._MG_CACHE.update(saved)
+
+
+def _heat_scan(num_steps, mg_builder=True, per_step=False):
+    """run_transient on a 40×6×6 heat box through the step program (or the
+    per-step path); returns (result, launches by variant)."""
+    mesh = box_mesh(40, 6, 6, (0, 0, 0), (1.0, 0.2, 0.2))
+    K = assembly.assemble_scalar_stencil(mesh, "stiffness")
+    M = assembly.assemble_scalar_stencil(mesh, "mass")
+    bc = DirichletBC.from_masks([(mesh.boundary_mask(), 0.0)],
+                                mesh.node_shape)
+    u0 = np.full(mesh.node_shape, 20.0)
+
+    def builder(m):
+        return (assembly.assemble_scalar_stencil(m, "stiffness"),
+                assembly.assemble_scalar_stencil(m, "mass"),
+                DirichletBC.from_masks([(m.boundary_mask(), 0.0)],
+                                       m.node_shape))
+
+    sk.reset_launch_counts()
+    with config_overrides(device="cuda", transient_mg_threshold=100,
+                          mg_threshold=100):
+        if per_step:
+            with device_loop._per_step():
+                res = run_transient(K, M, mesh, bc, np.zeros(u0.shape), u0,
+                                    0.01, num_steps,
+                                    mg_level_builder=builder if mg_builder
+                                    else None)
+        else:
+            res = run_transient(K, M, mesh, bc, np.zeros(u0.shape), u0, 0.01,
+                                num_steps,
+                                mg_level_builder=builder if mg_builder
+                                else None)
+    return res, dict(sk.KERNEL_LAUNCHES)
+
+
+@pytest.mark.parametrize("mg_builder", [True, False])
+def test_step_programs_match_per_step_and_count_replays(card, mg_builder,
+                                                        monkeypatch):
+    """The captured step program against the per-step path and against
+    itself uncaptured: the same iterations, the same trajectory; a replay
+    counts the launches one step makes (N more steps add as many launches
+    captured as uncaptured, once the warm-up step each new step program
+    runs before its capture is taken off: a longer scan may change its
+    budget, and so make another program, more often)."""
+    warm = []
+    init = device_loop.StepLoop.__init__
+
+    def counted_init(self, *a, **kw):
+        before = dict(sk.KERNEL_LAUNCHES)
+        init(self, *a, **kw)
+        warm.append({k: n - before.get(k, 0)
+                     for k, n in sk.KERNEL_LAUNCHES.items()})
+
+    monkeypatch.setattr(device_loop.StepLoop, "__init__", counted_init)
+
+    def replayed(num_steps):
+        """_heat_scan's launches less its step programs' warm-ups."""
+        del warm[:]
+        res, launches = _heat_scan(num_steps, mg_builder)
+        for w in warm:
+            for k, n in w.items():
+                launches[k] -= n
+        return res, launches
+
+    (res, _), (res0, _) = _both(lambda: _heat_scan(20, mg_builder))
+    per, _ = _heat_scan(20, mg_builder, per_step=True)
+    assert res.total_cg_iterations == res0.total_cg_iterations \
+        == per.total_cg_iterations > 0
+    assert res.scan_reruns == res0.scan_reruns
+    assert _gap(res.values, res0.values) <= GAP
+    assert _gap(res.values, per.values) <= GAP
+    (_, l10), (_, l10_0) = _both(lambda: replayed(10))
+    (_, l20), (_, l20_0) = _both(lambda: replayed(20))
+    more = {k: l20[k] - l10.get(k, 0) for k in l20}
+    more0 = {k: l20_0[k] - l10_0.get(k, 0) for k in l20_0}
+    assert more == more0 and more.get("v1_f32", 0) > 0
+
+
+def test_a_planted_capture_failure_in_a_step_program_raises(card,
+                                                            monkeypatch):
+    """A host read inside a step's body fails the step program's capture
+    and the scan raises; nothing drops back to the per-step path."""
+    from pde_solver_tpu_torch.ops import timestepping
+
+    orig = timestepping._transient_step_body
+
+    def syncing(*a, **kw):
+        torch.cuda.synchronize()
+        return orig(*a, **kw)
+
+    monkeypatch.setattr(timestepping, "_transient_step_body", syncing)
+    with pytest.raises(RuntimeError):
+        _heat_scan(3)
+    assert sk._CAPTURED is None
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    res, _ = _heat_scan(3)
+    assert res.total_cg_iterations > 0
+
+
+def test_a_graph_in_a_dead_cycle_is_not_freed_during_a_capture(card):
+    """A captured program left in a dead reference cycle (its store holds
+    a loop whose closure holds the store) is freed by Python's cyclic
+    collector; while another graph is captured the collector stays off,
+    so the capture is not invalidated by that graph's release."""
+    import gc
+
+    def dead_cycle():
+        store = device_loop.GraphStore()
+        x = torch.ones(4096, device=card)
+        prog = device_loop.Program(lambda g0, t: (t * 2.0,), (x,), True,
+                                   store)
+        store.put("self", (prog, lambda: store))
+        return weakref.ref(prog)
+
+    prog_ref = dead_cycle()
+    assert prog_ref() is not None       # kept alive by the cycle alone
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)           # collect at every allocation
+    try:
+        def churn(g0, t):
+            [object() for _ in range(10000)]
+            return (t + 1.0,)
+
+        y = torch.zeros(4096, device=card)
+        prog = device_loop.Program(churn, (y,), True)
+    finally:
+        gc.set_threshold(*thresholds)
+    prog.run()
+    assert float(y[0]) == 1.0
+    gc.collect()
+    assert prog_ref() is None

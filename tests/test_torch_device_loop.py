@@ -310,7 +310,9 @@ def test_a_capture_refuses_a_block_off_the_resync_period(monkeypatch):
 
 def test_graphs_phase_rehearsal(tmp_path, monkeypatch):
     """``chip_smoke.graphs_phase`` on the CPU at small sizes: every pair
-    agrees (both runs are uncaptured here), reads are one a block."""
+    agrees (both runs are uncaptured here), reads are one a block; every
+    scan of its scans leg takes the same iterations three ways with a field
+    gap of 0, and the step programs read once a chunk."""
     import chip_smoke
     from pde_solver_tpu_torch import api
     from pde_solver_tpu_torch.config import config_overrides
@@ -358,18 +360,35 @@ def test_graphs_phase_rehearsal(tmp_path, monkeypatch):
                                                 device="cpu",
                                                 dtype=torch.float64)
         refs["b_f64"] = sysm.b_hat
+        scans = chip_smoke.scan_cases(
+            heat=heat, mixed=dict(chip_smoke.MIXED_3D, nx=8, ny=8, nz=8,
+                                  num_steps=3),
+            advection=dict(chip_smoke.ADVECTION_3D, nx=8, ny=8, nz=8,
+                           num_steps=3),
+            wave=dict(chip_smoke.SCAN_WAVE, nx=8, ny=8, nz=8, num_steps=3),
+            dynamic=dict(chip_smoke.SCAN_DYNAMIC, nx=8, ny=4, nz=4,
+                         num_steps=6), heat_f64=heat)
         out = chip_smoke.graphs_phase(api, counted, data_dir, "cpu", refs,
-                                      walls, {}, flagship=flagship, heat=heat,
-                                      heat_steps=heat["num_steps"],
-                                      modal=modal, device="cpu",
+                                      walls, {}, flagship=flagship,
+                                      modal=modal, scans=scans, device="cpu",
                                       profiled=False)
     linsolve._MG_CACHE.clear()
     assert set(out) == {"flagship mixed df2", "flagship f64 solve_mg",
-                        "heat 3D scan", "modal 3D", "projection flat CG",
+                        "modal 3D", "projection flat CG", "scans",
                         "planted_fault_raised"}
     for label, row in out.items():
-        if label != "planted_fault_raised":
+        if label not in ("planted_fault_raised", "scans"):
             assert row["gap"] == 0.0 and row["iterations"] > 0, label
+    rows = out.pop("scans")
+    assert [label for label, *_ in scans] + ["planted_fault_raised"] == \
+        list(rows)
+    for label, *_, steps in scans:
+        row = rows[label]
+        assert row["steps"] == steps and set(row["gaps"].values()) == {0.0}
+        prog = row["ways"]["program"]
+        assert prog["iterations"] > 0 and prog["reads"].get("scan", 0) == \
+            len(device_loop.scan_chunks(steps, first=True)) - prog["stepwise"]
+    assert rows["heat 3D K1"]["gaps"]["phase 6"] == 0.0
     k = out["flagship f64 solve_mg"]["iterations"]
     assert out["flagship f64 solve_mg"]["runs"]["captured"]["reads"] == {
         "mg_pcg": math.ceil(k / port_mg.PCG_BLOCK)}

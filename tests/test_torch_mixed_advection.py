@@ -965,7 +965,8 @@ def test_cs_route_only_at_and_above_its_size_gate(monkeypatch, mode):
     """A hierarchy whose levels straddle 65,536 DOF (65×33×33 = 70,785
     nodes, then 33×17×17 = 9,537 and below) keeps the constant-interior
     operator on the fine level only, as the JAX package's ``pallas_wins``
-    does; the dense kernel keeps taking every level."""
+    does; the dense kernel keeps taking every level, and those levels,
+    all under ``BF16_MIN_DOF``, smooth with their float32 weights."""
     assert ck.CS_MIN_DOF == 65536 and sk.KERNEL_MIN_DOF == 0
     monkeypatch.setenv("PDE_TPU_CS", mode)
     calls = _spy_cs(monkeypatch)
@@ -974,9 +975,10 @@ def test_cs_route_only_at_and_above_its_size_gate(monkeypatch, mode):
     assert calls == [(65, 33, 33)]
     assert len(h.levels) >= 3
     assert isinstance(h.levels[0].weights, ck.CSFlatStencilOperator)
+    assert mg.BF16_MIN_DOF == 65536
     for lv in h.levels[1:]:
         assert isinstance(lv.weights, sk.FlatStencilOperator)
-        assert lv.w_lo.W.dtype == torch.bfloat16
+        assert lv.w_lo is None and lv.w_smooth is lv.weights
     lo = h.levels[0].w_lo
     assert (lo is h.levels[0].weights) if mode == "1" else \
         isinstance(lo, sk.FlatStencilOperator)

@@ -116,9 +116,10 @@ def _carry(h_ref):
 
 def test_v_cycle_matches_reference_on_carried_hierarchy(monkeypatch):
     # the reference's kernel route (Pallas interpret, bf16 smoother weights)
-    # is the port's route at every level
+    # is the port's route at every level: both size gates lowered
     monkeypatch.setenv("PDE_TPU_PALLAS", "1")
     monkeypatch.setattr(pallas_kernels, "PALLAS_MIN_DOF", 100)
+    monkeypatch.setattr(mg, "BF16_MIN_DOF", 100)
     mesh, sysm, builder = _cantilever((8, 4, 4))
     h_ref = ref_mg.build_hierarchy(mesh, sysm, builder, vdim=3,
                                    dtype=jnp.float32)
@@ -196,12 +197,13 @@ def test_hat_transfers_2d_match_reference_f64():
 
 def test_v_cycle_2d_matches_reference_on_carried_hierarchy(monkeypatch):
     """One V-cycle on the plate with every level on the kernel route (bf16
-    smoother weights) in both packages.  With the reference's default
-    threshold of 100 DOF its 90-DOF coarse level would smooth with f32
-    weights where the port (KERNEL_MIN_DOF = 0) takes bf16, and the two
-    V-cycles differ by ~1.4e-3, the size of the bf16 smoothing itself."""
+    smoother weights) in both packages: both bf16 gates lowered to 1 DOF.
+    With one package's coarse level smoothing with f32 weights and the
+    other's with bf16, the two V-cycles differ by ~1.4e-3, the size of the
+    bf16 smoothing itself."""
     monkeypatch.setenv("PDE_TPU_PALLAS", "1")
     monkeypatch.setattr(pallas_kernels, "PALLAS_MIN_DOF", 1)
+    monkeypatch.setattr(mg, "BF16_MIN_DOF", 1)
     mesh, sysm, builder = _cantilever((16, 8))
     h_ref = ref_mg.build_hierarchy(mesh, sysm, builder, vdim=2,
                                    dtype=jnp.float32)

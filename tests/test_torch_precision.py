@@ -435,7 +435,9 @@ def test_mixed_step_body_is_reached_by_no_run_transient_precision(
         monkeypatch):
     """``run_transient`` maps "mixed" to "f32" at its top, as the reference
     does: its step body only ever runs "f32" or "f64", so the port's body
-    has no "mixed" mode and ``transient_refine_rounds`` changes nothing."""
+    has no "mixed" mode and ``transient_refine_rounds`` changes nothing.
+    (A step that outruns its step program's budget runs its body again
+    step by step, in the same mode.)"""
     modes = []
     orig = timestepping._transient_step_body
 
@@ -445,11 +447,14 @@ def test_mixed_step_body_is_reached_by_no_run_transient_precision(
 
     monkeypatch.setattr(timestepping, "_transient_step_body", spy)
     K, M, mesh, bc, b, u0 = _small_heat()
+    seen = []
     for prec in ("mixed", "f32", "f64", "auto"):
+        del modes[:]
         with config.config_overrides(precision=prec,
                                      transient_refine_rounds=3):
             timestepping.run_transient(K, M, mesh, bc, b, u0, 0.01, 1)
-    assert modes == ["f32", "f32", "f64", "f64"]
+        seen.append(sorted(set(modes)))
+    assert seen == [["f32"], ["f32"], ["f64"], ["f64"]]
 
 
 # ----------------------------------------------------------------------
@@ -459,7 +464,9 @@ def test_mixed_step_body_is_reached_by_no_run_transient_precision(
 def test_bf16_smoother_switch(monkeypatch, tmp_path):
     """``PDE_TPU_BF16_SMOOTHER=0``: dense float32 levels smooth with their
     float32 operator (no bf16 copy), the hierarchy takes its own cache
-    entry, and the answer stays within 1e-6 of the bf16-smoothed one."""
+    entry, and the answer stays within 1e-6 of the bf16-smoothed one.  The
+    16×8×8 levels lie under the bf16 copy's size gate, lowered here."""
+    monkeypatch.setattr(mg, "BF16_MIN_DOF", 0)
     kw = dict(E=210e9, nu=0.3, nx=16, ny=8, nz=8, **BEAM)
     mixed = dict(precision="mixed", **DEVICE_PATH)
     linsolve._MG_CACHE.clear()
