@@ -1918,10 +1918,12 @@ def count_mg_steps():
     n = [0]
     orig = device_loop.run_scan
 
-    def counted(store, key, step, program, *a):
+    def counted(store, key, step, program, per_step, carry, tol, maxiter,
+                step0, num_steps, *a, **kw):
         if program[0].__module__.endswith(".multigrid"):
-            n[0] += a[-2]
-        return orig(store, key, step, program, *a)
+            n[0] += num_steps
+        return orig(store, key, step, program, per_step, carry, tol,
+                    maxiter, step0, num_steps, *a, **kw)
 
     device_loop.run_scan = counted
     return n
@@ -3056,21 +3058,18 @@ def newmark_phase(api, run, hold_cs, data_dir, wave=WAVE_3D,
     return beam_share
 
 
-def modal_phase(api, drive, data_dir, box=MODAL_3D, plate=MODAL_2D,
-                refs=None, peaks=None):
+def modal_phase(api, drive, data_dir, box=MODAL_3D, plate=MODAL_2D):
     """The modal tools on the card against ``scipy.sparse.linalg.eigsh`` of
     the same pencil on the free DOFs (shift-invert at 0, host float64):
     3D above ``mg_threshold`` (MG + the double-float32 F-cycle, one
     hierarchy build and then cache hits, both counted), 2D under it (flat
-    CG with float64 refinement).  ``refs`` (a dict) receives the 3D run's
-    frequencies, mode shapes, stats, launches and host reads: the graphs
-    phase holds the same run uncaptured against them."""
+    CG with float64 refinement)."""
     import numpy as np
     import scipy.sparse.linalg as spla
 
     from pde_solver_tpu_torch.mesh import box_mesh, rectangle_mesh
     from pde_solver_tpu_torch.models import elasticity as elast
-    from pde_solver_tpu_torch.ops import assembly, device_loop, eigen, linsolve
+    from pde_solver_tpu_torch.ops import assembly, eigen, linsolve
     from pde_solver_tpu_torch.ops import multigrid as mg
 
     solves = count_calls(eigen, "solve_stencil_system")
@@ -3091,12 +3090,6 @@ def modal_phase(api, drive, data_dir, box=MODAL_3D, plate=MODAL_2D,
                 **kw, data_dir=data_dir))
         freqs = np.asarray(res.meta["frequencies_hz"])
         shapes, _ = field(res)
-        if refs is not None and vdim == 3:
-            refs["modal"] = dict(freqs=freqs, shapes=shapes, stats=st,
-                                 launches=launches,
-                                 reads=dict(device_loop.HOST_READS),
-                                 peak=float("nan") if peaks is None
-                                 else peaks.get(tool, float("nan")))
         t0 = time.perf_counter()
         lam, mu = elast.lame_parameters(210e9, 0.3, mode)
         K = block_stencil_csr(assembly.assemble_elasticity_stencil(
@@ -3574,6 +3567,8 @@ SHARD_MIXED_ROUNDS = 12
 REFINE_LINE = (r"refinement round (\d+): relres before ([0-9.e+-]+), (\d+) "
                r"inner iterations \((\d+) DOF\)")
 SHARD_LEG_DOF = (400, 1350, 1275, 1078, 672, 648, 720, 1200)
+# the host reads of the sharded loops (one a block or chunk)
+SHARD_READS = ("shard_cg", "shard_mg", "shard_scan")
 
 
 def record_iterations(root):
@@ -3601,11 +3596,57 @@ def virtual_devices(n):
             os.environ["PDE_TPU_VIRTUAL_DEVICES"] = prev
 
 
+@contextlib.contextmanager
+def loop_seconds(device):
+    """The wall seconds of the solve loops and scans run within
+    (``device_loop.run_masked`` / ``run_scan`` calls, the device
+    synchronised around the outermost): yields the list they add to."""
+    import torch
+
+    from pde_solver_tpu_torch.ops import device_loop
+
+    secs, depth = [], [0]
+    origs = {name: getattr(device_loop, name)
+             for name in ("run_masked", "run_scan")}
+
+    def timed(fn):
+        def run(*a, **kw):
+            depth[0] += 1
+            try:
+                if depth[0] > 1:
+                    return fn(*a, **kw)
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(*a, **kw)
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t)
+                return out
+            finally:
+                depth[0] -= 1
+        return run
+
+    for name, fn in origs.items():
+        setattr(device_loop, name, timed(fn))
+    try:
+        yield secs
+    finally:
+        for name, fn in origs.items():
+            setattr(device_loop, name, fn)
+
+
+SHARD_WAYS = ("program", "uncaptured")
+
+
 def shard_legs(n=SHARD_VIRTUAL):
     """The eight legs at float64 on the configured device, each sharded
-    over ``n`` shards (the 2-D leg over an n/2 × 2 mesh) and unsharded.
-    Returns [(label, DOF, steps, sharded iterations, unsharded iterations,
-    max|Δ|/max|unsharded|, seconds)]."""
+    over ``n`` shards (the 2-D leg over an n/2 × 2 mesh) as its device
+    programs ship (captured on a card), again under
+    ``device_loop._uncaptured()``, and unsharded.  Returns [(label, DOF,
+    steps, sharded iterations, unsharded iterations, max|Δ|/max|unsharded|,
+    seconds, {way: (iterations, host reads, loop seconds)}, max|Δ| of the
+    program against uncaptured / max)]."""
     import numpy as np
     import torch
 
@@ -3615,7 +3656,8 @@ def shard_legs(n=SHARD_VIRTUAL):
     from pde_solver_tpu_torch.models import heat
     from pde_solver_tpu_torch.models.wave import (WaveProblem,
                                                   solve_wave_problem)
-    from pde_solver_tpu_torch.ops import assembly, linsolve, timestepping
+    from pde_solver_tpu_torch.ops import (assembly, device_loop, linsolve,
+                                          timestepping)
     from pde_solver_tpu_torch.ops.bc import DirichletBC, all_boundary
     from pde_solver_tpu_torch.parallel import shard as psh
 
@@ -3628,92 +3670,79 @@ def shard_legs(n=SHARD_VIRTUAL):
         return DirichletBC.from_masks([(m.face_mask(0, 0), 0.0)],
                                       m.node_shape, vdim=3)
 
-    def heat_step():
+    # each leg(sharded) → (DOF, steps, field, iterations)
+    def heat_step(sharded):
         m = box_mesh(2 * n - 1, 4, 4, (0, 0, 0), (1.0, 1.0, 1.0))
         bc = DirichletBC.from_masks([(all_boundary(m), 0.0)], m.node_shape)
         u0 = bc.apply_values(np.full(m.node_shape, 20.0))
-        out = []
-        for k in (n, 1):
-            step, inputs = psh.build_sharded_heat_step(
-                m, psh.device_mesh(k), 1.0, 0.01, bc, dtype=torch.float64,
-                tol=1e-6, maxiter=200)
-            u1, iters, _ = step(u0, *inputs)
-            out.append((u1.cpu().numpy(), iters))
-        return m.num_nodes, 1, out
+        step, inputs = psh.build_sharded_heat_step(
+            m, psh.device_mesh(n if sharded else 1), 1.0, 0.01, bc,
+            dtype=torch.float64, tol=1e-6, maxiter=200)
+        u1, iters, _ = step(u0, *inputs)
+        return m.num_nodes, 1, u1.cpu().numpy(), iters
 
-    def elasticity_cg():
+    def elasticity_cg(sharded):
         m = box_mesh(2 * n + 1, 4, 4, (0, 0, 0), beam)
         cg, sysm = psh.build_sharded_elasticity_solve(
             m, psh.device_mesh(n), lam, mu, g, clamped(m),
             dtype=torch.float64)
-        x, k, _ = cg.solve(tol=1e-6, maxiter=2000)
-        b = torch.tensor(sysm.b_hat, device=device)
-        w = tuple(torch.tensor(W, device=device) for W in sysm.weights)
-        xr, kr, _ = linsolve._cg_unit_diag(sysm.offsets, w, b,
-                                           torch.zeros_like(b), 1e-6, 2000,
-                                           3, 3)
-        return 3 * m.num_nodes, 1, [
-            (sysm.from_hat_x(x.cpu().numpy()), k),
-            (sysm.from_hat_x(xr.cpu().numpy()), kr)]
+        if sharded:
+            x, k, _ = cg.solve(tol=1e-6, maxiter=2000)
+        else:
+            b = torch.tensor(sysm.b_hat, device=device)
+            w = tuple(torch.tensor(W, device=device) for W in sysm.weights)
+            x, k, _ = linsolve._cg_unit_diag(sysm.offsets, w, b,
+                                             torch.zeros_like(b), 1e-6, 2000,
+                                             3, 3)
+        return 3 * m.num_nodes, 1, sysm.from_hat_x(x.cpu().numpy()), k
 
-    def sharded_mg():
+    def sharded_mg(sharded):
         m = box_mesh(16, 4, 4, (0, 0, 0), beam)
 
         def builder(mc):
             return (assembly.assemble_elasticity_stencil(mc, lam, mu),
                     clamped(mc))
 
-        out = []
-        for k in (n, 0):
-            with config_overrides(shard_devices=k, mg_threshold=100,
-                                  host_direct_threshold=0):
-                x, st = linsolve.solve_stencil_system(
-                    assembly.assemble_elasticity_stencil(m, lam, mu), m,
-                    clamped(m), assembly.assemble_vector_load(m, g), vdim=3,
-                    mg_level_builder=builder)
-            out.append((x, int(st.iterations)))
-        return 3 * m.num_nodes, 1, out
+        with config_overrides(shard_devices=n if sharded else 0,
+                              mg_threshold=100, host_direct_threshold=0):
+            x, st = linsolve.solve_stencil_system(
+                assembly.assemble_elasticity_stencil(m, lam, mu), m,
+                clamped(m), assembly.assemble_vector_load(m, g), vdim=3,
+                mg_level_builder=builder)
+        return 3 * m.num_nodes, 1, x, int(st.iterations)
 
-    def transient():
+    def transient(sharded):
         p = heat.HeatProblem(
             mesh=box_mesh(21, 6, 6, (0, 0, 0), (1.0, 1.0, 1.0)),
             diffusivity=1.0, bc_builder=lambda m: [(all_boundary(m), 0.0)],
             T_initial=20.0, dt=0.01, num_steps=5)
-        out = []
-        for k in (n, 0):
-            with config_overrides(shard_devices=k, host_direct_threshold=0):
-                _, values, info = heat.solve_heat_problem(p)
-            out.append((values, info["cg_iterations"]))
-        return p.mesh.num_nodes, 5, out
+        with config_overrides(shard_devices=n if sharded else 0,
+                              host_direct_threshold=0):
+            _, values, info = heat.solve_heat_problem(p)
+        return p.mesh.num_nodes, 5, values, info["cg_iterations"]
 
-    def newmark():
+    def newmark(sharded):
         m = box_mesh(13, 3, 3, (0, 0, 0), beam)
         args = (assembly.assemble_elasticity_stencil(m, lam, mu),
                 elast.assemble_vector_mass(m, 7800.0), m, clamped(m),
                 assembly.assemble_vector_load(m, g),
                 np.zeros(m.node_shape + (3,)), np.zeros(m.node_shape + (3,)))
-        out = []
-        for k in (n, 0):
-            with config_overrides(shard_devices=k):
-                r = timestepping.run_newmark(*args, dt=1e-5, num_steps=4,
-                                             vdim=3)
-            out.append((np.concatenate([r.values, r.velocities]),
-                        r.total_cg_iterations))
-        return 3 * m.num_nodes, 4, out
+        with config_overrides(shard_devices=n if sharded else 0):
+            r = timestepping.run_newmark(*args, dt=1e-5, num_steps=4,
+                                         vdim=3)
+        return (3 * m.num_nodes, 4, np.concatenate([r.values, r.velocities]),
+                r.total_cg_iterations)
 
-    def wave():
+    def wave(sharded):
         pw = WaveProblem(mesh=box_mesh(2 * n + 1, 5, 5, (0, 0, 0),
                                        (1.0, 1.0, 1.0)),
                          wave_speed=2.0, initial_type="sine",
                          initial_wavenumber=np.pi, dt=0.005, num_steps=4)
-        out = []
-        for k in (n, 0):
-            with config_overrides(shard_devices=k):
-                _, values, info = solve_wave_problem(pw)
-            out.append((values, info["cg_iterations"]))
-        return pw.mesh.num_nodes, 4, out
+        with config_overrides(shard_devices=n if sharded else 0):
+            _, values, info = solve_wave_problem(pw)
+        return pw.mesh.num_nodes, 4, values, info["cg_iterations"]
 
-    def cnab2():
+    def cnab2(sharded):
         m = box_mesh(2 * n + 3, 5, 5, (0, 0, 0), (1.0, 1.0, 1.0))
         K = {o: 0.05 * W for o, W in assembly.assemble_scalar_stencil(
             m, "stiffness").items()}
@@ -3729,26 +3758,21 @@ def shard_legs(n=SHARD_VIRTUAL):
                   convection_scheme="cnab2",
                   time_mod={"omega": 5.0, "phase": 0.2,
                             "source_amp": 0.5 * b})
-        out = []
-        for k in (n, 0):
-            with config_overrides(shard_devices=k):
-                r = timestepping.run_transient(
-                    K, assembly.assemble_scalar_stencil(m, "mass"), m, bc, b,
-                    u0, **kw)
-            out.append((r.values, r.total_cg_iterations))
-        return m.num_nodes, 5, out
+        with config_overrides(shard_devices=n if sharded else 0):
+            r = timestepping.run_transient(
+                K, assembly.assemble_scalar_stencil(m, "mass"), m, bc, b,
+                u0, **kw)
+        return m.num_nodes, 5, r.values, r.total_cg_iterations
 
-    def mesh_2d():
+    def mesh_2d(sharded):
         a = n // 2
         m = box_mesh(2 * a + 1, 7, 4, (0, 0, 0), (1.0, 0.5, 0.5))
-        out = []
-        for kw in (dict(shard_grid=f"{a},2"), dict(shard_devices=0)):
-            with config_overrides(host_direct_threshold=0, **kw):
-                x, st = linsolve.solve_stencil_system(
-                    assembly.assemble_elasticity_stencil(m, lam, mu), m,
-                    clamped(m), assembly.assemble_vector_load(m, g), vdim=3)
-            out.append((x, int(st.iterations)))
-        return 3 * m.num_nodes, 1, out
+        kw = dict(shard_grid=f"{a},2") if sharded else dict(shard_devices=0)
+        with config_overrides(host_direct_threshold=0, **kw):
+            x, st = linsolve.solve_stencil_system(
+                assembly.assemble_elasticity_stencil(m, lam, mu), m,
+                clamped(m), assembly.assemble_vector_load(m, g), vdim=3)
+        return 3 * m.num_nodes, 1, x, int(st.iterations)
 
     legs = []
     with config_overrides(precision="f64"):
@@ -3760,13 +3784,27 @@ def shard_legs(n=SHARD_VIRTUAL):
                           ("CNAB2 advection + tmod", cnab2),
                           (f"{n // 2}x2 mesh elasticity", mesh_2d)):
             t = time.perf_counter()
-            dof, steps, ((sh, k_sh), (plain, k_plain)) = fn()
-            sh, plain = np.asarray(sh), np.asarray(plain)
+            ways, fields = {}, {}
+            for way in SHARD_WAYS:
+                timestepping.clear_scan_cache()
+                device_loop.HOST_READS.clear()
+                with loop_seconds(device) as secs, (
+                        device_loop._uncaptured() if way == "uncaptured"
+                        else contextlib.nullcontext()):
+                    dof, steps, sh, k_sh = fn(True)
+                fields[way] = np.asarray(sh)
+                ways[way] = (int(k_sh), dict(device_loop.HOST_READS),
+                             sum(secs))
+            dof, steps, plain, k_plain = fn(False)
+            sh, plain = fields["program"], np.asarray(plain)
             check(sh.shape == plain.shape and bool(np.all(np.isfinite(sh))),
                   f"shard leg {label}: {sh.shape} against {plain.shape}")
             gap = float(np.abs(sh - plain).max() / np.abs(plain).max())
-            legs.append((label, dof, steps, int(k_sh), int(k_plain), gap,
-                         time.perf_counter() - t))
+            way_gap = float(np.abs(sh - fields["uncaptured"]).max()
+                            / np.abs(plain).max())
+            legs.append((label, dof, steps, ways["program"][0], int(k_plain),
+                         gap, time.perf_counter() - t, ways, way_gap))
+    timestepping.clear_scan_cache()
     return legs
 
 
@@ -3815,7 +3853,8 @@ def shard_phase(api, counted, data_dir, u_f64, iters_f64, vm_dense,
     import torch
 
     from pde_solver_tpu_torch.config import config_overrides
-    from pde_solver_tpu_torch.ops import linsolve
+    from pde_solver_tpu_torch.ops import device_loop, linsolve
+    from pde_solver_tpu_torch.ops import multigrid as mg
     from pde_solver_tpu_torch.parallel import shard_mg
 
     cuda = device == "cuda"
@@ -3829,25 +3868,44 @@ def shard_phase(api, counted, data_dir, u_f64, iters_f64, vm_dense,
         record = record_iterations(root)
         legs, launches, wall = counted("shard legs", lambda: shard_legs(
             legs_n))
-        for (label, dof, steps, k_sh, k_plain, gap, secs), k_rec, want in \
-                zip(legs, record, SHARD_LEG_DOF):
+        for (label, dof, steps, k_sh, k_plain, gap, secs, ways, way_gap), \
+                k_rec, want in zip(legs, record, SHARD_LEG_DOF):
             print(f"shard leg {label}: {dof} DOF x {steps} step(s), "
                   f"{legs_n} shards (f64): iterations {k_sh}, unsharded "
                   f"{k_plain}, JAX record {k_rec}; max|Δ|/max|unsharded|="
                   f"{gap:.3e} (bound {SHARD_LEG_TOL}); {secs:.3f} s "
-                  f"({SHARD_LABEL})", flush=True)
+                  f"({SHARD_LABEL}); " + "; ".join(
+                      f"{way}: iterations {k}, host reads {r}, loops "
+                      f"{1e3 * t:.3f} ms ({1e3 * t / max(k, 1):.3f} ms an "
+                      f"iteration)" for way, (k, r, t) in ways.items())
+                  + f"; program against uncaptured {way_gap:.3e}",
+                  flush=True)
             check(dof == want, f"shard leg {label}: {dof} DOF, the record "
                   f"has {want}")
             check(gap <= SHARD_LEG_TOL, f"shard leg {label}: sharded off "
                   f"unsharded by {gap:.3e}")
+            (k_p, r_p, _), (k_u, r_u, _) = (ways[w] for w in SHARD_WAYS)
+            check(way_gap == 0.0 and k_p == k_u and r_p == r_u,
+                  f"shard leg {label}: program against uncaptured: "
+                  f"iterations {k_p} / {k_u}, reads {r_p} / {r_u}, gap "
+                  f"{way_gap:.3e}")
+            # the static legs read once a block of their loop
+            block = {"heat step": linsolve.CG_BLOCK,
+                     "elasticity CG": linsolve.CG_BLOCK,
+                     "sharded MG-PCG": mg.PCG_BLOCK}.get(
+                label, linsolve.CG_BLOCK if "mesh" in label else None)
+            check(any(r_p.get(kind) for kind in SHARD_READS) and (
+                block is None or sum(r_p.values())
+                == max(1, -(-k_p // block))), f"shard leg {label}: host "
+                f"reads {r_p} for {k_p} iterations")
         check(len(legs) == len(SHARD_LEG_DOF), f"shard legs: {len(legs)}")
         check(not any(launches.values()), f"shard legs launched kernels: "
               f"{launches}")
         out["legs"] = {label: dict(dof=dof, iterations=k_sh,
                                    unsharded=k_plain, record=k_rec, gap=gap,
-                                   seconds=secs)
-                       for (label, dof, _, k_sh, k_plain, gap, secs), k_rec
-                       in zip(legs, record)}
+                                   seconds=secs, ways=ways, way_gap=way_gap)
+                       for (label, dof, _, k_sh, k_plain, gap, secs, ways,
+                            way_gap), k_rec in zip(legs, record)}
         out["legs_s"] = wall
 
         # -- 2. the flagship on ``shards`` shards -----------------------------
@@ -3858,6 +3916,13 @@ def shard_phase(api, counted, data_dir, u_f64, iters_f64, vm_dense,
             vm_calls, unspy_vm = spy_von_mises()
             hats, unspy_hat = spy_from_hat()
             secs, unsolve = timed_calls(shard_mg, "solve_mg_sharded", device)
+            inner, timed_solve = [], shard_mg.solve_mg_sharded
+
+            def recorded(*a, **kw):
+                inner.append((a, kw))
+                return timed_solve(*a, **kw)
+
+            shard_mg.solve_mg_sharded = recorded
             linsolve._MG_CACHE.clear()
             shard_mg._SOLVER_CACHE.clear()
             # "mixed" is the card's default precision
@@ -3870,6 +3935,7 @@ def shard_phase(api, counted, data_dir, u_f64, iters_f64, vm_dense,
                         label, lambda: api.solve_elasticity_3D_static(
                             **flagship, data_dir=data_dir))
             finally:
+                shard_mg.solve_mg_sharded = timed_solve
                 unspy_vm(), unspy_hat(), unsolve()
             peak = (torch.cuda.max_memory_allocated() / 2 ** 30 if cuda
                     else float("nan"))
@@ -3879,7 +3945,35 @@ def shard_phase(api, counted, data_dir, u_f64, iters_f64, vm_dense,
             ops_v = aten_ops(lambda: solver._precondition(solver.free))
             halo = halo_bytes(solver)
             rows = [p.shape[0] for p in solver.free.parts]
-            del solver_h, solver
+            # its first (or only) inner solve again, as the device program
+            # ships and uncaptured, on the same operands
+            (_, b0, x00, tol0, maxiter0), kw0 = inner[0]
+            check(not kw0, f"{label}: solve_mg_sharded keywords {kw0}")
+            ways = {}
+            for way in SHARD_WAYS:
+                device_loop.HOST_READS.clear()
+                with loop_seconds(device) as ls, (
+                        device_loop._uncaptured() if way == "uncaptured"
+                        else contextlib.nullcontext()):
+                    xw, kw_, _ = solver.solve(b0, x00, tol=tol0,
+                                              maxiter=maxiter0)
+                ways[way] = (xw.cpu().numpy(), int(kw_),
+                             dict(device_loop.HOST_READS), sum(ls))
+            (x_p, k_p, r_p, t_p), (x_u, k_u, r_u, t_u) = (
+                ways[w] for w in SHARD_WAYS)
+            inner_gap = float(np.abs(x_p - x_u).max() / np.abs(x_u).max())
+            inner_line = (f"; its first inner solve again ({len(inner)} "
+                          f"call(s)): program {k_p} iterations, host reads "
+                          f"{r_p}, {1e3 * t_p / max(k_p, 1):.3f} ms an "
+                          f"iteration; uncaptured {k_u} iterations, host "
+                          f"reads {r_u}, {1e3 * t_u / max(k_u, 1):.3f} ms an"
+                          f" iteration; field gap {inner_gap:.3e}")
+            check(k_p == k_u and inner_gap == 0.0 and r_p == r_u == {
+                "shard_mg": max(1, -(-k_p // mg.PCG_BLOCK))},
+                f"{label}: the inner solve's program against uncaptured: "
+                f"iterations {k_p} / {k_u}, reads {r_p} / {r_u}, gap "
+                f"{inner_gap:.3e}")
+            del solver_h, solver, inner, ways, x_p, x_u
             shard_mg._SOLVER_CACHE.clear()
             linsolve._MG_CACHE.clear()
             (sysm, xh), = hats
@@ -3904,7 +3998,8 @@ def shard_phase(api, counted, data_dir, u_f64, iters_f64, vm_dense,
                     f" host f64 recomputation={host:.6e} converged="
                     f"{st['converged']}; peak device memory {peak:.2f} GiB; "
                     f"halo bytes an apply {halo}; aten ops of one sharded "
-                    f"V-cycle {ops_v}; kernel launches {launches}")
+                    f"V-cycle {ops_v}; kernel launches {launches}"
+                    + inner_line)
             check(st["num_dofs"] == dof and vm.shape == (1, dof // 3)
                   and bool(np.all(np.isfinite(vm))), f"{label}: {st}")
             check(bool(st["converged"]), f"{label} did not converge: {st}")
@@ -3916,6 +4011,9 @@ def shard_phase(api, counted, data_dir, u_f64, iters_f64, vm_dense,
                   f"{label} launched K1 or CS kernels: {launches}")
             numbers = dict(wall_s=wall, setup_s=setup["total"],
                            solve_s=solve_s, iterations=iters,
+                           inner_program=(k_p, r_p, t_p),
+                           inner_uncaptured=(k_u, r_u, t_u),
+                           inner_gap=inner_gap,
                            ms_per_iteration=1e3 * solve_s / max(iters, 1),
                            relres=st["relative_residual"], host_relres=host,
                            peak_gib=peak, halo_bytes=halo,
@@ -3934,6 +4032,8 @@ def shard_phase(api, counted, data_dir, u_f64, iters_f64, vm_dense,
                       f"it)", flush=True)
                 check(u_gap <= SHARD_F64_TOL, f"{label} off the unsharded "
                       f"f64 flagship by {u_gap:.3e}")
+                check(k_p == iters, f"{label}: its solve took {iters} "
+                      f"iterations, the same solve again {k_p}")
                 check(iters <= iters_f64 + 1, f"{label}: {iters} iterations"
                       f" against {iters_f64} unsharded")
                 numbers.update(u_gap=u_gap, iters_unsharded=iters_f64)
@@ -3969,17 +4069,51 @@ def shard_phase(api, counted, data_dir, u_f64, iters_f64, vm_dense,
 # uncaptured (``device_loop._uncaptured``), max|Δ|/max of the fields.  Both
 # runs launch the same kernels in the same order on the same stream
 GRAPH_TOL = 1e-6
+# the graphs phase's modal pair: subspace iterations of each run (the
+# modal phase's converges in 7; 8 solves of its 28)
+MODAL_GRAPH_ITERS = 2
 
 
-def graphs_phase(api, counted, data_dir, card_line, refs, walls, peaks,
+def grab_df2(run, device="cuda"):
+    """``run()`` with ``multigrid.solve_fcycle_df2`` spied (the device
+    synchronised around it): returns (run's result, its one df2 solve's
+    (hierarchy, ladder, tol, keywords, result, seconds))."""
+    import torch
+
+    from pde_solver_tpu_torch.ops import multigrid as mg
+
+    grabbed = []
+    solve_df2 = mg.solve_fcycle_df2
+
+    def spy(h, ladder, tol, **kw):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = solve_df2(h, ladder, tol, **kw)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        grabbed.append((h, ladder, tol, kw, res, time.perf_counter() - t))
+        return res
+
+    mg.solve_fcycle_df2 = spy
+    try:
+        res = run()
+    finally:
+        mg.solve_fcycle_df2 = solve_df2
+    (df2,) = grabbed
+    return res, df2
+
+
+def graphs_phase(api, counted, data_dir, card_line, refs, peaks,
                  flagship=FLAGSHIP, modal=MODAL_3D, scans=None,
                  device="cuda", profiled=True):
     """The solve loops as captured CUDA graphs (``ops.device_loop``) against
     the same loops uncaptured, at full width: the flagship's double-float32
     rounds ("mixed"), its float64 ``solve_mg`` (the hierarchy and right
-    side the precision phase left in ``refs``), the modal 3D tool (the
-    modal phase's run, ``refs["modal"]``, against ``modal`` run here
-    uncaptured) and the flagship's projection (flat CG).  Each pair: the
+    side the precision phase left in ``refs``), the modal 3D tool at
+    ``modal`` (the modal phase's size) with its subspace iteration cut to
+    :data:`MODAL_GRAPH_ITERS`, captured and uncaptured, and the flagship's
+    projection (flat CG).  Each pair: the
     same iterations, fields within
     ``GRAPH_TOL``, host reads at most one a block (one a round for df2),
     launches with the replays counted, seconds both ways, peak device
@@ -4072,30 +4206,15 @@ def graphs_phase(api, counted, data_dir, card_line, refs, walls, peaks,
                                              "peak_gib"), v))
                                 for k, v in runs.items()})
 
-    # -- the flagship's double-float32 rounds ("mixed") ---------------------
+    # -- the flagship's double-float32 rounds ("mixed"): phase 6's dense
+    # run's operands (``refs["df2"]``, :func:`grab_df2`) ---------------------
     tidy()
-    grabbed = []
+    ref = refs.pop("df2")
+    (h, ladder, tol, kw, (hi, lo, it, _), api_s) = ref["df2"]
+    launches, wall = ref["launches"], ref["wall"]
+    api_reads, api_peak = ref["reads"], ref["peak"]
+    del ref
     solve_df2 = mg.solve_fcycle_df2
-
-    def spy(h, ladder, tol, **kw):
-        sync()
-        t = time.perf_counter()
-        res = solve_df2(h, ladder, tol, **kw)
-        sync()
-        grabbed.append((h, ladder, tol, kw, res, time.perf_counter() - t))
-        return res
-
-    mg.solve_fcycle_df2 = spy
-    try:
-        res, launches, wall = counted("graphs flagship", lambda:
-                                      api.solve_elasticity_3D_static(
-                                          **flagship, data_dir=data_dir))
-    finally:
-        mg.solve_fcycle_df2 = solve_df2
-    api_reads = dict(device_loop.HOST_READS)
-    api_peak = peaks.get("graphs flagship", float("nan"))
-    (h, ladder, tol, kw, (hi, lo, it, _), api_s), = grabbed
-    del grabbed, res
     pools = pool_gib(h.graphs)
 
     def df2():
@@ -4113,7 +4232,8 @@ def graphs_phase(api, counted, data_dir, card_line, refs, walls, peaks,
     field_gap = max(gap(xs["captured"], xs["uncaptured"]),
                     gap(hi.double() + lo.double(), xs["uncaptured"]))
     report("flagship mixed df2", runs, iters, field_gap,
-           f"; through the API (captured, first capture included): df2 "
+           f"; phase 6's run through the API (captured, first capture "
+           f"included): df2 "
            f"{api_s:.3f} s, wall {wall:.3f} s, host reads {api_reads}, "
            f"launches {launches}, peak {api_peak:.2f} GiB; graph pools of "
            f"the hierarchy {pools:.3f} GiB")
@@ -4148,29 +4268,41 @@ def graphs_phase(api, counted, data_dir, card_line, refs, walls, peaks,
     del h64, b64, xs
 
     tidy()
-    # -- the modal 3D tool --------------------------------------------------
-    ref = refs.pop("modal")
-    linsolve._MG_CACHE.clear()
-    with disk_cache_off(), device_loop._uncaptured():
-        res, launches, wall = counted("graphs modal 3D uncaptured", lambda:
-                                      api.solve_elasticity_3D_modal(
-                                          **modal, data_dir=data_dir))
-    linsolve._MG_CACHE.clear()
-    st = res.meta["solver_stats"]
-    shapes, _ = field(res)
-    freqs = np.asarray(res.meta["frequencies_hz"])
-    runs = {"captured": (walls.get("solve_elasticity_3D_modal",
-                                   float("nan")), ref["launches"],
-                         ref["reads"], ref["peak"]),
-            "uncaptured": (wall, launches, dict(device_loop.HOST_READS),
-                           peaks.get("graphs modal 3D uncaptured",
-                                     float("nan")))}
-    report("modal 3D", runs, [ref["stats"]["cg_iterations"],
-                              st["cg_iterations"]],
-           max(gap(ref["freqs"], freqs), gap(ref["shapes"], shapes)),
-           f" (wall seconds; subspace iterations "
-           f"{ref['stats']['iterations']} / {st['iterations']})")
-    del ref
+    # -- the modal 3D tool at the modal phase's size, its subspace
+    # iteration cut to MODAL_GRAPH_ITERS both ways (uncaptured, the whole
+    # run takes a minute) ---------------------------------------------------
+    smallest = api.smallest_modes
+
+    def cut(*a, **kw):
+        return smallest(*a, **kw, max_iters=MODAL_GRAPH_ITERS)
+
+    runs, got = {}, {}
+    api.smallest_modes = cut
+    try:
+        for name, captured in (("captured", True), ("uncaptured", False)):
+            label = f"graphs modal 3D {name}"
+            linsolve._MG_CACHE.clear()
+            with disk_cache_off(), mode(captured):
+                res, launches, wall = counted(
+                    label, lambda: api.solve_elasticity_3D_modal(
+                        **modal, data_dir=data_dir))
+            got[name] = (res.meta["solver_stats"], field(res)[0],
+                         np.asarray(res.meta["frequencies_hz"]))
+            runs[name] = (wall, launches, dict(device_loop.HOST_READS),
+                          peaks.get(label, float("nan")))
+            del res
+    finally:
+        api.smallest_modes = smallest
+        linsolve._MG_CACHE.clear()
+    (st, shapes, freqs), (st0, shapes0, freqs0) = got.values()
+    report("modal 3D", runs, [st["cg_iterations"], st0["cg_iterations"]],
+           max(gap(freqs, freqs0), gap(shapes, shapes0)),
+           f" (wall seconds; subspace iterations {st['iterations']} / "
+           f"{st0['iterations']}, cut to {MODAL_GRAPH_ITERS})")
+    check(st["iterations"] == st0["iterations"] == MODAL_GRAPH_ITERS,
+          f"graphs modal 3D: subspace iterations {st['iterations']} / "
+          f"{st0['iterations']}")
+    del got
 
     tidy()
     # -- the flagship's projection: flat CG on K1 v1 ------------------------
@@ -4254,11 +4386,15 @@ SCAN_WAVE = dict(WAVE_3D, initial_type="zero", source_value=1.0)
 # with the bf16 copy inside the step program
 SCAN_DYNAMIC = dict(DYNAMIC_3D, nx=60, ny=24, nz=24, num_steps=24)
 SCAN_HEAT_F64 = dict(nx=32, ny=32, nz=32)
-# the step programs of every scan are profiled; the per-step path (the
-# busy share they are compared with) of these too (each trace costs a
-# repeat of the scan)
+# the step programs of these scans are profiled, and the per-step path
+# (the busy share they are compared with) of the last: each trace costs a
+# repeat of the scan
+SCAN_PROFILED = ("heat 3D K1", "heat 3D CS", "dynamic 3D")
 SCAN_PROFILE_PER_STEP = ("heat 3D K1",)
 SCAN_WAYS = ("program", "per step", "uncaptured")
+# the scans called again with the same operator (``scans_leg``'s follow-ups:
+# the scan cache keeps their step programs across calls)
+REPEAT_LABELS = ("heat 3D K1", "heat 3D CS", "dynamic 3D")
 # the MG thresholds lowered: the step solves take MG-PCG under the default
 # ``transient_mg_threshold``
 SCAN_MG = {"transient_mg_threshold": 100, "mg_threshold": 100}
@@ -4293,6 +4429,43 @@ def scan_cases(heat=HEAT, mixed=MIXED_3D, advection=ADVECTION_3D,
             ("heat 3D f64", "0", "solve_heat_3D", heat_f64,
              dict(SCAN_MG, precision="f64"), (),
              heat_f64.get("num_steps", HEAT_STEPS))]
+
+
+def follow_ups(fn, a, k):
+    """A recorded ``run_transient`` / ``run_newmark`` call's follow-ups:
+    three with the same operator (heat: a new face temperature, a new
+    initial field, both; the released cantilever, whose clamp holds 0 and
+    which starts from rest: a new load, a new load and initial velocity, a
+    new initial displacement) and one with Δt doubled (another operator).
+    Returns [(name, call)], the Δt one last."""
+    import inspect
+
+    import numpy as np
+
+    from pde_solver_tpu_torch.ops.bc import DirichletBC
+
+    args = inspect.signature(fn).bind(*a, **k).arguments
+    free = np.asarray(args["bc"].free_mask, np.float64)
+
+    def call(**new):
+        return lambda: fn(**dict(args, **new))
+
+    def face(value):
+        return DirichletBC(free, (1.0 - free) * value)
+
+    if fn.__name__ == "run_transient":
+        u0 = np.asarray(args["u0_np"], np.float64)
+        ups = [("faces at 10", call(bc=face(10.0))),
+               ("initial field x0.5", call(u0_np=0.5 * u0)),
+               ("faces at 30, initial field +5",
+                call(bc=face(30.0), u0_np=u0 + 5.0))]
+    else:
+        f, v0 = (np.asarray(args[n], np.float64) for n in ("f_np", "v0_np"))
+        ups = [("load x0.5", call(f_np=0.5 * f)),
+               ("load x1.5, initial velocity",
+                call(f_np=1.5 * f, v0_np=v0 + 1e-3 * free)),
+               ("initial displacement", call(u0_np=1e-6 * free))]
+    return ups + [("dt x2", call(dt=2.0 * args["dt"]))]
 
 
 def scan_way(way):
@@ -4388,8 +4561,103 @@ def record_scans():
     return calls, unspy
 
 
+def repeat_scans(counted, label, cs, fn, a, k, ways, steps, card_line,
+                 cuda):
+    """The follow-ups of a scans-leg case (:func:`follow_ups` of its
+    recorded call ``fn(*a, **k)``, ``PDE_TPU_CS`` = cs), after its three
+    ways (the program way its first call, from an empty scan cache): each
+    follow-up kept, then the same follow-up cold (the cache emptied
+    first).  Returns {follow-up: numbers}."""
+    import numpy as np
+
+    from pde_solver_tpu_torch.ops import device_loop, timestepping
+
+    def with_cs(run):
+        prev = os.environ.get("PDE_TPU_CS", "0")
+        os.environ["PDE_TPU_CS"] = cs
+        try:
+            return run()
+        finally:
+            os.environ["PDE_TPU_CS"] = prev
+
+    def fields_of(res):
+        return [res.values] + ([res.velocities]
+                               if hasattr(res, "velocities") else [])
+
+    first, per = ways["program"], ways["per step"]
+    check(first["built"] >= 1, f"scans {label}: the first call built no "
+          f"step program: {first}")
+    out = {}
+    *ups, (dt_name, dt_call) = follow_ups(fn, a, k)
+    for name, call in ups:
+        kept, launches, wall = counted(f"scans {label} follow-up {name}",
+                                       lambda: with_cs(call))
+        reads = dict(device_loop.HOST_READS)
+        timestepping.clear_scan_cache()
+        cold, _, cold_wall = counted(f"scans {label} follow-up {name} cold",
+                                     lambda: with_cs(call))
+        gap = max(float(np.abs(f - f0).max() / max(np.abs(f0).max(),
+                                                     1e-300))
+                  for f, f0 in zip(fields_of(kept), fields_of(cold)))
+        row = dict(iterations=kept.total_cg_iterations,
+                   cold_iterations=cold.total_cg_iterations, gap=gap,
+                   kept=kept.scan_kept, built=kept.scan_programs_built,
+                   capture_s=kept.scan_capture_seconds,
+                   stepwise=kept.scan_stepwise_chunks, reads=reads,
+                   scan_s=kept.scan_seconds, setup_s=kept.setup_seconds,
+                   wall=wall, cold_scan_s=cold.scan_seconds,
+                   cold_capture_s=cold.scan_capture_seconds,
+                   cold_setup_s=cold.setup_seconds, cold_wall=cold_wall,
+                   launches=launches)
+        out[name] = row
+        print(f"scans {label} follow-up {name} ({card_line}): kept "
+              f"{row['kept']}, step programs built {row['built']}, capture "
+              f"{row['capture_s']:.3f} s, chunks step by step "
+              f"{row['stepwise']}, host reads {reads}; iterations "
+              f"{row['iterations']} (cold {row['cold_iterations']}); frames "
+              f"against the cold call {gap:.3e}; scan {row['scan_s']:.3f} s"
+              f" (first call {first['scan_s']:.3f}, cold "
+              f"{row['cold_scan_s']:.3f} with capture "
+              f"{row['cold_capture_s']:.3f}, per step {per['scan_s']:.3f});"
+              f" set-up {row['setup_s']:.3f} s (cold "
+              f"{row['cold_setup_s']:.3f}); wall {wall:.3f} s (cold "
+              f"{cold_wall:.3f}); launches {launches}", flush=True)
+        check(row["kept"] and row["built"] == 0 and row["capture_s"] == 0.0
+              and row["stepwise"] == 0, f"scans {label} follow-up {name}: "
+              f"not kept: {row}")
+        check(reads.get("scan", 0) == len(device_loop.scan_chunks(steps)),
+              f"scans {label} follow-up {name}: host reads {reads}")
+        check(row["iterations"] == row["cold_iterations"] and gap == 0.0,
+              f"scans {label} follow-up {name}: against its cold call: "
+              f"iterations {row['iterations']} / {row['cold_iterations']}, "
+              f"gap {gap:.3e}")
+        del kept, cold
+    res, launches, wall = counted(f"scans {label} follow-up {dt_name}",
+                                  lambda: with_cs(dt_call))
+    print(f"scans {label} follow-up {dt_name} ({card_line}): kept "
+          f"{res.scan_kept}, step programs built {res.scan_programs_built}, "
+          f"capture {res.scan_capture_seconds:.3f} s, scan "
+          f"{res.scan_seconds:.3f} s, iterations {res.total_cg_iterations}, "
+          f"launches {launches}", flush=True)
+    check(not res.scan_kept and res.scan_programs_built >= 1
+          and (res.scan_capture_seconds > 0.0 or not cuda),
+          f"scans {label} follow-up {dt_name}: did not build its programs")
+    kept_s = [out[name]["scan_s"] for name, _ in ups]
+    cold_s = [out[name]["cold_scan_s"] for name, _ in ups]
+    print(f"scans {label} follow-ups ({card_line}): scan s kept "
+          f"{['%.3f' % t for t in kept_s]} (mean {np.mean(kept_s):.3f}), "
+          f"cold {['%.3f' % t for t in cold_s]} (mean {np.mean(cold_s):.3f}),"
+          f" first call {first['scan_s']:.3f} (capture "
+          f"{first['capture_s']:.3f}), per step {per['scan_s']:.3f}",
+          flush=True)
+    out[dt_name] = dict(kept=res.scan_kept, built=res.scan_programs_built,
+                        capture_s=res.scan_capture_seconds,
+                        scan_s=res.scan_seconds)
+    return out
+
+
 def scans_leg(api, counted, data_dir, card_line, heat_ref, cases,
-              device="cuda", profiled=True):
+              device="cuda", profiled=True, repeats=REPEAT_LABELS):
     """Each scan of ``cases`` (:func:`scan_cases`) three ways
     (:data:`SCAN_WAYS`): its step programs (the tool through the API, its
     ``run_transient`` / ``run_newmark`` call kept), then that call again
@@ -4401,9 +4669,18 @@ def scans_leg(api, counted, data_dir, card_line, heat_ref, cases,
     (phase 6's).  Prints per way the iterations, host reads, reruns, masked
     iterations past convergence, warm-up and capture seconds, scan
     seconds, the device-busy share (with ``profiled``: the same call again
-    under the profiler; the step programs, and the per-step path only for
-    :data:`SCAN_PROFILE_PER_STEP`) and launches.  Then a device synchronise planted in a step's body must
-    make the scan raise.  Returns the rows by label."""
+    under the profiler, the step programs of :data:`SCAN_PROFILED` from an
+    empty scan cache as the first call ran, and the per-step path of
+    :data:`SCAN_PROFILE_PER_STEP`) and launches.  Each case's first call
+    starts from an empty scan cache.  The cases of ``repeats`` are then
+    called again (:func:`follow_ups`) with the same operator: each
+    follow-up must keep its step programs (no program built, no capture,
+    no step solved on its own) and equal a cold call of itself after the
+    cache is emptied (iterations, frames bit for bit); its scan seconds are
+    printed beside the first call's, the cold call's and the per-step
+    path's; the Δt follow-up must miss and build its programs anew.  Then
+    a device synchronise planted in a step's body must make the scan
+    raise.  Returns the rows by label."""
     import gc
 
     import numpy as np
@@ -4433,6 +4710,10 @@ def scans_leg(api, counted, data_dir, card_line, heat_ref, cases,
 
     for label, cs, tool, kw, cfg, wanted, steps in cases:
         ways, results = {}, {}
+        # the first call from an empty scan cache; the per-step path keeps
+        # its operands, the uncaptured programs (another capture mode) are
+        # new on the card and the program way's on the CPU
+        timestepping.clear_scan_cache()
         for way in SCAN_WAYS:
             if way == "program":
                 calls, unspy = record_scans()
@@ -4460,12 +4741,16 @@ def scans_leg(api, counted, data_dir, card_line, heat_ref, cases,
                 iterations=res.total_cg_iterations,
                 reads=dict(device_loop.HOST_READS), reruns=res.scan_reruns,
                 stepwise=res.scan_stepwise_chunks,
+                built=res.scan_programs_built,
                 past=res.scan_past_iterations,
                 capture_s=res.scan_capture_seconds, scan_s=res.scan_seconds,
                 wall=wall, launches=launches)
-            if profiled and (way == "program"
+            if profiled and ((way == "program" and label in SCAN_PROFILED)
                              or (way == "per step"
                                  and label in SCAN_PROFILE_PER_STEP)):
+                if way == "program":
+                    # the trace repeats the first call, from an empty cache
+                    timestepping.clear_scan_cache()
                 ways[way]["busy"] = scan_busy(again, way, res.scan_seconds)
         gaps = {way: max(gap(f0, f) for f0, f in
                          zip(fields_of(results["program"]),
@@ -4499,7 +4784,8 @@ def scans_leg(api, counted, data_dir, card_line, heat_ref, cases,
               f"scans {label}: field gaps {gaps}")
         for way in ("program", "uncaptured"):
             r = ways[way]["reads"]
-            chunks = device_loop.scan_chunks(steps, first=True)
+            chunks = device_loop.scan_chunks(
+                steps, first=way == "program" or cuda)
             check(r.get("scan", 0) == len(chunks) - ways[way]["stepwise"]
                   and r.get("scan_redo", 0) == ways[way]["reruns"],
                   f"scans {label} ({way}): host reads {r} for {steps} "
@@ -4510,7 +4796,11 @@ def scans_leg(api, counted, data_dir, card_line, heat_ref, cases,
         check("scan" not in ways["per step"]["reads"],
               f"scans {label}: the per-step path read as a scan")
         rows[label] = dict(steps=steps, gaps=gaps, ways=ways)
+        if label in repeats:
+            rows[label]["repeats"] = repeat_scans(
+                counted, label, cs, fn, a, k, ways, steps, card_line, cuda)
         del results, api_field
+        timestepping.clear_scan_cache()
         gc.collect()
         if cuda:
             torch.cuda.empty_cache()
@@ -4525,6 +4815,7 @@ def scans_leg(api, counted, data_dir, card_line, heat_ref, cases,
         return orig(*a, **kw)
 
     timestepping._transient_step_body = syncing
+    timestepping.clear_scan_cache()
     try:
         with config_overrides(transient_mg_threshold=100, mg_threshold=100):
             api.solve_heat_3D(**SMALL_HEAT, data_dir=data_dir)
@@ -4655,11 +4946,16 @@ def read_figure(html_path):
     return json.loads(m.group(1)), len(html.encode())
 
 
+TRANSIENT_LINE = (r"transient: (\d+) steps, (\d+) CG iterations, .*setup "
+                  r"([0-9.]+)s, scan ([0-9.]+)s, .*step programs: "
+                  r"(kept|new), (\d+) built, .*capture ([0-9.]+)s\)")
+
+
 def service_phase(counted, flagship, vm_ref, ref_iterations, ref_wall,
                   work_dir, wanted=("v3_f32", "v3_bf16", "v1_f32"),
                   device="cuda", server_env=None, examples=None,
                   disk_hits=("prep", "hierarchy"), cold_setup=None,
-                  card_line=""):
+                  card_line="", heat=HEAT):
     """The system's entry points on the card.  The port's MCP server, started
     as ``python -m pde_solver_tpu_torch.mcp.server`` with no
     ``PDE_TPU_DEVICE`` (the card is its default) and INFO logging to
@@ -4667,8 +4963,12 @@ def service_phase(counted, flagship, vm_ref, ref_iterations, ref_wall,
     tools/list (the 31 names of the port's ``LocalToolSet``), the flagship
     (``flagship``, the dense route, ``PDE_TPU_CS=0``) held against the
     in-process field ``vm_ref`` of the same solve and its iterations, the
-    plot of the served field, a call of an unknown tool (``isError``); its
-    stdout must hold the replies and nothing else.  The served flagship is
+    plot of the served field, ``solve_heat_3D`` (``heat``) twice with
+    another face temperature the second time (a user's follow-up: the
+    second call must keep the first one's step programs; its wall, scan
+    and capture seconds beside the first's, from the reply and the
+    server's INFO ``transient:`` lines), a call of an unknown tool
+    (``isError``); its stdout must hold the replies and nothing else.  The served flagship is
     a fresh process's first call, answered from the disk cache the
     in-process run stored: its INFO lines must show a disk hit of each
     kind in ``disk_hits``; its set-up seconds are printed beside
@@ -4676,7 +4976,8 @@ def service_phase(counted, flagship, vm_ref, ref_iterations, ref_wall,
     examples of ``pde_solver_tpu_torch/app.py`` in process, each through a
     ``MultiAgentOrchestrator(llm=None, memory_file=None)`` on the port's
     ``LocalToolSet``, each a main path of its own (``counted(label, fn)`` →
-    (result, launches, wall s)).  Returns the served flagship's launches.
+    (result, launches, wall s)).  Returns the server's launches (the
+    flagship's and the two heat calls').
     A CPU rehearsal passes ``server_env`` (``PDE_TPU_DEVICE=cpu``), a small
     ``flagship`` with its own reference, ``wanted=()`` and ``device="cpu"``
     (the examples then run under ``config_overrides(device="cpu")``)."""
@@ -4774,6 +5075,56 @@ def service_phase(counted, flagship, vm_ref, ref_iterations, ref_wall,
             check(fig["data"][0]["type"] == "volume"
                   and len(fig["frames"]) == 1, "served plot: not the "
                   "flagship's volume")
+
+            # a follow-up in the same server: the scan cache keeps the
+            # first call's operands, hierarchy and step programs
+            calls = []
+            for t_b in (0.0, 25.0):
+                heat_out, heat_wall = pipe.call_tool(
+                    "solve_heat_3D", dict(heat, T_boundary=t_b,
+                                          data_dir=os.path.join(work_dir,
+                                                                "data")))
+                with open(log_path, encoding="utf-8",
+                          errors="replace") as f:
+                    lines = f.read().splitlines()
+                heat_s, heat_launches = call_launches(lines, "solve_heat_3D")
+                scans = [m for m in (re.search(TRANSIENT_LINE, x)
+                                     for x in lines) if m]
+                check(len(scans) == len(calls) + 1, f"served heat: "
+                      f"{len(scans)} transient lines after {len(calls) + 1}"
+                      f" call(s)")
+                m = scans[-1]
+                hst = heat_out["meta"]["solver_stats"]
+                calls.append(dict(
+                    T_boundary=t_b, wall=heat_wall, server_s=heat_s,
+                    iterations=int(m.group(2)), setup_s=float(m.group(3)),
+                    scan_s=float(m.group(4)), kept=m.group(5) == "kept",
+                    built=int(m.group(6)), capture_s=float(m.group(7)),
+                    converged=hst["converged"], launches=heat_launches))
+                check(hst["converged"] is True
+                      and abs(hst["scan_seconds"] - float(m.group(4)))
+                      <= 1e-3, f"served heat: {hst} against {m.group(0)}")
+                for kk, v in heat_launches.items():
+                    launches[kk] = launches.get(kk, 0) + v
+            first_h, second_h = calls
+            print(f"service heat 3D follow-up ({card_line}): "
+                  + "; ".join(
+                      f"{name} (faces at {c['T_boundary']:g}): wall "
+                      f"{c['wall']:.3f} s ({c['server_s']:.3f} s in the "
+                      f"server's tool call), set-up {c['setup_s']:.3f} s, "
+                      f"scan {c['scan_s']:.3f} s, capture "
+                      f"{c['capture_s']:.3f} s, step programs "
+                      f"{'kept' if c['kept'] else 'new'} ({c['built']} "
+                      f"built), iterations {c['iterations']}, launches "
+                      f"{c['launches']}"
+                      for name, c in (("first call", first_h),
+                                      ("second call", second_h))),
+                  flush=True)
+            check(not first_h["kept"] and first_h["built"] >= 1,
+                  f"served heat: the first call kept programs: {first_h}")
+            check(second_h["kept"] and second_h["built"] == 0
+                  and second_h["capture_s"] == 0.0, f"served heat: the "
+                  f"follow-up did not keep its programs: {second_h}")
             bad = pipe.request("tools/call", {"name": "does_not_exist",
                                               "arguments": {}})
             check(bad.get("isError") is True, f"unknown tool: {bad}")
@@ -5046,14 +5397,29 @@ def main() -> int:
     cs_level_ms = paths.cs_level_ms
 
     vm_runs = {}
+    refs = {}     # the captured runs the graphs phase holds uncaptured ones to
     vm_calls, unspy_vm = spy_von_mises()
     for cs in ("0", "1", "hybrid"):
         del vm_calls[:]
+        df2 = []
+
+        def solve_flagship():
+            res, grabbed = grab_df2(lambda: api.solve_elasticity_3D_static(
+                **FLAGSHIP, data_dir=data_dir))
+            if cs == "0":
+                df2.append(grabbed)
+            return res
+
         with config_overrides(device="cuda"), solver_log() as log:
             res, st, launches, cs_built = main_path(
-                f"flagship PDE_TPU_CS={cs}", cs,
-                lambda: api.solve_elasticity_3D_static(**FLAGSHIP,
-                                                       data_dir=data_dir))
+                f"flagship PDE_TPU_CS={cs}", cs, solve_flagship)
+        label = f"flagship PDE_TPU_CS={cs}"
+        if df2:
+            refs["df2"] = dict(df2=df2[0], launches=launches,
+                               wall=paths.walls[label],
+                               reads=paths.reads_of(label),
+                               peak=paths.peaks[label])
+        del df2
         vm = field(res)[0]
         vm_runs[cs] = vm
         if cs == "0":
@@ -5110,7 +5476,6 @@ def main() -> int:
     del vm_runs
 
     T_runs = {}
-    refs = {}     # the captured runs the graphs phase holds uncaptured ones to
     for cs in ("0", "1"):
         with config_overrides(device="cuda"):
             res, st, launches, cs_built = main_path(
@@ -5217,7 +5582,7 @@ def main() -> int:
         share_f32 = newmark_phase(api, main_path, hold_cs, data_dir)
         print(f"phase newmark: {time.perf_counter() - t0:.3f} s", flush=True)
         t0 = time.perf_counter()
-        modal_phase(api, drive, data_dir, refs=refs, peaks=paths.peaks)
+        modal_phase(api, drive, data_dir)
         print(f"phase modal: {time.perf_counter() - t0:.3f} s", flush=True)
 
         # -- the precision scheme: float64, float32, checkpoints, smoother --
@@ -5236,7 +5601,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         graphs = graphs_phase(
             api, lambda label, fn: paths.counted(label, "0", fn), data_dir,
-            card_line, refs, paths.walls, paths.peaks)
+            card_line, refs, paths.peaks)
         print(f"phase graphs: {time.perf_counter() - t0:.3f} s; "
               + json.dumps(graphs, default=str), flush=True)
 
@@ -5258,7 +5623,7 @@ def main() -> int:
         *served_ref[:3], os.path.join(root, "build", "service"),
         cold_setup=served_ref[3], card_line=card_line)
     del served_ref
-    paths.path_launches["service flagship (server process)"] = served
+    paths.path_launches["service (server process)"] = served
     for k, v in served.items():
         paths.main_launches[k] = paths.main_launches.get(k, 0) + v
     print(f"phase service: {time.perf_counter() - t0:.3f} s", flush=True)

@@ -316,34 +316,49 @@ class MaskedLoop:
             g0 += self.block
 
 
-def solve(store: GraphStore, key, program, b: torch.Tensor,
-          x0: torch.Tensor, tol: float, maxiter: int, block: int,
-          period: int = 0):
-    """Run the masked loop ``program`` = (prologue, step, status,
-    from_flat) on (b, x0, tol, maxiter), in blocks of ``block``, with the
-    :class:`MaskedLoop` of ``key`` in ``store`` (made at first use; its
-    capture mode joins the key).  Returns (x, iterations, relres).
-    ``key[0]`` names the loop in ``HOST_READS``; ``period`` is the period
-    of ``step`` in ``g`` (0: none), of which a captured block must be a
-    multiple."""
-    prologue, step, status, from_flat = program
-    capture = captures(b.device)
-    if capture and period and block % period:
-        raise ValueError(f"a captured block of {block} iterations must be a "
-                         f"multiple of the resync period {period}")
-    inputs = (b, x0,
-              torch.full((), float(tol), dtype=torch.float64,
-                         device=b.device),
-              torch.full((), int(maxiter), dtype=torch.int64,
-                         device=b.device))
+def run_masked(store: GraphStore, key, prologue, step, status, inputs,
+               block: int, capture: bool):
+    """Run the masked loop (``prologue``, ``step``, ``status``) on
+    ``inputs`` (a tuple of tensors) in blocks of ``block``, with the
+    :class:`MaskedLoop` of ``key`` in ``store`` (made at first use; the
+    capture mode joins the key).  Returns (the loop's state buffers, its
+    last status as host floats).  ``key[0]`` names the loop in
+    ``HOST_READS``."""
     key = key + (capture,)
     loop = store.get(key)
     if loop is None:
         loop = MaskedLoop(key[0], inputs, prologue, step, status, block,
                           capture, store)
         store.put(key, loop)
-    st = loop.run(inputs)
-    return from_flat(loop.state[0].clone()), int(st[1]), st[2]
+    return loop.state, loop.run(inputs)
+
+
+def solve(store: GraphStore, key, program, b: torch.Tensor,
+          x0: torch.Tensor, tol: float, maxiter: int, block: int,
+          period: int = 0):
+    """Run the masked loop ``program`` = (prologue, step, status,
+    from_flat) on (b, x0, tol, maxiter), in blocks of ``block``, through
+    :func:`run_masked`.  Returns (x, iterations, relres).  ``period`` is
+    the period of ``step`` in ``g`` (0: none), of which a captured block
+    must be a multiple."""
+    prologue, step, status, from_flat = program
+    capture = captures(b.device)
+    if capture and period and block % period:
+        raise ValueError(f"a captured block of {block} iterations must be a "
+                         f"multiple of the resync period {period}")
+    state, st = run_masked(store, key, prologue, step, status,
+                           loop_inputs(b, x0, tol, maxiter), block, capture)
+    return from_flat(state[0].clone()), int(st[1]), st[2]
+
+
+def loop_inputs(*tensors_then_tol_maxiter):
+    """A masked loop's inputs: the given tensors, then ``tol`` (float64)
+    and ``maxiter`` (int64) as 0-d tensors on the first tensor's device."""
+    *ts, tol, maxiter = tensors_then_tol_maxiter
+    device = ts[0].device
+    return tuple(ts) + (
+        torch.full((), float(tol), dtype=torch.float64, device=device),
+        torch.full((), int(maxiter), dtype=torch.int64, device=device))
 
 
 def status_of(active: torch.Tensor, k: torch.Tensor,
@@ -367,12 +382,19 @@ def status_of(active: torch.Tensor, k: torch.Tensor,
 # worst step of the chunk before, rounded up to whole ``STEP_BLOCK`` s.  A
 # chunk with no budget runs step by step through the per-step solves (one
 # read a block, the same kernels on the same device, the same answer):
-# a scan's first step, which no chunk precedes, and every chunk after one
-# whose worst step passed ``STEP_BUDGET_MAX``.  A read that shows a step
-# still active after the budget reruns its chunk step by step from the
-# carry it started with and counts the rerun in
-# ``HOST_READS["scan_redo"]``.  A scan keeps one step program in its
-# store, captured anew only when the budget changes.
+# a scan's first step when its programs have not learned where a
+# trajectory starts, and every chunk after one whose worst step passed
+# ``STEP_BUDGET_MAX``.  A read that shows a step still active after the
+# budget reruns its chunk step by step from the carry it started with and
+# counts the rerun in ``HOST_READS[key[0] + "_redo"]``.  A scan's programs
+# (:class:`ScanPrograms`) live in its store: one :class:`StepLoop` a
+# budget, kept with the store and captured when the budget is wanted and
+# no wider program is kept, or wanted again (a budget's first want runs
+# on the smallest wider program kept), and the budget a trajectory's
+# first chunk starts from, learned from the first step that was solved
+# on its own.  An owner kept across calls (a
+# scan's operands in ``timestepping``'s cache) therefore starts a later
+# trajectory at that budget with nothing to capture.
 
 SCAN_CHUNK = 16
 STEP_BLOCK = 8
@@ -387,15 +409,16 @@ STEP_BUDGET_MAX = 4 * STEP_BLOCK
 class ScanTally(NamedTuple):
     """What a scan did: its iterations and max relres, the chunks run again
     step by step after an overflow, the chunks run step by step with no
-    budget (the first step, and after a worst step past the cap), the
-    masked iterations its step programs ran past their step's
-    convergence, and the seconds spent warming up and capturing its step
-    programs."""
+    budget (an unlearned first step, and after a worst step past the
+    cap), the masked iterations its step programs ran past their step's
+    convergence, the step programs it built, and the seconds spent
+    warming up and capturing them."""
     iterations: int = 0
     relres: float = 0.0
     reruns: int = 0
     stepwise: int = 0
     past: int = 0
+    built: int = 0
     capture_seconds: float = 0.0
 
     def plus(self, other: "ScanTally") -> "ScanTally":
@@ -511,7 +534,7 @@ def step_budget(k) -> Optional[int]:
 
 def scan_chunks(num_steps: int, first: bool = False) -> list:
     """The chunks (steps between reads) of ``num_steps`` steps: with
-    ``first`` (a scan with no step program yet) its first step alone, then
+    ``first`` (no budget to start from) its first step alone, then
     ``SCAN_CHUNK`` steps each, the last what is left."""
     out = [min(1, num_steps)] if first else []
     rest = num_steps - sum(out)
@@ -519,40 +542,81 @@ def scan_chunks(num_steps: int, first: bool = False) -> list:
     return out + ([rest % SCAN_CHUNK] if rest % SCAN_CHUNK else [])
 
 
+class ScanPrograms:
+    """The step programs of one scan in its store: a :class:`StepLoop` a
+    budget (at most ``STEP_BUDGET_MAX // STEP_BLOCK``), the budgets wanted
+    so far, the budget a trajectory's first chunk starts from (None until
+    a first step solved on its own has set it) and the budget the last
+    chunk left for the next (None: step by step)."""
+
+    def __init__(self):
+        self.loops: Dict[int, StepLoop] = {}
+        self.wanted: set = set()
+        self.first: Optional[int] = None
+        self.next: Optional[int] = None
+
+    def loop_for(self, budget: int) -> Optional[StepLoop]:
+        """The program a chunk that wants ``budget`` runs: its own; on the
+        budget's first want, the smallest wider one kept (any budget at or
+        above a step's count gives its answer, and a capture costs about
+        as much as a chunk of masked iterations past convergence); else
+        None (capture it)."""
+        wider = [b for b in self.loops if b > budget]
+        first_want = budget not in self.wanted
+        self.wanted.add(budget)
+        if budget in self.loops:
+            return self.loops[budget]
+        return self.loops[min(wider)] if wider and first_want else None
+
+
 def run_scan(store: GraphStore, key, step: Callable, program, per_step,
              carry, tol: float, maxiter: int, step0: int, num_steps: int,
-             keep: Callable):
+             keep: Callable, start: bool = True, *,
+             capture: Optional[bool] = None):
     """``num_steps`` steps of a scan from ``carry`` at global step
-    ``step0`` through the :class:`StepLoop` of ``key`` in ``store``.
+    ``step0`` through the :class:`ScanPrograms` of ``key`` in ``store``.
 
     ``step`` and ``program`` as :class:`StepLoop` takes them; ``per_step``
     solves a step on its own (``solve(b, x0)`` → (x, iterations, relres)
     with a read a block), for a chunk with no budget and for a rerun;
     ``keep(j, carry)`` is called after the scan's step j (0-based) with
-    the carry it left, to copy frames.  ``key[0]`` names the scan in
-    ``HOST_READS``.  Returns (the final carry, a :class:`ScanTally`)."""
+    the carry it left, to copy frames.  ``start``: these steps begin a
+    trajectory (its first chunk runs at the learned first budget), else
+    they go on from an earlier call's (at the budget that call left).
+    ``capture`` defaults to :func:`captures` of the carry's device.
+    ``key[0]`` names the scan in ``HOST_READS``.  Returns (the final
+    carry, a :class:`ScanTally`)."""
     if _PER_STEP:
         carry, k, r, _ = run_steps(step, per_step, carry, step0, num_steps,
                                    keep)
         return carry, ScanTally(k, r)
-    loop, tally, done = store.get(key), ScanTally(), 0
-    budget = None if loop is None else loop.budget
-    for m in scan_chunks(num_steps, first=loop is None):
+    if capture is None:
+        capture = captures(carry[0].device)
+    progs = store.get(key + (capture,))
+    if progs is None:
+        progs = ScanPrograms()
+        store.put(key + (capture,), progs)
+    tally, done = ScanTally(), 0
+    budget = progs.first if start else progs.next
+    for m in scan_chunks(num_steps, first=budget is None):
         if budget is None:
             carry, k, r, kmax = run_steps(step, per_step, carry, step0, m,
                                           keep, done)
             tally = tally.plus(ScanTally(k, r, stepwise=1))
+            if start and done == 0 and m == 1:
+                progs.first = step_budget(kmax)
         else:
-            if loop is None or loop.budget != budget:
-                loop = StepLoop(step, program, carry, tol, maxiter, budget,
-                                captures(carry[0].device), store)
-                store.put(key, loop)
+            loop = progs.loop_for(budget)
+            if loop is None:
+                loop = progs.loops[budget] = StepLoop(
+                    step, program, carry, tol, maxiter, budget, capture,
+                    store)
                 tally = tally.plus(ScanTally(
-                    capture_seconds=loop.capture_seconds))
+                    built=1, capture_seconds=loop.capture_seconds))
             loop.run(carry, step0 + done, m, keep, done)
             count_read(key[0])
             k, r, over, kmax = loop.acc.tolist()
-            past = m * budget - int(k)
+            past = m * loop.budget - int(k)
             if over:
                 # a step outran the budget: the chunk again, step by step
                 count_read(key[0] + "_redo")
@@ -563,9 +627,6 @@ def run_scan(store: GraphStore, key, step: Callable, program, per_step,
             tally = tally.plus(ScanTally(int(k), r, int(over > 0),
                                          past=past))
         done += m
-        budget = step_budget(kmax)
-        if budget is None and loop is not None:
-            # a program is kept only while the scan's steps fit the cap
-            store.put(key, None)
-            loop = None
+        # past the cap the next chunk runs step by step, with no program
+        budget = progs.next = step_budget(kmax)
     return carry, tally

@@ -513,6 +513,17 @@ _MG_CACHE: Dict = {}
 _MG_CACHE_MAX = 2
 
 
+def _routing() -> tuple:
+    """What routes a built operator's applies: ``PDE_TPU_CS``, the bf16
+    smoother switch and the three size gates.  It bakes into a built
+    hierarchy's operators, so it joins every key of a cache of them."""
+    from pde_solver_tpu_torch.ops.multigrid import (BF16_MIN_DOF,
+                                                    bf16_smoother)
+
+    return (cs_kernels.cs_mode(), bf16_smoother(), cs_kernels.CS_MIN_DOF,
+            stencil_kernels.KERNEL_MIN_DOF, BF16_MIN_DOF)
+
+
 def _mg_cache_key(mesh: StructuredMesh, vdim: int, prec: str,
                   sysm: ScaledSystem, device: torch.device):
     h = hashlib.blake2b(digest_size=16)
@@ -521,16 +532,9 @@ def _mg_cache_key(mesh: StructuredMesh, vdim: int, prec: str,
     h.update(np.ascontiguousarray(sysm.free))
     # the routing bakes into the built hierarchy's operators, and its
     # tensors live on one device: an entry of another routing or device
-    # would silently keep the old kernels or hand over foreign tensors.
-    # The routing is PDE_TPU_CS, the bf16-smoother switch and the three
-    # size gates.
-    from pde_solver_tpu_torch.ops.multigrid import (BF16_MIN_DOF,
-                                                    bf16_smoother)
-
-    routing = (cs_kernels.cs_mode(), bf16_smoother(), cs_kernels.CS_MIN_DOF,
-               stencil_kernels.KERNEL_MIN_DOF, BF16_MIN_DOF)
-    return (mesh.node_shape, vdim, prec, sysm.offsets, routing, str(device),
-            h.hexdigest())
+    # would silently keep the old kernels or hand over foreign tensors
+    return (mesh.node_shape, vdim, prec, sysm.offsets, _routing(),
+            str(device), h.hexdigest())
 
 
 def _mg_cache_get(key):

@@ -14,16 +14,21 @@ by plain CG on the flat operator (dense, or constant-interior with
 ``PDE_TPU_CS``).  The reference's ``lax.scan`` becomes a step program
 (``ops.device_loop.StepLoop``): the step's body, its step solve as a fixed
 budget of masked iterations and the carry update, captured once on the
-card and replayed once a step with no read.  The first step is solved on
-its own (a device loop with a read a block) and sets the budget; the host
-reads the iterations, the worst relres and an overflow count once every
+card and replayed once a step with no read.  A trajectory's first step is
+solved on its own (a device loop with a read a block) and sets the budget,
+unless the scan's programs learned it in an earlier call; the host reads
+the iterations, the worst relres and an overflow count once every
 ``SCAN_CHUNK`` steps after it, and sets the budget for the next chunk from
 the worst step read (``device_loop.step_budget``); a chunk after one whose
 worst step passed the cap runs step by step.  A chunk in which a step
 outran the budget runs again step by step from the carry it started with
-and is counted as a rerun.  The graphs live for the whole
-scan in the operands' ``graphs`` store.  The kept frames are copied on the device
-after their step and come back to the host once, whole.
+and is counted as a rerun.  The operands, the hierarchy and the step
+programs (one a budget, in the operands' ``graphs`` store) are kept across
+calls in ``_SCAN_CACHE``, keyed by the operator's content, as ``jax.jit``
+keeps the JAX package's compiled scans: a follow-up with the same operator
+copies its values into the kept buffers and replays the kept programs.
+The kept frames are copied on the device after their step and come
+back to the host once, whole.
 
 Like the reference, "mixed" precision runs the scan in float32 (implicit
 stepping is contractive and every step is solved to
@@ -41,8 +46,9 @@ chunks either scan with atomic checkpoints in ``checkpoint_dir`` (content
 keyed as in the reference; a resume is bitwise the uninterrupted run).
 ``SolverConfig.shard_devices > 1`` runs either scan sharded
 (``parallel.shard.ShardedThetaScan`` / ``ShardedNewmarkScan``: grid axis 0
-cut over a mesh of shard devices, CG step solves, every step kept; no
-checkpoints there, as in the JAX package).  The reference thins large
+cut over a mesh of shard devices, CG step solves, every step kept, step
+programs as here and kept alike; no checkpoints there, as in the JAX
+package).  The reference thins large
 trajectory pulls to bfloat16 frames for its slow host link; the port
 pulls everything at the kept frames' precision (ROADMAP queue 3).
 
@@ -78,7 +84,7 @@ from pde_solver_tpu_torch.mesh import StructuredMesh
 from pde_solver_tpu_torch.ops.bc import DirichletBC
 from pde_solver_tpu_torch.ops import device_loop
 from pde_solver_tpu_torch.ops.linsolve import (STEP_BLOCK, _cg_program,
-                                               _cg_unit_diag,
+                                               _cg_unit_diag, _routing,
                                                _static_flat_op,
                                                _stencil_apply,
                                                np_stencil_apply,
@@ -104,17 +110,23 @@ class TransientResult(NamedTuple):
                                     # step past the budget's cap)
     scan_past_iterations: int = 0   # masked iterations the step programs
                                     # ran past their step's convergence
+    scan_programs_built: int = 0    # step programs made (captured on the
+                                    # card) by this call
     scan_capture_seconds: float = 0.0   # warming up and capturing them
+    scan_kept: bool = False     # the operands, hierarchy and step programs
+                                # came from the scan cache (_SCAN_CACHE)
 
 
-def _tallied(tally: device_loop.ScanTally) -> Dict:
+def _tallied(tally: device_loop.ScanTally, kept: bool) -> Dict:
     """A result's fields from its scans' tally."""
     return dict(total_cg_iterations=tally.iterations,
                 max_relative_residual=tally.relres,
                 scan_reruns=tally.reruns,
                 scan_stepwise_chunks=tally.stepwise,
                 scan_past_iterations=tally.past,
-                scan_capture_seconds=tally.capture_seconds)
+                scan_programs_built=tally.built,
+                scan_capture_seconds=tally.capture_seconds,
+                scan_kept=kept)
 
 
 def _combine(K: Dict, M: Dict, alpha: float, beta: float) -> Dict:
@@ -157,6 +169,107 @@ def _snapshot_every(cfg: SolverConfig, num_steps: int, snap_bytes: int) -> int:
     if num_steps * snap_bytes > cfg.snapshot_budget_bytes:
         return -(-(num_steps * snap_bytes) // cfg.snapshot_budget_bytes)
     return 1
+
+
+# ----------------------------------------------------------------------
+# Scan operands kept across calls
+# ----------------------------------------------------------------------
+#
+# The counterpart of ``jax.jit``'s cache on the JAX package's
+# ``_transient_scan`` / ``_newmark_scan``: a later call with the same
+# operator replays the step programs the first one captured.  A captured
+# graph replays the values baked into its launches (each level's ω and the
+# Chebyshev constants drawn from it, the CS kernel's term lists, every
+# launch's shape and offsets) as well as the addresses it read, so an
+# entry keys on the operator's content, not on its structure alone: the
+# scaled, masked weights, free mask and scales (or the prepared system's
+# content key), the offsets, node shape, vdim, precision, routing and
+# device, and the scan's own constants.  The hierarchy is a deterministic
+# function of that key, so a hit keeps it with the step operands (static
+# device buffers) and the :class:`~device_loop.ScanPrograms` in the
+# operands' ``graphs`` store, and copies each call's values (Dirichlet
+# values and their lift, sources, the explicit operators, the driving and
+# its table) into the kept buffers, as ``device_loop.solve`` copies b and
+# x0.  θ scans and Newmark scans key apart, each an LRU of at most
+# ``_SCAN_CACHE_MAX`` entries; an evicted entry's graphs are released.
+
+_SCAN_CACHE: Dict[str, Dict] = {"theta": {}, "newmark": {}}
+_SCAN_CACHE_MAX = 2
+
+
+def _scan_key(kind: str, mesh: StructuredMesh, vdim: int, prec: str, sysm,
+              device, consts: tuple) -> tuple:
+    """The cache key of a scan of the prepared implicit system ``sysm``:
+    its content (``sysm.ckey`` when the system has one, else a hash of
+    the scaled weights, free mask and scales), its shape and routing,
+    and ``consts``, what else the step programs bake in."""
+    content = sysm.ckey
+    if content is None:
+        h = hashlib.blake2b(digest_size=16)
+        for a in list(sysm.weights) + [sysm.free, sysm.s, sysm.Ct,
+                                       sysm.CinvT]:
+            if a is not None:
+                h.update(np.ascontiguousarray(a))
+        content = h.hexdigest()
+    return (kind, tuple(mesh.node_shape), vdim, prec, sysm.offsets,
+            _routing(), str(device), content) + tuple(consts)
+
+
+def _scan_cache_get(kind: str, key):
+    entry = _SCAN_CACHE[kind].pop(key, None)
+    if entry is not None:
+        _SCAN_CACHE[kind][key] = entry  # LRU refresh
+    return entry
+
+
+def _scan_cache_put(kind: str, key, entry) -> None:
+    cache = _SCAN_CACHE[kind]
+    cache[key] = entry
+    while len(cache) > _SCAN_CACHE_MAX:
+        _release(cache.pop(next(iter(cache))))
+
+
+def _release(entry) -> None:
+    """Free the graphs of a scan cache entry and of its hierarchy."""
+    device_loop.release(entry)
+    if getattr(entry, "h", None) is not None:
+        device_loop.release(entry.h)
+
+
+def clear_scan_cache() -> None:
+    """Empty the scan cache, releasing every entry's graphs (a cold call
+    follows)."""
+    for cache in _SCAN_CACHE.values():
+        while cache:
+            _release(cache.pop(next(iter(cache))))
+
+
+def _copy_into(dst, src) -> None:
+    """Copy a call's values into kept buffers of the same structure
+    (tensors, tuples of them, None, or values with ``parts``)."""
+    if src is None:
+        return
+    if isinstance(src, tuple):
+        for d, t in zip(dst, src):
+            _copy_into(d, t)
+    elif hasattr(src, "parts"):
+        _copy_into(tuple(dst.parts), tuple(src.parts))
+    else:
+        dst.copy_(src)
+
+
+def _kept(kind: str, key, values: Dict, build):
+    """The cached entry of ``key`` with this call's ``values`` copied into
+    its buffers, or ``build(values)`` stored under ``key``.  Returns
+    (entry, whether it was kept)."""
+    entry = _scan_cache_get(kind, key)
+    if entry is None:
+        entry = build(values)
+        _scan_cache_put(kind, key, entry)
+        return entry, False
+    for name, v in values.items():
+        _copy_into(getattr(entry, name), v)
+    return entry, True
 
 
 class _StepOperands(NamedTuple):
@@ -260,11 +373,13 @@ def _transient_step_body(ops: _StepOperands, mode: str, u, u_prev, n,
 
 
 def _transient_scan(ops: _StepOperands, mode: str, u, u_prev, step0: int,
-                    num_steps: int, snap_every: int, snap_dtype):
+                    num_steps: int, snap_every: int, snap_dtype,
+                    start: bool = True):
     """``num_steps`` steps from global step ``step0`` through the step
-    program (``device_loop.run_scan``), keeping the state after every
-    ``snap_every``-th one.  Returns (frames [num_steps // snap_every, ...]
-    in ``snap_dtype``, u, u_prev, its ``device_loop.ScanTally``).  The
+    program (``device_loop.run_scan``; ``start``: they begin this call's
+    trajectory), keeping the state after every ``snap_every``-th one.
+    Returns (frames [num_steps // snap_every, ...] in ``snap_dtype``, u,
+    u_prev, its ``device_loop.ScanTally``).  The
     carry is u, and (u_prev, u) for CNAB2, whose ``u_prev`` None seeds the
     history with u; the u_prev returned is None without CNAB2."""
     cnab2 = ops.C_w is not None
@@ -285,7 +400,7 @@ def _transient_scan(ops: _StepOperands, mode: str, u, u_prev, step0: int,
         ops, ops.A64 if mode == "f64" else ops.A32)
     c, tally = device_loop.run_scan(
         ops.graphs, ("scan", mode), step, program, per_step, carry,
-        ops.inner_tol, ops.maxiter, step0, num_steps, keep)
+        ops.inner_tol, ops.maxiter, step0, num_steps, keep, start)
     return snaps, c[-1], (c[0] if cnab2 else None), tally
 
 
@@ -390,7 +505,7 @@ def run_transient(
         # the whole scan decomposed over the shards (identity-row padding,
         # halo-exchange applies, sharded CG step solves); every step kept
         from pde_solver_tpu_torch.parallel.shard import (ShardedThetaScan,
-                                                         device_mesh)
+                                                         device_mesh, padder)
 
         get_logger().info("sharded transient scan: %d devices, %d steps",
                           nshard, num_steps)
@@ -400,21 +515,34 @@ def run_transient(
                 "sharded scan path (shard_devices=%d) — running without "
                 "mid-solve checkpoints", cfg.transient_checkpoint_every,
                 nshard)
-        tmod_np = None
-        if time_mod:
-            tmod_np = {"b1": b1_np, "g1": g1_np, "Ag1": Ag1_np,
-                       "omega": float(time_mod["omega"]),
-                       "phase": float(time_mod.get("phase", 0.0)),
-                       "dt": float(dt), "theta": float(theta)}
-        scan = ShardedThetaScan(
-            sysm, B_list, free_np, Ag_np,
-            dt * np.asarray(b_source_np, np.float64), u0_np.shape, d, vdim,
-            device_mesh(nshard, device=device), dtype=state_dtype,
-            inner_tol=inner_tol, maxiter=maxiter, C_list=C_list,
-            tmod=tmod_np)
+        mesh_dev = device_mesh(nshard, device=device)
+        pad = padder(np.shape(free_np)[0], vdim, mesh_dev, state_dtype)
+        values = dict(
+            B_w=tuple(pad(W) for W in B_list), free=pad(free_np),
+            g=pad(gvals), Ag=pad(Ag_np),
+            b_src=pad(dt * np.asarray(b_source_np, np.float64)),
+            C_w=None if C_list is None else tuple(pad(W) for W in C_list),
+            tmod=None if not time_mod else tuple(
+                None if a is None else pad(a)
+                for a in (b1_np, g1_np, Ag1_np)) + (
+                torch.tensor(_sinusoid_table(
+                    float(time_mod["omega"]),
+                    float(time_mod.get("phase", 0.0)), float(dt),
+                    float(theta), num_steps), dtype=state_dtype,
+                    device=mesh_dev.devices[0]),))
+        key = _scan_key("theta", mesh, vdim, prec, sysm, device, (
+            state_dtype, float(dt), float(theta), float(inner_tol),
+            int(maxiter), cnab2,
+            None if not time_mod else (b1_np is not None, g1_np is not None,
+                                       num_steps),
+            "shard", tuple(str(x) for x in mesh_dev.devices)))
+        scan, kept = _kept("theta", key, values, lambda v: ShardedThetaScan(
+            sysm, d, vdim, mesh_dev, dtype=state_dtype, inner_tol=inner_tol,
+            maxiter=maxiter, **v))
+        del values
         setup_s = time.perf_counter() - t_setup
         t_scan = time.perf_counter()
-        snaps, iters, res = scan.run(u0_np, num_steps)
+        snaps, tally = scan.run(u0_np, num_steps)
         scan_s = time.perf_counter() - t_scan
         t_fetch = time.perf_counter()
         values = np.concatenate([np.asarray(u0_np, np.float64)[None],
@@ -422,53 +550,72 @@ def run_transient(
         return TransientResult(
             values=values, times=dt * np.arange(num_steps + 1,
                                                 dtype=np.float64),
-            total_cg_iterations=iters, max_relative_residual=res,
             setup_seconds=setup_s, scan_seconds=scan_s,
-            fetch_seconds=time.perf_counter() - t_fetch)
+            fetch_seconds=time.perf_counter() - t_fetch,
+            **_tallied(tally, kept))
 
-    h = None
-    if (mg_level_builder is not None and cfg.use_multigrid
-            and n >= cfg.resolved_transient_mg_threshold()):
-        from pde_solver_tpu_torch.ops import multigrid as mg
-
-        def A_builder(mesh_c):
-            K_c, M_c, bc_c = mg_level_builder(mesh_c)
-            return _combine(K_c, M_c, alpha=theta * dt, beta=1.0), bc_c
-
-        h = mg.build_hierarchy(mesh, sysm, A_builder, vdim=vdim,
-                               device=device, dtype=state_dtype)
+    use_mg = (mg_level_builder is not None and cfg.use_multigrid
+              and n >= cfg.resolved_transient_mg_threshold())
 
     def dev(a):   # a copy: cached host arrays are read-only
         return torch.tensor(np.asarray(a), dtype=state_dtype, device=device)
 
-    # The reference builds the step operator on the MG branch too and never
-    # reads it there; the port builds it only for the plain-CG step
-    A32 = A64 = None
-    if h is None and prec == "f32":
-        A32 = _static_flat_op(sysm, mesh, vdim, device) or tuple(
-            dev(W) for W in scaled)
-    elif h is None:
-        A64 = tuple(dev(W) for W in scaled)
-    if sysm.scale_kind == "scalar":
-        scale_ops = _make_scale_ops(dev(sysm.s), None, None)
-    else:
-        scale_ops = _make_scale_ops(None, dev(sysm.Ct), dev(sysm.CinvT))
-    tmod = None
-    if time_mod:
-        tmod = tuple(None if a is None else dev(a)
-                     for a in (b1_np, g1_np, Ag1_np)) + (
-            dev(_sinusoid_table(float(time_mod["omega"]),
-                                float(time_mod.get("phase", 0.0)),
-                                float(dt), float(theta), num_steps)),)
-    ops = _StepOperands(
-        offsets, A32, A64, tuple(dev(W) for W in B_list), dev(free_np),
-        dev(gvals), dev(Ag_np), dev(dt * np.asarray(b_source_np, np.float64)),
-        scale_ops, None if C_list is None else tuple(dev(W) for W in C_list),
-        tmod, inner_tol, maxiter, d, vdim, h, device_loop.GraphStore())
     snap32 = cfg.snapshot_dtype == "f32" and prec != "f64"
     snap_dtype = torch.float32 if snap32 else state_dtype
     snap_every = _snapshot_every(cfg, num_steps,
                                  n * (4 if snap_dtype == torch.float32 else 8))
+    # this call's values: copied into a kept entry's buffers on a hit
+    values = dict(
+        B_w=tuple(dev(W) for W in B_list), free=dev(free_np),
+        g=dev(gvals), Ag=dev(Ag_np),
+        b_src=dev(dt * np.asarray(b_source_np, np.float64)),
+        C_w=None if C_list is None else tuple(dev(W) for W in C_list),
+        tmod=None if not time_mod else tuple(
+            None if a is None else dev(a)
+            for a in (b1_np, g1_np, Ag1_np)) + (
+            dev(_sinusoid_table(float(time_mod["omega"]),
+                                float(time_mod.get("phase", 0.0)),
+                                float(dt), float(theta), num_steps)),))
+    # the driving's table is [num_steps, 2]: a driven scan keys on its
+    # length, and on which of its parts are present
+    key = _scan_key("theta", mesh, vdim, prec, sysm, device, (
+        state_dtype, snap_dtype, float(dt), float(theta), float(inner_tol),
+        int(maxiter), use_mg, cnab2,
+        None if not time_mod else (b1_np is not None, g1_np is not None,
+                                   num_steps)))
+
+    def build(values):
+        h = None
+        if use_mg:
+            from pde_solver_tpu_torch.ops import multigrid as mg
+
+            def A_builder(mesh_c):
+                K_c, M_c, bc_c = mg_level_builder(mesh_c)
+                return _combine(K_c, M_c, alpha=theta * dt, beta=1.0), bc_c
+
+            h = mg.build_hierarchy(mesh, sysm, A_builder, vdim=vdim,
+                                   device=device, dtype=state_dtype)
+        # The reference builds the step operator on the MG branch too and
+        # never reads it there; the port builds it only for the plain-CG
+        # step
+        A32 = A64 = None
+        if h is None and prec == "f32":
+            A32 = _static_flat_op(sysm, mesh, vdim, device) or tuple(
+                dev(W) for W in scaled)
+        elif h is None:
+            A64 = tuple(dev(W) for W in scaled)
+        if sysm.scale_kind == "scalar":
+            scale_ops = _make_scale_ops(dev(sysm.s), None, None)
+        else:
+            scale_ops = _make_scale_ops(None, dev(sysm.Ct), dev(sysm.CinvT))
+        return _StepOperands(
+            offsets, A32, A64, scale_ops=scale_ops, inner_tol=inner_tol,
+            maxiter=maxiter, grid_dim=d, vdim=vdim, h=h,
+            graphs=device_loop.GraphStore(), **values)
+
+    ops, kept = _kept("theta", key, values, build)
+    del values
+    h = ops.h
     u = dev(u0_np)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -503,7 +650,7 @@ def run_transient(
                 hsh.update(np.ascontiguousarray(arr))
         return _run_transient_checkpointed(
             ops, prec, u, num_steps, cfg, dt, u0_np, setup_s,
-            hsh.hexdigest(), snap_every, snap_dtype, cnab2)
+            hsh.hexdigest(), snap_every, snap_dtype, cnab2, kept)
 
     # the frames kept: every snap_every-th step, and the final state always
     t_scan = time.perf_counter()
@@ -515,7 +662,7 @@ def run_transient(
     if main < num_steps:
         last, u, _, t2 = _transient_scan(
             ops, prec, u, u_prev, main, num_steps - main, num_steps - main,
-            snap_dtype)
+            snap_dtype, start=main == 0)
         tally = tally.plus(t2)
         times.append(dt * num_steps)
     if device.type == "cuda":
@@ -530,17 +677,18 @@ def run_transient(
     fetch_s = time.perf_counter() - t_fetch
     get_logger().info("transient: %d steps, %d CG iterations, max relres "
                       "%.3e, setup %.3fs, scan %.3fs, fetch %.3fs (%d DOF, "
-                      "%s, %s step solves; step programs: %d reruns, %d "
-                      "chunks step by step, %d masked iterations past "
-                      "convergence, capture %.3fs)",
+                      "%s, %s step solves; step programs: %s, %d built, %d "
+                      "reruns, %d chunks step by step, %d masked iterations "
+                      "past convergence, capture %.3fs)",
                       num_steps, tally.iterations, tally.relres, setup_s,
                       scan_s, fetch_s, n, prec,
-                      "MG-PCG" if h is not None else "CG", tally.reruns,
+                      "MG-PCG" if h is not None else "CG",
+                      "kept" if kept else "new", tally.built, tally.reruns,
                       tally.stepwise, tally.past, tally.capture_seconds)
     return TransientResult(values=values,
                            times=np.asarray([0.0] + times, np.float64),
                            setup_seconds=setup_s, scan_seconds=scan_s,
-                           fetch_seconds=fetch_s, **_tallied(tally))
+                           fetch_seconds=fetch_s, **_tallied(tally, kept))
 
 
 # ----------------------------------------------------------------------
@@ -572,7 +720,7 @@ def _run_transient_checkpointed(ops: _StepOperands, prec: str, u0,
                                 num_steps: int, cfg: SolverConfig, dt: float,
                                 u0_np, setup_s: float, key: str,
                                 snap_every: int, snap_dtype,
-                                cnab2: bool) -> TransientResult:
+                                cnab2: bool, kept: bool) -> TransientResult:
     """Host-chunked scan with atomic carry + trajectory checkpoints.
 
     Every ``transient_checkpoint_every`` steps (rounded up to whole
@@ -632,7 +780,8 @@ def _run_transient_checkpointed(ops: _StepOperands, prec: str, u0,
     while start < main:
         n = min(every, main - start)
         snaps, u, u_prev_f, t = _transient_scan(
-            ops, prec, u, u_prev, start, n, snap_every, snap_dtype)
+            ops, prec, u, u_prev, start, n, snap_every, snap_dtype,
+            start=chunks_done == 0)
         if cnab2:
             u_prev = u_prev_f
         tally = tally.plus(t)
@@ -658,7 +807,8 @@ def _run_transient_checkpointed(ops: _StepOperands, prec: str, u0,
         # step to the end and keep only the final state
         rem = num_steps - start
         last, u, _, t = _transient_scan(ops, prec, u, u_prev, start, rem,
-                                        rem, snap_dtype)
+                                        rem, snap_dtype,
+                                        start=chunks_done == 0)
         tally = tally.plus(t)
         t_f = time.perf_counter()
         frames.append(_frames(last))
@@ -673,7 +823,7 @@ def _run_transient_checkpointed(ops: _StepOperands, prec: str, u0,
         times=dt * np.asarray([0] + snap_steps, dtype=np.float64),
         setup_seconds=setup_s,
         scan_seconds=time.perf_counter() - t_scan - fetch_s,
-        fetch_seconds=fetch_s, **_tallied(tally))
+        fetch_seconds=fetch_s, **_tallied(tally, kept))
 
 
 # ----------------------------------------------------------------------
@@ -689,10 +839,12 @@ class NewmarkResult(NamedTuple):
     setup_seconds: float = 0.0  # host system prep + a0 + MG hierarchy
     scan_seconds: float = 0.0   # the stepping loop
     fetch_seconds: float = 0.0  # both trajectories device → host
-    scan_reruns: int = 0        # these four as TransientResult's
+    scan_reruns: int = 0        # these six as TransientResult's
     scan_stepwise_chunks: int = 0
     scan_past_iterations: int = 0
+    scan_programs_built: int = 0
     scan_capture_seconds: float = 0.0
+    scan_kept: bool = False
 
 
 class _NewmarkOperands(NamedTuple):
@@ -717,9 +869,10 @@ class _NewmarkOperands(NamedTuple):
 
 
 def _newmark_scan(ops: _NewmarkOperands, u, v, a, num_steps: int,
-                  snap_dtype):
+                  snap_dtype, start: bool = True):
     """``num_steps`` Newmark steps from the carry (u, v, a) through the
-    step program (``device_loop.run_scan``).  Returns (displacements,
+    step program (``device_loop.run_scan``; ``start``: they begin this
+    call's trajectory).  Returns (displacements,
     velocities) [num_steps, ...] in ``snap_dtype``, the final carry at full
     precision and its ``device_loop.ScanTally``."""
     d, vdim, offsets = ops.grid_dim, ops.vdim, ops.offsets
@@ -749,7 +902,7 @@ def _newmark_scan(ops: _NewmarkOperands, u, v, a, num_steps: int,
     per_step, program = _step_solvers(ops, ops.A_w)
     carry, tally = device_loop.run_scan(
         ops.graphs, ("scan", "newmark"), step, program, per_step, (u, v, a),
-        ops.inner_tol, ops.maxiter, 0, num_steps, keep)
+        ops.inner_tol, ops.maxiter, 0, num_steps, keep, start)
     return us, vs, carry, tally
 
 
@@ -842,7 +995,7 @@ def run_newmark(
         # the whole Newmark scan decomposed over the shards, as
         # run_transient's sharded scan
         from pde_solver_tpu_torch.parallel.shard import (ShardedNewmarkScan,
-                                                         device_mesh)
+                                                         device_mesh, padder)
 
         if cfg.transient_checkpoint_every > 0:
             get_logger().warning(
@@ -851,16 +1004,26 @@ def run_newmark(
                 "checkpoints", cfg.transient_checkpoint_every)
         get_logger().info("sharded Newmark scan: %d devices, %d steps",
                           nshard, num_steps)
-        scan = ShardedNewmarkScan(
-            sysm, K_list, free_np, np.asarray(f_np, np.float64), d, vdim,
-            device_mesh(nshard, device=device), dt, beta, gamma,
-            dtype=state_dtype, inner_tol=inner_tol, maxiter=maxiter)
+        mesh_dev = device_mesh(nshard, device=device)
+        pad = padder(np.shape(free_np)[0], vdim, mesh_dev, state_dtype)
+        values = dict(K_w=tuple(pad(W) for W in K_list), free=pad(free_np),
+                      f_ext=pad(np.asarray(f_np, np.float64)))
+        key = _scan_key("newmark", mesh, vdim, prec, sysm, device, (
+            state_dtype, float(dt), float(beta), float(gamma),
+            float(inner_tol), int(maxiter), "shard",
+            tuple(str(x) for x in mesh_dev.devices)))
+        scan, kept = _kept("newmark", key, values,
+                           lambda v: ShardedNewmarkScan(
+                               sysm, d, vdim, mesh_dev, dt, beta, gamma,
+                               dtype=state_dtype, inner_tol=inner_tol,
+                               maxiter=maxiter, **v))
+        del values
         setup_s = time.perf_counter() - t_setup
         t_scan = time.perf_counter()
-        us, vs, iters, res = scan.run(np.asarray(u0_np, np.float64),
-                                      np.asarray(v0_np, np.float64),
-                                      a.cpu().numpy().astype(np.float64),
-                                      num_steps)
+        us, vs, tally = scan.run(np.asarray(u0_np, np.float64),
+                                 np.asarray(v0_np, np.float64),
+                                 a.cpu().numpy().astype(np.float64),
+                                 num_steps)
         scan_s = time.perf_counter() - t_scan
         t_fetch = time.perf_counter()
         values = np.concatenate([np.asarray(u0_np, np.float64)[None],
@@ -870,32 +1033,47 @@ def run_newmark(
         return NewmarkResult(
             values=values, velocities=vels,
             times=dt * np.arange(num_steps + 1, dtype=np.float64),
-            total_cg_iterations=iters, max_relative_residual=res,
             setup_seconds=setup_s, scan_seconds=scan_s,
-            fetch_seconds=time.perf_counter() - t_fetch)
+            fetch_seconds=time.perf_counter() - t_fetch,
+            **_tallied(tally, kept))
 
-    h = None
-    if (mg_level_builder is not None and cfg.use_multigrid
-            and n >= cfg.resolved_transient_mg_threshold()):
-        from pde_solver_tpu_torch.ops import multigrid as mg
-
-        def A_builder(mesh_c):
-            K_c, M_c, bc_c = mg_level_builder(mesh_c)
-            return _combine(K_c, M_c, alpha=beta * dt * dt, beta=1.0), bc_c
-
-        h = mg.build_hierarchy(mesh, sysm, A_builder, vdim=vdim,
-                               device=device, dtype=state_dtype)
-    if sysm.scale_kind == "scalar":
-        scale_ops = _make_scale_ops(dev(sysm.s), None, None)
-    else:
-        scale_ops = _make_scale_ops(None, dev(sysm.Ct), dev(sysm.CinvT))
-    ops = _NewmarkOperands(
-        offsets, step_operator(sysm) if h is None else None,
-        tuple(dev(W) for W in K_list), dev(free_np), dev(f_np), scale_ops,
-        float(dt), float(beta), float(gamma), inner_tol, maxiter, d, vdim, h,
-        device_loop.GraphStore())
+    use_mg = (mg_level_builder is not None and cfg.use_multigrid
+              and n >= cfg.resolved_transient_mg_threshold())
     snap32 = cfg.snapshot_dtype == "f32" and prec != "f64"
     snap_dtype = torch.float32 if snap32 else state_dtype
+    # this call's values: copied into a kept entry's buffers on a hit
+    values = dict(K_w=tuple(dev(W) for W in K_list), free=dev(free_np),
+                  f_ext=dev(f_np))
+    key = _scan_key("newmark", mesh, vdim, prec, sysm, device, (
+        state_dtype, snap_dtype, float(dt), float(beta), float(gamma),
+        float(inner_tol), int(maxiter), use_mg))
+
+    def build(values):
+        h = None
+        if use_mg:
+            from pde_solver_tpu_torch.ops import multigrid as mg
+
+            def A_builder(mesh_c):
+                K_c, M_c, bc_c = mg_level_builder(mesh_c)
+                return (_combine(K_c, M_c, alpha=beta * dt * dt, beta=1.0),
+                        bc_c)
+
+            h = mg.build_hierarchy(mesh, sysm, A_builder, vdim=vdim,
+                                   device=device, dtype=state_dtype)
+        if sysm.scale_kind == "scalar":
+            scale_ops = _make_scale_ops(dev(sysm.s), None, None)
+        else:
+            scale_ops = _make_scale_ops(None, dev(sysm.Ct), dev(sysm.CinvT))
+        return _NewmarkOperands(
+            offsets, step_operator(sysm) if h is None else None,
+            scale_ops=scale_ops, dt=float(dt), beta=float(beta),
+            gamma=float(gamma), inner_tol=inner_tol, maxiter=maxiter,
+            grid_dim=d, vdim=vdim, h=h, graphs=device_loop.GraphStore(),
+            **values)
+
+    ops, kept = _kept("newmark", key, values, build)
+    del values
+    h = ops.h
     u, v = dev(u0_np), dev(v0_np)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -915,7 +1093,7 @@ def run_newmark(
             hsh.update(np.ascontiguousarray(np.asarray(arr, np.float64)))
         return _run_newmark_checkpointed(ops, (u, v, a), num_steps, cfg,
                                          u0_np, v0_np, setup_s,
-                                         hsh.hexdigest(), snap_dtype)
+                                         hsh.hexdigest(), snap_dtype, kept)
 
     t_scan = time.perf_counter()
     us, vs, _, tally = _newmark_scan(ops, u, v, a, num_steps, snap_dtype)
@@ -931,24 +1109,25 @@ def run_newmark(
     fetch_s = time.perf_counter() - t_fetch
     get_logger().info("newmark: %d steps, %d CG iterations, max relres "
                       "%.3e, setup %.3fs, scan %.3fs, fetch %.3fs (%d DOF, "
-                      "%s, %s step solves; step programs: %d reruns, %d "
-                      "chunks step by step, %d masked iterations past "
-                      "convergence, capture %.3fs)",
+                      "%s, %s step solves; step programs: %s, %d built, %d "
+                      "reruns, %d chunks step by step, %d masked iterations "
+                      "past convergence, capture %.3fs)",
                       num_steps, tally.iterations, tally.relres, setup_s,
                       scan_s, fetch_s, n, prec,
-                      "MG-PCG" if h is not None else "CG", tally.reruns,
+                      "MG-PCG" if h is not None else "CG",
+                      "kept" if kept else "new", tally.built, tally.reruns,
                       tally.stepwise, tally.past, tally.capture_seconds)
     return NewmarkResult(values=values, velocities=vels,
                          times=dt * np.arange(num_steps + 1,
                                               dtype=np.float64),
                          setup_seconds=setup_s, scan_seconds=scan_s,
-                         fetch_seconds=fetch_s, **_tallied(tally))
+                         fetch_seconds=fetch_s, **_tallied(tally, kept))
 
 
 def _run_newmark_checkpointed(ops: _NewmarkOperands, carry0, num_steps: int,
                               cfg: SolverConfig, u0_np, v0_np,
                               setup_s: float, key: str,
-                              snap_dtype) -> NewmarkResult:
+                              snap_dtype, kept: bool) -> NewmarkResult:
     """Host-chunked Newmark scan with atomic (u, v, a) checkpoints, as
     :func:`_run_transient_checkpointed`: every
     ``transient_checkpoint_every`` steps the full-precision carry and the
@@ -995,7 +1174,8 @@ def _run_newmark_checkpointed(ops: _NewmarkOperands, carry0, num_steps: int,
     snap_np = np.float32 if snap_dtype == torch.float32 else np.float64
     while start < num_steps:
         n = min(every, num_steps - start)
-        us, vs, carry, t = _newmark_scan(ops, *carry, n, snap_dtype)
+        us, vs, carry, t = _newmark_scan(ops, *carry, n, snap_dtype,
+                                         start=chunks_done == 0)
         tally = tally.plus(t)
         t_f = time.perf_counter()
         u_frames.append(_frames(us))
@@ -1022,4 +1202,4 @@ def _run_newmark_checkpointed(ops: _NewmarkOperands, carry0, num_steps: int,
         times=ops.dt * np.arange(num_steps + 1, dtype=np.float64),
         setup_seconds=setup_s,
         scan_seconds=time.perf_counter() - t_scan - fetch_s,
-        fetch_seconds=fetch_s, **_tallied(tally))
+        fetch_seconds=fetch_s, **_tallied(tally, kept))

@@ -17,7 +17,19 @@ shards eagerly:
   device, ``.to(device, non_blocking=True)`` between two; edge shards get
   zeros; nothing passes through the host);
 * a dot (:func:`pdot`) sums the per-shard dots in shard order on the first
-  shard's device, so a CG iteration reads one scalar on the host.
+  shard's device (a 0-d tensor, no host read).
+
+The loops are device programs, as the JAX package's run inside
+``jax.jit(shard_map(...))``: a solve is a masked loop run in blocks with one
+host read a block (``ops.device_loop.run_masked``; :func:`sharded_pcg`,
+``ShardedScaledCG.solve``, ``parallel.shard_mg.ShardedMGSolver.solve``) and
+a scan one step program a step with one read a chunk of steps
+(``device_loop.run_scan``; :class:`ShardedThetaScan`,
+:class:`ShardedNewmarkScan`).  Where every shard lies on one CUDA device
+(``PDE_TPU_VIRTUAL_DEVICES``) they are captured CUDA graphs; shards on
+several cards cannot share one graph, so there the same blocks and steps
+run eagerly (:func:`captures`, chosen by the mesh's devices and logged
+once at INFO).
 
 Extents that do not divide by the mesh are padded with identity rows (unit
 diagonal, zero couplings, zero right side), which stay exactly zero
@@ -46,15 +58,17 @@ import numpy as np
 import torch
 
 from pde_solver_tpu_torch.mesh import StructuredMesh
-from pde_solver_tpu_torch.ops import assembly
+from pde_solver_tpu_torch.ops import assembly, device_loop
 from pde_solver_tpu_torch.ops.bc import DirichletBC
-from pde_solver_tpu_torch.ops.timestepping import _make_scale_ops
+from pde_solver_tpu_torch.ops.linsolve import CG_BLOCK, STEP_BLOCK
+from pde_solver_tpu_torch.ops.timestepping import _make_scale_ops, _row
 from pde_solver_tpu_torch.utils.observability import get_logger
 
 AXIS = "shard_x"   # mesh axis of the grid-axis-0 decomposition
 AXIS1 = "shard_y"  # second mesh axis (grid axis 1) of 2-D decompositions
 
 _VIRTUAL_WARNED = set()
+_SEVERAL_CARDS_LOGGED = set()
 
 
 def available_devices(device=None) -> list:
@@ -296,34 +310,145 @@ def _nonzero(t: torch.Tensor) -> torch.Tensor:
     return torch.where(t == 0, torch.ones_like(t), t)
 
 
-def sharded_pcg(apply_A, b: Sharded, inv_diag=None, tol=1e-8, maxiter=500,
-                x0: Optional[Sharded] = None):
+def _where(active: torch.Tensor, a: Sharded, b: Sharded) -> Sharded:
+    """Block by block, ``a`` where ``active`` holds, else ``b``."""
+    return Sharded([torch.where(active.to(p.device, non_blocking=True), p, q)
+                    for p, q in zip(a.parts, b.parts)], a.mesh)
+
+
+# ----------------------------------------------------------------------
+# The sharded loops as device programs
+# ----------------------------------------------------------------------
+#
+# A sharded solve is a masked iteration (``ops.device_loop``) whose state
+# is (x, r, p, then 0-d tensors on the first shard's device): each
+# iteration is kept only while ``active`` holds, and only active ones
+# count, so a finished state passes further iterations unchanged.  The
+# masked loop runs on flat tuples of tensors (a Sharded value gives its
+# parts); a scan's step program inlines the same program on Sharded values.
+
+def captures(mesh: ShardMesh) -> bool:
+    """Whether the loops on ``mesh`` run as captured CUDA graphs: every
+    shard on one CUDA device (``device_loop.captures`` there).  A graph
+    runs on one device, so shards on several cards run the same blocks
+    eagerly, logged once a mesh at INFO."""
+    devs = mesh.distinct_devices()
+    if len(devs) == 1:
+        return device_loop.captures(devs[0])
+    key = tuple(str(d) for d in devs)
+    if key not in _SEVERAL_CARDS_LOGGED and any(d.type == "cuda"
+                                                for d in devs):
+        _SEVERAL_CARDS_LOGGED.add(key)
+        get_logger().info("sharded loops on %d cards (%s) run uncaptured: "
+                          "a CUDA graph runs on one device", len(devs),
+                          ", ".join(key))
+    return False
+
+
+def _flatten(state) -> tuple:
+    """A program state as a flat tuple of tensors (Sharded values give
+    their parts)."""
+    out = []
+    for t in state:
+        out.extend(t.parts if isinstance(t, Sharded) else (t,))
+    return tuple(out)
+
+
+def _unflatten(flat, mesh: ShardMesh) -> tuple:
+    """The inverse of :func:`_flatten` for a state (x, r, p, tensors...)."""
+    n = mesh.size
+    return tuple(Sharded(flat[i * n:(i + 1) * n], mesh)
+                 for i in range(3)) + tuple(flat[3 * n:])
+
+
+def _solve(store: device_loop.GraphStore, kind: str, program, b: Sharded,
+           x0: Sharded, tol: float, maxiter: int, block: int):
+    """Run the sharded masked loop ``program`` (prologue, step, status,
+    from_flat over Sharded values) on (b, x0, tol, maxiter) in blocks of
+    ``block`` through ``device_loop.run_masked``, one read a block
+    (counted under ``kind``).  Returns (x, iterations, relres)."""
+    prologue, step, status, _ = program
+    mesh, n = b.mesh, b.mesh.size
+
+    def flat_prologue(*bufs):
+        return _flatten(prologue(Sharded(bufs[:n], mesh),
+                                 Sharded(bufs[n:2 * n], mesh),
+                                 bufs[2 * n], bufs[2 * n + 1]))
+
+    def flat_step(state, g):
+        return _flatten(step(_unflatten(state, mesh), g))
+
+    def flat_status(state):
+        return status(_unflatten(state, mesh))
+
+    key = (kind, block, n, tuple(b.parts[0].shape), b.parts[0].dtype)
+    state, st = device_loop.run_masked(
+        store, key, flat_prologue, flat_step, flat_status,
+        device_loop.loop_inputs(*b.parts, *x0.parts, tol, maxiter), block,
+        captures(mesh))
+    return Sharded([t.clone() for t in state[:n]], mesh), int(st[1]), st[2]
+
+
+def _pcg_program(apply_A, inv_diag: Optional[Sharded] = None):
     """Jacobi-PCG over the shards (``inv_diag`` None: the unit diagonal of
-    a scaled system).  The loop test reads ‖r‖² on the host once an
-    iteration.  Returns (x, iterations, relres of the recurrence)."""
-    x = b.zeros_like() if x0 is None else x0
-    r = b - apply_A(x)
-    z = r if inv_diag is None else r * inv_diag
-    p = z
-    rz = pdot(r, z)
-    bnorm2 = float(pdot(b, b))
-    bnorm2 = 1.0 if bnorm2 == 0 else bnorm2
-    tol2 = (tol ** 2) * bnorm2
-    rr = float(rz) if inv_diag is None else float(pdot(r, r))
-    k = 0
-    while rr > tol2 and k < maxiter:
+    a scaled system) as a masked loop program.  The convergence test
+    compares ‖r‖² with tol²·‖b‖² in float64 on the device, as the host
+    loop comparing ``float(rr) > tol2`` did."""
+    def precond(r):
+        return r if inv_diag is None else r * inv_diag
+
+    def rr_of(r, rz):
+        return rz if inv_diag is None else pdot(r, r)
+
+    def prologue(b, x0, tol, maxiter):
+        r = b - apply_A(x0)
+        z = precond(r)
+        rz = pdot(r, z)
+        bnorm2 = _nonzero(pdot(b, b).to(torch.float64))
+        tol2 = (tol * tol) * bnorm2
+        rr = rr_of(r, rz)
+        k = torch.zeros((), dtype=torch.int64, device=rz.device)
+        active = (rr.to(torch.float64) > tol2) & (k < maxiter)
+        return (x0, r, z, rz, rr, k, active, tol2, bnorm2, maxiter)
+
+    def step(state, g: int):
+        x, r, p, rz, rr, k, active, tol2, bnorm2, maxiter = state
         Ap = apply_A(p)
         alpha = rz / _nonzero(pdot(p, Ap))
-        x = x + p * alpha
-        r = r - Ap * alpha
-        z = r if inv_diag is None else r * inv_diag
-        rz_new = pdot(r, z)
-        beta = rz_new / _nonzero(rz)
-        p = z + p * beta
-        rz = rz_new
-        k += 1
-        rr = float(rz) if inv_diag is None else float(pdot(r, r))
-    return x, k, math.sqrt(rr / bnorm2)
+        x_n = x + p * alpha
+        r_n = r - Ap * alpha
+        z_n = precond(r_n)
+        rz_n = pdot(r_n, z_n)
+        p_n = z_n + p * (rz_n / _nonzero(rz))
+        x, r = _where(active, x_n, x), _where(active, r_n, r)
+        p, rz = _where(active, p_n, p), torch.where(active, rz_n, rz)
+        k = k + active.to(k.dtype)
+        rr = rr_of(r, rz)
+        active = (rr.to(torch.float64) > tol2) & (k < maxiter)
+        return (x, r, p, rz, rr, k, active, tol2, bnorm2, maxiter)
+
+    def status(state):
+        rr, k, active, bnorm2 = state[4], state[5], state[6], state[8]
+        return device_loop.status_of(
+            active, k, torch.sqrt(rr.to(torch.float64) / bnorm2))
+
+    return prologue, step, status, lambda x: x
+
+
+def sharded_pcg(apply_A, b: Sharded, inv_diag=None, tol=1e-8, maxiter=500,
+                x0: Optional[Sharded] = None,
+                store: Optional[device_loop.GraphStore] = None,
+                block: int = CG_BLOCK):
+    """Jacobi-PCG over the shards (``inv_diag`` None: the unit diagonal of
+    a scaled system) as a device program: masked blocks of ``block``
+    iterations with one host read a block (``HOST_READS["shard_cg"]``),
+    kept in ``store`` (whose owner holds what ``apply_A`` and ``inv_diag``
+    read; None: this call only).  Returns (x, iterations, relres of the
+    recurrence)."""
+    x0 = b.zeros_like() if x0 is None else x0
+    return _solve(store if store is not None else device_loop.GraphStore(),
+                  "shard_cg", _pcg_program(apply_A, inv_diag), b, x0, tol,
+                  maxiter, block)
 
 
 # ----------------------------------------------------------------------
@@ -339,9 +464,10 @@ def build_sharded_heat_step(mesh_geo: StructuredMesh, mesh_dev: ShardMesh,
 
     Returns (step_fn, inputs): ``step_fn(u, *inputs)`` performs
     u ← (M + dt K)⁻¹ (M u + dt b) with halo-exchange applies and sharded
-    Jacobi-PCG, and returns (u on the first shard's device, iterations,
-    relres).  Assembly happens once on the host; the weights are sharded
-    along grid axis 0 like the state."""
+    Jacobi-PCG (:func:`sharded_pcg`: a device program kept, with the
+    Jacobi diagonal, per operands passed), and returns (u on the first
+    shard's device, iterations, relres).  Assembly happens once on the
+    host; the weights are sharded along grid axis 0 like the state."""
     K = assembly.assemble_scalar_stencil(mesh_geo, "stiffness")
     M = assembly.assemble_scalar_stencil(mesh_geo, "mass")
     offsets = tuple(sorted(set(K) | set(M)))
@@ -355,22 +481,34 @@ def build_sharded_heat_step(mesh_geo: StructuredMesh, mesh_dev: ShardMesh,
     gvals = shard(np.asarray(bc.values, np.float64) * (1.0 - free_np),
                   mesh_dev, dtype)
     zero = offsets.index(tuple(0 for _ in range(mesh_geo.dim)))
+    # per operands (A_w, free): the PCG's program store, its operator and
+    # Jacobi diagonal, which a captured program reads where they lie
+    solvers = {}
+
+    def solver(A_w, free):
+        key = (id(A_w), id(free))
+        if key not in solvers:
+            not_free = 1.0 - free
+
+            def apply_c(x):
+                xf = x * free
+                return (local_stencil_apply(offsets, A_w, xf) * free
+                        + (x - xf))
+
+            diag = A_w[zero] * free + not_free
+            solvers[key] = (device_loop.GraphStore(), apply_c,
+                            diag.map(lambda t: 1.0 / _nonzero(t)),
+                            (A_w, free))
+        return solvers[key][:3]
 
     def step(u, A_w, M_w, free, gvals):
         u = shard(u, mesh_dev, dtype)
-        not_free = 1.0 - free
-
-        def apply_c(x):
-            xf = x * free
-            return local_stencil_apply(offsets, A_w, xf) * free + (x - xf)
-
-        diag = A_w[zero] * free + not_free
-        inv_diag = diag.map(lambda t: 1.0 / _nonzero(t))
+        store, apply_c, inv_diag = solver(A_w, free)
         rhs = local_stencil_apply(offsets, M_w, u)
         Ag = local_stencil_apply(offsets, A_w, gvals)
         bt = free * (rhs - Ag) + gvals
         x, iters, relres = sharded_pcg(apply_c, bt, inv_diag, tol=tol,
-                                       maxiter=maxiter, x0=u)
+                                       maxiter=maxiter, x0=u, store=store)
         return gather(x), iters, relres
 
     return step, (A_w, M_w, free, gvals)
@@ -422,7 +560,7 @@ class ShardedScaledCG:
     ScaledSystem`, decomposed over ``mesh_dev``: grid axis 0 over a 1-D
     mesh, or grid axes 0 and 1 over an a×b mesh (``device_mesh(shape=
     (a, b))``).  Build once per (system, mesh); :meth:`solve` many
-    times."""
+    times (its device program is kept with the object)."""
 
     def __init__(self, sysm, grid_dim: int, vdim: int, mesh_dev: ShardMesh,
                  dtype=torch.float32):
@@ -464,7 +602,8 @@ class ShardedScaledCG:
         b = self.b_hat if b_hat is None else self._grid_put(b_hat)
         x0 = b.zeros_like() if x0 is None else self._grid_put(x0)
         x, iters, relres = sharded_pcg(self.apply, b, None, tol=tol,
-                                       maxiter=maxiter, x0=x0)
+                                       maxiter=maxiter, x0=x0,
+                                       store=device_loop.store_of(self))
         unpad = tuple(slice(0, n) for n in self.ns)
         return gather(x)[unpad], iters, relres
 
@@ -499,6 +638,12 @@ def build_sharded_elasticity_solve(mesh_geo: StructuredMesh,
 # axis 0 over a 1-D mesh (identity-row padding), halo-exchange applies and
 # sharded CG step solves.  MG step solves are not composed here, as in
 # the JAX package: warm-started CG takes a handful of iterations a step.
+# Each scan runs through ``device_loop.run_scan`` as the unsharded scans
+# do: one step program a step (its step solve the sharded PCG inlined at
+# a budget), one read a chunk of steps (``HOST_READS["shard_scan"]``),
+# the carry the shards' parts.  A scan object is built once per
+# (system, mesh) and kept across calls by ``ops.timestepping``'s scan
+# cache: its per-call values (``values``) are buffers a call copies into.
 
 def _pad_id_rows(arr: np.ndarray, rows: int, identity: bool, vdim: int):
     out = _pad0(np.asarray(arr), rows)
@@ -507,15 +652,28 @@ def _pad_id_rows(arr: np.ndarray, rows: int, identity: bool, vdim: int):
     return out
 
 
+def padder(nx: int, vdim: int, mesh_dev: ShardMesh, dtype):
+    """``pad(a, identity=False)``: a grid array with ``nx`` planes along
+    axis 0, padded to a multiple of the shard count (identity rows with
+    ``identity``, else zeros) and sharded over ``mesh_dev``."""
+    if len(mesh_dev.shape) != 1:
+        raise ValueError("the sharded scans cut grid axis 0 only "
+                         "(a 1-D mesh)")
+    n_pad = (-nx) % mesh_dev.size
+
+    def pad(a, identity: bool = False) -> Sharded:
+        return shard(_pad_id_rows(a, n_pad, identity, vdim), mesh_dev,
+                     dtype)
+    return pad
+
+
 class _ScanOperands:
     """What the sharded scans share: the mesh, the padding of axis 0, the
     scaled implicit operator and the scale changes, on the shards."""
 
     def __init__(self, sysm, nx: int, grid_dim: int, vdim: int,
                  mesh_dev: ShardMesh, dtype):
-        if len(mesh_dev.shape) != 1:
-            raise ValueError("the sharded scans cut grid axis 0 only "
-                             "(a 1-D mesh)")
+        self.pad = padder(nx, vdim, mesh_dev, dtype)
         self.grid_dim, self.vdim = grid_dim, vdim
         self.mesh_dev = mesh_dev
         self.offsets = sysm.offsets
@@ -542,12 +700,11 @@ class _ScanOperands:
                                     x.mesh))
             for i in range(3))
 
-    def pad(self, a, identity: bool = False) -> Sharded:
-        return shard(_pad_id_rows(a, self.n_pad, identity, self.vdim),
-                     self.mesh_dev, self.dtype)
-
     def apply(self, weights, x: Sharded) -> Sharded:
         return local_stencil_apply(self.offsets, weights, x, self.vdim)
+
+    def A(self, x: Sharded) -> Sharded:
+        return self.apply(self.A_w, x)
 
     def frames(self, num_steps: int, x: Sharded) -> list:
         """Per-shard storage of ``num_steps`` kept states."""
@@ -558,94 +715,118 @@ class _ScanOperands:
         return torch.cat([f.cpu() for f in frames], 1)[:, :self.nx]
 
 
-class ShardedThetaScan:
-    """Sharded θ-scheme stepping on a prepared ScaledSystem.
+class _ShardedScan:
+    """The part both sharded scans share: their operands, the step
+    programs' store and the run through ``device_loop.run_scan``."""
 
-    Build once per (system, steps); :meth:`run` returns (snapshots, CG
-    iterations, max relres) as ``ops.timestepping``'s scan does.
-    ``C_list`` (CNAB2, pre-scaled by Δt) adds the previous state to the
-    carry; ``tmod`` (sinusoidal driving: ``b1``, ``g1``, ``Ag1``,
-    ``omega``, ``phase``, ``dt``, ``theta``) is evaluated on the host in
-    float64 per step, as the port's unsharded scan does."""
-
-    def __init__(self, sysm, B_list, free_np, Ag_np, b_src_np, u0_shape,
-                 grid_dim: int, vdim: int, mesh_dev: ShardMesh,
-                 dtype=torch.float32, inner_tol: float = 1e-6,
-                 maxiter: int = 500, C_list=None, tmod=None):
-        ops = _ScanOperands(sysm, np.shape(free_np)[0], grid_dim, vdim,
-                            mesh_dev, dtype)
-        self.ops = ops
-        self.B_w = tuple(ops.pad(W) for W in B_list)
-        self.free = ops.pad(free_np)
-        self.g = ops.pad(sysm.gvals)
-        self.Ag = ops.pad(Ag_np)
-        self.b_src = ops.pad(b_src_np)
-        self.C_w = None if C_list is None else tuple(ops.pad(W)
-                                                     for W in C_list)
-        self.tmod = None
-        if tmod is not None:
-            self.tmod = tuple(None if tmod.get(k) is None else ops.pad(
-                tmod[k]) for k in ("b1", "g1", "Ag1")) + (
-                float(tmod["omega"]), float(tmod.get("phase", 0.0)),
-                float(tmod["dt"]), float(tmod["theta"]))
+    def __init__(self, sysm, grid_dim: int, vdim: int, mesh_dev: ShardMesh,
+                 dtype, inner_tol: float, maxiter: int, nx: int):
+        self.ops = _ScanOperands(sysm, nx, grid_dim, vdim, mesh_dev, dtype)
         self.inner_tol = inner_tol
         self.maxiter = maxiter
+        self.graphs = device_loop.GraphStore()
+
+    def _scan(self, kind: str, step, carry: tuple, num_steps: int,
+              kept: tuple):
+        """``num_steps`` steps from ``carry`` (Sharded values), keeping
+        the carry entries at the indices ``kept`` after every step;
+        returns (the final carry's parts, a frame list per kept entry, the
+        tally)."""
+        ops, n = self.ops, self.ops.mesh_dev.size
+        frames = [ops.frames(num_steps, carry[i]) for i in kept]
+
+        def per_step(b, x0):
+            return sharded_pcg(ops.A, b, None, self.inner_tol, self.maxiter,
+                               x0, store=self.graphs, block=STEP_BLOCK)
+
+        def flat_step(c, step_n, solve):
+            parts = [Sharded(c[i * n:(i + 1) * n], ops.mesh_dev)
+                     for i in range(len(c) // n)]
+            new, k, relres = step(parts, step_n, solve)
+            return _flatten(new), k, relres
+
+        def keep(j, c):
+            for fs, i in zip(frames, kept):
+                for f, p in zip(fs, c[i * n:(i + 1) * n]):
+                    f[j].copy_(p)
+
+        c, tally = device_loop.run_scan(
+            self.graphs, ("shard_scan", kind), flat_step,
+            _pcg_program(ops.A), per_step, _flatten(carry), self.inner_tol,
+            self.maxiter, 0, num_steps, keep, True,
+            capture=captures(ops.mesh_dev))
+        return c, frames, tally
+
+
+class ShardedThetaScan(_ShardedScan):
+    """Sharded θ-scheme stepping on a prepared ScaledSystem.
+
+    Build once per (system, mesh) with this call's padded values (the
+    explicit operator ``B_w``, ``free``, the lift ``g`` / ``Ag``, the
+    source ``b_src``; ``C_w`` (CNAB2, pre-scaled by Δt) adds the previous
+    state to the carry; ``tmod`` = (b1, g1, Ag1, table [steps, 2] on the
+    first shard's device) drives sinusoidally, as the port's unsharded
+    scan does); :meth:`run` returns (snapshots, the scan's
+    ``device_loop.ScanTally``)."""
+
+    values = ("B_w", "free", "g", "Ag", "b_src", "C_w", "tmod")
+
+    def __init__(self, sysm, grid_dim: int, vdim: int, mesh_dev: ShardMesh,
+                 dtype=torch.float32, inner_tol: float = 1e-6,
+                 maxiter: int = 500, *, B_w, free, g, Ag, b_src, C_w=None,
+                 tmod=None):
+        super().__init__(sysm, grid_dim, vdim, mesh_dev, dtype, inner_tol,
+                         maxiter, np.shape(sysm.free)[0])
+        self.B_w, self.free, self.g, self.Ag = B_w, free, g, Ag
+        self.b_src, self.C_w, self.tmod = b_src, C_w, tmod
 
     def run(self, u0_np, num_steps: int):
         ops = self.ops
         to_hat_b, to_hat_x, from_hat_x = ops.scale_ops
+        cnab2 = self.C_w is not None
 
-        def A(x):
-            return ops.apply(ops.A_w, x)
-
-        u = ops.pad(u0_np)
-        u_prev = u
-        frames = ops.frames(num_steps, u)
-        iters, res = 0, 0.0
-        for n in range(num_steps):
+        def step(c, n, solve):
+            u_prev, u = c[0], c[-1]
             rhs = ops.apply(self.B_w, u) + self.b_src
             Ag_t, g_t = self.Ag, self.g
             if self.tmod is not None:
-                b1, g1, Ag1, omega, phase, dt, theta = self.tmod
-                s_n = math.sin(omega * (n * dt) + phase)
-                s_np1 = math.sin(omega * (n * dt + dt) + phase)
+                b1, g1, Ag1, table = self.tmod
+                w = _row(table, n)
                 if b1 is not None:
-                    rhs = rhs + b1 * (theta * s_np1 + (1.0 - theta) * s_n)
+                    rhs = rhs + b1 * w[0]
                 if g1 is not None:
-                    Ag_t, g_t = self.Ag + Ag1 * s_np1, self.g + g1 * s_np1
-            if self.C_w is not None:
+                    Ag_t, g_t = self.Ag + Ag1 * w[1], self.g + g1 * w[1]
+            if cnab2:
                 rhs = rhs - (ops.apply(self.C_w, u) * 1.5
                              - ops.apply(self.C_w, u_prev) * 0.5)
-            xh, k, relres = sharded_pcg(
-                A, to_hat_b(self.free * (rhs - Ag_t) + g_t), None,
-                tol=self.inner_tol, maxiter=self.maxiter, x0=to_hat_x(u))
-            u_prev, u = u, from_hat_x(xh)
-            for f, p in zip(frames, u.parts):
-                f[n] = p
-            iters += k
-            res = max(res, relres)
-        return ops.fetch(frames), iters, res
+            xh, k, relres = solve(to_hat_b(self.free * (rhs - Ag_t) + g_t),
+                                  to_hat_x(u))
+            u_new = from_hat_x(xh)
+            return ((u, u_new) if cnab2 else (u_new,)), k, relres
+
+        u = ops.pad(u0_np)
+        _, frames, tally = self._scan("theta", step,
+                                      (u, u) if cnab2 else (u,), num_steps,
+                                      (1 if cnab2 else 0,))
+        return ops.fetch(frames[0]), tally
 
 
-class ShardedNewmarkScan:
+class ShardedNewmarkScan(_ShardedScan):
     """Sharded Newmark-β stepping on a prepared ScaledSystem of
-    A_eff = M + βΔt²K, the vector counterpart of :class:`ShardedThetaScan`.
-    :meth:`run` returns (us, vs, iterations, max relres) as
-    ``ops.timestepping``'s Newmark scan does."""
+    A_eff = M + βΔt²K, the vector counterpart of :class:`ShardedThetaScan`
+    (values: the unscaled ``K_w``, ``free``, ``f_ext``, padded).
+    :meth:`run` returns (us, vs, the tally)."""
 
-    def __init__(self, sysm, K_list, free_np, f_np, grid_dim: int,
-                 vdim: int, mesh_dev: ShardMesh, dt: float, beta: float,
-                 gamma: float, dtype=torch.float32, inner_tol: float = 1e-6,
-                 maxiter: int = 500):
-        ops = _ScanOperands(sysm, np.shape(free_np)[0], grid_dim, vdim,
-                            mesh_dev, dtype)
-        self.ops = ops
+    values = ("K_w", "free", "f_ext")
+
+    def __init__(self, sysm, grid_dim: int, vdim: int, mesh_dev: ShardMesh,
+                 dt: float, beta: float, gamma: float, dtype=torch.float32,
+                 inner_tol: float = 1e-6, maxiter: int = 500, *, K_w, free,
+                 f_ext):
+        super().__init__(sysm, grid_dim, vdim, mesh_dev, dtype, inner_tol,
+                         maxiter, np.shape(sysm.free)[0])
         self.dt, self.beta, self.gamma = float(dt), float(beta), float(gamma)
-        self.K_w = tuple(ops.pad(W) for W in K_list)
-        self.free = ops.pad(free_np)
-        self.f_ext = ops.pad(f_np)
-        self.inner_tol = inner_tol
-        self.maxiter = maxiter
+        self.K_w, self.free, self.f_ext = K_w, free, f_ext
 
     def run(self, u0_np, v0_np, a0_np, num_steps: int):
         ops = self.ops
@@ -654,25 +835,17 @@ class ShardedNewmarkScan:
         c1 = dt * dt * (0.5 - self.beta)
         c2 = self.beta * dt * dt
 
-        def A(x):
-            return ops.apply(ops.A_w, x)
-
-        u, v, a = ops.pad(u0_np), ops.pad(v0_np), ops.pad(a0_np)
-        us, vs = ops.frames(num_steps, u), ops.frames(num_steps, v)
-        iters, res = 0, 0.0
-        for n in range(num_steps):
+        def step(c, n, solve):
+            u, v, a = c
             u_pred = u + v * dt + a * c1
             bt = self.free * (self.f_ext - ops.apply(self.K_w, u_pred))
-            xh, k, relres = sharded_pcg(A, to_hat_b(bt), None,
-                                        tol=self.inner_tol,
-                                        maxiter=self.maxiter,
-                                        x0=to_hat_x(a))
+            xh, k, relres = solve(to_hat_b(bt), to_hat_x(a))
             a_new = self.free * from_hat_x(xh)
-            u = u_pred + a_new * c2
-            v = v + (a * (1.0 - gamma) + a_new * gamma) * dt
-            a = a_new
-            for fu, fv, pu, pv in zip(us, vs, u.parts, v.parts):
-                fu[n], fv[n] = pu, pv
-            iters += k
-            res = max(res, relres)
-        return ops.fetch(us), ops.fetch(vs), iters, res
+            return ((u_pred + a_new * c2,
+                     v + (a * (1.0 - gamma) + a_new * gamma) * dt, a_new),
+                    k, relres)
+
+        u, v, a = ops.pad(u0_np), ops.pad(v0_np), ops.pad(a0_np)
+        _, (us, vs), tally = self._scan("newmark", step, (u, v, a),
+                                        num_steps, (0, 1))
+        return ops.fetch(us), ops.fetch(vs), tally

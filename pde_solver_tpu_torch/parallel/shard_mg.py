@@ -17,6 +17,11 @@ Counterpart of ``pde_solver_tpu.parallel.shard_mg``, with the same design:
   so the sharded iteration is the unsharded one up to the order of its
   dot sums.
 
+The flexible PCG is a device program (``parallel.shard._solve``: masked
+blocks of ``multigrid.PCG_BLOCK`` iterations, one host read a block,
+``HOST_READS["shard_mg"]``), captured as CUDA graphs when every shard lies
+on one card, kept with the solver.
+
 The hierarchy must hold plain per-offset tensors
 (``build_hierarchy*(use_kernel=False)``): the kernels' flat layout does not
 decompose along a grid axis.  The flexible PCG here takes the hierarchy as
@@ -26,15 +31,16 @@ does (its unsharded float64 ``solve_mg`` drops that inverse).
 
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import numpy as np
 import torch
 
+from pde_solver_tpu_torch.ops import device_loop
 from pde_solver_tpu_torch.ops import multigrid as mg
 from pde_solver_tpu_torch.parallel.shard import (ShardMesh, Sharded,
-                                                 _nonzero, _true_relres,
+                                                 _nonzero, _solve,
+                                                 _true_relres, _where,
                                                  gather, local_stencil_apply,
                                                  pdot, shard)
 
@@ -169,37 +175,59 @@ class ShardedMGSolver:
             arr = torch.as_tensor(np.asarray(arr), dtype=self.dtype)
         return shard(_pad_rows(arr, self.n_pad), self.mesh_dev, self.dtype)
 
-    def solve(self, b_hat, x0_hat=None, tol: float = 1e-8,
-              maxiter: int = 300):
-        """Flexible (Polak-Ribière) PCG, one V-cycle an iteration.  Returns
-        (x̂ on the first shard's device, iterations, relres of the
-        recurrence)."""
+    def _program(self):
+        """The flexible (Polak-Ribière) PCG, one V-cycle an iteration, as
+        a masked loop program over Sharded values (state: x, r, p, then
+        ⟨r, z⟩, ‖r‖², k, active, tol², ‖b‖², maxiter)."""
         A, M = self.apply, self._precondition
-        b = self._grid_put(b_hat)
-        x = b.zeros_like() if x0_hat is None else self._grid_put(x0_hat)
-        r = b - A(x)
-        z = M(r)
-        p = z
-        rz = pdot(r, z)
-        bnorm2 = float(pdot(b, b))
-        bnorm2 = 1.0 if bnorm2 == 0 else bnorm2
-        tol2 = (tol * tol) * bnorm2
-        k = 0
-        rr = float(pdot(r, r))
-        while rr > tol2 and k < maxiter:
+
+        def prologue(b, x0, tol, maxiter):
+            r = b - A(x0)
+            z = M(r)
+            rz = pdot(r, z)
+            bnorm2 = _nonzero(pdot(b, b).to(torch.float64))
+            tol2 = (tol * tol) * bnorm2
+            rr = pdot(r, r)
+            k = torch.zeros((), dtype=torch.int64, device=rz.device)
+            active = (rr.to(torch.float64) > tol2) & (k < maxiter)
+            return (x0, r, z, rz, rr, k, active, tol2, bnorm2, maxiter)
+
+        def step(state, g: int):
+            x, r, p, rz, rr, k, active, tol2, bnorm2, maxiter = state
             Ap = A(p)
             alpha = rz / _nonzero(pdot(p, Ap))
-            x = x + p * alpha
-            r_new = r - Ap * alpha
-            z = M(r_new)
+            x_n = x + p * alpha
+            r_n = r - Ap * alpha
+            z = M(r_n)
             # Polak-Ribière β (flexible PCG), clamped at 0 (restart guard)
-            rz_new = pdot(r_new, z)
-            beta = torch.clamp((rz_new - pdot(z, r)) / _nonzero(rz), min=0.0)
-            p = z + p * beta
-            r, rz = r_new, rz_new
-            k += 1
-            rr = float(pdot(r, r))
-        return gather(x)[:self.nx], k, math.sqrt(rr / bnorm2)
+            rz_n = pdot(r_n, z)
+            beta = torch.clamp((rz_n - pdot(z, r)) / _nonzero(rz), min=0.0)
+            p_n = z + p * beta
+            x, r = _where(active, x_n, x), _where(active, r_n, r)
+            p, rz = _where(active, p_n, p), torch.where(active, rz_n, rz)
+            k = k + active.to(k.dtype)
+            rr = pdot(r, r)
+            active = (rr.to(torch.float64) > tol2) & (k < maxiter)
+            return (x, r, p, rz, rr, k, active, tol2, bnorm2, maxiter)
+
+        def status(state):
+            rr, k, active, bnorm2 = state[4], state[5], state[6], state[8]
+            return device_loop.status_of(
+                active, k, torch.sqrt(rr.to(torch.float64) / bnorm2))
+
+        return prologue, step, status, lambda x: x
+
+    def solve(self, b_hat, x0_hat=None, tol: float = 1e-8,
+              maxiter: int = 300):
+        """Flexible (Polak-Ribière) PCG, one V-cycle an iteration, as a
+        device program kept with the solver.  Returns (x̂ on the first
+        shard's device, iterations, relres of the recurrence)."""
+        b = self._grid_put(b_hat)
+        x0 = b.zeros_like() if x0_hat is None else self._grid_put(x0_hat)
+        x, k, relres = _solve(device_loop.store_of(self), "shard_mg",
+                              self._program(), b, x0, tol, maxiter,
+                              mg.PCG_BLOCK)
+        return gather(x)[:self.nx], k, relres
 
     def relres(self, x_hat, b_hat) -> float:
         """The true relative residual of x̂."""
@@ -235,7 +263,8 @@ def shard_hierarchy(h: mg.MGHierarchy, mesh_dev: ShardMesh,
     solver = ShardedMGSolver(h, mesh_dev)
     _SOLVER_CACHE[cache_key] = (h, solver)
     while len(_SOLVER_CACHE) > _SOLVER_CACHE_MAX:
-        _SOLVER_CACHE.pop(next(iter(_SOLVER_CACHE)))
+        # its captured solve loop goes with it
+        device_loop.release(_SOLVER_CACHE.pop(next(iter(_SOLVER_CACHE)))[1])
     return solver
 
 

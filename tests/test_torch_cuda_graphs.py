@@ -38,6 +38,15 @@ def card():
     return torch.device("cuda")
 
 
+@pytest.fixture(autouse=True)
+def _cold_scans():
+    """Each scan here starts cold: the scan cache (``timestepping.
+    _SCAN_CACHE``) is emptied first."""
+    from pde_solver_tpu_torch.ops import timestepping
+
+    timestepping.clear_scan_cache()
+
+
 def _cantilever(cells=(16, 8, 8)):
     mesh = box_mesh(*cells, (0, 0, 0), (1.0, 0.2, 0.2))
 
@@ -247,7 +256,11 @@ def test_graphs_are_freed_on_cache_eviction(card):
 
 def _heat_scan(num_steps, mg_builder=True, per_step=False):
     """run_transient on a 40×6×6 heat box through the step program (or the
-    per-step path); returns (result, launches by variant)."""
+    per-step path), from a cold scan cache; returns (result, launches by
+    variant)."""
+    from pde_solver_tpu_torch.ops import timestepping
+
+    timestepping.clear_scan_cache()
     mesh = box_mesh(40, 6, 6, (0, 0, 0), (1.0, 0.2, 0.2))
     K = assembly.assemble_scalar_stencil(mesh, "stiffness")
     M = assembly.assemble_scalar_stencil(mesh, "mass")

@@ -309,10 +309,14 @@ def test_a_capture_refuses_a_block_off_the_resync_period(monkeypatch):
 
 
 def test_graphs_phase_rehearsal(tmp_path, monkeypatch):
-    """``chip_smoke.graphs_phase`` on the CPU at small sizes: every pair
+    """``chip_smoke.graphs_phase`` on the CPU at small sizes (the df2 pair
+    on the operands of a flagship run through ``grab_df2``, as phase 6's
+    dense run hands them over): every pair
     agrees (both runs are uncaptured here), reads are one a block; every
     scan of its scans leg takes the same iterations three ways with a field
-    gap of 0, and the step programs read once a chunk."""
+    gap of 0, and the step programs read once a chunk; the follow-ups of
+    the repeated scans keep their step programs and equal their cold
+    calls, and a new Δt builds its programs anew."""
     import chip_smoke
     from pde_solver_tpu_torch import api
     from pde_solver_tpu_torch.config import config_overrides
@@ -323,13 +327,11 @@ def test_graphs_phase_rehearsal(tmp_path, monkeypatch):
     flagship = dict(chip_smoke.FLAGSHIP, nx=16, ny=8, nz=8)
     heat = dict(nx=10, ny=10, nz=10, num_steps=3)
     modal = dict(nx=16, ny=4, nz=4, num_modes=2)
-    walls = {}
 
     def counted(label, fn):
         sk.reset_launch_counts()
         device_loop.HOST_READS.clear()
         res = fn()
-        walls[label] = 1.0
         return res, dict(sk.KERNEL_LAUNCHES), 1.0
 
     refs = {}
@@ -345,16 +347,14 @@ def test_graphs_phase_rehearsal(tmp_path, monkeypatch):
                             reads=dict(device_loop.HOST_READS),
                             peak=float("nan"))
         linsolve._MG_CACHE.clear()
-        res, launches, _ = counted("solve_elasticity_3D_modal", lambda:
-                                   api.solve_elasticity_3D_modal(
-                                       **modal, data_dir=data_dir))
-        refs["modal"] = dict(freqs=np.asarray(res.meta["frequencies_hz"]),
-                             shapes=chip_smoke.field(res)[0],
-                             stats=res.meta["solver_stats"],
-                             launches=launches,
-                             reads=dict(device_loop.HOST_READS),
-                             peak=float("nan"))
-        linsolve._MG_CACHE.clear()
+        res, launches, _ = counted("flagship", lambda: chip_smoke.grab_df2(
+            lambda: api.solve_elasticity_3D_static(**flagship,
+                                                   data_dir=data_dir),
+            device="cpu"))
+        refs["df2"] = dict(df2=res[1], launches=launches, wall=1.0,
+                           reads=dict(device_loop.HOST_READS),
+                           peak=float("nan"))
+        del res
         mesh, sysm, builder = _cantilever((16, 8, 8))
         refs["h_f64"] = port_mg.build_hierarchy(mesh, sysm, builder, vdim=3,
                                                 device="cpu",
@@ -369,7 +369,7 @@ def test_graphs_phase_rehearsal(tmp_path, monkeypatch):
             dynamic=dict(chip_smoke.SCAN_DYNAMIC, nx=8, ny=4, nz=4,
                          num_steps=6), heat_f64=heat)
         out = chip_smoke.graphs_phase(api, counted, data_dir, "cpu", refs,
-                                      walls, {}, flagship=flagship,
+                                      {}, flagship=flagship,
                                       modal=modal, scans=scans, device="cpu",
                                       profiled=False)
     linsolve._MG_CACHE.clear()
@@ -389,6 +389,13 @@ def test_graphs_phase_rehearsal(tmp_path, monkeypatch):
         assert prog["iterations"] > 0 and prog["reads"].get("scan", 0) == \
             len(device_loop.scan_chunks(steps, first=True)) - prog["stepwise"]
     assert rows["heat 3D K1"]["gaps"]["phase 6"] == 0.0
+    # the follow-ups keep their step programs and equal their cold calls
+    for label in chip_smoke.REPEAT_LABELS:
+        *ups, dt_up = rows[label]["repeats"].values()
+        assert len(ups) == 3 and all(
+            r["kept"] and r["built"] == 0 and r["gap"] == 0.0
+            and r["iterations"] == r["cold_iterations"] > 0 for r in ups)
+        assert not dt_up["kept"] and dt_up["built"] >= 1
     k = out["flagship f64 solve_mg"]["iterations"]
     assert out["flagship f64 solve_mg"]["runs"]["captured"]["reads"] == {
         "mg_pcg": math.ceil(k / port_mg.PCG_BLOCK)}

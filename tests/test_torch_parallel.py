@@ -707,8 +707,10 @@ def test_sharded_f64_cantilever_matches_reference(cpu8, cells, tmp_path):
 
 def test_chip_smoke_shard_phase_rehearsal(tmp_path):
     """``chip_smoke.shard_phase`` on the CPU: the eight legs at the dry-run
-    record's sizes, and a 16×4×4 flagship on 4 shards at "f64" and
-    "mixed" (no launch is counted here): every check of the phase holds."""
+    record's sizes, each as its device program and uncaptured, and a
+    16×4×4 flagship on 4 shards at "f64" and "mixed", its first inner
+    solve again both ways (no launch is counted here): every check of the
+    phase holds."""
     import time
 
     import chip_smoke as cs
@@ -741,6 +743,17 @@ def test_chip_smoke_shard_phase_rehearsal(tmp_path):
     assert [leg["record"] for leg in out["legs"].values()] == \
         [20, 412, 24, 208, 84, 66, 80, 202]
     assert all(leg["gap"] <= cs.SHARD_LEG_TOL for leg in out["legs"].values())
+    # each sharded loop as its device program and uncaptured: the same
+    # iterations and reads, a field gap of 0
+    for leg in out["legs"].values():
+        (k, reads, _), (k0, reads0, _) = leg["ways"].values()
+        assert leg["way_gap"] == 0.0 and k == k0 > 0 and reads == reads0
+    for prec in ("f64", "mixed"):
+        row = out[f"flagship sharded {prec}"]
+        assert row["inner_gap"] == 0.0
+        assert row["inner_program"][:2] == row["inner_uncaptured"][:2]
+    assert out["flagship sharded f64"]["inner_program"][0] == \
+        out["flagship sharded f64"]["iterations"]
     assert out["flagship sharded f64"]["u_gap"] <= cs.SHARD_F64_TOL
     # two layers of 5×5 nodes × 3 components across each of 3 interfaces
     assert out["flagship sharded f64"]["halo_bytes"] == 2 * 3 * 5 * 5 * 3 * 8

@@ -36,6 +36,15 @@ MG = dict(mg_threshold=100, transient_mg_threshold=100)
 F32_TOL, F64_TOL = 1e-6, 1e-9
 
 
+@pytest.fixture(autouse=True)
+def _cold_scans():
+    """Each scan here starts cold: the scan cache (operands, hierarchy and
+    step programs kept across calls, ``timestepping._SCAN_CACHE``) is
+    emptied first; ``tests/test_torch_scan_cache.py`` holds the kept
+    programs."""
+    timestepping.clear_scan_cache()
+
+
 def _gap(v, v_ref):
     return np.abs(v - v_ref).max() / np.abs(v_ref).max()
 

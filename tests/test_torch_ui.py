@@ -258,7 +258,9 @@ def test_cli_entry_point(how, tmp_path):
 def test_chip_smoke_service_phase_rehearsal(tmp_path):
     """``chip_smoke.service_phase`` on the CPU at a small size: the server
     subprocess (``PDE_TPU_DEVICE=cpu``) serves a 16×8×8 cantilever equal to
-    the in-process solve and its plot, and the nine examples run."""
+    the in-process solve and its plot, an 8³ heat scan twice (the second
+    call keeps the first one's step programs), and the nine examples
+    run."""
     import time
 
     import chip_smoke
@@ -285,7 +287,8 @@ def test_chip_smoke_service_phase_rehearsal(tmp_path):
             str(tmp_path / "service"), wanted=(), device="cpu",
             server_env={"PDE_TPU_DEVICE": "cpu",
                         "PDE_TPU_PRECISION": "mixed"},
-            disk_hits=())       # 6,561 DOF: under the prep cache's gate
+            disk_hits=(),       # 6,561 DOF: under the prep cache's gate
+            heat=dict(nx=8, ny=8, nz=8))
     assert launches == {}
     # the served plot and the nine examples' plots
     assert len(list((tmp_path / "service" / "plots").glob("*.html"))) == 10
