@@ -1,0 +1,7 @@
+"""Mean CG iterations of a static call (solver_stats)."""
+
+from portbench.lib import readers
+
+
+def read(run):
+    return readers.mean_stat(run, 'cg_iterations')
