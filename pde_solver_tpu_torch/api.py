@@ -9,7 +9,8 @@ plot tools (host numpy/scipy, ``pde_solver_tpu_torch.viz``): all 31.
 Names, signatures, defaults, artifact layout and result metadata match
 ``pde_solver_tpu.api`` exactly (tests compare ``inspect.signature``).  Every
 ``SolveResult.meta`` carries a ``solver_stats`` block (DOF count, CG
-iterations, achieved residual, phase seconds).
+iterations, achieved residual, and the request's span seconds and
+counters, ``utils.observability``).
 
 The device and precision come from ``config.get_config()`` (scope them with
 ``config.config_overrides``).
@@ -35,6 +36,7 @@ from pde_solver_tpu_torch.models.heat import (
 from pde_solver_tpu_torch.ops import assembly
 from pde_solver_tpu_torch.ops.bc import DirichletBC
 from pde_solver_tpu_torch.ops.eigen import smallest_modes
+from pde_solver_tpu_torch.utils.observability import request
 
 
 def _pack(mesh: StructuredMesh, embed, times, values, dim, meta, stats) -> TimeSeriesField:
@@ -1258,9 +1260,11 @@ def solve_elasticity_2D_modal(
                                       mesh_c.node_shape, vdim=2)
         return K_c, bc_c
 
-    lams, modes, stats = smallest_modes(K, M, mesh, bc,
-                                        num_modes=num_modes, vdim=2,
-                                        mg_level_builder=coarse_level)
+    with request() as phases:
+        lams, modes, stats = smallest_modes(K, M, mesh, bc,
+                                            num_modes=num_modes, vdim=2,
+                                            mg_level_builder=coarse_level)
+    stats = {**stats, **phases}
     freqs = np.sqrt(np.maximum(lams, 0.0)) / (2.0 * np.pi)
     frames = []
     for j in range(len(lams)):
@@ -1316,9 +1320,11 @@ def solve_elasticity_3D_modal(
                                       mesh_c.node_shape, vdim=3)
         return K_c, bc_c
 
-    lams, modes, stats = smallest_modes(K, M, mesh, bc,
-                                        num_modes=num_modes, vdim=3,
-                                        mg_level_builder=coarse_level)
+    with request() as phases:
+        lams, modes, stats = smallest_modes(K, M, mesh, bc,
+                                            num_modes=num_modes, vdim=3,
+                                            mg_level_builder=coarse_level)
+    stats = {**stats, **phases}
     freqs = np.sqrt(np.maximum(lams, 0.0)) / (2.0 * np.pi)
     # per-mode displacement magnitude, normalized to unit max for display
     frames = []

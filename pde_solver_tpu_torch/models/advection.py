@@ -28,8 +28,9 @@ from pde_solver_tpu_torch.config import SolverConfig, get_config
 from pde_solver_tpu_torch.mesh import StructuredMesh, flatten_values
 from pde_solver_tpu_torch.ops import assembly
 from pde_solver_tpu_torch.ops.bc import DirichletBC
-from pde_solver_tpu_torch.ops.timestepping import run_transient
-from pde_solver_tpu_torch.utils.observability import get_logger
+from pde_solver_tpu_torch.ops.timestepping import run_transient, scan_stats
+from pde_solver_tpu_torch.utils.observability import (get_logger, request,
+                                                      span)
 
 
 @dataclass
@@ -78,52 +79,58 @@ def solve_advection_problem(p: AdvectionProblem,
     mesh = p.mesh
     v = np.asarray(p.velocity, dtype=np.float64).reshape(mesh.dim)
 
-    K = assembly.assemble_scalar_stencil(mesh, "stiffness")
-    if p.diffusivity != 1.0:
-        K = {o: p.diffusivity * W for o, W in K.items()}
-    M = assembly.assemble_scalar_stencil(mesh, "mass")
-    C = assembly.assemble_convection_stencil(mesh, v)
+    phases: Dict[str, float] = {}
+    with request(phases):
+        with span("assembly"):
+            K = assembly.assemble_scalar_stencil(mesh, "stiffness")
+            if p.diffusivity != 1.0:
+                K = {o: p.diffusivity * W for o, W in K.items()}
+            M = assembly.assemble_scalar_stencil(mesh, "mass")
+            C = assembly.assemble_convection_stencil(mesh, v)
 
-    if p.source_type == "constant" and p.source_value != 0.0:
-        b = p.source_value * assembly.assemble_load(mesh)
-    else:
-        b = np.zeros(mesh.node_shape, dtype=np.float64)
+            if p.source_type == "constant" and p.source_value != 0.0:
+                b = p.source_value * assembly.assemble_load(mesh)
+            else:
+                b = np.zeros(mesh.node_shape, dtype=np.float64)
 
-    pairs = list(p.bc_pairs) if p.bc_pairs else (
-        list(p.bc_builder(mesh)) if p.bc_builder else
-        [(mesh.boundary_mask(), 0.0)])
-    bc = DirichletBC.from_masks(pairs, mesh.node_shape)
-    u0 = np.asarray(bc.apply_values(_initial_field(p)), dtype=np.float64)
+            pairs = list(p.bc_pairs) if p.bc_pairs else (
+                list(p.bc_builder(mesh)) if p.bc_builder else
+                [(mesh.boundary_mask(), 0.0)])
+            bc = DirichletBC.from_masks(pairs, mesh.node_shape)
+            u0 = np.asarray(bc.apply_values(_initial_field(p)),
+                            dtype=np.float64)
 
-    # stability diagnostics (explicit centered convection)
-    h_min = min(mesh.spacing)
-    speed = float(np.linalg.norm(v))
-    cfl = speed * p.dt / h_min if h_min > 0 else 0.0
-    peclet = speed * h_min / (2.0 * p.diffusivity) if p.diffusivity > 0 \
-        else np.inf
-    if cfl > 1.0:
-        get_logger().warning(
-            "advective CFL %.2f > 1 (|v|=%.3g, dt=%.3g, h=%.3g) — the "
-            "explicit convection term may be unstable; reduce dt", cfl,
-            speed, p.dt, h_min)
-    if peclet > 2.0:
-        get_logger().warning(
-            "cell Péclet %.2f > 2 — centered Galerkin convection may "
-            "oscillate; refine the mesh or raise diffusivity", peclet)
+        # stability diagnostics (explicit centered convection)
+        h_min = min(mesh.spacing)
+        speed = float(np.linalg.norm(v))
+        cfl = speed * p.dt / h_min if h_min > 0 else 0.0
+        peclet = speed * h_min / (2.0 * p.diffusivity) if p.diffusivity > 0 \
+            else np.inf
+        if cfl > 1.0:
+            get_logger().warning(
+                "advective CFL %.2f > 1 (|v|=%.3g, dt=%.3g, h=%.3g) — the "
+                "explicit convection term may be unstable; reduce dt", cfl,
+                speed, p.dt, h_min)
+        if peclet > 2.0:
+            get_logger().warning(
+                "cell Péclet %.2f > 2 — centered Galerkin convection may "
+                "oscillate; refine the mesh or raise diffusivity", peclet)
 
-    scheme = {"imex1": "ab1"}.get(p.scheme, p.scheme)
-    if scheme not in ("ab1", "cnab2"):
-        raise ValueError(f"unknown advection scheme {p.scheme!r}")
-    # CNAB2 pairs AB2 convection with Crank-Nicolson diffusion for O(Δt²)
-    # overall; an explicit theta always wins.
-    theta = p.theta if p.theta is not None else (
-        0.5 if scheme == "cnab2" else cfg.theta)
-    res = run_transient(K, M, mesh, bc, b, u0, dt=p.dt,
-                        num_steps=p.num_steps, theta=theta,
-                        config=cfg, C_np=C, convection_scheme=scheme)
+        scheme = {"imex1": "ab1"}.get(p.scheme, p.scheme)
+        if scheme not in ("ab1", "cnab2"):
+            raise ValueError(f"unknown advection scheme {p.scheme!r}")
+        # CNAB2 pairs AB2 convection with Crank-Nicolson diffusion for O(Δt²)
+        # overall; an explicit theta always wins.
+        theta = p.theta if p.theta is not None else (
+            0.5 if scheme == "cnab2" else cfg.theta)
+        with span("solve"):
+            res = run_transient(K, M, mesh, bc, b, u0, dt=p.dt,
+                                num_steps=p.num_steps, theta=theta,
+                                config=cfg, C_np=C, convection_scheme=scheme)
     values = np.stack([flatten_values(u, mesh.dim) for u in res.values])
     step_target = max(cfg.transient_inner_tol, cfg.accuracy_target)
     info = {
+        **phases,
         "steady": False,
         "cg_iterations": int(res.total_cg_iterations),
         "relative_residual": float(res.max_relative_residual),
@@ -131,8 +138,6 @@ def solve_advection_problem(p: AdvectionProblem,
         "convergence_target": step_target,
         "cfl": cfl, "cell_peclet": peclet, "scheme": scheme,
         "num_dofs": mesh.num_nodes,
-        "scan_seconds": float(res.scan_seconds),
-        "setup_seconds": float(res.setup_seconds),
-        "fetch_seconds": float(res.fetch_seconds),
+        **scan_stats(res),
     }
     return res.times, values, info

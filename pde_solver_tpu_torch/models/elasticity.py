@@ -15,7 +15,6 @@ the modal tools share.
 
 from __future__ import annotations
 
-import time
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -29,7 +28,8 @@ from pde_solver_tpu_torch.ops.bc import DirichletBC
 from pde_solver_tpu_torch.ops.elements import subelem_geometry
 from pde_solver_tpu_torch.ops.linsolve import solve_stencil_system
 from pde_solver_tpu_torch.ops.projection import project_cellwise
-from pde_solver_tpu_torch.utils.observability import get_logger, phase_timer
+from pde_solver_tpu_torch.utils.observability import (get_logger, request,
+                                                      span)
 
 
 def lame_parameters(E: float, nu: float, mode: str) -> Tuple[float, float]:
@@ -203,38 +203,41 @@ def solve_bar_1d(L: float, nx: int, E: float, area: float, body_force: float,
                          "point load would be silently ignored")
     cfg = config or get_config()
     mesh = interval_mesh(nx, 0.0, L)
-    t0 = time.perf_counter()
-    K = assembly.assemble_scalar_stencil(mesh, "stiffness")
-    K = {o: (E * area) * W for o, W in K.items()}
-    b = body_force * assembly.assemble_load(mesh, quad_degree=1)
-    if end_load:
-        b = b.copy()
-        b[-1] += float(end_load)
-    if alpha and delta_T:
-        b = b + assembly.assemble_thermal_load(
-            mesh, E * area * alpha, float(delta_T))[..., 0]
-    clamp_masks = [(mesh.face_mask(0, 0), 0.0)]
-    if clamp_both:
-        clamp_masks.append((mesh.face_mask(0, 1), 0.0))
-    bc = DirichletBC.from_masks(clamp_masks, mesh.node_shape)
-    u, stats = solve_stencil_system(K, mesh, bc, b, config=cfg)
+    phases: Dict[str, float] = {}
+    # the whole call is its "solve" (the JAX package's solve_seconds)
+    with request(phases), span("solve"):
+        K = assembly.assemble_scalar_stencil(mesh, "stiffness")
+        K = {o: (E * area) * W for o, W in K.items()}
+        b = body_force * assembly.assemble_load(mesh, quad_degree=1)
+        if end_load:
+            b = b.copy()
+            b[-1] += float(end_load)
+        if alpha and delta_T:
+            b = b + assembly.assemble_thermal_load(
+                mesh, E * area * alpha, float(delta_T))[..., 0]
+        clamp_masks = [(mesh.face_mask(0, 0), 0.0)]
+        if clamp_both:
+            clamp_masks.append((mesh.face_mask(0, 1), 0.0))
+        bc = DirichletBC.from_masks(clamp_masks, mesh.node_shape)
+        u, stats = solve_stencil_system(K, mesh, bc, b, config=cfg)
 
-    # ε per element (piecewise constant), projected to P1 like FEniCS project
-    h = mesh.spacing[0]
-    eps_cells = ((u[1:] - u[:-1]) / h)[None]  # [1, nx]
-    if quantity == "displacement":
-        field = np.asarray(u, dtype=np.float64)
-    elif quantity == "strain":
-        field = project_cellwise(mesh, eps_cells, config=cfg)
-    else:
-        field_cells = E * (eps_cells - float(alpha) * float(delta_T))
-        field = project_cellwise(mesh, field_cells, config=cfg)
+        # ε per element (piecewise constant), projected to P1 like FEniCS
+        # project
+        h = mesh.spacing[0]
+        eps_cells = ((u[1:] - u[:-1]) / h)[None]  # [1, nx]
+        if quantity == "displacement":
+            field = np.asarray(u, dtype=np.float64)
+        elif quantity == "strain":
+            field = project_cellwise(mesh, eps_cells, config=cfg)
+        else:
+            field_cells = E * (eps_cells - float(alpha) * float(delta_T))
+            field = project_cellwise(mesh, field_cells, config=cfg)
     info = {
         "num_dofs": mesh.num_nodes,
         "cg_iterations": int(stats.iterations),
         "relative_residual": float(stats.relative_residual),
         "converged": bool(stats.converged),
-        "solve_seconds": time.perf_counter() - t0,
+        **phases,
     }
     return mesh.axis_nodes(0), field, info
 
@@ -261,27 +264,6 @@ def solve_elasticity_nd(mesh: StructuredMesh, E: float, nu: float,
     cfg = config or get_config()
     d = mesh.dim
     lam, mu = lame_parameters(E, nu, mode)
-    phases: Dict[str, float] = {}
-    iso_cells = None
-    with phase_timer(phases, "assembly"):
-        K = assembly.assemble_elasticity_stencil(mesh, lam, mu)
-        b = assembly.assemble_vector_load(mesh,
-                                          np.asarray(body_force, dtype=np.float64))
-        for axis, side, tvec in traction_faces:
-            bsurf = surface.assemble_face_load(mesh, int(axis), int(side))
-            b = b + bsurf[..., None] * np.asarray(tvec, dtype=np.float64)
-        if thermal is not None:
-            alpha, dT = thermal
-            beta = thermal_stress_coefficient(E, nu, float(alpha), mode)
-            b = b + assembly.assemble_thermal_load(mesh, beta, dT)
-            if np.isscalar(dT) or np.asarray(dT).ndim == 0:
-                iso_cells = beta * float(dT)
-            else:
-                iso_cells = beta * _cellwise_mean(mesh, np.asarray(dT))
-        clamp_masks = [(mesh.face_mask(0, 0), 0.0)]
-        if clamp_both:
-            clamp_masks.append((mesh.face_mask(0, 1), 0.0))
-        bc = DirichletBC.from_masks(clamp_masks, mesh.node_shape, vdim=d)
 
     def level_builder(mesh_c):
         # re-assemble on the coarse mesh — exact Galerkin operator for
@@ -293,19 +275,51 @@ def solve_elasticity_nd(mesh: StructuredMesh, E: float, nu: float,
         bc_c = DirichletBC.from_masks(masks_c, mesh_c.node_shape, vdim=d)
         return K_c, bc_c
 
-    with phase_timer(phases, "solve"):
-        u_grid, stats = solve_stencil_system(K, mesh, bc, b, vdim=d, config=cfg,
-                                             mg_level_builder=level_builder)
-    with phase_timer(phases, "postprocess"):
-        if quantity == "displacement":
-            field = np.linalg.norm(np.asarray(u_grid, dtype=np.float64),
-                                   axis=-1)
-        else:
-            vm_stress, vm_strain = von_mises_fields(mesh, u_grid, lam, mu,
-                                                    iso=iso_cells,
-                                                    device=cfg.device)
-            vm = vm_strain if quantity == "strain" else vm_stress
-            field = project_cellwise(mesh, vm, config=cfg)
+    phases: Dict[str, float] = {}
+    iso_cells = None
+    with request(phases):
+        with span("assembly"):
+            with span("assembly.stencil"):
+                K = assembly.assemble_elasticity_stencil(mesh, lam, mu)
+            with span("assembly.load"):
+                b = assembly.assemble_vector_load(
+                    mesh, np.asarray(body_force, dtype=np.float64))
+                for axis, side, tvec in traction_faces:
+                    bsurf = surface.assemble_face_load(mesh, int(axis),
+                                                       int(side))
+                    b = b + bsurf[..., None] * np.asarray(tvec,
+                                                          dtype=np.float64)
+                if thermal is not None:
+                    alpha, dT = thermal
+                    beta = thermal_stress_coefficient(E, nu, float(alpha),
+                                                      mode)
+                    b = b + assembly.assemble_thermal_load(mesh, beta, dT)
+                    if np.isscalar(dT) or np.asarray(dT).ndim == 0:
+                        iso_cells = beta * float(dT)
+                    else:
+                        iso_cells = beta * _cellwise_mean(mesh,
+                                                          np.asarray(dT))
+                clamp_masks = [(mesh.face_mask(0, 0), 0.0)]
+                if clamp_both:
+                    clamp_masks.append((mesh.face_mask(0, 1), 0.0))
+                bc = DirichletBC.from_masks(clamp_masks, mesh.node_shape,
+                                            vdim=d)
+        with span("solve"):
+            u_grid, stats = solve_stencil_system(
+                K, mesh, bc, b, vdim=d, config=cfg,
+                mg_level_builder=level_builder)
+        with span("postprocess"):
+            if quantity == "displacement":
+                field = np.linalg.norm(np.asarray(u_grid, dtype=np.float64),
+                                       axis=-1)
+            else:
+                with span("postprocess.von_mises"):
+                    vm_stress, vm_strain = von_mises_fields(
+                        mesh, u_grid, lam, mu, iso=iso_cells,
+                        device=cfg.device)
+                vm = vm_strain if quantity == "strain" else vm_stress
+                with span("postprocess.projection"):
+                    field = project_cellwise(mesh, vm, config=cfg)
     info = {
         "num_dofs": mesh.num_nodes * d,
         "cg_iterations": int(stats.iterations),
@@ -343,22 +357,12 @@ def solve_elasticity_dynamic(mesh: StructuredMesh, E: float, nu: float,
     energy-conserving).  Returns a
     :class:`~pde_solver_tpu_torch.ops.timestepping.NewmarkResult` plus
     stats."""
-    from pde_solver_tpu_torch.ops.timestepping import run_newmark
+    from pde_solver_tpu_torch.ops.timestepping import run_newmark, scan_stats
 
     cfg = config or get_config()
     d = mesh.dim
     lam, mu = lame_parameters(E, nu, mode)
     phases: Dict[str, float] = {}
-    with phase_timer(phases, "assembly"):
-        K = assembly.assemble_elasticity_stencil(mesh, lam, mu)
-        M = assemble_vector_mass(mesh, rho)
-        f = assembly.assemble_vector_load(mesh,
-                                          np.asarray(body_force, np.float64))
-        bc = DirichletBC.from_masks([(mesh.face_mask(0, 0), 0.0)],
-                                    mesh.node_shape, vdim=d)
-    shape = mesh.node_shape + (d,)
-    u0 = np.zeros(shape) if u0 is None else np.asarray(u0, np.float64)
-    v0 = np.zeros(shape) if v0 is None else np.asarray(v0, np.float64)
 
     def coarse_level(mesh_c):
         K_c = assembly.assemble_elasticity_stencil(mesh_c, lam, mu)
@@ -367,21 +371,33 @@ def solve_elasticity_dynamic(mesh: StructuredMesh, E: float, nu: float,
                                       mesh_c.node_shape, vdim=d)
         return K_c, M_c, bc_c
 
-    with phase_timer(phases, "solve"):
-        res = run_newmark(K, M, mesh, bc, f, u0, v0, dt, num_steps,
-                          beta=beta, gamma=gamma, vdim=d, config=cfg,
-                          mg_level_builder=coarse_level)
+    with request(phases):
+        with span("assembly"):
+            K = assembly.assemble_elasticity_stencil(mesh, lam, mu)
+            M = assemble_vector_mass(mesh, rho)
+            f = assembly.assemble_vector_load(
+                mesh, np.asarray(body_force, np.float64))
+            bc = DirichletBC.from_masks([(mesh.face_mask(0, 0), 0.0)],
+                                        mesh.node_shape, vdim=d)
+        shape = mesh.node_shape + (d,)
+        u0 = np.zeros(shape) if u0 is None else np.asarray(u0, np.float64)
+        v0 = np.zeros(shape) if v0 is None else np.asarray(v0, np.float64)
+        with span("solve"):
+            res = run_newmark(K, M, mesh, bc, f, u0, v0, dt, num_steps,
+                              beta=beta, gamma=gamma, vdim=d, config=cfg,
+                              mg_level_builder=coarse_level)
     inner_tol = cfg.tol if cfg.resolve_precision() == "f64" \
         else cfg.transient_inner_tol
     step_target = max(inner_tol, cfg.accuracy_target)
     info = {
+        **phases,
         "num_dofs": mesh.num_nodes * d,
         "cg_iterations": res.total_cg_iterations,
         "relative_residual": res.max_relative_residual,
         "converged": bool(res.max_relative_residual <= step_target),
         "convergence_target": step_target,
         "num_steps": num_steps,
-        **phases,
+        **scan_stats(res),
     }
     get_logger().info(
         "elastodynamics: %d DOF × %d Newmark steps solve=%.3fs iters=%d",

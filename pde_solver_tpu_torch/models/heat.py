@@ -25,8 +25,9 @@ from pde_solver_tpu_torch.ops import assembly
 from pde_solver_tpu_torch.ops.bc import DirichletBC
 from pde_solver_tpu_torch.ops.linsolve import solve_stencil_system
 from pde_solver_tpu_torch.ops.projection import project_function
-from pde_solver_tpu_torch.ops.timestepping import run_transient
-from pde_solver_tpu_torch.utils.observability import get_logger, phase_timer
+from pde_solver_tpu_torch.ops.timestepping import run_transient, scan_stats
+from pde_solver_tpu_torch.utils.observability import (get_logger, request,
+                                                      span)
 
 WeightFn = Callable[[np.ndarray], np.ndarray]
 
@@ -140,11 +141,22 @@ def _initial_field(p: HeatProblem) -> np.ndarray:
 def solve_heat_problem(p: HeatProblem, config: Optional[SolverConfig] = None
                        ) -> Tuple[np.ndarray, np.ndarray, Dict]:
     """Returns (times [Nt], values [Nt, N] flat float64, stats dict)."""
-    cfg = config or get_config()
-    mesh = p.mesh
     phases: Dict[str, float] = {}
+    with request(phases):
+        times, values, info = _heat_problem(p, config or get_config())
+    info.update({"num_dofs": p.mesh.num_nodes, **phases})
+    get_logger().info(
+        "heat solve: %d DOF steady=%s assembly=%.3fs solve=%.3fs iters=%d",
+        p.mesh.num_nodes, p.steady, phases.get("assembly_seconds", 0.0),
+        phases.get("solve_seconds", 0.0), info["cg_iterations"])
+    return times, values, info
 
-    with phase_timer(phases, "assembly"):
+
+def _heat_problem(p: HeatProblem, cfg: SolverConfig):
+    """:func:`solve_heat_problem` inside its request: (times, values, the
+    stats of the solve)."""
+    mesh = p.mesh
+    with span("assembly"):
         # Stiffness ∫ κ w ∇u·∇v; mass ∫ w u v; load ∫ w f v
         stiff_deg = p.weight_quad_degree if p.weight_fn is not None else 2
         kappa = p.kappa_cells
@@ -191,7 +203,7 @@ def solve_heat_problem(p: HeatProblem, config: Optional[SolverConfig] = None
             return K_c, bc_c
 
     if p.steady:
-        with phase_timer(phases, "solve"):
+        with span("solve"):
             x, stats = solve_stencil_system(K, mesh, bc, b, config=cfg,
                                             mg_level_builder=mg_builder)
         values = flatten_values(x, mesh.dim)[None, :]
@@ -204,7 +216,7 @@ def solve_heat_problem(p: HeatProblem, config: Optional[SolverConfig] = None
             "convergence_target": stats.target,
         }
     else:
-        with phase_timer(phases, "assembly"):
+        with span("assembly"):
             M = assembly.assemble_scalar_stencil(
                 mesh, "mass", weight_fn=p.weight_fn,
                 quad_degree=max(p.weight_quad_degree, 2) if p.weight_fn is not None else 2,
@@ -232,7 +244,7 @@ def solve_heat_problem(p: HeatProblem, config: Optional[SolverConfig] = None
                                                 mesh.node_shape)
                 time_mod["bc_amp_values"] = np.asarray(
                     amp_bc.values * (1.0 - amp_bc.free_mask), np.float64)
-        with phase_timer(phases, "solve"):
+        with span("solve"):
             res = run_transient(K, M, mesh, bc, b, u0, dt=p.dt,
                                 num_steps=p.num_steps,
                                 theta=p.theta if p.theta is not None else cfg.theta,
@@ -249,18 +261,8 @@ def solve_heat_problem(p: HeatProblem, config: Optional[SolverConfig] = None
             "relative_residual": float(res.max_relative_residual),
             "converged": bool(res.max_relative_residual <= step_target),
             "convergence_target": step_target,
-            # stepping throughput = num_steps/scan_seconds; setup_seconds is
-            # the one-time host prep (system + MG hierarchy build/upload);
-            # fetch_seconds is the trajectory device→host retrieval
-            "scan_seconds": float(res.scan_seconds),
-            "setup_seconds": float(res.setup_seconds),
-            "fetch_seconds": float(res.fetch_seconds),
+            **scan_stats(res),
         }
-    info.update({"num_dofs": mesh.num_nodes, **phases})
-    get_logger().info(
-        "heat solve: %d DOF steady=%s assembly=%.3fs solve=%.3fs iters=%d",
-        mesh.num_nodes, p.steady, phases.get("assembly_seconds", 0.0),
-        phases.get("solve_seconds", 0.0), info["cg_iterations"])
     return times, values, info
 
 
@@ -311,24 +313,27 @@ def solve_heat_nonlinear(p: HeatProblem, kappa0: float, beta: float,
     total_cg = 0
     rel = np.inf
     it = 0
-    for it in range(1, max_picard + 1):
-        kcells = kappa0 * (1.0 + beta * _cell_average(T, mesh.dim))
-        if kcells.min() <= 0.0:
-            raise ValueError(
-                f"kappa(T) became non-positive (min {kcells.min():.3g}) — "
-                "beta is too large for this temperature range")
-        K = assembly.assemble_scalar_stencil(
-            mesh, "stiffness", weight_fn=p.weight_fn, cell_coeff=kcells,
-            quad_degree=(p.weight_quad_degree
-                         if p.weight_fn is not None else 2))
-        T_new, stats = solve_stencil_system(K, mesh, bc, b, config=cfg)
-        T_new = np.asarray(T_new, np.float64)
-        total_cg += int(stats.iterations)
-        rel = (np.linalg.norm((T_new - T).ravel())
-               / max(np.linalg.norm(T_new.ravel()), 1e-300))
-        T = T_new
-        if rel < picard_tol:
-            break
+    phases: Dict[str, float] = {}
+    with request(phases), span("solve"):
+        for it in range(1, max_picard + 1):
+            kcells = kappa0 * (1.0 + beta * _cell_average(T, mesh.dim))
+            if kcells.min() <= 0.0:
+                raise ValueError(
+                    f"kappa(T) became non-positive (min "
+                    f"{kcells.min():.3g}) — beta is too large for this "
+                    "temperature range")
+            K = assembly.assemble_scalar_stencil(
+                mesh, "stiffness", weight_fn=p.weight_fn, cell_coeff=kcells,
+                quad_degree=(p.weight_quad_degree
+                             if p.weight_fn is not None else 2))
+            T_new, stats = solve_stencil_system(K, mesh, bc, b, config=cfg)
+            T_new = np.asarray(T_new, np.float64)
+            total_cg += int(stats.iterations)
+            rel = (np.linalg.norm((T_new - T).ravel())
+                   / max(np.linalg.norm(T_new.ravel()), 1e-300))
+            T = T_new
+            if rel < picard_tol:
+                break
     get_logger().info(
         "nonlinear heat: %d Picard iterations (%d CG total), change %.2e",
         it, total_cg, rel)
@@ -340,6 +345,7 @@ def solve_heat_nonlinear(p: HeatProblem, kappa0: float, beta: float,
         "converged": bool(rel < picard_tol),
         "convergence_target": picard_tol,
         "num_dofs": mesh.num_nodes,
+        **phases,
     }
     return np.array([0.0]), values, info
 

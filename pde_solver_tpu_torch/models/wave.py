@@ -20,8 +20,9 @@ from pde_solver_tpu_torch.mesh import StructuredMesh, flatten_values
 from pde_solver_tpu_torch.models.heat import HeatProblem, _initial_field
 from pde_solver_tpu_torch.ops import assembly
 from pde_solver_tpu_torch.ops.bc import DirichletBC
-from pde_solver_tpu_torch.ops.timestepping import run_newmark
-from pde_solver_tpu_torch.utils.observability import get_logger, phase_timer
+from pde_solver_tpu_torch.ops.timestepping import run_newmark, scan_stats
+from pde_solver_tpu_torch.utils.observability import (get_logger, request,
+                                                      span)
 
 
 @dataclass
@@ -59,29 +60,6 @@ def solve_wave_problem(p: WaveProblem,
     cfg = config or get_config()
     mesh = p.mesh
     c2 = float(p.wave_speed) ** 2
-    phases: Dict[str, float] = {}
-
-    with phase_timer(phases, "assembly"):
-        K = assembly.assemble_scalar_stencil(mesh, "stiffness")
-        if c2 != 1.0:
-            K = {o: c2 * W for o, W in K.items()}
-        M = assembly.assemble_scalar_stencil(mesh, "mass")
-        if p.source_value != 0.0:
-            b = p.source_value * assembly.assemble_load(mesh)
-        else:
-            b = np.zeros(mesh.node_shape, dtype=np.float64)
-        bc = DirichletBC.from_masks([(mesh.boundary_mask(),
-                                      float(p.boundary_value))],
-                                    mesh.node_shape)
-        k = (p.initial_wavenumber if p.initial_wavenumber is not None
-             else _fundamental_wavenumber(mesh))
-        ic_spec = HeatProblem(mesh=mesh, T_initial=p.initial_value,
-                              initial_type=p.initial_type,
-                              initial_amplitude=p.initial_amplitude,
-                              initial_wavenumber=k)
-        u0 = np.asarray(bc.apply_values(_initial_field(ic_spec)),
-                        dtype=np.float64)
-        v0 = np.zeros_like(u0)
 
     def coarse_level(mesh_c):
         K_c = assembly.assemble_scalar_stencil(mesh_c, "stiffness")
@@ -93,16 +71,40 @@ def solve_wave_problem(p: WaveProblem,
                                       mesh_c.node_shape)
         return K_c, M_c, bc_c
 
-    with phase_timer(phases, "solve"):
-        res = run_newmark(K, M, mesh, bc, b, u0, v0, p.dt, p.num_steps,
-                          beta=p.beta, gamma=p.gamma, vdim=1, config=cfg,
-                          mg_level_builder=coarse_level)
+    phases: Dict[str, float] = {}
+    with request(phases):
+        with span("assembly"):
+            K = assembly.assemble_scalar_stencil(mesh, "stiffness")
+            if c2 != 1.0:
+                K = {o: c2 * W for o, W in K.items()}
+            M = assembly.assemble_scalar_stencil(mesh, "mass")
+            if p.source_value != 0.0:
+                b = p.source_value * assembly.assemble_load(mesh)
+            else:
+                b = np.zeros(mesh.node_shape, dtype=np.float64)
+            bc = DirichletBC.from_masks([(mesh.boundary_mask(),
+                                          float(p.boundary_value))],
+                                        mesh.node_shape)
+            k = (p.initial_wavenumber if p.initial_wavenumber is not None
+                 else _fundamental_wavenumber(mesh))
+            ic_spec = HeatProblem(mesh=mesh, T_initial=p.initial_value,
+                                  initial_type=p.initial_type,
+                                  initial_amplitude=p.initial_amplitude,
+                                  initial_wavenumber=k)
+            u0 = np.asarray(bc.apply_values(_initial_field(ic_spec)),
+                            dtype=np.float64)
+            v0 = np.zeros_like(u0)
+        with span("solve"):
+            res = run_newmark(K, M, mesh, bc, b, u0, v0, p.dt, p.num_steps,
+                              beta=p.beta, gamma=p.gamma, vdim=1, config=cfg,
+                              mg_level_builder=coarse_level)
 
     values = np.stack([flatten_values(v, mesh.dim) for v in res.values])
     inner_tol = cfg.tol if cfg.resolve_precision() == "f64" \
         else cfg.transient_inner_tol
     step_target = max(inner_tol, cfg.accuracy_target)
     info = {
+        **phases,
         "num_dofs": mesh.num_nodes,
         "cg_iterations": int(res.total_cg_iterations),
         "relative_residual": float(res.max_relative_residual),
@@ -111,7 +113,7 @@ def solve_wave_problem(p: WaveProblem,
         "num_steps": int(p.num_steps),
         "integrator": "newmark_beta",
         "beta": float(p.beta), "gamma": float(p.gamma),
-        **phases,
+        **scan_stats(res),
     }
     get_logger().info(
         "wave solve: %d DOF × %d Newmark steps assembly=%.3fs solve=%.3fs "

@@ -41,17 +41,18 @@ from __future__ import annotations
 
 import contextlib
 import gc
-import time
 import weakref
 from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from pde_solver_tpu_torch.ops import stencil_kernels
+from pde_solver_tpu_torch.utils import observability as obs
 
 # Host reads of the solve loops in this process, by loop ("mg_pcg", "cg",
 # "df2"): each is one device → host copy that waits for the device.
 HOST_READS: Dict[str, int] = {}
+obs.track("host_reads", lambda: sum(HOST_READS.values()))
 
 
 def count_read(kind: str) -> None:
@@ -176,12 +177,13 @@ def _recording():
 def _side_stream(fn: Callable) -> None:
     """Run ``fn`` eagerly on a side stream, as a warm-up before a capture
     (the first launch of each kernel, the libraries' lazy set-up)."""
-    main = torch.cuda.current_stream()
-    side = torch.cuda.Stream()
-    side.wait_stream(main)
-    with torch.cuda.stream(side):
-        fn()
-    main.wait_stream(side)
+    with obs.span("capture"):
+        main = torch.cuda.current_stream()
+        side = torch.cuda.Stream()
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            fn()
+        main.wait_stream(side)
 
 
 class Program:
@@ -220,7 +222,7 @@ class Program:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with _recording() as launches:
+            with obs.span("capture"), _recording() as launches:
                 with torch.cuda.graph(graph, pool=store.pool()):
                     self._body(0)
         except BaseException:
@@ -229,6 +231,7 @@ class Program:
         finally:
             if collecting:
                 gc.enable()
+        obs.count("graphs_captured")
         # the closure is not needed to replay; dropping it keeps the
         # owner → store → program → closure → owner cycle from forming
         self.graph, self.launches, self.fn = graph, tuple(launches), None
@@ -238,6 +241,7 @@ class Program:
             self._body(g0)
             return
         self.graph.replay()
+        obs.count("graph_replays")
         for variant, ref, n in self.launches:
             stencil_kernels.count_launch(variant,
                                          None if ref is None else ref(), n)
@@ -489,14 +493,15 @@ class StepLoop:
             return new + (n + 1, acc_n, None, None)
 
         bufs = self.carry + (self.n, self.acc) + consts
-        t = time.perf_counter()
-        if capture:
-            # the warm-up: a step whose solve runs one masked iteration
-            # launches every kernel the program holds
-            _side_stream(lambda: body(bufs, 1))
-        self.program = Program(lambda g0, *b: body(b, self.budget), bufs,
-                               capture, store)
-        self.capture_seconds = time.perf_counter() - t if capture else 0.0
+        with (obs.span("capture") if capture
+              else contextlib.nullcontext()) as sp:
+            if capture:
+                # the warm-up: a step whose solve runs one masked iteration
+                # launches every kernel the program holds
+                _side_stream(lambda: body(bufs, 1))
+            self.program = Program(lambda g0, *b: body(b, self.budget),
+                                   bufs, capture, store)
+        self.capture_seconds = sp.seconds if capture else 0.0
 
     def run(self, carry, n: int, m: int, keep: Callable, j0: int):
         """``m`` steps from ``carry`` at global step ``n``, accumulators

@@ -47,7 +47,6 @@ from __future__ import annotations
 
 import hashlib
 import os
-import time
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -62,6 +61,7 @@ from pde_solver_tpu_torch.ops.cs_kernels import (CSFlatStencilOperator,
                                                  cs_enabled, cs_wins)
 from pde_solver_tpu_torch.ops.stencil_kernels import (FlatStencilOperator,
                                                       kernel_wins)
+from pde_solver_tpu_torch.utils import observability as obs
 from pde_solver_tpu_torch.utils.observability import get_logger
 
 Offset = Tuple[int, ...]
@@ -131,16 +131,29 @@ _PREP_CACHE_MAX = 2
 _PREP_CACHE_MIN_DOF = 100_000
 
 
+def _digest(arrays) -> str:
+    """The blake2b-128 hex digest of the arrays' bytes, in order: a
+    content key's hash, in the ``setup.hash`` span, its bytes counted
+    (``hashed_bytes``)."""
+    with obs.span("setup.hash"):
+        h = hashlib.blake2b(digest_size=16)
+        n = 0
+        for a in arrays:
+            a = np.ascontiguousarray(a)
+            h.update(a)
+            n += a.nbytes
+        obs.count("hashed_bytes", n)
+        return h.hexdigest()
+
+
 def _prep_cache_key(stencil: Dict, free: np.ndarray, node_shape, vdim: int):
-    h = hashlib.blake2b(digest_size=16)
-    for off in sorted(stencil.keys()):
-        h.update(np.ascontiguousarray(np.asarray(stencil[off], np.float64)))
-    h.update(np.ascontiguousarray(free))
+    digest = _digest([np.asarray(stencil[off], np.float64)
+                      for off in sorted(stencil.keys())] + [free])
     # "v2": contiguous C/Cinv are cached (not transposed views) — einsum
     # rounding depends on memory layout, so every path hands the SAME
     # layout to the b̂ computation for bitwise-reproducible results
     return (tuple(node_shape), vdim, tuple(sorted(stencil.keys())),
-            h.hexdigest(), "v2")
+            digest, "v2")
 
 
 def _entry_bytes(kind: str, key) -> int:
@@ -169,24 +182,26 @@ def _prep_core_get(key, n_off: int, vdim: int):
     core = _PREP_CACHE.pop(key, None)
     if core is not None:
         _PREP_CACHE[key] = core  # LRU refresh
+        obs.count("prep_memory_hits")
         return core
     from pde_solver_tpu_torch.utils import diskcache
 
-    t = time.perf_counter()
-    ent = diskcache.load("prep", key)
-    if ent is None:
-        return None
-    try:
-        scaled = [ent[f"w{i}"] for i in range(n_off)]
-        if vdim == 1:
-            core = (scaled, ent["s"], None, None)
-        else:
-            core = (scaled, None, ent["C"], ent["Cinv"])
-    except KeyError:
-        return None
-    _prep_core_put(key, _freeze(core), disk=False)
+    with obs.span("setup.prep.load") as sp:
+        ent = diskcache.load("prep", key)
+        if ent is None:
+            return None
+        try:
+            scaled = [ent[f"w{i}"] for i in range(n_off)]
+            if vdim == 1:
+                core = (scaled, ent["s"], None, None)
+            else:
+                core = (scaled, None, ent["C"], ent["Cinv"])
+        except KeyError:
+            return None
+        _prep_core_put(key, _freeze(core), disk=False)
+    obs.count("prep_disk_hits")
     get_logger().info("prep disk-cache hit (%.3fs load, %d bytes, %d DOF)",
-                      time.perf_counter() - t, _entry_bytes("prep", key),
+                      sp.seconds, _entry_bytes("prep", key),
                       int(np.prod(key[0])) * vdim)
     return core
 
@@ -201,15 +216,15 @@ def _prep_core_put(key, core, disk: bool = True):
 
         if not diskcache.enabled():
             return
-        t = time.perf_counter()
-        scaled, s, C, Cinv = core
-        arrays = {f"w{i}": np.asarray(W) for i, W in enumerate(scaled)}
-        for name, a in (("s", s), ("C", C), ("Cinv", Cinv)):
-            if a is not None:
-                arrays[name] = np.asarray(a)
-        diskcache.store("prep", key, arrays)
+        with obs.span("setup.prep.store") as sp:
+            scaled, s, C, Cinv = core
+            arrays = {f"w{i}": np.asarray(W) for i, W in enumerate(scaled)}
+            for name, a in (("s", s), ("C", C), ("Cinv", Cinv)):
+                if a is not None:
+                    arrays[name] = np.asarray(a)
+            diskcache.store("prep", key, arrays)
         get_logger().info("prep disk-cache store (%.3fs, %d bytes, %d DOF)",
-                          time.perf_counter() - t, _entry_bytes("prep", key),
+                          sp.seconds, _entry_bytes("prep", key),
                           int(np.prod(key[0])) * key[1])
 
 
@@ -247,6 +262,7 @@ def prepare_system(stencil: Dict[Offset, np.ndarray], mesh: StructuredMesh,
                                 "block", None, np.swapaxes(C, -1, -2),
                                 np.swapaxes(Cinv, -1, -2), ckey=key)
 
+    obs.count("prep_builds")
     if vdim == 1:
         diag = stencil[zero] * free + (1.0 - free)
         diag = np.where(diag <= 0, 1.0, diag)
@@ -526,15 +542,12 @@ def _routing() -> tuple:
 
 def _mg_cache_key(mesh: StructuredMesh, vdim: int, prec: str,
                   sysm: ScaledSystem, device: torch.device):
-    h = hashlib.blake2b(digest_size=16)
-    for W in sysm.weights:
-        h.update(np.ascontiguousarray(W))
-    h.update(np.ascontiguousarray(sysm.free))
+    digest = _digest(list(sysm.weights) + [sysm.free])
     # the routing bakes into the built hierarchy's operators, and its
     # tensors live on one device: an entry of another routing or device
     # would silently keep the old kernels or hand over foreign tensors
     return (mesh.node_shape, vdim, prec, sysm.offsets, _routing(),
-            str(device), h.hexdigest())
+            str(device), digest)
 
 
 def _mg_cache_get(key):
@@ -566,7 +579,8 @@ def _stats_result(sysm: ScaledSystem, xh: torch.Tensor, k, relres,
                   tol_used: float, cfg: SolverConfig):
     """(x float64 numpy grid, stats) of a device solve of the scaled
     system; "converged" = relres met max(tol_used, accuracy_target)."""
-    x = sysm.from_hat_x(xh.cpu().numpy().astype(np.float64))
+    with obs.span("solve.fetch"):
+        x = sysm.from_hat_x(xh.cpu().numpy().astype(np.float64))
     target = max(tol_used, cfg.accuracy_target)
     return x, SolveStats(iterations=np.int32(k),
                          relative_residual=np.float64(relres),
@@ -598,10 +612,9 @@ def solve_stencil_system(
     maxiter = cfg.resolved_maxiter(n)
     nshard = cfg.resolved_shard_devices()
 
-    t_p = time.perf_counter()
-    sysm = prepare_system(stencil_np, mesh, bc, rhs_np, vdim)
-    get_logger().info("prepare_system: %.3fs (%d DOF)",
-                      time.perf_counter() - t_p, n)
+    with obs.span("setup.prep") as sp:
+        sysm = prepare_system(stencil_np, mesh, bc, rhs_np, vdim)
+    get_logger().info("prepare_system: %.3fs (%d DOF)", sp.seconds, n)
     offsets = sysm.offsets
     x0_hat = (np.zeros_like(sysm.b_hat) if x0 is None
               else sysm.to_hat_x(np.asarray(x0, dtype=np.float64)))
@@ -624,26 +637,27 @@ def solve_stencil_system(
     # builds one there and leaves it unused): none is built for it
     if (mg_level_builder is not None and cfg.use_multigrid
             and n >= cfg.mg_threshold and (prec != "f32" or nshard > 1)):
-        t_h = time.perf_counter()
-        hier_key = _mg_cache_key(mesh, vdim, prec, sysm, device) + (
-            nshard > 1,)
-        cached = _mg_cache_get(hier_key)
-        if cached is not None:
-            hierarchy, ladder_core = cached
-            get_logger().info("hierarchy cache hit (%.3fs key, %d DOF)",
-                              time.perf_counter() - t_h, n)
-        else:
-            # the disk layer serves float32 hierarchies only; the kernels'
-            # flat layout does not decompose along a grid axis, so a
-            # sharded hierarchy keeps plain weights
-            hierarchy = mg.build_hierarchy_cached(
-                mesh, sysm, mg_level_builder, vdim=vdim, device=device,
-                dtype=torch.float64 if prec == "f64" else torch.float32,
-                cache_key=sysm.ckey, use_kernel=nshard <= 1)
-            if hierarchy is not None and (prec == "f64" or nshard > 1):
-                _mg_cache_put(hier_key, hierarchy, None)
-            get_logger().info("hierarchy build: %.3fs (%d DOF)",
-                              time.perf_counter() - t_h, n)
+        with obs.span("setup.hierarchy") as sp:
+            hier_key = _mg_cache_key(mesh, vdim, prec, sysm, device) + (
+                nshard > 1,)
+            cached = _mg_cache_get(hier_key)
+            if cached is not None:
+                hierarchy, ladder_core = cached
+                obs.count("hierarchy_hits")
+                get_logger().info("hierarchy cache hit (%.3fs key, %d DOF)",
+                                  sp.seconds, n)
+            else:
+                # the disk layer serves float32 hierarchies only; the
+                # kernels' flat layout does not decompose along a grid
+                # axis, so a sharded hierarchy keeps plain weights
+                hierarchy = mg.build_hierarchy_cached(
+                    mesh, sysm, mg_level_builder, vdim=vdim, device=device,
+                    dtype=torch.float64 if prec == "f64" else torch.float32,
+                    cache_key=sysm.ckey, use_kernel=nshard <= 1)
+                if hierarchy is not None and (prec == "f64" or nshard > 1):
+                    _mg_cache_put(hier_key, hierarchy, None)
+                get_logger().info("hierarchy build: %.3fs (%d DOF)",
+                                  sp.seconds, n)
 
     # Domain decomposition over a mesh of shard devices: with a hierarchy,
     # sharded MG-PCG; without one, sharded CG (1-D, or a×b when asked for
@@ -739,21 +753,21 @@ def solve_stencil_system(
         # coarsest anchor and error-free-transformation defects at the
         # finest level — beats the κ_eff·ε32 floor that stalls a plain
         # f32 refinement loop on ill-conditioned problems.
-        t_l = time.perf_counter()
-        if ladder_core is not None:
-            ladder = mg.ladder_with_b(ladder_core, sysm.b_hat)
-        else:
-            ladder = mg.build_df_ladder(hierarchy, sysm, sysm.b_hat)
-            _mg_cache_put(hier_key, hierarchy, ladder)
-        t_s = time.perf_counter()
-        x_hi, x_lo, iters, relres = mg.solve_fcycle_df2(
-            hierarchy, ladder, max(cfg.tol, 1e-9),
-            max_rounds=max(cfg.refine_rounds, 8))
+        with obs.span("setup.ladder") as sp_l:
+            if ladder_core is not None:
+                ladder = mg.ladder_with_b(ladder_core, sysm.b_hat)
+            else:
+                ladder = mg.build_df_ladder(hierarchy, sysm, sysm.b_hat)
+                _mg_cache_put(hier_key, hierarchy, ladder)
+        with obs.span("solve.df2") as sp_s:
+            x_hi, x_lo, iters, relres = mg.solve_fcycle_df2(
+                hierarchy, ladder, max(cfg.tol, 1e-9),
+                max_rounds=max(cfg.refine_rounds, 8))
         get_logger().info("df ladder build: %.3fs, df2 rounds: %.3fs "
-                          "(%d DOF)", t_s - t_l, time.perf_counter() - t_s,
-                          n)
-        x_hat = df32.df_to_f64(x_hi.cpu().numpy(), x_lo.cpu().numpy())
-        x = sysm.from_hat_x(x_hat)
+                          "(%d DOF)", sp_l.seconds, sp_s.seconds, n)
+        with obs.span("solve.fetch"):
+            x_hat = df32.df_to_f64(x_hi.cpu().numpy(), x_lo.cpu().numpy())
+            x = sysm.from_hat_x(x_hat)
         target = max(cfg.tol, cfg.accuracy_target)
         stats = SolveStats(
             iterations=np.int32(iters),

@@ -37,7 +37,6 @@ from __future__ import annotations
 
 import itertools
 import os
-import time
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -56,6 +55,7 @@ from pde_solver_tpu_torch.ops.linsolve import (ScaledSystem, _dot,
                                                prepare_system)
 from pde_solver_tpu_torch.ops.stencil_kernels import (FlatStencilOperator,
                                                       kernel_wins)
+from pde_solver_tpu_torch.utils import observability as obs
 from pde_solver_tpu_torch.utils.observability import get_logger
 
 Offset = Tuple[int, ...]
@@ -496,26 +496,29 @@ def build_hierarchy_cached(mesh: StructuredMesh, fine_system: ScaledSystem,
                  and diskcache.enabled() and not cs_enabled())
     n_dof = int(np.prod(mesh.node_shape)) * vdim
     if cacheable:
-        t = time.perf_counter()
-        h = load_hierarchy_from_disk(cache_key, vdim, device, use_kernel)
+        with obs.span("setup.hierarchy.load") as sp:
+            h = load_hierarchy_from_disk(cache_key, vdim, device, use_kernel)
         if h is not None:
+            obs.count("hierarchy_disk_hits")
             get_logger().info("hierarchy disk-cache hit (%.3fs rebuild, %d "
-                              "bytes, %d DOF)", time.perf_counter() - t,
+                              "bytes, %d DOF)", sp.seconds,
                               _entry_bytes("mgh", (cache_key, vdim)), n_dof)
             return h
+    obs.count("hierarchy_builds")
     h = build_hierarchy(mesh, fine_system, level_builder, vdim=vdim,
                         device=device, dtype=dtype, use_kernel=use_kernel,
                         **kw)
     if h is not None and cacheable:
-        t = time.perf_counter()
-        arrays, meta, all_pairs = _hierarchy_to_arrays(h)
-        # the freshly split pairs ride along, so this process's ladder
-        # skips its own split
-        h = h._replace(levels=tuple(lv._replace(host_pairs=p)
-                                    for lv, p in zip(h.levels, all_pairs)))
-        diskcache.store("mgh", (cache_key, vdim), arrays, meta)
+        with obs.span("setup.hierarchy.store") as sp:
+            arrays, meta, all_pairs = _hierarchy_to_arrays(h)
+            # the freshly split pairs ride along, so this process's ladder
+            # skips its own split
+            h = h._replace(levels=tuple(
+                lv._replace(host_pairs=p)
+                for lv, p in zip(h.levels, all_pairs)))
+            diskcache.store("mgh", (cache_key, vdim), arrays, meta)
         get_logger().info("hierarchy disk-cache store (%.3fs, %d bytes, %d "
-                          "DOF)", time.perf_counter() - t,
+                          "DOF)", sp.seconds,
                           _entry_bytes("mgh", (cache_key, vdim)), n_dof)
     return h
 
@@ -932,7 +935,8 @@ class _DF2Programs:
 
     def check(self):
         """Run the residual; (‖r‖², iterations so far): one read."""
-        self.residual.run()
+        with obs.device_clock("solve.df2", self.buffers[5].device):
+            self.residual.run()
         device_loop.count_read("df2")
         rnorm2, total = self.buffers[5].tolist()
         return rnorm2, int(total)
@@ -947,7 +951,10 @@ def solve_fcycle_df2(h: MGHierarchy, ladder: DFLadder, tol: float,
 
     Each round and each pre-check is a program of ``h.graphs`` (captured on
     the card): the host reads ‖b‖ once, then one check a round (the
-    residual and the iterations so far)."""
+    residual and the iterations so far).  Each round and each check's
+    residual is timed on the device (``observability.device_clock``: the
+    request's ``df2_device_seconds``), the host's reads and turnarounds
+    between them left out."""
     device_loop.count_read("df2")
     bnorm = float(torch.sqrt(_dot(ladder.bhi0, ladder.bhi0)))
     if bnorm == 0.0:
@@ -987,7 +994,9 @@ def solve_fcycle_df2(h: MGHierarchy, ladder: DFLadder, tol: float,
             else:
                 stalled = 0
             prev = relres
-        progs.round.run()
+        with obs.device_clock("solve.df2", ladder.bhi0.device):
+            progs.round.run()
+        obs.count("df2_rounds")
     else:
         # final residual reflects the last executed round (a stop at a
         # pre-check has it already)

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from pde_solver_tpu_torch.ops import cuda_build
+from pde_solver_tpu_torch.utils import observability
 
 # Below this DOF count a level would apply through plain torch shifted
 # slices instead of the kernel.  0 routes every level through the kernel:
@@ -58,6 +59,8 @@ PLANE_ALIGN = 128
 # never does.  A launch recorded into a CUDA graph counts each time the
 # graph is replayed (``ops.device_loop``), not when it is captured.
 KERNEL_LAUNCHES: Dict[str, int] = {}
+observability.track("kernel_launches",
+                    lambda: sum(KERNEL_LAUNCHES.values()))
 
 # While ``ops.device_loop`` captures a graph: the list the wrappers record
 # their launches into, (variant, operator), instead of counting them.

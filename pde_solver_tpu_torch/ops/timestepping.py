@@ -72,7 +72,6 @@ import hashlib
 import math
 import os
 import tempfile
-import time
 import zipfile
 from typing import Dict, NamedTuple, Optional
 
@@ -91,6 +90,7 @@ from pde_solver_tpu_torch.ops.linsolve import (STEP_BLOCK, _cg_program,
                                                prepare_system)
 from pde_solver_tpu_torch.ops.stencil_kernels import (FlatStencilOperator,
                                                       kernel_wins)
+from pde_solver_tpu_torch.utils import observability as obs
 from pde_solver_tpu_torch.utils.observability import get_logger
 
 
@@ -99,10 +99,13 @@ class TransientResult(NamedTuple):
     times: np.ndarray         # [frames]
     total_cg_iterations: int
     max_relative_residual: float
-    setup_seconds: float = 0.0  # host system prep + MG hierarchy + staging
-    scan_seconds: float = 0.0   # the stepping loop (throughput =
-                                # num_steps / scan_seconds)
-    fetch_seconds: float = 0.0  # trajectory device → host
+    # the call's spans (observability): "scan.setup", the host system
+    # prep, MG hierarchy and staging; "scan", the stepping loop
+    # (throughput = num_steps / scan_seconds); "solve.fetch", the
+    # trajectory device → host
+    setup_seconds: float = 0.0
+    scan_seconds: float = 0.0
+    fetch_seconds: float = 0.0
     scan_reruns: int = 0        # chunks run again step by step (a step
                                 # outran the step program's budget)
     scan_stepwise_chunks: int = 0   # chunks run step by step with no
@@ -127,6 +130,19 @@ def _tallied(tally: device_loop.ScanTally, kept: bool) -> Dict:
                 scan_programs_built=tally.built,
                 scan_capture_seconds=tally.capture_seconds,
                 scan_kept=kept)
+
+
+# What a tool reports of its scan besides its request's spans (a
+# TransientResult's or a NewmarkResult's fields): the step programs'
+# tallies.  The seconds of its set-up, stepping, fetch and captures are
+# those of the spans "scan.setup", "scan", "solve.fetch" and "capture".
+SCAN_STATS = ("scan_programs_built", "scan_kept", "scan_reruns",
+              "scan_stepwise_chunks", "scan_past_iterations")
+
+
+def scan_stats(res) -> Dict:
+    """The :data:`SCAN_STATS` of a scan's result, for a tool's stats."""
+    return {k: getattr(res, k) for k in SCAN_STATS}
 
 
 def _combine(K: Dict, M: Dict, alpha: float, beta: float) -> Dict:
@@ -461,46 +477,45 @@ def run_transient(
         prec = "f32"   # the reference's rule: no f64 inside the scan
     if prec not in ("f32", "f64"):
         raise ValueError(f"unknown precision {prec!r}")
-    t_setup = time.perf_counter()
-    device = torch.device(cfg.device)
-    state_dtype = torch.float64 if prec == "f64" else torch.float32
-    d = mesh.dim
-    n = int(np.prod(mesh.node_shape)) * vdim
-    maxiter = cfg.resolved_maxiter(n)
-    num_steps = int(num_steps)
-    inner_tol = cfg.tol if prec == "f64" else cfg.transient_inner_tol
+    with obs.span("scan.setup") as setup:   # what both paths share
+        device = torch.device(cfg.device)
+        state_dtype = torch.float64 if prec == "f64" else torch.float32
+        d = mesh.dim
+        n = int(np.prod(mesh.node_shape)) * vdim
+        maxiter = cfg.resolved_maxiter(n)
+        num_steps = int(num_steps)
+        inner_tol = cfg.tol if prec == "f64" else cfg.transient_inner_tol
 
-    cnab2 = bool(C_np) and convection_scheme == "cnab2"
-    A_np = _combine(K_np, M_np, alpha=theta * dt, beta=1.0)
-    B_np = _combine(K_np, M_np, alpha=-(1.0 - theta) * dt, beta=1.0)
-    if C_np and not cnab2:
-        B_np = _combine(C_np, B_np, alpha=-dt, beta=1.0)
-    # scaled, masked implicit operator (zero rhs: only the weights are
-    # needed, the per-step lift uses the precomputed A g)
-    sysm = prepare_system(A_np, mesh, bc, np.zeros(u0_np.shape), vdim)
-    offsets, scaled, gvals = sysm.offsets, sysm.weights, sysm.gvals
-    Ag_np = np_stencil_apply(A_np, gvals, d, vdim)
-    free_np = np.asarray(bc.free_mask, dtype=np.float64)
-    B_list = [np.asarray(B_np.get(o, np.zeros_like(scaled[i])), np.float64)
-              for i, o in enumerate(offsets)]
-    C_list = None
-    if cnab2:
-        C_list = [dt * np.asarray(C_np.get(o, np.zeros_like(B_list[i])),
-                                  np.float64)
+        cnab2 = bool(C_np) and convection_scheme == "cnab2"
+        A_np = _combine(K_np, M_np, alpha=theta * dt, beta=1.0)
+        B_np = _combine(K_np, M_np, alpha=-(1.0 - theta) * dt, beta=1.0)
+        if C_np and not cnab2:
+            B_np = _combine(C_np, B_np, alpha=-dt, beta=1.0)
+        # scaled, masked implicit operator (zero rhs: only the weights are
+        # needed, the per-step lift uses the precomputed A g)
+        sysm = prepare_system(A_np, mesh, bc, np.zeros(u0_np.shape), vdim)
+        offsets, scaled, gvals = sysm.offsets, sysm.weights, sysm.gvals
+        Ag_np = np_stencil_apply(A_np, gvals, d, vdim)
+        free_np = np.asarray(bc.free_mask, dtype=np.float64)
+        B_list = [np.asarray(B_np.get(o, np.zeros_like(scaled[i])), np.float64)
                   for i, o in enumerate(offsets)]
+        C_list = None
+        if cnab2:
+            C_list = [dt * np.asarray(C_np.get(o, np.zeros_like(B_list[i])),
+                                      np.float64)
+                      for i, o in enumerate(offsets)]
 
-    # sinusoidal-driving operands: b1 pre-scaled by dt, g1 restricted to
-    # constrained DOFs with its matching lift A·g1
-    b1_np = g1_np = Ag1_np = None
-    if time_mod:
-        if time_mod.get("source_amp") is not None:
-            b1_np = dt * np.asarray(time_mod["source_amp"], np.float64)
-        if time_mod.get("bc_amp_values") is not None:
-            g1_np = (1.0 - free_np) * np.asarray(time_mod["bc_amp_values"],
-                                                 np.float64)
-            Ag1_np = np_stencil_apply(A_np, g1_np, d, vdim)
-
-    nshard = cfg.resolved_shard_devices()
+        # sinusoidal-driving operands: b1 pre-scaled by dt, g1 restricted to
+        # constrained DOFs with its matching lift A·g1
+        b1_np = g1_np = Ag1_np = None
+        if time_mod:
+            if time_mod.get("source_amp") is not None:
+                b1_np = dt * np.asarray(time_mod["source_amp"], np.float64)
+            if time_mod.get("bc_amp_values") is not None:
+                g1_np = (1.0 - free_np) * np.asarray(time_mod["bc_amp_values"],
+                                                     np.float64)
+                Ag1_np = np_stencil_apply(A_np, g1_np, d, vdim)
+        nshard = cfg.resolved_shard_devices()
     if nshard > 1:
         # the whole scan decomposed over the shards (identity-row padding,
         # halo-exchange applies, sharded CG step solves); every step kept
@@ -515,43 +530,45 @@ def run_transient(
                 "sharded scan path (shard_devices=%d) — running without "
                 "mid-solve checkpoints", cfg.transient_checkpoint_every,
                 nshard)
-        mesh_dev = device_mesh(nshard, device=device)
-        pad = padder(np.shape(free_np)[0], vdim, mesh_dev, state_dtype)
-        values = dict(
-            B_w=tuple(pad(W) for W in B_list), free=pad(free_np),
-            g=pad(gvals), Ag=pad(Ag_np),
-            b_src=pad(dt * np.asarray(b_source_np, np.float64)),
-            C_w=None if C_list is None else tuple(pad(W) for W in C_list),
-            tmod=None if not time_mod else tuple(
-                None if a is None else pad(a)
-                for a in (b1_np, g1_np, Ag1_np)) + (
-                torch.tensor(_sinusoid_table(
-                    float(time_mod["omega"]),
-                    float(time_mod.get("phase", 0.0)), float(dt),
-                    float(theta), num_steps), dtype=state_dtype,
-                    device=mesh_dev.devices[0]),))
-        key = _scan_key("theta", mesh, vdim, prec, sysm, device, (
-            state_dtype, float(dt), float(theta), float(inner_tol),
-            int(maxiter), cnab2,
-            None if not time_mod else (b1_np is not None, g1_np is not None,
-                                       num_steps),
-            "shard", tuple(str(x) for x in mesh_dev.devices)))
-        scan, kept = _kept("theta", key, values, lambda v: ShardedThetaScan(
-            sysm, d, vdim, mesh_dev, dtype=state_dtype, inner_tol=inner_tol,
-            maxiter=maxiter, **v))
-        del values
-        setup_s = time.perf_counter() - t_setup
-        t_scan = time.perf_counter()
-        snaps, tally = scan.run(u0_np, num_steps)
-        scan_s = time.perf_counter() - t_scan
-        t_fetch = time.perf_counter()
-        values = np.concatenate([np.asarray(u0_np, np.float64)[None],
-                                 snaps.numpy().astype(np.float64)], axis=0)
+        with obs.span("scan.setup") as more:   # the sharded scan's
+            mesh_dev = device_mesh(nshard, device=device)
+            pad = padder(np.shape(free_np)[0], vdim, mesh_dev, state_dtype)
+            values = dict(
+                B_w=tuple(pad(W) for W in B_list), free=pad(free_np),
+                g=pad(gvals), Ag=pad(Ag_np),
+                b_src=pad(dt * np.asarray(b_source_np, np.float64)),
+                C_w=None if C_list is None else tuple(pad(W) for W in C_list),
+                tmod=None if not time_mod else tuple(
+                    None if a is None else pad(a)
+                    for a in (b1_np, g1_np, Ag1_np)) + (
+                    torch.tensor(_sinusoid_table(
+                        float(time_mod["omega"]),
+                        float(time_mod.get("phase", 0.0)), float(dt),
+                        float(theta), num_steps), dtype=state_dtype,
+                        device=mesh_dev.devices[0]),))
+            key = _scan_key("theta", mesh, vdim, prec, sysm, device, (
+                state_dtype, float(dt), float(theta), float(inner_tol),
+                int(maxiter), cnab2,
+                None if not time_mod else (b1_np is not None,
+                                           g1_np is not None, num_steps),
+                "shard", tuple(str(x) for x in mesh_dev.devices)))
+            scan, kept = _kept("theta", key, values,
+                               lambda v: ShardedThetaScan(
+                                   sysm, d, vdim, mesh_dev, dtype=state_dtype,
+                                   inner_tol=inner_tol, maxiter=maxiter,
+                                   **v))
+            del values
+        with obs.span("scan") as stepping:
+            snaps, tally = scan.run(u0_np, num_steps)
+        with obs.span("solve.fetch") as fetch:
+            values = np.concatenate([np.asarray(u0_np, np.float64)[None],
+                                     snaps.numpy().astype(np.float64)],
+                                    axis=0)
         return TransientResult(
             values=values, times=dt * np.arange(num_steps + 1,
                                                 dtype=np.float64),
-            setup_seconds=setup_s, scan_seconds=scan_s,
-            fetch_seconds=time.perf_counter() - t_fetch,
+            setup_seconds=setup.seconds + more.seconds,
+            scan_seconds=stepping.seconds, fetch_seconds=fetch.seconds,
             **_tallied(tally, kept))
 
     use_mg = (mg_level_builder is not None and cfg.use_multigrid
@@ -559,30 +576,6 @@ def run_transient(
 
     def dev(a):   # a copy: cached host arrays are read-only
         return torch.tensor(np.asarray(a), dtype=state_dtype, device=device)
-
-    snap32 = cfg.snapshot_dtype == "f32" and prec != "f64"
-    snap_dtype = torch.float32 if snap32 else state_dtype
-    snap_every = _snapshot_every(cfg, num_steps,
-                                 n * (4 if snap_dtype == torch.float32 else 8))
-    # this call's values: copied into a kept entry's buffers on a hit
-    values = dict(
-        B_w=tuple(dev(W) for W in B_list), free=dev(free_np),
-        g=dev(gvals), Ag=dev(Ag_np),
-        b_src=dev(dt * np.asarray(b_source_np, np.float64)),
-        C_w=None if C_list is None else tuple(dev(W) for W in C_list),
-        tmod=None if not time_mod else tuple(
-            None if a is None else dev(a)
-            for a in (b1_np, g1_np, Ag1_np)) + (
-            dev(_sinusoid_table(float(time_mod["omega"]),
-                                float(time_mod.get("phase", 0.0)),
-                                float(dt), float(theta), num_steps)),))
-    # the driving's table is [num_steps, 2]: a driven scan keys on its
-    # length, and on which of its parts are present
-    key = _scan_key("theta", mesh, vdim, prec, sysm, device, (
-        state_dtype, snap_dtype, float(dt), float(theta), float(inner_tol),
-        int(maxiter), use_mg, cnab2,
-        None if not time_mod else (b1_np is not None, g1_np is not None,
-                                   num_steps)))
 
     def build(values):
         h = None
@@ -613,13 +606,38 @@ def run_transient(
             maxiter=maxiter, grid_dim=d, vdim=vdim, h=h,
             graphs=device_loop.GraphStore(), **values)
 
-    ops, kept = _kept("theta", key, values, build)
-    del values
-    h = ops.h
-    u = dev(u0_np)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    setup_s = time.perf_counter() - t_setup
+    with obs.span("scan.setup") as more:   # the scan's own
+        snap32 = cfg.snapshot_dtype == "f32" and prec != "f64"
+        snap_dtype = torch.float32 if snap32 else state_dtype
+        snap_every = _snapshot_every(
+            cfg, num_steps, n * (4 if snap_dtype == torch.float32 else 8))
+        # this call's values: copied into a kept entry's buffers on a hit
+        values = dict(
+            B_w=tuple(dev(W) for W in B_list), free=dev(free_np),
+            g=dev(gvals), Ag=dev(Ag_np),
+            b_src=dev(dt * np.asarray(b_source_np, np.float64)),
+            C_w=None if C_list is None else tuple(dev(W) for W in C_list),
+            tmod=None if not time_mod else tuple(
+                None if a is None else dev(a)
+                for a in (b1_np, g1_np, Ag1_np)) + (
+                dev(_sinusoid_table(float(time_mod["omega"]),
+                                    float(time_mod.get("phase", 0.0)),
+                                    float(dt), float(theta), num_steps)),))
+        # the driving's table is [num_steps, 2]: a driven scan keys on its
+        # length, and on which of its parts are present
+        key = _scan_key("theta", mesh, vdim, prec, sysm, device, (
+            state_dtype, snap_dtype, float(dt), float(theta), float(inner_tol),
+            int(maxiter), use_mg, cnab2,
+            None if not time_mod else (b1_np is not None, g1_np is not None,
+                                       num_steps)))
+
+        ops, kept = _kept("theta", key, values, build)
+        del values
+        h = ops.h
+        u = dev(u0_np)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    setup_s = setup.seconds + more.seconds
 
     if cfg.transient_checkpoint_every > 0:
         # The content key covers everything that determines the trajectory
@@ -653,28 +671,28 @@ def run_transient(
             hsh.hexdigest(), snap_every, snap_dtype, cnab2, kept)
 
     # the frames kept: every snap_every-th step, and the final state always
-    t_scan = time.perf_counter()
-    main = (num_steps // snap_every) * snap_every
-    snaps, u, u_prev, tally = _transient_scan(
-        ops, prec, u, None, 0, main, snap_every, snap_dtype)
-    times = [dt * snap_every * (j + 1) for j in range(main // snap_every)]
-    last = None
-    if main < num_steps:
-        last, u, _, t2 = _transient_scan(
-            ops, prec, u, u_prev, main, num_steps - main, num_steps - main,
-            snap_dtype, start=main == 0)
-        tally = tally.plus(t2)
-        times.append(dt * num_steps)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    scan_s = time.perf_counter() - t_scan
+    with obs.span("scan") as stepping:
+        main = (num_steps // snap_every) * snap_every
+        snaps, u, u_prev, tally = _transient_scan(
+            ops, prec, u, None, 0, main, snap_every, snap_dtype)
+        times = [dt * snap_every * (j + 1) for j in range(main // snap_every)]
+        last = None
+        if main < num_steps:
+            last, u, _, t2 = _transient_scan(
+                ops, prec, u, u_prev, main, num_steps - main,
+                num_steps - main, snap_dtype, start=main == 0)
+            tally = tally.plus(t2)
+            times.append(dt * num_steps)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    scan_s = stepping.seconds
 
-    t_fetch = time.perf_counter()
-    values = np.concatenate([np.asarray(u0_np, np.float64)[None],
-                             _frames(snaps)]
-                            + ([] if last is None else [_frames(last)]),
-                            axis=0)
-    fetch_s = time.perf_counter() - t_fetch
+    with obs.span("solve.fetch") as fetch:
+        values = np.concatenate([np.asarray(u0_np, np.float64)[None],
+                                 _frames(snaps)]
+                                + ([] if last is None else [_frames(last)]),
+                                axis=0)
+    fetch_s = fetch.seconds
     get_logger().info("transient: %d steps, %d CG iterations, max relres "
                       "%.3e, setup %.3fs, scan %.3fs, fetch %.3fs (%d DOF, "
                       "%s, %s step solves; step programs: %s, %d built, %d "
@@ -733,7 +751,6 @@ def _run_transient_checkpointed(ops: _StepOperands, prec: str, u0,
     arithmetic: the trajectory is bitwise the uncheckpointed one.  Each
     stored frame carries its global step index, so a resume with another
     thinning cadence stays consistent."""
-    t_scan = time.perf_counter()
     dtype = u0.dtype
     every = max(int(cfg.transient_checkpoint_every), snap_every)
     every = -(-every // snap_every) * snap_every
@@ -744,60 +761,66 @@ def _run_transient_checkpointed(ops: _StepOperands, prec: str, u0,
                 None)
 
     frames, snap_steps, start, iters, res, u, u_prev = fresh()
-    if os.path.exists(path):
-        try:
-            with np.load(path) as z:
-                snaps_prev = z["snaps"]
-                steps_prev = [int(t) for t in z["snap_steps"]]
-                start, iters, res = (int(z["step"]), int(z["iters"]),
-                                     float(z["res"]))
-                u = torch.as_tensor(z["carry"], dtype=dtype,
-                                    device=u0.device)
-                if "u_prev" in z.files:
-                    u_prev = torch.as_tensor(z["u_prev"], dtype=dtype,
-                                             device=u0.device)
-            if start > num_steps:
-                # the checkpoint is ahead of this (shorter) request: its
-                # carry cannot give u(num_steps)
-                get_logger().warning(
-                    "transient checkpoint at step %d exceeds requested "
-                    "num_steps=%d — recomputing from step 0", start,
-                    num_steps)
+    with obs.span("scan.checkpoint"):   # a resume reads it
+        if os.path.exists(path):
+            try:
+                with np.load(path) as z:
+                    snaps_prev = z["snaps"]
+                    steps_prev = [int(t) for t in z["snap_steps"]]
+                    start, iters, res = (int(z["step"]), int(z["iters"]),
+                                         float(z["res"]))
+                    u = torch.as_tensor(z["carry"], dtype=dtype,
+                                        device=u0.device)
+                    if "u_prev" in z.files:
+                        u_prev = torch.as_tensor(z["u_prev"], dtype=dtype,
+                                                 device=u0.device)
+                if start > num_steps:
+                    # the checkpoint is ahead of this (shorter) request: its
+                    # carry cannot give u(num_steps)
+                    get_logger().warning(
+                        "transient checkpoint at step %d exceeds requested "
+                        "num_steps=%d — recomputing from step 0", start,
+                        num_steps)
+                    frames, snap_steps, start, iters, res, u, u_prev = fresh()
+                else:
+                    frames.append(snaps_prev.astype(np.float64))
+                    snap_steps.extend(steps_prev)
+                    get_logger().info("transient resume: step %d/%d from %s",
+                                      start, num_steps, path)
+            except _UNREADABLE as e:
+                get_logger().warning("unreadable checkpoint %s (%s) — "
+                                     "recomputing from step 0", path, e)
                 frames, snap_steps, start, iters, res, u, u_prev = fresh()
-            else:
-                frames.append(snaps_prev.astype(np.float64))
-                snap_steps.extend(steps_prev)
-                get_logger().info("transient resume: step %d/%d from %s",
-                                  start, num_steps, path)
-        except _UNREADABLE as e:
-            get_logger().warning("unreadable checkpoint %s (%s) — "
-                                 "recomputing from step 0", path, e)
-            frames, snap_steps, start, iters, res, u, u_prev = fresh()
     tally = device_loop.ScanTally(iters, res)
     chunks_done = 0
-    fetch_s = 0.0
+    scan_s = fetch_s = 0.0
     main = start + ((num_steps - start) // snap_every) * snap_every
     while start < main:
         n = min(every, main - start)
-        snaps, u, u_prev_f, t = _transient_scan(
-            ops, prec, u, u_prev, start, n, snap_every, snap_dtype,
-            start=chunks_done == 0)
+        with obs.span("scan") as stepping:
+            snaps, u, u_prev_f, t = _transient_scan(
+                ops, prec, u, u_prev, start, n, snap_every, snap_dtype,
+                start=chunks_done == 0)
+        scan_s += stepping.seconds
         if cnab2:
             u_prev = u_prev_f
         tally = tally.plus(t)
-        t_f = time.perf_counter()
-        frames.append(_frames(snaps))
-        fetch_s += time.perf_counter() - t_f
+        with obs.span("solve.fetch") as fetch:
+            frames.append(_frames(snaps))
+        fetch_s += fetch.seconds
         snap_steps.extend(start + snap_every * (j + 1)
                           for j in range(n // snap_every))
         start += n
         # the AB2 history rides along on CNAB2 runs, so resumes stay bitwise
-        extra = {} if u_prev is None else {"u_prev": _host(u_prev)}
-        _save_checkpoint(
-            cfg, path, snaps=np.concatenate(frames[1:], axis=0).astype(
-                np.float32 if snap_dtype == torch.float32 else np.float64),
-            snap_steps=np.asarray(snap_steps, np.int64), carry=_host(u),
-            step=start, iters=tally.iterations, res=tally.relres, **extra)
+        with obs.span("scan.checkpoint"):
+            extra = {} if u_prev is None else {"u_prev": _host(u_prev)}
+            _save_checkpoint(
+                cfg, path, snaps=np.concatenate(frames[1:], axis=0).astype(
+                    np.float32 if snap_dtype == torch.float32
+                    else np.float64),
+                snap_steps=np.asarray(snap_steps, np.int64), carry=_host(u),
+                step=start, iters=tally.iterations, res=tally.relres,
+                **extra)
         chunks_done += 1
         if _CKPT_TEST_ABORT and chunks_done >= _CKPT_TEST_ABORT \
                 and start < num_steps:
@@ -806,13 +829,15 @@ def _run_transient_checkpointed(ops: _StepOperands, prec: str, u0,
         # the last sub-interval (num_steps not a multiple of snap_every):
         # step to the end and keep only the final state
         rem = num_steps - start
-        last, u, _, t = _transient_scan(ops, prec, u, u_prev, start, rem,
-                                        rem, snap_dtype,
-                                        start=chunks_done == 0)
+        with obs.span("scan") as stepping:
+            last, u, _, t = _transient_scan(ops, prec, u, u_prev, start,
+                                            rem, rem, snap_dtype,
+                                            start=chunks_done == 0)
+        scan_s += stepping.seconds
         tally = tally.plus(t)
-        t_f = time.perf_counter()
-        frames.append(_frames(last))
-        fetch_s += time.perf_counter() - t_f
+        with obs.span("solve.fetch") as fetch:
+            frames.append(_frames(last))
+        fetch_s += fetch.seconds
         snap_steps.append(num_steps)
     try:
         os.remove(path)   # run complete
@@ -821,9 +846,8 @@ def _run_transient_checkpointed(ops: _StepOperands, prec: str, u0,
     return TransientResult(
         values=np.concatenate(frames, axis=0),
         times=dt * np.asarray([0] + snap_steps, dtype=np.float64),
-        setup_seconds=setup_s,
-        scan_seconds=time.perf_counter() - t_scan - fetch_s,
-        fetch_seconds=fetch_s, **_tallied(tally, kept))
+        setup_seconds=setup_s, scan_seconds=scan_s, fetch_seconds=fetch_s,
+        **_tallied(tally, kept))
 
 
 # ----------------------------------------------------------------------
@@ -839,6 +863,7 @@ class NewmarkResult(NamedTuple):
     setup_seconds: float = 0.0  # host system prep + a0 + MG hierarchy
     scan_seconds: float = 0.0   # the stepping loop
     fetch_seconds: float = 0.0  # both trajectories device → host
+                                # (the three as TransientResult's)
     scan_reruns: int = 0        # these six as TransientResult's
     scan_stepwise_chunks: int = 0
     scan_past_iterations: int = 0
@@ -943,54 +968,55 @@ def run_newmark(
         prec = "f32"   # the reference's rule: no f64 inside the scan
     if prec not in ("f32", "f64"):
         raise ValueError(f"unknown precision {prec!r}")
-    t_setup = time.perf_counter()
-    device = torch.device(cfg.device)
-    state_dtype = torch.float64 if prec == "f64" else torch.float32
-    d = mesh.dim
-    n = int(np.prod(mesh.node_shape)) * vdim
-    maxiter = cfg.resolved_maxiter(n)
-    num_steps = int(num_steps)
-    inner_tol = cfg.tol if prec == "f64" else cfg.transient_inner_tol
+    with obs.span("scan.setup") as setup:   # what both paths share
+        device = torch.device(cfg.device)
+        state_dtype = torch.float64 if prec == "f64" else torch.float32
+        d = mesh.dim
+        n = int(np.prod(mesh.node_shape)) * vdim
+        maxiter = cfg.resolved_maxiter(n)
+        num_steps = int(num_steps)
+        inner_tol = cfg.tol if prec == "f64" else cfg.transient_inner_tol
 
-    A_np = _combine(K_np, M_np, alpha=beta * dt * dt, beta=1.0)
-    # acceleration BC values are zero: a zero-valued mask of u's pattern
-    bc0 = DirichletBC(np.asarray(bc.free_mask, np.float64),
-                      np.zeros_like(np.asarray(bc.values, np.float64)))
-    sysm = prepare_system(A_np, mesh, bc0, np.zeros(u0_np.shape), vdim)
-    offsets = sysm.offsets
-    wshape = mesh.node_shape + ((vdim, vdim) if vdim > 1 else ())
-    K_list = [np.asarray(K_np.get(o, np.zeros(wshape)), np.float64)
-              for o in offsets]
+        A_np = _combine(K_np, M_np, alpha=beta * dt * dt, beta=1.0)
+        # acceleration BC values are zero: a zero-valued mask of u's pattern
+        bc0 = DirichletBC(np.asarray(bc.free_mask, np.float64),
+                          np.zeros_like(np.asarray(bc.values, np.float64)))
+        sysm = prepare_system(A_np, mesh, bc0, np.zeros(u0_np.shape), vdim)
+        offsets = sysm.offsets
+        wshape = mesh.node_shape + ((vdim, vdim) if vdim > 1 else ())
+        K_list = [np.asarray(K_np.get(o, np.zeros(wshape)), np.float64)
+                  for o in offsets]
 
-    def dev(a):   # a copy: cached host arrays are read-only
-        return torch.tensor(np.asarray(a), dtype=state_dtype, device=device)
+        def dev(a):   # a copy: cached host arrays are read-only
+            return torch.tensor(np.asarray(a), dtype=state_dtype,
+                                device=device)
 
-    def step_operator(system):
-        """The dense flat operator at float32 (never the constant-interior
-        one: the reference does not try it on this branch), else
-        per-offset tensors in the state's dtype (float64, or float32 below
-        ``KERNEL_MIN_DOF``)."""
-        if prec == "f32" and kernel_wins(n):
-            return FlatStencilOperator(offsets, system.weights,
-                                       mesh.node_shape, vdim=vdim,
-                                       device=device)
-        return tuple(dev(W) for W in system.weights)
+        def step_operator(system):
+            """The dense flat operator at float32 (never the constant-interior
+            one: the reference does not try it on this branch), else
+            per-offset tensors in the state's dtype (float64, or float32 below
+            ``KERNEL_MIN_DOF``)."""
+            if prec == "f32" and kernel_wins(n):
+                return FlatStencilOperator(offsets, system.weights,
+                                           mesh.node_shape, vdim=vdim,
+                                           device=device)
+            return tuple(dev(W) for W in system.weights)
 
-    free_np = np.asarray(bc.free_mask, dtype=np.float64)
-    # consistent initial acceleration: M a0 = free ⊙ (f − K u0)
-    sys_m = prepare_system(M_np, mesh, bc0, free_np * (
-        np.asarray(f_np, np.float64)
-        - np_stencil_apply(K_np, np.asarray(u0_np, np.float64), d, vdim)),
-        vdim)
-    xh0, _, _ = _cg_unit_diag(offsets, step_operator(sys_m),
-                              dev(sys_m.b_hat),
-                              torch.zeros(u0_np.shape, dtype=state_dtype,
-                                          device=device),
-                              inner_tol, maxiter, d, vdim)
-    a = dev(free_np * sys_m.from_hat_x(xh0.cpu().numpy().astype(np.float64)))
-    del sys_m
-
-    nshard = cfg.resolved_shard_devices()
+        free_np = np.asarray(bc.free_mask, dtype=np.float64)
+        # consistent initial acceleration: M a0 = free ⊙ (f − K u0)
+        sys_m = prepare_system(M_np, mesh, bc0, free_np * (
+            np.asarray(f_np, np.float64)
+            - np_stencil_apply(K_np, np.asarray(u0_np, np.float64), d, vdim)),
+            vdim)
+        xh0, _, _ = _cg_unit_diag(offsets, step_operator(sys_m),
+                                  dev(sys_m.b_hat),
+                                  torch.zeros(u0_np.shape, dtype=state_dtype,
+                                              device=device),
+                                  inner_tol, maxiter, d, vdim)
+        a = dev(free_np * sys_m.from_hat_x(
+            xh0.cpu().numpy().astype(np.float64)))
+        del sys_m
+        nshard = cfg.resolved_shard_devices()
     if nshard > 1:
         # the whole Newmark scan decomposed over the shards, as
         # run_transient's sharded scan
@@ -1004,49 +1030,40 @@ def run_newmark(
                 "checkpoints", cfg.transient_checkpoint_every)
         get_logger().info("sharded Newmark scan: %d devices, %d steps",
                           nshard, num_steps)
-        mesh_dev = device_mesh(nshard, device=device)
-        pad = padder(np.shape(free_np)[0], vdim, mesh_dev, state_dtype)
-        values = dict(K_w=tuple(pad(W) for W in K_list), free=pad(free_np),
-                      f_ext=pad(np.asarray(f_np, np.float64)))
-        key = _scan_key("newmark", mesh, vdim, prec, sysm, device, (
-            state_dtype, float(dt), float(beta), float(gamma),
-            float(inner_tol), int(maxiter), "shard",
-            tuple(str(x) for x in mesh_dev.devices)))
-        scan, kept = _kept("newmark", key, values,
-                           lambda v: ShardedNewmarkScan(
-                               sysm, d, vdim, mesh_dev, dt, beta, gamma,
-                               dtype=state_dtype, inner_tol=inner_tol,
-                               maxiter=maxiter, **v))
-        del values
-        setup_s = time.perf_counter() - t_setup
-        t_scan = time.perf_counter()
-        us, vs, tally = scan.run(np.asarray(u0_np, np.float64),
-                                 np.asarray(v0_np, np.float64),
-                                 a.cpu().numpy().astype(np.float64),
-                                 num_steps)
-        scan_s = time.perf_counter() - t_scan
-        t_fetch = time.perf_counter()
-        values = np.concatenate([np.asarray(u0_np, np.float64)[None],
-                                 us.numpy().astype(np.float64)], axis=0)
-        vels = np.concatenate([np.asarray(v0_np, np.float64)[None],
-                               vs.numpy().astype(np.float64)], axis=0)
+        with obs.span("scan.setup") as more:   # the sharded scan's
+            mesh_dev = device_mesh(nshard, device=device)
+            pad = padder(np.shape(free_np)[0], vdim, mesh_dev, state_dtype)
+            values = dict(K_w=tuple(pad(W) for W in K_list), free=pad(free_np),
+                          f_ext=pad(np.asarray(f_np, np.float64)))
+            key = _scan_key("newmark", mesh, vdim, prec, sysm, device, (
+                state_dtype, float(dt), float(beta), float(gamma),
+                float(inner_tol), int(maxiter), "shard",
+                tuple(str(x) for x in mesh_dev.devices)))
+            scan, kept = _kept("newmark", key, values,
+                               lambda v: ShardedNewmarkScan(
+                                   sysm, d, vdim, mesh_dev, dt, beta, gamma,
+                                   dtype=state_dtype, inner_tol=inner_tol,
+                                   maxiter=maxiter, **v))
+            del values
+        with obs.span("scan") as stepping:
+            us, vs, tally = scan.run(np.asarray(u0_np, np.float64),
+                                     np.asarray(v0_np, np.float64),
+                                     a.cpu().numpy().astype(np.float64),
+                                     num_steps)
+        with obs.span("solve.fetch") as fetch:
+            values = np.concatenate([np.asarray(u0_np, np.float64)[None],
+                                     us.numpy().astype(np.float64)], axis=0)
+            vels = np.concatenate([np.asarray(v0_np, np.float64)[None],
+                                   vs.numpy().astype(np.float64)], axis=0)
         return NewmarkResult(
             values=values, velocities=vels,
             times=dt * np.arange(num_steps + 1, dtype=np.float64),
-            setup_seconds=setup_s, scan_seconds=scan_s,
-            fetch_seconds=time.perf_counter() - t_fetch,
+            setup_seconds=setup.seconds + more.seconds,
+            scan_seconds=stepping.seconds, fetch_seconds=fetch.seconds,
             **_tallied(tally, kept))
 
     use_mg = (mg_level_builder is not None and cfg.use_multigrid
               and n >= cfg.resolved_transient_mg_threshold())
-    snap32 = cfg.snapshot_dtype == "f32" and prec != "f64"
-    snap_dtype = torch.float32 if snap32 else state_dtype
-    # this call's values: copied into a kept entry's buffers on a hit
-    values = dict(K_w=tuple(dev(W) for W in K_list), free=dev(free_np),
-                  f_ext=dev(f_np))
-    key = _scan_key("newmark", mesh, vdim, prec, sysm, device, (
-        state_dtype, snap_dtype, float(dt), float(beta), float(gamma),
-        float(inner_tol), int(maxiter), use_mg))
 
     def build(values):
         h = None
@@ -1071,13 +1088,22 @@ def run_newmark(
             grid_dim=d, vdim=vdim, h=h, graphs=device_loop.GraphStore(),
             **values)
 
-    ops, kept = _kept("newmark", key, values, build)
-    del values
-    h = ops.h
-    u, v = dev(u0_np), dev(v0_np)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    setup_s = time.perf_counter() - t_setup
+    with obs.span("scan.setup") as more:   # the scan's own
+        snap32 = cfg.snapshot_dtype == "f32" and prec != "f64"
+        snap_dtype = torch.float32 if snap32 else state_dtype
+        # this call's values: copied into a kept entry's buffers on a hit
+        values = dict(K_w=tuple(dev(W) for W in K_list), free=dev(free_np),
+                      f_ext=dev(f_np))
+        key = _scan_key("newmark", mesh, vdim, prec, sysm, device, (
+            state_dtype, snap_dtype, float(dt), float(beta), float(gamma),
+            float(inner_tol), int(maxiter), use_mg))
+        ops, kept = _kept("newmark", key, values, build)
+        del values
+        h = ops.h
+        u, v = dev(u0_np), dev(v0_np)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    setup_s = setup.seconds + more.seconds
 
     if cfg.transient_checkpoint_every > 0:
         # the content key covers everything that determines the trajectory
@@ -1095,18 +1121,19 @@ def run_newmark(
                                          u0_np, v0_np, setup_s,
                                          hsh.hexdigest(), snap_dtype, kept)
 
-    t_scan = time.perf_counter()
-    us, vs, _, tally = _newmark_scan(ops, u, v, a, num_steps, snap_dtype)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    scan_s = time.perf_counter() - t_scan
+    with obs.span("scan") as stepping:
+        us, vs, _, tally = _newmark_scan(ops, u, v, a, num_steps,
+                                         snap_dtype)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    scan_s = stepping.seconds
 
-    t_fetch = time.perf_counter()
-    values = np.concatenate([np.asarray(u0_np, np.float64)[None],
-                             _frames(us)], axis=0)
-    vels = np.concatenate([np.asarray(v0_np, np.float64)[None],
-                           _frames(vs)], axis=0)
-    fetch_s = time.perf_counter() - t_fetch
+    with obs.span("solve.fetch") as fetch:
+        values = np.concatenate([np.asarray(u0_np, np.float64)[None],
+                                 _frames(us)], axis=0)
+        vels = np.concatenate([np.asarray(v0_np, np.float64)[None],
+                               _frames(vs)], axis=0)
+    fetch_s = fetch.seconds
     get_logger().info("newmark: %d steps, %d CG iterations, max relres "
                       "%.3e, setup %.3fs, scan %.3fs, fetch %.3fs (%d DOF, "
                       "%s, %s step solves; step programs: %s, %d built, %d "
@@ -1136,7 +1163,6 @@ def _run_newmark_checkpointed(ops: _NewmarkOperands, carry0, num_steps: int,
     completed chunk; the file is removed on completion.  The acceleration
     is carried explicitly, so chunking is bitwise the uninterrupted
     scan."""
-    t_scan = time.perf_counter()
     every = max(1, int(cfg.transient_checkpoint_every))
     path = os.path.join(cfg.checkpoint_dir, f"newmark-{key}.npz")
     dtype, device = carry0[0].dtype, carry0[0].device
@@ -1146,48 +1172,52 @@ def _run_newmark_checkpointed(ops: _NewmarkOperands, carry0, num_steps: int,
                 [np.asarray(v0_np, np.float64)[None]], 0, 0, 0.0, carry0)
 
     u_frames, v_frames, start, iters, res, carry = fresh()
-    if os.path.exists(path):
-        try:
-            with np.load(path) as z:
-                if int(z["step"]) > num_steps:
-                    get_logger().warning(
-                        "newmark checkpoint at step %d exceeds requested "
-                        "num_steps=%d — recomputing from step 0",
-                        int(z["step"]), num_steps)
-                else:
-                    u_frames.append(z["us"].astype(np.float64))
-                    v_frames.append(z["vs"].astype(np.float64))
-                    start, iters, res = (int(z["step"]), int(z["iters"]),
-                                         float(z["res"]))
-                    carry = tuple(torch.as_tensor(z[k], dtype=dtype,
-                                                  device=device)
-                                  for k in ("u", "v", "a"))
-                    get_logger().info("newmark resume: step %d/%d from %s",
-                                      start, num_steps, path)
-        except _UNREADABLE as e:
-            get_logger().warning("unreadable checkpoint %s (%s) — "
-                                 "recomputing from step 0", path, e)
-            u_frames, v_frames, start, iters, res, carry = fresh()
+    with obs.span("scan.checkpoint"):   # a resume reads it
+        if os.path.exists(path):
+            try:
+                with np.load(path) as z:
+                    if int(z["step"]) > num_steps:
+                        get_logger().warning(
+                            "newmark checkpoint at step %d exceeds requested "
+                            "num_steps=%d — recomputing from step 0",
+                            int(z["step"]), num_steps)
+                    else:
+                        u_frames.append(z["us"].astype(np.float64))
+                        v_frames.append(z["vs"].astype(np.float64))
+                        start, iters, res = (int(z["step"]), int(z["iters"]),
+                                             float(z["res"]))
+                        carry = tuple(torch.as_tensor(z[k], dtype=dtype,
+                                                      device=device)
+                                      for k in ("u", "v", "a"))
+                        get_logger().info("newmark resume: step %d/%d from %s",
+                                          start, num_steps, path)
+            except _UNREADABLE as e:
+                get_logger().warning("unreadable checkpoint %s (%s) — "
+                                     "recomputing from step 0", path, e)
+                u_frames, v_frames, start, iters, res, carry = fresh()
     tally = device_loop.ScanTally(iters, res)
     chunks_done = 0
-    fetch_s = 0.0
+    scan_s = fetch_s = 0.0
     snap_np = np.float32 if snap_dtype == torch.float32 else np.float64
     while start < num_steps:
         n = min(every, num_steps - start)
-        us, vs, carry, t = _newmark_scan(ops, *carry, n, snap_dtype,
-                                         start=chunks_done == 0)
+        with obs.span("scan") as stepping:
+            us, vs, carry, t = _newmark_scan(ops, *carry, n, snap_dtype,
+                                             start=chunks_done == 0)
+        scan_s += stepping.seconds
         tally = tally.plus(t)
-        t_f = time.perf_counter()
-        u_frames.append(_frames(us))
-        v_frames.append(_frames(vs))
-        fetch_s += time.perf_counter() - t_f
+        with obs.span("solve.fetch") as fetch:
+            u_frames.append(_frames(us))
+            v_frames.append(_frames(vs))
+        fetch_s += fetch.seconds
         start += n
-        _save_checkpoint(
-            cfg, path,
-            us=np.concatenate(u_frames[1:], axis=0).astype(snap_np),
-            vs=np.concatenate(v_frames[1:], axis=0).astype(snap_np),
-            u=_host(carry[0]), v=_host(carry[1]), a=_host(carry[2]),
-            step=start, iters=tally.iterations, res=tally.relres)
+        with obs.span("scan.checkpoint"):
+            _save_checkpoint(
+                cfg, path,
+                us=np.concatenate(u_frames[1:], axis=0).astype(snap_np),
+                vs=np.concatenate(v_frames[1:], axis=0).astype(snap_np),
+                u=_host(carry[0]), v=_host(carry[1]), a=_host(carry[2]),
+                step=start, iters=tally.iterations, res=tally.relres)
         chunks_done += 1
         if _CKPT_TEST_ABORT and chunks_done >= _CKPT_TEST_ABORT \
                 and start < num_steps:
@@ -1200,6 +1230,5 @@ def _run_newmark_checkpointed(ops: _NewmarkOperands, carry0, num_steps: int,
         values=np.concatenate(u_frames, axis=0),
         velocities=np.concatenate(v_frames, axis=0),
         times=ops.dt * np.arange(num_steps + 1, dtype=np.float64),
-        setup_seconds=setup_s,
-        scan_seconds=time.perf_counter() - t_scan - fetch_s,
-        fetch_seconds=fetch_s, **_tallied(tally, kept))
+        setup_seconds=setup_s, scan_seconds=scan_s, fetch_seconds=fetch_s,
+        **_tallied(tally, kept))

@@ -36,6 +36,7 @@ from pde_solver_tpu_torch.ops.bc import DirichletBC
 from pde_solver_tpu_torch.ops.cs_kernels import CSFlatStencilOperator
 from pde_solver_tpu_torch.ops.linsolve import prepare_system
 from pde_solver_tpu_torch.ops.timestepping import _combine
+from torch_stats import same_keys
 
 TOOLS = ("solve_heat_1D", "solve_heat_2D", "solve_heat_1D_cylindrical",
          "solve_heat_1D_spherical", "solve_heat_2D_cylindrical",
@@ -81,7 +82,7 @@ def _check(port, ref, tol):
     (v, t, c, meta), (v_ref, t_ref, c_ref, meta_ref) = port, ref
     assert {k: x for k, x in meta.items() if k != "solver_stats"} == \
         {k: x for k, x in meta_ref.items() if k != "solver_stats"}
-    assert set(meta["solver_stats"]) == set(meta_ref["solver_stats"])
+    assert same_keys(meta["solver_stats"], meta_ref["solver_stats"])
     assert meta["solver_stats"]["converged"], meta["solver_stats"]
     assert np.array_equal(c, c_ref)
     assert np.array_equal(t, t_ref)
@@ -251,7 +252,7 @@ def test_bar_thermal_matches_reference(clamp_both):
     x, v, st = elast.solve_bar_1d(1.5, 30, 200e9, 0.02, 100.0, **kw,
                                   config=config.SolverConfig(device="cpu"))
     x_r, v_r, st_r = ref_elast.solve_bar_1d(1.5, 30, 200e9, 0.02, 100.0, **kw)
-    assert set(st) == set(st_r) and st["converged"]
+    assert same_keys(st, st_r) and st["converged"]
     assert np.array_equal(x, x_r)
     assert np.abs(v - v_r).max() <= 1e-9 * np.abs(v_r).max()
     if clamp_both:  # constrained bar, no body force term at the ends
@@ -283,7 +284,7 @@ def test_thermal_and_traction_branches_match_reference(mode, dT):
             config=config.SolverConfig(device="cpu"))
         v_r, st_r = ref_elast.solve_elasticity_nd(mr, 70e9, 0.33, body, mode,
                                                   **kw)
-        assert set(st) == set(st_r) and st["converged"]
+        assert same_keys(st, st_r) and st["converged"]
         assert np.abs(v - v_r).max() <= 1e-9 * np.abs(v_r).max()
 
 

@@ -26,6 +26,7 @@ from pde_solver_tpu_torch.agents.dispatcher_agent import LocalToolSet
 from pde_solver_tpu_torch.mcp.client import StdioMCPClient
 from pde_solver_tpu_torch.mcp.server import (MCPServer, default_tools,
                                              tool_descriptor)
+from torch_stats import port_keys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = dict(device="cpu", precision="mixed")
@@ -150,7 +151,9 @@ def test_a_call_that_reaches_a_missing_card_is_error_content(tmp_path):
 
 def _same_shape(port, ref, path="$"):
     """Mismatches between two decoded JSON payloads: keys, and the JSON type
-    of every leaf (numbers are numbers in both; bool, null and str alike)."""
+    of every leaf (numbers are numbers in both; bool, null and str alike).
+    The port's ``solver_stats`` adds what its request adds
+    (``torch_stats.port_keys``)."""
     def kind(x):
         if isinstance(x, bool) or x is None:
             return type(x).__name__
@@ -162,8 +165,11 @@ def _same_shape(port, ref, path="$"):
         return [f"{path}: {port!r:.80} vs reference {ref!r:.80}"]
     out = []
     if isinstance(ref, dict):
-        if set(port) != set(ref):
-            out.append(f"{path}: keys {sorted(set(port) ^ set(ref))}")
+        keys = set(ref)
+        if path == "$.meta.solver_stats":
+            keys |= port_keys()
+        if set(port) != keys:
+            out.append(f"{path}: keys {sorted(set(port) ^ keys)}")
         for k in set(port) & set(ref):
             out += _same_shape(port[k], ref[k], f"{path}.{k}")
     elif isinstance(ref, list):

@@ -33,6 +33,7 @@ from pde_solver_tpu_torch.ops import cs_kernels as ck
 from pde_solver_tpu_torch.ops import multigrid as mg
 from pde_solver_tpu_torch.ops import timestepping
 from pde_solver_tpu_torch.ops.bc import DirichletBC, all_boundary
+from torch_stats import same_keys
 
 
 def _run(tmp_path, ref_cfg, port_cfg, **tool):
@@ -51,7 +52,7 @@ def _run(tmp_path, ref_cfg, port_cfg, **tool):
 def _assert_same_meta(meta, meta_ref):
     assert {k: v for k, v in meta.items() if k != "solver_stats"} == \
         {k: v for k, v in meta_ref.items() if k != "solver_stats"}
-    assert set(meta["solver_stats"]) == set(meta_ref["solver_stats"])
+    assert same_keys(meta["solver_stats"], meta_ref["solver_stats"])
 
 
 def _gap(v, v_ref):
