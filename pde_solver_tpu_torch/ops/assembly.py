@@ -11,6 +11,15 @@ exact P1 FEM; there is no matrix format conversion and no Python per-cell
 loop (the reference's composite-material path loops over cells in Python,
 fenics_mcp_server.py:563-567).
 
+Where every contribution is a constant (elasticity, whose material is
+homogeneous, and scalar forms with neither weight nor per-cell
+coefficient), a node's entry depends only on its class along each axis:
+first node, interior, last node.  Those forms run the same adds in the same
+order on a ``3^d`` class grid (:class:`_Classes`) and write each full array
+once, the same bytes as the full-grid slice-adds (:class:`_Slices`).  The
+request's counters ``stencils_by_class`` / ``stencils_by_slices`` say which
+path each stencil took.
+
 Weighted forms (cylindrical r, spherical r², r² sinθ — the coordinate-weight
 device the reference uses at fenics_mcp_server.py:859, :996, :1122, :1254,
 :1393) enter through ``weight_fn`` evaluated at quadrature points; per-element
@@ -29,6 +38,7 @@ from pde_solver_tpu_torch.ops.elements import (
     elasticity_element_matrix,
     subelem_geometry,
 )
+from pde_solver_tpu_torch.utils import observability as obs
 
 Offset = Tuple[int, ...]
 Stencil = Dict[Offset, np.ndarray]
@@ -110,10 +120,6 @@ def _coeff_for_subelem(cell_coeff: Optional[np.ndarray], t: int,
     raise ValueError(f"cell_coeff shape {arr.shape} does not match cells {mesh.cell_shape}")
 
 
-def _zeros_stencil(mesh: StructuredMesh, extra: Tuple[int, ...] = ()) -> Stencil:
-    return {}
-
-
 def _accum(stencil: Stencil, mesh: StructuredMesh, offset: Offset,
            delta_a: Tuple[int, ...], contrib: Union[np.ndarray, float],
            extra_shape: Tuple[int, ...] = ()):
@@ -122,6 +128,63 @@ def _accum(stencil: Stencil, mesh: StructuredMesh, offset: Offset,
         stencil[offset] = np.zeros(mesh.node_shape + extra_shape, dtype=np.float64)
     region = _node_region(mesh, delta_a)
     stencil[offset][region] += contrib
+
+
+class _Slices:
+    """A stencil built by slice-adds over the whole node grid: any
+    contribution, constant or per cell."""
+
+    def __init__(self, mesh: StructuredMesh, extra_shape: Tuple[int, ...] = ()):
+        self.mesh, self.extra_shape = mesh, extra_shape
+        self.arrays: Stencil = {}
+
+    def add(self, offset: Offset, delta_a: Tuple[int, ...],
+            contrib: Union[np.ndarray, float]) -> None:
+        _accum(self.arrays, self.mesh, offset, delta_a, contrib,
+               self.extra_shape)
+
+    def stencil(self) -> Stencil:
+        obs.count("stencils_by_slices")
+        return self.arrays
+
+
+class _Classes(_Slices):
+    """A stencil of constant contributions, built on the ``3^d`` class grid.
+
+    Along an axis of ``n`` cells, the region ``cells + δ`` (δ ∈ {0, 1})
+    covers nodes ``δ … δ + n - 1``: node 0 only for δ = 0, node ``n`` only
+    for δ = 1, the interior nodes ``1 … n - 1`` for both.  So class 0 (the
+    first node), 1 (the interior) and 2 (the last node) receive exactly the
+    adds their nodes receive, in the same order, through the class region
+    ``slice(δ, δ + 2)``; :meth:`stencil` writes each class into its nodes.
+    Offsets keep the order they were first seen in, as the slice-adds'
+    dict does (the Dirichlet lift iterates it)."""
+
+    def add(self, offset: Offset, delta_a: Tuple[int, ...],
+            contrib: Union[np.ndarray, float]) -> None:
+        if offset not in self.arrays:
+            self.arrays[offset] = np.zeros((3,) * self.mesh.dim
+                                           + self.extra_shape)
+        self.arrays[offset][tuple(slice(d, d + 2) for d in delta_a)] += contrib
+
+    def stencil(self) -> Stencil:
+        obs.count("stencils_by_class")
+        return {off: self._expand(c) for off, c in self.arrays.items()}
+
+    def _expand(self, arr: np.ndarray) -> np.ndarray:
+        """Class grid → node grid, one axis at a time from the last: the
+        first node, nodes ``1 … n - 1`` (none when ``n`` is 1) and node
+        ``n`` take classes 0, 1, 2.  The last pass (axis 0) writes the
+        fresh C-contiguous array in three contiguous fills."""
+        for axis in reversed(range(self.mesh.dim)):
+            n = self.mesh.n_cells[axis]
+            out = np.empty(arr.shape[:axis] + (n + 1,) + arr.shape[axis + 1:])
+            lead = (slice(None),) * axis
+            for k, nodes in enumerate((slice(0, 1), slice(1, n),
+                                       slice(n, n + 1))):
+                out[lead + (nodes,)] = arr[lead + (slice(k, k + 1),)]
+            arr = out
+        return arr
 
 
 # ----------------------------------------------------------------------
@@ -141,7 +204,9 @@ def assemble_scalar_stencil(
     term="mass":      A[n,m] = ∫ c(K) w(x) φ_n φ_m dx
 
     where ``w`` is the (optional) coordinate weight evaluated by quadrature
-    and ``c`` the (optional) per-element coefficient.
+    and ``c`` the (optional) per-element coefficient.  With neither, every
+    contribution is a constant and the stencil is built on the class grid
+    (:class:`_Classes`); otherwise by full-grid slice-adds.
     """
     if term not in ("stiffness", "mass"):
         raise ValueError(term)
@@ -149,7 +214,8 @@ def assemble_scalar_stencil(
         # Exact for polynomial weights up to degree 2 (covers 1, r, r²);
         # transcendental weights (sinθ) get a high-order rule.
         quad_degree = 2 if term == "stiffness" else 4
-    stencil: Stencil = {}
+    constant = weight_fn is None and cell_coeff is None
+    builder = _Classes(mesh) if constant else _Slices(mesh)
     subelems = mesh.subelems
     for t, sub in enumerate(subelems):
         geom = subelem_geometry(mesh, t, quad_degree)
@@ -167,7 +233,7 @@ def assemble_scalar_stencil(
                 for b in range(n_loc):
                     contrib = gdot[a, b] * wsum * coeff
                     off = tuple(sb - sa for sa, sb in zip(sub[a], sub[b]))
-                    _accum(stencil, mesh, off, sub[a], contrib)
+                    builder.add(off, sub[a], contrib)
         else:  # mass
             for a in range(n_loc):
                 for b in range(n_loc):
@@ -177,8 +243,8 @@ def assemble_scalar_stencil(
                     else:
                         contrib = np.tensordot(base, wq, axes=(0, 0))  # [*cells]
                     off = tuple(sb - sa for sa, sb in zip(sub[a], sub[b]))
-                    _accum(stencil, mesh, off, sub[a], contrib * coeff)
-    return stencil
+                    builder.add(off, sub[a], contrib * coeff)
+    return builder.stencil()
 
 
 def assemble_load(
@@ -252,19 +318,19 @@ def assemble_elasticity_stencil(mesh: StructuredMesh, lam: float, mu: float) -> 
 
     Returns {offset: [*node_shape, d, d]} arrays.  The material is
     homogeneous (as in the reference elasticity solvers), so entries are
-    constant except for boundary truncation, which the slice-adds encode
-    automatically.
+    constant except for boundary truncation: built on the class grid
+    (:class:`_Classes`).
     """
     d = mesh.dim
-    stencil: Stencil = {}
+    builder = _Classes(mesh, (d, d))
     for t, sub in enumerate(mesh.subelems):
         geom = subelem_geometry(mesh, t, 0)
         K = elasticity_element_matrix(geom, lam, mu)  # [n_loc, d, n_loc, d]
         for a in range(len(sub)):
             for b in range(len(sub)):
                 off = tuple(sb - sa for sa, sb in zip(sub[a], sub[b]))
-                _accum(stencil, mesh, off, sub[a], K[a, :, b, :], extra_shape=(d, d))
-    return stencil
+                builder.add(off, sub[a], K[a, :, b, :])
+    return builder.stencil()
 
 
 def assemble_vector_load(mesh: StructuredMesh, body_force: np.ndarray) -> np.ndarray:

@@ -92,6 +92,8 @@ COUNTERS = (
     "kernel_launches",      # request delta of stencil_kernels'
     "host_reads",           # and device_loop's process totals
     "hashed_bytes",         # bytes fed to the content keys' blake2b
+    "stencils_by_class",    # stencils assembled on the class grid
+    "stencils_by_slices",   # and by full-grid slice-adds
     "prep_memory_hits", "prep_disk_hits", "prep_builds",
     "hierarchy_hits", "hierarchy_disk_hits", "hierarchy_builds",
     "df2_rounds",

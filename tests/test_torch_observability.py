@@ -278,6 +278,15 @@ def test_hashed_bytes_are_the_keys_inputs(two_calls, call):
     assert sum(s.name == "setup.hash" for s in req.spans) == 2
 
 
+@pytest.mark.parametrize("call", [0, 1])
+def test_static_solve_assembles_on_the_class_grid(two_calls, call):
+    stats, _ = two_calls[call]
+    # the elasticity stencil, the projection's mass stencil, and on the
+    # cold call the hierarchy's coarse elasticity stencils
+    assert stats["stencils_by_class"] >= 2
+    assert stats["stencils_by_slices"] == 0
+
+
 @pytest.mark.parametrize("call, hits, builds", [(0, 0, 1), (1, 1, 0)])
 def test_second_call_hits_the_memory_caches(two_calls, call, hits, builds):
     stats, _ = two_calls[call]
