@@ -252,8 +252,9 @@ def _heat_problem(p: HeatProblem, cfg: SolverConfig):
                                 time_mod=time_mod)
         values = np.stack([flatten_values(v, mesh.dim) for v in res.values])
         times = res.times
-        # explicit per-step target: the worst step residual must meet the
-        # larger of the per-step inner tolerance and the accuracy contract
+        # explicit per-step target: the worst step residual, over the
+        # free rows, must meet the larger of the per-step inner tolerance
+        # and the accuracy contract
         step_target = max(cfg.transient_inner_tol, cfg.accuracy_target)
         info = {
             "steady": False,

@@ -392,13 +392,17 @@ def status_of(active: torch.Tensor, k: torch.Tensor,
 # budget reruns its chunk step by step from the carry it started with and
 # counts the rerun in ``HOST_READS[key[0] + "_redo"]``.  A scan's programs
 # (:class:`ScanPrograms`) live in its store: one :class:`StepLoop` a
-# budget, kept with the store and captured when the budget is wanted and
-# no wider program is kept, or wanted again (a budget's first want runs
-# on the smallest wider program kept), and the budget a trajectory's
-# first chunk starts from, learned from the first step that was solved
-# on its own.  An owner kept across calls (a
-# scan's operands in ``timestepping``'s cache) therefore starts a later
-# trajectory at that budget with nothing to capture.
+# budget, kept with the store, and the budget a trajectory's first chunk
+# starts from, learned from the first step that was solved on its own with
+# one block to spare where the cap leaves room (a later trajectory's data
+# may make its first steps harder) and run by the chunk after that step.
+# The trajectory that learns them captures a budget when it is wanted and
+# no wider program is kept, or wanted again (a budget's first want runs on
+# the smallest wider program kept); once a trajectory has run
+# (``settled``) a chunk runs on the smallest program at or above its
+# budget and captures only past the widest.  An owner kept across calls (a
+# scan's operands in ``timestepping``'s cache) therefore runs a later
+# trajectory on the programs the first one captured.
 
 SCAN_CHUNK = 16
 STEP_BLOCK = 8
@@ -551,27 +555,34 @@ class ScanPrograms:
     """The step programs of one scan in its store: a :class:`StepLoop` a
     budget (at most ``STEP_BUDGET_MAX // STEP_BLOCK``), the budgets wanted
     so far, the budget a trajectory's first chunk starts from (None until
-    a first step solved on its own has set it) and the budget the last
-    chunk left for the next (None: step by step)."""
+    a first step solved on its own has set it), the budget the last chunk
+    left for the next (None: step by step), and whether a trajectory has
+    run to its end on them (``settled``)."""
 
     def __init__(self):
         self.loops: Dict[int, StepLoop] = {}
         self.wanted: set = set()
         self.first: Optional[int] = None
         self.next: Optional[int] = None
+        self.settled = False
 
     def loop_for(self, budget: int) -> Optional[StepLoop]:
-        """The program a chunk that wants ``budget`` runs: its own; on the
-        budget's first want, the smallest wider one kept (any budget at or
-        above a step's count gives its answer, and a capture costs about
-        as much as a chunk of masked iterations past convergence); else
-        None (capture it)."""
+        """The program a chunk that wants ``budget`` runs: its own; else
+        the smallest wider one kept, on the budget's first want or once
+        the programs are settled (any budget at or above a step's count
+        gives its answer, and a capture costs about as much as a chunk of
+        masked iterations past convergence); else None (capture it).  So
+        the trajectory that learns the programs captures the budgets its
+        steps keep wanting, and a later one captures only a budget wider
+        than every program kept."""
         wider = [b for b in self.loops if b > budget]
         first_want = budget not in self.wanted
         self.wanted.add(budget)
         if budget in self.loops:
             return self.loops[budget]
-        return self.loops[min(wider)] if wider and first_want else None
+        if wider and (first_want or self.settled):
+            return self.loops[min(wider)]
+        return None
 
 
 def run_scan(store: GraphStore, key, step: Callable, program, per_step,
@@ -609,7 +620,13 @@ def run_scan(store: GraphStore, key, step: Callable, program, per_step,
                                           keep, done)
             tally = tally.plus(ScanTally(k, r, stepwise=1))
             if start and done == 0 and m == 1:
-                progs.first = step_budget(kmax)
+                # a later trajectory's first steps take more or fewer
+                # iterations than this one's as its data differ: it starts
+                # one block above, within the cap, on the program the next
+                # chunk captures; past the cap, step by step
+                progs.first = step_budget(kmax) and (
+                    step_budget(kmax + STEP_BLOCK) or STEP_BUDGET_MAX)
+                kmax = progs.first or kmax
         else:
             loop = progs.loop_for(budget)
             if loop is None:
@@ -634,4 +651,5 @@ def run_scan(store: GraphStore, key, step: Callable, program, per_step,
         done += m
         # past the cap the next chunk runs step by step, with no program
         budget = progs.next = step_budget(kmax)
+    progs.settled = progs.settled or start
     return carry, tally

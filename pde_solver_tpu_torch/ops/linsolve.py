@@ -23,7 +23,8 @@ LU for tiny systems:
   The reported relative residual is the true one, recomputed after the
   solve (the JAX package reports CG's recurrence residual).
 * "f32" — CG on the kernel-backed flat operator (``_static_flat_op``), or
-  on float32 tensors below ``KERNEL_MIN_DOF``, at max(inner_tol, 1e-7).
+  on float32 tensors below ``KERNEL_MIN_DOF``, at max(inner_tol,
+  ``F32_TOL_FLOOR``).
 * "mixed" — with a multigrid level builder the double-float32 F-cycle
   (``ops.multigrid.solve_fcycle_df2``), without one float32 CG inner solves
   plus a float64 host refinement loop.
@@ -355,6 +356,9 @@ def _dot(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 # warm-started step solve of a scan takes a handful (``STEP_BLOCK``).
 CG_BLOCK = 32
 STEP_BLOCK = device_loop.STEP_BLOCK
+# The tightest relative residual a float32 solve is asked for: the static
+# "f32" solve and every float32 θ-step of ``ops.timestepping``.
+F32_TOL_FLOOR = 1e-7
 
 
 def _where1(t: torch.Tensor) -> torch.Tensor:
@@ -720,7 +724,7 @@ def solve_stencil_system(
                       / (bnorm if bnorm > 0 else 1.0))
         return _stats_result(sysm, xh, k, relres, cfg.tol, cfg)
     if prec == "f32":
-        tol_used = max(cfg.inner_tol, 1e-7)
+        tol_used = max(cfg.inner_tol, F32_TOL_FLOOR)
         b32 = sysm.b_hat.astype(np.float32)
         x32 = x0_hat.astype(np.float32)
         if sharded_mg is not None:

@@ -61,7 +61,8 @@ from pde_solver_tpu_torch.mesh import StructuredMesh
 from pde_solver_tpu_torch.ops import assembly, device_loop
 from pde_solver_tpu_torch.ops.bc import DirichletBC
 from pde_solver_tpu_torch.ops.linsolve import CG_BLOCK, STEP_BLOCK
-from pde_solver_tpu_torch.ops.timestepping import _make_scale_ops, _row
+from pde_solver_tpu_torch.ops.timestepping import (_make_scale_ops, _row,
+                                                   free_rows_step)
 from pde_solver_tpu_torch.utils.observability import get_logger
 
 AXIS = "shard_x"   # mesh axis of the grid-axis-0 decomposition
@@ -455,6 +456,10 @@ def sharded_pcg(apply_A, b: Sharded, inv_diag=None, tol=1e-8, maxiter=500,
 # Sharded backward-Euler heat step
 # ----------------------------------------------------------------------
 
+def _same(v):
+    return v
+
+
 def build_sharded_heat_step(mesh_geo: StructuredMesh, mesh_dev: ShardMesh,
                             diffusivity: float, dt: float,
                             bc: DirichletBC, dtype=torch.float32,
@@ -465,9 +470,11 @@ def build_sharded_heat_step(mesh_geo: StructuredMesh, mesh_dev: ShardMesh,
     Returns (step_fn, inputs): ``step_fn(u, *inputs)`` performs
     u ← (M + dt K)⁻¹ (M u + dt b) with halo-exchange applies and sharded
     Jacobi-PCG (:func:`sharded_pcg`: a device program kept, with the
-    Jacobi diagonal, per operands passed), and returns (u on the first
-    shard's device, iterations, relres).  Assembly happens once on the
-    host; the weights are sharded along grid axis 0 like the state."""
+    Jacobi diagonal, per operands passed) on the free rows
+    (:func:`~pde_solver_tpu_torch.ops.timestepping.free_rows_step`), and
+    returns (u on the first shard's device, iterations, the relres over
+    the free rows).  Assembly happens once on the host; the weights are
+    sharded along grid axis 0 like the state."""
     K = assembly.assemble_scalar_stencil(mesh_geo, "stiffness")
     M = assembly.assemble_scalar_stencil(mesh_geo, "mass")
     offsets = tuple(sorted(set(K) | set(M)))
@@ -506,9 +513,10 @@ def build_sharded_heat_step(mesh_geo: StructuredMesh, mesh_dev: ShardMesh,
         store, apply_c, inv_diag = solver(A_w, free)
         rhs = local_stencil_apply(offsets, M_w, u)
         Ag = local_stencil_apply(offsets, A_w, gvals)
-        bt = free * (rhs - Ag) + gvals
-        x, iters, relres = sharded_pcg(apply_c, bt, inv_diag, tol=tol,
-                                       maxiter=maxiter, x0=u, store=store)
+        x, iters, relres = free_rows_step(
+            (_same,) * 3, free, rhs - Ag, gvals, u,
+            lambda b, x0: sharded_pcg(apply_c, b, inv_diag, tol=tol,
+                                      maxiter=maxiter, x0=x0, store=store))
         return gather(x), iters, relres
 
     return step, (A_w, M_w, free, gvals)
@@ -782,7 +790,6 @@ class ShardedThetaScan(_ShardedScan):
 
     def run(self, u0_np, num_steps: int):
         ops = self.ops
-        to_hat_b, to_hat_x, from_hat_x = ops.scale_ops
         cnab2 = self.C_w is not None
 
         def step(c, n, solve):
@@ -799,9 +806,8 @@ class ShardedThetaScan(_ShardedScan):
             if cnab2:
                 rhs = rhs - (ops.apply(self.C_w, u) * 1.5
                              - ops.apply(self.C_w, u_prev) * 0.5)
-            xh, k, relres = solve(to_hat_b(self.free * (rhs - Ag_t) + g_t),
-                                  to_hat_x(u))
-            u_new = from_hat_x(xh)
+            u_new, k, relres = free_rows_step(ops.scale_ops, self.free,
+                                              rhs - Ag_t, g_t, u, solve)
             return ((u, u_new) if cnab2 else (u_new,)), k, relres
 
         u = ops.pad(u0_np)

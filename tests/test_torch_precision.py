@@ -38,7 +38,7 @@ from pde_solver_tpu_torch.fields import load_field
 from pde_solver_tpu_torch.mesh import box_mesh, interval_mesh, rectangle_mesh
 from pde_solver_tpu_torch.models import elasticity as elast
 from pde_solver_tpu_torch.models import heat
-from pde_solver_tpu_torch.ops import assembly, linsolve
+from pde_solver_tpu_torch.ops import assembly, device_loop, linsolve
 from pde_solver_tpu_torch.ops import multigrid as mg
 from pde_solver_tpu_torch.ops import timestepping
 from pde_solver_tpu_torch.ops.bc import DirichletBC, all_boundary
@@ -83,13 +83,20 @@ def _same_iterations(k, k_ref):
     return abs(int(k) - int(k_ref)) <= max(2, int(k_ref) // 100)
 
 
-def _hold_f64(port, ref):
+def _hold_f64(port, ref, iterations=None):
+    """The port's answer against the reference's; its iterations against
+    the reference's, or against ``iterations`` (the port's own count of
+    the same input) where given."""
     (v, t, meta), (v_ref, t_ref, meta_ref) = port, ref
     s, s_ref = meta["solver_stats"], meta_ref["solver_stats"]
     assert s["converged"] and s_ref["converged"], (s, s_ref)
     assert s["convergence_target"] == s_ref["convergence_target"]
-    assert _same_iterations(s["cg_iterations"], s_ref["cg_iterations"]), (
-        s["cg_iterations"], s_ref["cg_iterations"])
+    if iterations is not None:
+        assert s["cg_iterations"] == iterations, (s["cg_iterations"],
+                                                  iterations)
+    else:
+        assert _same_iterations(s["cg_iterations"], s_ref["cg_iterations"]), (
+            s["cg_iterations"], s_ref["cg_iterations"])
     assert v.shape == v_ref.shape and np.array_equal(t, t_ref)
     assert _gap(v, v_ref) <= 1e-9, _gap(v, v_ref)
 
@@ -392,9 +399,17 @@ def test_solve_mg_matches_reference(kind):
 def test_scan_f64_matches_reference(tool, kw, cfg, tmp_path):
     """Float64 scans under the CPU's default "auto": every step solved to
     ``tol`` by CG on float64 tensors or MG-PCG on a float64 hierarchy;
-    the frames within 1e-9 of the JAX package's, the same iterations."""
+    the frames within 1e-9 of the JAX package's, the same iterations (a
+    θ-scan's: those of the port's per-step path, as its steps stop on their
+    free rows and the JAX package's on a norm the Dirichlet values fill)."""
     port, ref = _run(tool, tmp_path, cfg, **kw)
-    _hold_f64(port, ref)
+    own = None
+    if tool.startswith(("solve_heat", "solve_advection")):
+        with config.config_overrides(**cfg), device_loop._per_step():
+            own = getattr(api, tool)(
+                **kw, data_dir=str(tmp_path / "per_step")).meta[
+                    "solver_stats"]["cg_iterations"]
+    _hold_f64(port, ref, own)
 
 
 def test_f64_scan_keeps_float64_frames(monkeypatch):

@@ -195,12 +195,14 @@ def test_driven_heat_scan_matches_per_step_and_reference(solver,
     float32: MG-PCG step solves at 16³, flat CG at 10³."""
     cfg = dict(F32, **(MG if solver == "MG-PCG" else {}))
     case = _heat(16 if solver == "MG-PCG" else 10)
-    res = _hold_paths(_both(monkeypatch, _port_transient(case, cfg)))
+    out = _both(monkeypatch, _port_transient(case, cfg))
+    res = _hold_paths(out)
     ref = _ref_transient(case, cfg)
     assert np.array_equal(res.times, ref.times)
     assert _gap(res.values, ref.values) <= F32_TOL
-    assert abs(res.total_cg_iterations - ref.total_cg_iterations) \
-        <= 0.05 * ref.total_cg_iterations + 2
+    # the port's steps stop on their free rows, the JAX package's on a
+    # norm the Dirichlet values fill: the count is the port's per-step one
+    assert res.total_cg_iterations == out["per step"][0].total_cg_iterations
 
 
 def test_cnab2_advection_scan_matches_per_step_and_reference(monkeypatch):
@@ -216,7 +218,8 @@ def test_cnab2_advection_scan_matches_per_step_and_reference(monkeypatch):
 
 def test_f64_scan_learns_its_budget(monkeypatch):
     """At "f64" a step takes more iterations than one block: the first
-    step, solved on its own, sets the budget to two blocks, and no chunk
+    step, solved on its own, sets the budget to its count rounded up to
+    whole blocks with one block to spare, three blocks, and no chunk
     needs a rerun; within 1e-9 of the JAX package's float64 scan."""
     cfg = dict(precision="f64", **MG)
     case = _heat(16, dt=0.01)
@@ -224,13 +227,15 @@ def test_f64_scan_learns_its_budget(monkeypatch):
     out = _both(monkeypatch, _port_transient(case, cfg))
     res = _hold_paths(out)
     first = out["program"][1][0]
-    assert first > device_loop.STEP_BLOCK and res.scan_reruns == 0
-    assert budgets == [device_loop.step_budget(first)] \
-        == [2 * device_loop.STEP_BLOCK]
+    assert 2 * device_loop.STEP_BLOCK >= first > device_loop.STEP_BLOCK
+    assert res.scan_reruns == 0
+    block = device_loop.STEP_BLOCK
+    assert budgets == [device_loop.step_budget(first + block)] == [3 * block]
     ref = _ref_transient(case, cfg)
     assert _gap(res.values, ref.values) <= F64_TOL
-    assert abs(res.total_cg_iterations - ref.total_cg_iterations) \
-        <= 0.05 * ref.total_cg_iterations + 2
+    # the port's steps stop on their free rows, the JAX package's on a
+    # norm the Dirichlet values fill: the count is the port's per-step one
+    assert res.total_cg_iterations == out["per step"][0].total_cg_iterations
 
 
 @pytest.mark.parametrize("budget", [1, 2])
@@ -248,9 +253,9 @@ def test_forced_budget_overflows_reruns_and_lands_bit_equal(budget,
     assert res.scan_reruns == len(device_loop.scan_chunks(STEPS - 1))
 
 
-def _rod(steps, **cfg):
-    """BASELINE 1's rod (255 cells, Δt = 0.05, ends at 20 and 0 °C, flat
-    CG step solves) as a scan of ``steps`` steps."""
+def _rod(steps, dt=0.05, **cfg):
+    """BASELINE 1's rod (255 cells, Δt = 0.05 unless ``dt``, ends at 20 and
+    0 °C, flat CG step solves) as a scan of ``steps`` steps."""
     from pde_solver_tpu_torch.mesh import interval_mesh
 
     mesh = interval_mesh(255, 0.0, 2.0)
@@ -264,20 +269,24 @@ def _rod(steps, **cfg):
     def run():
         with config.config_overrides(device="cpu", precision="f32", **cfg):
             return timestepping.run_transient(K, M, mesh, bc,
-                                              np.zeros(u0.shape), u0, 0.05,
+                                              np.zeros(u0.shape), u0, dt,
                                               steps)
     return run
 
 
 def test_budget_follows_a_decaying_step_count(monkeypatch):
-    """The rod's first steps take up to ~250 iterations, its later ones a
-    few.  Each chunk after one whose worst step passed the cap runs step
-    by step and captures nothing; the first chunk within it is run at the
-    cap, and once the steps fall the budget falls to one block; no rerun,
-    and bit-equal to the per-step path all the same."""
+    """The rod's first steps take up to ~170 iterations, then ~26 until its
+    field has settled, then none.  Each chunk after one whose worst step
+    passed the cap runs step by step and captures nothing; the first chunk
+    within it is run at the cap, and once the steps fall the budget falls
+    to one block; no rerun, and bit-equal to the per-step path all the
+    same.  (At Δt = 0.05 and the default tolerance the rod's steps, stopped
+    on their free rows, hover at 30–42 iterations until they drop to none,
+    so no chunk's worst falls within the cap; Δt = 0.02 and a tolerance of
+    1e-5 put its middle steps at 26–27.)"""
     steps = 160
     budgets = _record_budgets(monkeypatch)
-    out = _both(monkeypatch, _rod(steps))
+    out = _both(monkeypatch, _rod(steps, dt=0.02, transient_inner_tol=1e-5))
     res = _hold_paths(out, steps=steps)
     seen = out["program"][1]
     cap, chunk = device_loop.STEP_BUDGET_MAX, device_loop.SCAN_CHUNK
@@ -293,10 +302,13 @@ def test_budget_follows_a_decaying_step_count(monkeypatch):
 
 
 def test_a_step_capped_at_maxiter_captures_no_larger_budget(monkeypatch):
-    """Every step of the rod stops at maxiter (100, a tolerance it cannot
-    reach), past the budget's cap: every chunk runs step by step, no step
-    program is captured, and the scan lands on the per-step path's."""
-    steps, maxiter = 20, 100
+    """Every step of the rod stops at maxiter (64, short of a tolerance the
+    steps reach: a float32 step stops no tighter than
+    ``linsolve.F32_TOL_FLOOR``, which the rod's first steps reach in
+    84–100 iterations), past the budget's cap: every chunk runs step by
+    step, no step program is captured, and the scan lands on the per-step
+    path's."""
+    steps, maxiter = 20, 64
     budgets = _record_budgets(monkeypatch)
     out = _both(monkeypatch, _rod(steps, maxiter=maxiter,
                                   transient_inner_tol=1e-30))
