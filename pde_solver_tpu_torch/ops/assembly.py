@@ -18,7 +18,9 @@ first node, interior, last node.  Those forms run the same adds in the same
 order on a ``3^d`` class grid (:class:`_Classes`) and write each full array
 once, the same bytes as the full-grid slice-adds (:class:`_Slices`).  The
 request's counters ``stencils_by_class`` / ``stencils_by_slices`` say which
-path each stencil took.
+path each stencil took.  A class-grid stencil comes back as a
+:class:`ClassStencil`: read-only arrays that carry the class grids they
+were expanded from, so a content key can be named by those few bytes.
 
 Weighted forms (cylindrical r, spherical r², r² sinθ — the coordinate-weight
 device the reference uses at fenics_mcp_server.py:859, :996, :1122, :1254,
@@ -148,6 +150,32 @@ class _Slices:
         return self.arrays
 
 
+class ClassStencil(dict):
+    """A stencil expanded from its class grid (:class:`_Classes`): its
+    arrays are read-only, and it keeps what they were expanded from (the
+    cell shape, ``extra_shape``, the offsets and the class grids), of which
+    they are a pure function."""
+
+    def __init__(self, arrays: Stencil, n_cells: Tuple[int, ...],
+                 extra_shape: Tuple[int, ...], grids: Stencil):
+        super().__init__(arrays)
+        self._expanded = dict(arrays)
+        offsets = tuple(sorted(grids))
+        self._source = (tuple(int(n) for n in n_cells), tuple(extra_shape),
+                        offsets, tuple(grids[o] for o in offsets))
+
+    def source(self):
+        """(cell shape, extra shape, sorted offsets, the class grids in
+        that order), or None once the dict no longer holds exactly the
+        read-only arrays the expansion produced, under the same keys."""
+        if len(self) != len(self._expanded):
+            return None
+        for off, a in self._expanded.items():
+            if self.get(off) is not a or a.flags.writeable:
+                return None
+        return self._source
+
+
 class _Classes(_Slices):
     """A stencil of constant contributions, built on the ``3^d`` class grid.
 
@@ -169,7 +197,11 @@ class _Classes(_Slices):
 
     def stencil(self) -> Stencil:
         obs.count("stencils_by_class")
-        return {off: self._expand(c) for off, c in self.arrays.items()}
+        arrays = {off: self._expand(c) for off, c in self.arrays.items()}
+        for a in list(arrays.values()) + list(self.arrays.values()):
+            a.setflags(write=False)
+        return ClassStencil(arrays, self.mesh.n_cells, self.extra_shape,
+                            self.arrays)
 
     def _expand(self, arr: np.ndarray) -> np.ndarray:
         """Class grid → node grid, one axis at a time from the last: the

@@ -55,7 +55,8 @@ import torch
 
 from pde_solver_tpu_torch.config import SolverConfig, get_config
 from pde_solver_tpu_torch.mesh import StructuredMesh
-from pde_solver_tpu_torch.ops import cs_kernels, device_loop, stencil_kernels
+from pde_solver_tpu_torch.ops import (assembly, cs_kernels, device_loop,
+                                      stencil_kernels)
 from pde_solver_tpu_torch.ops.bc import DirichletBC
 from pde_solver_tpu_torch.ops.cg import SolveStats
 from pde_solver_tpu_torch.ops.cs_kernels import (CSFlatStencilOperator,
@@ -131,25 +132,65 @@ _PREP_CACHE: Dict = {}
 _PREP_CACHE_MAX = 2
 _PREP_CACHE_MIN_DOF = 100_000
 
+# The prep key's hash state after a class-grid stencil's full arrays
+# (``assembly.ClassStencil``), keyed by what they were expanded from: the
+# cell shape, extra shape, offsets and the class grids' digest.  A stencil
+# assembled again, as every request of a chat of follow-ups does, is keyed
+# from its class grids and the free mask alone; the key's bytes are the
+# full hash's.
+_STENCIL_STATES: Dict = {}
+_STENCIL_STATES_MAX = 8
+
+
+def _feed(h, arrays):
+    """Feed the arrays' bytes, in order, to the blake2b state ``h``,
+    counting them (``hashed_bytes``); returns ``h``."""
+    n = 0
+    for a in arrays:
+        a = np.ascontiguousarray(a)
+        h.update(a)
+        n += a.nbytes
+    obs.count("hashed_bytes", n)
+    return h
+
 
 def _digest(arrays) -> str:
     """The blake2b-128 hex digest of the arrays' bytes, in order: a
     content key's hash, in the ``setup.hash`` span, its bytes counted
     (``hashed_bytes``)."""
     with obs.span("setup.hash"):
-        h = hashlib.blake2b(digest_size=16)
-        n = 0
-        for a in arrays:
-            a = np.ascontiguousarray(a)
-            h.update(a)
-            n += a.nbytes
-        obs.count("hashed_bytes", n)
-        return h.hexdigest()
+        return _feed(hashlib.blake2b(digest_size=16), arrays).hexdigest()
+
+
+def _stencil_state(stencil: Dict):
+    """A fresh blake2b-128 state after the stencil's arrays in sorted
+    offset order: from :data:`_STENCIL_STATES` when the stencil is a
+    class-grid expansion still intact (``stencil_digest_reuses``), else
+    hashed from its arrays."""
+    source = (stencil.source() if isinstance(stencil, assembly.ClassStencil)
+              else None)
+    skey = h = None
+    if source is not None:
+        n_cells, extra_shape, offsets, grids = source
+        skey = (n_cells, extra_shape, offsets, _digest(grids))
+        h = _STENCIL_STATES.pop(skey, None)
+        if h is not None:
+            obs.count("stencil_digest_reuses")
+    if h is None:
+        h = _feed(hashlib.blake2b(digest_size=16),
+                  [np.asarray(stencil[off], np.float64)
+                   for off in sorted(stencil.keys())])
+    if skey is not None:
+        _STENCIL_STATES[skey] = h  # LRU refresh / insert
+        while len(_STENCIL_STATES) > _STENCIL_STATES_MAX:
+            _STENCIL_STATES.pop(next(iter(_STENCIL_STATES)))
+        h = h.copy()
+    return h
 
 
 def _prep_cache_key(stencil: Dict, free: np.ndarray, node_shape, vdim: int):
-    digest = _digest([np.asarray(stencil[off], np.float64)
-                      for off in sorted(stencil.keys())] + [free])
+    with obs.span("setup.hash"):
+        digest = _feed(_stencil_state(stencil), [free]).hexdigest()
     # "v2": contiguous C/Cinv are cached (not transposed views) — einsum
     # rounding depends on memory layout, so every path hands the SAME
     # layout to the b̂ computation for bitwise-reproducible results
@@ -521,12 +562,14 @@ def _host_direct_solve(sysm: ScaledSystem, node_shape, vdim: int):
 
 # ----------------------------------------------------------------------
 # MG operator cache: hierarchy + df-ladder weight parts keyed by content
-# (node shape, offsets, scaled-weight and free-mask bytes), routing and
-# device.  Repeated solves of the same discrete system — the solves of a
-# modal analysis, follow-up calls that change only BC values or the load —
-# skip the hierarchy build and the weight uploads.  BC *values* are not
-# part of the operator (masking bakes in the free pattern only; values
-# enter through b̂), so value-only follow-ups hit the cache.
+# (node shape, offsets, and the system's content key, which names its
+# scaled weights and free mask, or below the key gate their bytes),
+# routing and device.  Repeated solves of the same discrete system — the
+# solves of a modal analysis, follow-up calls that change only BC values
+# or the load — skip the hierarchy build and the weight uploads.  BC
+# *values* are not part of the operator (masking bakes in the free
+# pattern only; values enter through b̂), so value-only follow-ups hit the
+# cache.
 # ----------------------------------------------------------------------
 
 _MG_CACHE: Dict = {}
@@ -546,12 +589,15 @@ def _routing() -> tuple:
 
 def _mg_cache_key(mesh: StructuredMesh, vdim: int, prec: str,
                   sysm: ScaledSystem, device: torch.device):
-    digest = _digest(list(sysm.weights) + [sysm.free])
+    # the scaled weights and free mask are a pure function of the prep
+    # key's content, so a system that has one is named by it
+    content = (sysm.ckey if sysm.ckey is not None
+               else _digest(list(sysm.weights) + [sysm.free]))
     # the routing bakes into the built hierarchy's operators, and its
     # tensors live on one device: an entry of another routing or device
     # would silently keep the old kernels or hand over foreign tensors
     return (mesh.node_shape, vdim, prec, sysm.offsets, _routing(),
-            str(device), digest)
+            str(device), content)
 
 
 def _mg_cache_get(key):

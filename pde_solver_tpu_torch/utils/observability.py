@@ -92,6 +92,7 @@ COUNTERS = (
     "kernel_launches",      # request delta of stencil_kernels'
     "host_reads",           # and device_loop's process totals
     "hashed_bytes",         # bytes fed to the content keys' blake2b
+    "stencil_digest_reuses",  # prep keys whose stencil hash was kept
     "stencils_by_class",    # stencils assembled on the class grid
     "stencils_by_slices",   # and by full-grid slice-adds
     "prep_memory_hits", "prep_disk_hits", "prep_builds",

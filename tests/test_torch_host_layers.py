@@ -2,7 +2,9 @@
 assembly, loads, Dirichlet masks and the masked + scaled system.  The
 port's class-grid assembly of constant-coefficient stencils is bit-equal
 to its full-grid slice-adds, in the same key order, and gives the same
-content key."""
+content key; that key, taken from the class grids once their full arrays
+have been hashed, is byte for byte the full hash, and only an intact
+expansion is keyed so."""
 
 import numpy as np
 import pytest
@@ -15,6 +17,7 @@ from pde_solver_tpu_torch import mesh as port_mesh
 from pde_solver_tpu_torch.ops import assembly as port_asm
 from pde_solver_tpu_torch.ops import bc as port_bc
 from pde_solver_tpu_torch.ops import linsolve as port_ls
+from pde_solver_tpu_torch.ops import surface, timestepping
 from pde_solver_tpu_torch.utils import observability as obs
 
 MESHES = {
@@ -178,3 +181,151 @@ def test_class_grid_keeps_the_prep_content_key(monkeypatch, form):
     key = port_ls._prep_cache_key(classes, free, mesh.node_shape, vdim)
     assert key == port_ls._prep_cache_key(slices, free, mesh.node_shape,
                                           vdim)
+
+
+# ---- the prep key from the class grid ---------------------------------------
+
+@pytest.fixture()
+def states(monkeypatch):
+    """An empty memo of stencil hash states for the test."""
+    memo = {}
+    monkeypatch.setattr(port_ls, "_STENCIL_STATES", memo)
+    return memo
+
+
+def _vdim(form, mesh):
+    return mesh.dim if form == "elasticity" else 1
+
+
+def _free(mesh, vdim, seed=2):
+    shape = mesh.node_shape + ((vdim,) if vdim > 1 else ())
+    rng = np.random.default_rng(seed)
+    return (rng.random(shape) > 0.2).astype(np.float64)
+
+
+def _keyed(stencil, free, mesh, vdim):
+    """(the prep key, its request's hashed bytes and memo reuses)."""
+    stats = {}
+    with obs.request(stats):
+        key = port_ls._prep_cache_key(stencil, free, mesh.node_shape, vdim)
+    return key, stats["hashed_bytes"], stats["stencil_digest_reuses"]
+
+
+def _full_key(stencil, free, mesh, vdim):
+    """The prep key hashed from the full arrays: the port's ``_digest``
+    and the JAX package's key, which must agree."""
+    plain = {off: np.array(W) for off, W in stencil.items()}
+    digest = port_ls._digest([plain[off] for off in sorted(plain)] + [free])
+    ref = ref_ls._prep_cache_key(plain, free, mesh.node_shape, vdim)
+    assert ref[3] == digest
+    return ref
+
+
+def _grid_bytes(stencil):
+    return sum(g.nbytes for g in stencil.source()[3])
+
+
+@pytest.mark.parametrize("form", sorted(FORMS))
+@pytest.mark.parametrize("name", sorted(CLASS_MESHES))
+def test_prep_key_from_the_class_grid_is_the_full_hash(states, name, form):
+    mesh = _class_mesh(name)
+    vdim = _vdim(form, mesh)
+    free = _free(mesh, vdim)
+    cold = FORMS[form](mesh)
+    full = _full_key(cold, free, mesh, vdim)
+    stencil_bytes = sum(W.nbytes for W in cold.values())
+    # a miss: the class grids, then the full arrays and the mask
+    assert _keyed(cold, free, mesh, vdim) == (
+        full, _grid_bytes(cold) + stencil_bytes + free.nbytes, 0)
+    # a fresh assembly of the same form: the class grids and the mask
+    warm = FORMS[form](mesh)
+    assert _keyed(warm, free, mesh, vdim) == (
+        full, _grid_bytes(warm) + free.nbytes, 1)
+    # another free mask: another key, from the same kept state
+    other = _free(mesh, vdim, seed=7)
+    other[(0,) * other.ndim] = 1.0 - other[(0,) * other.ndim]
+    key, _, reuses = _keyed(warm, other, mesh, vdim)
+    assert key == _full_key(warm, other, mesh, vdim) and reuses == 1
+    assert key != full
+    assert len(states) == 1
+
+
+def _altered(case, mesh, K, M):
+    if case == "slices":
+        return None                    # built below, by slice-adds
+    if case == "combine":
+        return timestepping._combine(K, M, 0.01, 1.0)
+    if case == "add_stencil":
+        return surface.add_stencil(K, M)
+    if case == "copied":
+        return dict(K)
+    if case == "replaced":
+        out = K
+        off = sorted(out)[0]
+        out[off] = np.array(out[off])  # the same values, another array
+        return out
+    if case == "rewritten":
+        out = K
+        W = out[sorted(out)[0]]
+        W.setflags(write=True)
+        W *= 2.0
+        return out
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", ["slices", "combine", "add_stencil",
+                                  "copied", "replaced", "rewritten"])
+def test_other_stencils_hash_their_full_arrays(monkeypatch, states, case):
+    mesh = _class_mesh("box9x4x5")
+    free = _free(mesh, 1)
+    build = FORMS["stiffness"]
+    _keyed(build(mesh), free, mesh, 1)          # the memo holds the form
+    if case == "slices":
+        altered, _ = _by_slices(monkeypatch, build, mesh)
+    else:
+        altered = _altered(case, mesh, build(mesh), FORMS["mass"](mesh))
+    full = _full_key(altered, free, mesh, 1)
+    stencil_bytes = sum(np.asarray(W).nbytes for W in altered.values())
+    assert _keyed(altered, free, mesh, 1) == (
+        full, stencil_bytes + free.nbytes, 0)
+    assert len(states) == 1
+
+
+@pytest.mark.parametrize("form", sorted(FORMS))
+def test_expanded_arrays_are_read_only(form):
+    stencil = FORMS[form](_class_mesh("box2x1x3"))
+    for W in stencil.values():
+        with pytest.raises(ValueError):
+            W[(0,) * W.ndim] = 1.0
+        with pytest.raises(ValueError):
+            W += 1.0
+    for grid in stencil.source()[3]:
+        assert not grid.flags.writeable
+
+
+def test_stencil_memo_stays_within_its_bound(states):
+    meshes = [port_mesh.StructuredMesh((n,), (0.0,), (1.0 + 0.1 * n,))
+              for n in range(3, 3 + port_ls._STENCIL_STATES_MAX + 4)]
+    for mesh in meshes:
+        _keyed(FORMS["stiffness"](mesh), np.ones(mesh.node_shape), mesh, 1)
+        assert len(states) <= port_ls._STENCIL_STATES_MAX
+    assert len(states) == port_ls._STENCIL_STATES_MAX
+    newest, oldest = meshes[-1], meshes[0]
+    assert _keyed(FORMS["stiffness"](newest), np.ones(newest.node_shape),
+                  newest, 1)[2] == 1
+    assert _keyed(FORMS["stiffness"](oldest), np.ones(oldest.node_shape),
+                  oldest, 1)[2] == 0
+    assert len(states) == port_ls._STENCIL_STATES_MAX
+
+
+@pytest.mark.parametrize("name", ["line7", "rect9x4", "box9x4x5"])
+def test_forms_of_one_mesh_keep_their_own_states(states, name):
+    """Stiffness and mass share the cell shape and offsets; their class
+    grids tell them apart."""
+    mesh = _class_mesh(name)
+    free = _free(mesh, 1)
+    for form in ("stiffness", "mass", "mass_q2"):
+        stencil = FORMS[form](mesh)
+        key, _, reuses = _keyed(stencil, free, mesh, 1)
+        assert key == _full_key(stencil, free, mesh, 1) and reuses == 0
+    assert len(states) == 3

@@ -25,8 +25,9 @@ from pde_solver_tpu_torch.utils import observability as obs
 from pde_solver_tpu_torch.utils.observability import get_logger
 
 # 9×5×5 nodes, 675 unknowns: over the lowered content-key gate (600), so
-# both keys hash it, while the coarse levels (135) and the projection's
-# scalar mass system (225) stay under it
+# the prep key hashes it and the hierarchy key is named by that key, while
+# the coarse levels (135) and the projection's scalar mass system (225)
+# stay under it
 BOX = dict(Lx=1.0, Ly=0.25, Lz=0.25, nx=8, ny=4, nz=4, body_fz=-7.7e4)
 KEY_MIN_DOF = 600
 # the MG hierarchy and the df2 F-cycle ("auto" is "f64" on the CPU)
@@ -40,7 +41,7 @@ PHASES = ("assembly", "solve", "postprocess")
 
 def _clear_caches():
     for cache in (linsolve._PREP_CACHE, linsolve._MG_CACHE,
-                  linsolve._FLAT_OP_CACHE):
+                  linsolve._FLAT_OP_CACHE, linsolve._STENCIL_STATES):
         cache.clear()
 
 
@@ -66,16 +67,19 @@ def two_calls(small_keys):
     return [_solve(small_keys) for _ in range(2)]
 
 
-def _key_bytes() -> int:
-    """What the two content keys hash: the raw stencil (prep key) and the
-    scaled weights (hierarchy key), each 3×3 float64 blocks at every node
-    and offset, and each the free mask (float64 per unknown)."""
+def _key_bytes(call: int) -> int:
+    """What the prep key hashes: the stencil's class grids (3×3 float64
+    blocks at each of 3³ classes and every offset) and the free mask
+    (float64 per unknown), and on the cold call (0) the raw stencil too,
+    3×3 float64 blocks at every node and offset.  The hierarchy key is
+    named by the prep key and hashes nothing."""
     mesh = box_mesh(BOX["nx"], BOX["ny"], BOX["nz"], (0.0, 0.0, 0.0),
                     (BOX["Lx"], BOX["Ly"], BOX["Lz"]))
     n_off = len(assembly.assemble_elasticity_stencil(
         mesh, *lame_parameters(210e9, 0.3, "3d")))
     nodes = mesh.num_nodes
-    return 2 * (n_off * nodes * 9 * 8 + nodes * 3 * 8)
+    cold = n_off * nodes * 9 * 8 if call == 0 else 0
+    return cold + n_off * 27 * 9 * 8 + nodes * 3 * 8
 
 
 # ---- spans and requests -----------------------------------------------------
@@ -265,17 +269,27 @@ def test_child_spans_fit_in_their_parent(two_calls, call):
              if s.parent >= 0}
     assert {"assembly/assembly.stencil", "assembly/assembly.load",
             "solve/setup.prep", "setup.prep/setup.hash",
-            "solve/setup.hierarchy", "setup.hierarchy/setup.hash",
+            "solve/setup.hierarchy",
             "solve/setup.ladder", "solve/solve.df2", "solve/solve.fetch",
             "postprocess/postprocess.von_mises",
             "postprocess/postprocess.projection"} <= under
+    # the system has a content key: the hierarchy key hashes nothing
+    assert "setup.hierarchy/setup.hash" not in under
 
 
 @pytest.mark.parametrize("call", [0, 1])
 def test_hashed_bytes_are_the_keys_inputs(two_calls, call):
     stats, req = two_calls[call]
-    assert stats["hashed_bytes"] == _key_bytes()
-    assert sum(s.name == "setup.hash" for s in req.spans) == 2
+    assert stats["hashed_bytes"] == _key_bytes(call)
+    spans = req.spans
+    keys = [s for s in spans
+            if s.name == "setup.hash" and spans[s.parent].name != s.name]
+    assert [spans[s.parent].name for s in keys] == ["setup.prep"]
+    # the warm call's prep key takes its stencil hash from the memo
+    if call == 0:
+        assert stats["stencil_digest_reuses"] == 0
+    else:
+        assert stats["stencil_digest_reuses"] >= 1
 
 
 @pytest.mark.parametrize("call", [0, 1])
@@ -297,6 +311,61 @@ def test_second_call_hits_the_memory_caches(two_calls, call, hits, builds):
     # the fine system's prep on the cold call, and the projection's
     # (under the key gate) on both
     assert stats["prep_builds"] >= 1 + builds
+
+
+def test_memo_cold_and_warm_solves_are_bit_equal(small_keys, monkeypatch):
+    """The same solve with the stencil memo cold, then warm (every other
+    cache emptied): the same field, bit for bit, and the same prep and
+    hierarchy disk-entry names, those of the full hash."""
+    from pde_solver_tpu_torch.fields import load_field
+    from pde_solver_tpu_torch.utils import diskcache
+
+    real, keys, systems = linsolve._prep_cache_key, [], []
+    prepare = linsolve.prepare_system
+
+    def spy_key(stencil, free, node_shape, vdim):
+        keys.append(real(stencil, free, node_shape, vdim))
+        if not systems:     # the first call's fine stencil, hashed in full
+            keys.append(real({o: np.array(W) for o, W in stencil.items()},
+                             free, node_shape, vdim))
+        return keys[-1]
+
+    def spy_prepare(*args, **kwargs):
+        sysm = prepare(*args, **kwargs)
+        systems.append(sysm)
+        return sysm
+
+    monkeypatch.setattr(linsolve, "_prep_cache_key", spy_key)
+    monkeypatch.setattr(linsolve, "prepare_system", spy_prepare)
+    values, reuses = [], []
+    for _ in range(2):
+        for cache in (linsolve._PREP_CACHE, linsolve._MG_CACHE,
+                      linsolve._FLAT_OP_CACHE):
+            cache.clear()
+        with config_overrides(**SOLVE_CFG):
+            res = api.solve_elasticity_3D_static(**BOX,
+                                                 data_dir=str(small_keys))
+        values.append(load_field(res.data_file).values)
+        reuses.append(res.meta["solver_stats"]["stencil_digest_reuses"])
+    assert np.array_equal(values[0], values[1])
+    assert reuses == [0, 1]
+    assert len(set(keys)) == 1 and len(keys) == 3
+    assert len({diskcache._path("prep", k) for k in keys}) == 1
+    assert len({diskcache._path("mgh", (k, 3)) for k in keys}) == 1
+    # the hierarchy key names the system by its content key, unhashed;
+    # a system under the key gate is hashed as before
+    sysm = next(s for s in systems if s.ckey is not None)
+    mesh = box_mesh(BOX["nx"], BOX["ny"], BOX["nz"], (0.0, 0.0, 0.0),
+                    (BOX["Lx"], BOX["Ly"], BOX["Lz"]))
+    for ckey, spans in ((sysm.ckey, 0), (None, 1)):
+        stats = {}
+        with obs.request(stats):
+            linsolve._mg_cache_key(mesh, 3, "mixed",
+                                   sysm._replace(ckey=ckey),
+                                   torch.device("cpu"))
+        names = [s.name for s in obs.last_request().spans]
+        assert names.count("setup.hash") == spans
+        assert (stats["hashed_bytes"] > 0) == bool(spans)
 
 
 # ---- the profiler's marks ---------------------------------------------------
