@@ -202,8 +202,9 @@
      transient and the 40×16×16 cantilever, checkpointed every 2 steps,
      aborted after one chunk (``_CKPT_TEST_ABORT``) and resumed, bit for
      bit the uncheckpointed run;
-   - the 16×8×8 cantilever of 5 with ``PDE_TPU_BF16_SMOOTHER`` 1 and 0:
-     at 0 no bf16 launch, more f32 ones, the same field within 1e-6.
+   - the 16×8×8 cantilever of 5 with the bf16 copy's size gate lowered to
+     0 DOF and at its value (every level under it): at its value no bf16
+     launch, more f32 ones, the same field within 1e-6.
 12. The solve loops as CUDA graphs (``graphs_phase``, ``ops.device_loop``),
    each captured path against the same path run uncaptured
    (``device_loop._uncaptured``, which no entry point of the package
@@ -533,6 +534,15 @@ def disk_cache_off():
             os.environ.pop("PDE_TPU_DISK_CACHE", None)
         else:
             os.environ["PDE_TPU_DISK_CACHE"] = prev
+
+
+def clear_scans():
+    """Empty the scan caches (θ and Newmark), releasing their graphs: the
+    next scan is cold."""
+    from pde_solver_tpu_torch.ops import timestepping
+
+    for cache in timestepping._SCAN_CACHE.values():
+        cache.clear()
 
 
 @contextlib.contextmanager
@@ -3226,13 +3236,13 @@ def precision_phase(api, counted, data_dir, vm_mixed, vm_call, T_f32,
     ``counted(label, fn) → (result, launches, wall s)``: the flagship at
     float64 and float32, the heat slice and the 40×6×6 transient at
     float64, the released cantilever at float64, checkpointed scans
-    aborted and resumed, and the bf16-smoother switch.  ``vm_mixed``,
-    ``T_f32``: the "mixed" flagship's von Mises field and the float32 heat
-    trajectory of the main paths; ``vm_call``: the "mixed" flagship's
-    ``von_mises_fields`` call (``spy_von_mises``), whose u the float64
-    flagship is held against; ``T_small_ref``: the host float64
-    backward Euler of ``small_heat``; ``share_f32``: the float32 energy
-    share of ``beam``.  A CPU rehearsal passes small sizes,
+    aborted and resumed, and the bf16 smoother copy's size gate.
+    ``vm_mixed``, ``T_f32``: the "mixed" flagship's von Mises field and
+    the float32 heat trajectory of the main paths; ``vm_call``: the
+    "mixed" flagship's ``von_mises_fields`` call (``spy_von_mises``),
+    whose u the float64 flagship is held against; ``T_small_ref``: the
+    host float64 backward Euler of ``small_heat``; ``share_f32``: the
+    float32 energy share of ``beam``.  A CPU rehearsal passes small sizes,
     ``device="cpu"`` (launches are then not counted) and
     ``relres_tol=FLOOR_RELRES_TOL``.  Returns the numbers PERF.md keeps;
     ``refs`` (a dict), when given, receives the float64 flagship's u and
@@ -3492,55 +3502,51 @@ def precision_phase(api, counted, data_dir, vm_mixed, vm_call, T_f32,
         del calls[:]
     out["checkpoint"] = True
 
-    # -- 6. the bf16-smoother switch ------------------------------------------
-    # the 16×8×8 levels lie under the bf16 copy's size gate
-    # (``multigrid.BF16_MIN_DOF``), lowered for this leg
+    # -- 6. the bf16 smoother copy's size gate -------------------------------
+    # the 16×8×8 levels lie under the gate (``multigrid.BF16_MIN_DOF``):
+    # lowered to 0 DOF, every level smooths with a bf16 copy; at its value,
+    # none does, and each smooths with its float32 operator
     from pde_solver_tpu_torch.ops import multigrid as mg_mod
 
-    switch_prev = os.environ.get("PDE_TPU_BF16_SMOOTHER")
-    gate_prev, mg_mod.BF16_MIN_DOF = mg_mod.BF16_MIN_DOF, 0
+    gate = mg_mod.BF16_MIN_DOF
     runs = {}
     try:
-        for switch in ("1", "0"):
-            os.environ["PDE_TPU_BF16_SMOOTHER"] = switch
+        for name, min_dof in (("bf16", 0), ("f32", gate)):
+            mg_mod.BF16_MIN_DOF = min_dof
             linsolve._MG_CACHE.clear()
             with config_overrides(precision="mixed", host_direct_threshold=0,
                                   mg_threshold=100), disk_cache_off():
                 res, launches, wall = counted(
-                    f"smoother {switch}", lambda:
+                    f"smoother {name}", lambda:
                     api.solve_elasticity_3D_static(**small,
                                                    data_dir=data_dir))
             (h, _), = linsolve._MG_CACHE.values()
             smooth = sorted({str(lv.w_smooth.W.dtype) for lv in h.levels
                              if hasattr(lv.w_smooth, "W")})
-            runs[switch] = (field(res)[0], launches, res.meta["solver_stats"],
-                            smooth)
+            runs[name] = (field(res)[0], launches, res.meta["solver_stats"],
+                          smooth)
             del h
     finally:
-        mg_mod.BF16_MIN_DOF = gate_prev
-        if switch_prev is None:
-            os.environ.pop("PDE_TPU_BF16_SMOOTHER", None)
-        else:
-            os.environ["PDE_TPU_BF16_SMOOTHER"] = switch_prev
+        mg_mod.BF16_MIN_DOF = gate
         linsolve._MG_CACHE.clear()
-    sw_gap = gap(runs["0"][0], runs["1"][0])
-    print("precision smoother switch (16x8x8 cantilever, mixed, bf16 gate "
-          "lowered to 0 DOF): " + "; ".join(
-        f"PDE_TPU_BF16_SMOOTHER={k}: smoother weights {smooth} iterations="
+    sw_gap = gap(runs["f32"][0], runs["bf16"][0])
+    print("precision smoother gate (16x8x8 cantilever, mixed, bf16 gate "
+          f"at 0 DOF and at {gate}): " + "; ".join(
+        f"{k}: smoother weights {smooth} iterations="
         f"{st_['cg_iterations']} launches {ln}"
         for k, (_, ln, st_, smooth) in runs.items())
         + f"; max|Δvm|/max|vm|={sw_gap:.3e}", flush=True)
-    check(runs["0"][3] == ["torch.float32"]
-          and runs["1"][3] == ["torch.bfloat16"],
-          f"smoother weights: {runs['0'][3]} / {runs['1'][3]}")
+    check(runs["f32"][3] == ["torch.float32"]
+          and runs["bf16"][3] == ["torch.bfloat16"],
+          f"smoother weights: {runs['f32'][3]} / {runs['bf16'][3]}")
     check(all(r[2]["converged"] for r in runs.values()) and sw_gap <= 1e-6,
-          f"smoother switch: fields {sw_gap:.3e} apart")
+          f"smoother gate: fields {sw_gap:.3e} apart")
     if cuda:
-        l0, l1 = runs["0"][1], runs["1"][1]
+        l0, l1 = runs["f32"][1], runs["bf16"][1]
         check(not any(v for k, v in l0.items() if k.endswith("_bf16"))
               and l1.get("v3_bf16", 0) > 0
               and l0.get("v3_f32", 0) > l1.get("v3_f32", 0),
-              f"smoother switch launches: 0 → {l0}, 1 → {l1}")
+              f"smoother gate launches: f32 → {l0}, bf16 → {l1}")
     out["smoother_gap"] = sw_gap
     return out
 
@@ -3786,7 +3792,7 @@ def shard_legs(n=SHARD_VIRTUAL):
             t = time.perf_counter()
             ways, fields = {}, {}
             for way in SHARD_WAYS:
-                timestepping.clear_scan_cache()
+                clear_scans()
                 device_loop.HOST_READS.clear()
                 with loop_seconds(device) as secs, (
                         device_loop._uncaptured() if way == "uncaptured"
@@ -3804,7 +3810,7 @@ def shard_legs(n=SHARD_VIRTUAL):
                             / np.abs(plain).max())
             legs.append((label, dof, steps, ways["program"][0], int(k_plain),
                          gap, time.perf_counter() - t, ways, way_gap))
-    timestepping.clear_scan_cache()
+    clear_scans()
     return legs
 
 
@@ -4593,7 +4599,7 @@ def repeat_scans(counted, label, cs, fn, a, k, ways, steps, card_line,
         kept, launches, wall = counted(f"scans {label} follow-up {name}",
                                        lambda: with_cs(call))
         reads = dict(device_loop.HOST_READS)
-        timestepping.clear_scan_cache()
+        clear_scans()
         cold, _, cold_wall = counted(f"scans {label} follow-up {name} cold",
                                      lambda: with_cs(call))
         gap = max(float(np.abs(f - f0).max() / max(np.abs(f0).max(),
@@ -4713,7 +4719,7 @@ def scans_leg(api, counted, data_dir, card_line, heat_ref, cases,
         # the first call from an empty scan cache; the per-step path keeps
         # its operands, the uncaptured programs (another capture mode) are
         # new on the card and the program way's on the CPU
-        timestepping.clear_scan_cache()
+        clear_scans()
         for way in SCAN_WAYS:
             if way == "program":
                 calls, unspy = record_scans()
@@ -4750,7 +4756,7 @@ def scans_leg(api, counted, data_dir, card_line, heat_ref, cases,
                                  and label in SCAN_PROFILE_PER_STEP)):
                 if way == "program":
                     # the trace repeats the first call, from an empty cache
-                    timestepping.clear_scan_cache()
+                    clear_scans()
                 ways[way]["busy"] = scan_busy(again, way, res.scan_seconds)
         gaps = {way: max(gap(f0, f) for f0, f in
                          zip(fields_of(results["program"]),
@@ -4800,7 +4806,7 @@ def scans_leg(api, counted, data_dir, card_line, heat_ref, cases,
             rows[label]["repeats"] = repeat_scans(
                 counted, label, cs, fn, a, k, ways, steps, card_line, cuda)
         del results, api_field
-        timestepping.clear_scan_cache()
+        clear_scans()
         gc.collect()
         if cuda:
             torch.cuda.empty_cache()
@@ -4815,7 +4821,7 @@ def scans_leg(api, counted, data_dir, card_line, heat_ref, cases,
         return orig(*a, **kw)
 
     timestepping._transient_step_body = syncing
-    timestepping.clear_scan_cache()
+    clear_scans()
     try:
         with config_overrides(transient_mg_threshold=100, mg_threshold=100):
             api.solve_heat_3D(**SMALL_HEAT, data_dir=data_dir)

@@ -26,7 +26,8 @@ A captured graph reads the tensors of its owner (a multigrid hierarchy, a
 flat operator, a scan's operands) at the addresses they had at capture, so
 its programs live in the owner's :class:`GraphStore` and go with it: a
 store is freed with its owner, or by :meth:`GraphStore.clear` when the
-owner leaves a cache (``linsolve._MG_CACHE``, ``linsolve._FLAT_OP_CACHE``).
+owner leaves a cache (:func:`release`, the ``release`` of every
+``utils.kept.Kept`` that holds device state).
 Every graph of a store shares one memory pool, and every program writes
 its results into buffers allocated outside the pool, so replaying the
 programs of one store in any order, one at a time, is safe.

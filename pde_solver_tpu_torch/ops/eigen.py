@@ -4,7 +4,7 @@ Counterpart of ``pde_solver_tpu.ops.eigen``: natural frequencies and mode
 shapes via Rayleigh–Ritz-accelerated block inverse (subspace) iteration.
 Each iteration solves k SPD systems K x = M y with the same solver stack
 as every static solve (masked, scaled stencil CG or the double-float32
-F-cycle on the cached multigrid hierarchy, ``linsolve._MG_CACHE``),
+F-cycle on the multigrid hierarchy kept in ``linsolve._MG_CACHE``),
 M-orthonormalizes the block, and rotates it with the k×k Ritz problem — the
 standard robust scheme for a handful of low modes, degenerate pairs
 included.  All block arithmetic is host numpy (k ≤ ~20 vectors); the heavy

@@ -36,7 +36,7 @@ plain weights); without one, sharded CG (``parallel.shard.
 ShardedScaledCG``, 1-D or a×b); in "mixed", as the inner solves of the
 host float64 refinement loop.  A sharding request skips host sparse LU.
 The multigrid hierarchy (and, for "mixed", the F-cycle's weight ladder) of the
-last ``_MG_CACHE_MAX`` operators stay in memory (``_MG_CACHE``), so
+last two operators stay in memory (``_MG_CACHE``, a ``utils.kept.Kept``), so
 repeated solves on one operator — a modal analysis makes dozens — build
 them once.  Across processes, the scaled system's operator part (kind
 "prep") and the "mixed" branch's float32 hierarchy (kind "mgh",
@@ -46,7 +46,6 @@ them once.  Across processes, the scaled system's operator part (kind
 
 from __future__ import annotations
 
-import hashlib
 import os
 from typing import Dict, NamedTuple, Optional, Tuple
 
@@ -63,6 +62,7 @@ from pde_solver_tpu_torch.ops.cs_kernels import (CSFlatStencilOperator,
                                                  cs_enabled, cs_wins)
 from pde_solver_tpu_torch.ops.stencil_kernels import (FlatStencilOperator,
                                                       kernel_wins)
+from pde_solver_tpu_torch.utils import kept
 from pde_solver_tpu_torch.utils import observability as obs
 from pde_solver_tpu_torch.utils.observability import get_logger
 
@@ -128,8 +128,7 @@ class ScaledSystem(NamedTuple):
 # process — each new MCP server — skips the host prep.  The key and the
 # array names are the JAX package's: an entry either package writes, the
 # other reads.
-_PREP_CACHE: Dict = {}
-_PREP_CACHE_MAX = 2
+_PREP_CACHE = kept.Kept(2)
 _PREP_CACHE_MIN_DOF = 100_000
 
 # The prep key's hash state after a class-grid stencil's full arrays
@@ -138,28 +137,7 @@ _PREP_CACHE_MIN_DOF = 100_000
 # assembled again, as every request of a chat of follow-ups does, is keyed
 # from its class grids and the free mask alone; the key's bytes are the
 # full hash's.
-_STENCIL_STATES: Dict = {}
-_STENCIL_STATES_MAX = 8
-
-
-def _feed(h, arrays):
-    """Feed the arrays' bytes, in order, to the blake2b state ``h``,
-    counting them (``hashed_bytes``); returns ``h``."""
-    n = 0
-    for a in arrays:
-        a = np.ascontiguousarray(a)
-        h.update(a)
-        n += a.nbytes
-    obs.count("hashed_bytes", n)
-    return h
-
-
-def _digest(arrays) -> str:
-    """The blake2b-128 hex digest of the arrays' bytes, in order: a
-    content key's hash, in the ``setup.hash`` span, its bytes counted
-    (``hashed_bytes``)."""
-    with obs.span("setup.hash"):
-        return _feed(hashlib.blake2b(digest_size=16), arrays).hexdigest()
+_STENCIL_STATES = kept.Kept(8)
 
 
 def _stencil_state(stencil: Dict):
@@ -172,25 +150,22 @@ def _stencil_state(stencil: Dict):
     skey = h = None
     if source is not None:
         n_cells, extra_shape, offsets, grids = source
-        skey = (n_cells, extra_shape, offsets, _digest(grids))
-        h = _STENCIL_STATES.pop(skey, None)
+        skey = (n_cells, extra_shape, offsets, kept.digest(grids))
+        h = _STENCIL_STATES.get(skey)
         if h is not None:
             obs.count("stencil_digest_reuses")
     if h is None:
-        h = _feed(hashlib.blake2b(digest_size=16),
-                  [np.asarray(stencil[off], np.float64)
-                   for off in sorted(stencil.keys())])
+        h = kept.feed(None, [np.asarray(stencil[off], np.float64)
+                             for off in sorted(stencil.keys())])
     if skey is not None:
-        _STENCIL_STATES[skey] = h  # LRU refresh / insert
-        while len(_STENCIL_STATES) > _STENCIL_STATES_MAX:
-            _STENCIL_STATES.pop(next(iter(_STENCIL_STATES)))
+        _STENCIL_STATES.put(skey, h)
         h = h.copy()
     return h
 
 
 def _prep_cache_key(stencil: Dict, free: np.ndarray, node_shape, vdim: int):
     with obs.span("setup.hash"):
-        digest = _feed(_stencil_state(stencil), [free]).hexdigest()
+        digest = kept.feed(_stencil_state(stencil), [free]).hexdigest()
     # "v2": contiguous C/Cinv are cached (not transposed views) — einsum
     # rounding depends on memory layout, so every path hands the SAME
     # layout to the b̂ computation for bitwise-reproducible results
@@ -221,9 +196,8 @@ def _freeze(core):
 def _prep_core_get(key, n_off: int, vdim: int):
     """Memory first, then disk.  Returns (scaled, s, C, Cinv) — C/Cinv
     contiguous, exactly as the fresh compute produces them — or None."""
-    core = _PREP_CACHE.pop(key, None)
+    core = _PREP_CACHE.get(key)
     if core is not None:
-        _PREP_CACHE[key] = core  # LRU refresh
         obs.count("prep_memory_hits")
         return core
     from pde_solver_tpu_torch.utils import diskcache
@@ -240,7 +214,7 @@ def _prep_core_get(key, n_off: int, vdim: int):
                 core = (scaled, None, ent["C"], ent["Cinv"])
         except KeyError:
             return None
-        _prep_core_put(key, _freeze(core), disk=False)
+        _PREP_CACHE.put(key, _freeze(core))
     obs.count("prep_disk_hits")
     get_logger().info("prep disk-cache hit (%.3fs load, %d bytes, %d DOF)",
                       sp.seconds, _entry_bytes("prep", key),
@@ -248,26 +222,23 @@ def _prep_core_get(key, n_off: int, vdim: int):
     return core
 
 
-def _prep_core_put(key, core, disk: bool = True):
+def _prep_core_put(key, core):
     """Cache (scaled, s, C, Cinv) in memory, frozen, and on disk."""
-    _PREP_CACHE[key] = _freeze(core)
-    while len(_PREP_CACHE) > _PREP_CACHE_MAX:
-        _PREP_CACHE.pop(next(iter(_PREP_CACHE)))
-    if disk:
-        from pde_solver_tpu_torch.utils import diskcache
+    _PREP_CACHE.put(key, _freeze(core))
+    from pde_solver_tpu_torch.utils import diskcache
 
-        if not diskcache.enabled():
-            return
-        with obs.span("setup.prep.store") as sp:
-            scaled, s, C, Cinv = core
-            arrays = {f"w{i}": np.asarray(W) for i, W in enumerate(scaled)}
-            for name, a in (("s", s), ("C", C), ("Cinv", Cinv)):
-                if a is not None:
-                    arrays[name] = np.asarray(a)
-            diskcache.store("prep", key, arrays)
-        get_logger().info("prep disk-cache store (%.3fs, %d bytes, %d DOF)",
-                          sp.seconds, _entry_bytes("prep", key),
-                          int(np.prod(key[0])) * key[1])
+    if not diskcache.enabled():
+        return
+    with obs.span("setup.prep.store") as sp:
+        scaled, s, C, Cinv = core
+        arrays = {f"w{i}": np.asarray(W) for i, W in enumerate(scaled)}
+        for name, a in (("s", s), ("C", C), ("Cinv", Cinv)):
+            if a is not None:
+                arrays[name] = np.asarray(a)
+        diskcache.store("prep", key, arrays)
+    get_logger().info("prep disk-cache store (%.3fs, %d bytes, %d DOF)",
+                      sp.seconds, _entry_bytes("prep", key),
+                      int(np.prod(key[0])) * key[1])
 
 
 def prepare_system(stencil: Dict[Offset, np.ndarray], mesh: StructuredMesh,
@@ -484,8 +455,7 @@ def _cg_unit_diag(offsets, weights, b, x0, tol, maxiter, grid_dim, vdim,
 # mass solve takes: keyed on the system's content key, so follow-up solves
 # of one operator skip the host pack and the weight upload.  Only systems
 # with a content key (``ScaledSystem.ckey``) cache.
-_FLAT_OP_CACHE: Dict = {}
-_FLAT_OP_CACHE_MAX = 2
+_FLAT_OP_CACHE = kept.Kept(2, device_loop.release)
 
 
 def _static_flat_op(sysm: ScaledSystem, mesh: StructuredMesh, vdim: int,
@@ -503,7 +473,7 @@ def _static_flat_op(sysm: ScaledSystem, mesh: StructuredMesh, vdim: int,
     use_cs = cs_enabled(mode) and cs_wins(n)
     key = (sysm.ckey, tuple(mesh.node_shape), vdim, mode, use_cs,
            str(torch.device(device)))
-    op = _FLAT_OP_CACHE.pop(key, None) if sysm.ckey is not None else None
+    op = _FLAT_OP_CACHE.get(key) if sysm.ckey is not None else None
     if op is None and use_cs:
         op = CSFlatStencilOperator.try_build(
             sysm.offsets, sysm.weights, mesh.node_shape, vdim=vdim,
@@ -512,10 +482,7 @@ def _static_flat_op(sysm: ScaledSystem, mesh: StructuredMesh, vdim: int,
         op = FlatStencilOperator(sysm.offsets, sysm.weights, mesh.node_shape,
                                  vdim=vdim, device=device)
     if sysm.ckey is not None:
-        _FLAT_OP_CACHE[key] = op  # LRU refresh / insert
-        while len(_FLAT_OP_CACHE) > _FLAT_OP_CACHE_MAX:
-            # its captured solve loops go with it
-            device_loop.release(_FLAT_OP_CACHE.pop(next(iter(_FLAT_OP_CACHE))))
+        _FLAT_OP_CACHE.put(key, op)
     return op
 
 
@@ -569,42 +536,36 @@ def _host_direct_solve(sysm: ScaledSystem, node_shape, vdim: int):
 # or the load — skip the hierarchy build and the weight uploads.  BC
 # *values* are not part of the operator (masking bakes in the free
 # pattern only; values enter through b̂), so value-only follow-ups hit the
-# cache.
+# cache.  An evicted hierarchy's captured solve loops go with it.
 # ----------------------------------------------------------------------
 
-_MG_CACHE: Dict = {}
-_MG_CACHE_MAX = 2
+_MG_CACHE = kept.Kept(2, lambda entry: device_loop.release(entry[0]))
 
 
 def _routing() -> tuple:
-    """What routes a built operator's applies: ``PDE_TPU_CS``, the bf16
-    smoother switch and the three size gates.  It bakes into a built
-    hierarchy's operators, so it joins every key of a cache of them."""
-    from pde_solver_tpu_torch.ops.multigrid import (BF16_MIN_DOF,
-                                                    bf16_smoother)
+    """What routes a built operator's applies: ``PDE_TPU_CS`` and the three
+    size gates.  It bakes into a built hierarchy's operators, so it joins
+    every key of a cache of them."""
+    from pde_solver_tpu_torch.ops.multigrid import BF16_MIN_DOF
 
-    return (cs_kernels.cs_mode(), bf16_smoother(), cs_kernels.CS_MIN_DOF,
+    return (cs_kernels.cs_mode(), cs_kernels.CS_MIN_DOF,
             stencil_kernels.KERNEL_MIN_DOF, BF16_MIN_DOF)
 
 
 def _mg_cache_key(mesh: StructuredMesh, vdim: int, prec: str,
-                  sysm: ScaledSystem, device: torch.device):
+                  sysm: ScaledSystem, device: torch.device, arrays=None):
     # the scaled weights and free mask are a pure function of the prep
-    # key's content, so a system that has one is named by it
-    content = (sysm.ckey if sysm.ckey is not None
-               else _digest(list(sysm.weights) + [sysm.free]))
+    # key's content, so a system that has one is named by it, else by the
+    # hash of ``arrays`` (by default those weights and mask; a scan's key
+    # adds the scales)
+    if arrays is None:
+        arrays = list(sysm.weights) + [sysm.free]
+    content = sysm.ckey if sysm.ckey is not None else kept.digest(arrays)
     # the routing bakes into the built hierarchy's operators, and its
     # tensors live on one device: an entry of another routing or device
     # would silently keep the old kernels or hand over foreign tensors
     return (mesh.node_shape, vdim, prec, sysm.offsets, _routing(),
             str(device), content)
-
-
-def _mg_cache_get(key):
-    entry = _MG_CACHE.pop(key, None)
-    if entry is not None:
-        _MG_CACHE[key] = entry  # LRU refresh
-    return entry
 
 
 def _mg_cache_put(key, hierarchy, ladder):
@@ -615,10 +576,7 @@ def _mg_cache_put(key, hierarchy, ladder):
                   + list(lv.host_scale or [])):
             if a is not None:
                 a.setflags(write=False)
-    _MG_CACHE[key] = (hierarchy, ladder)
-    while len(_MG_CACHE) > _MG_CACHE_MAX:
-        # the evicted hierarchy's captured solve loops go with it
-        device_loop.release(_MG_CACHE.pop(next(iter(_MG_CACHE)))[0])
+    _MG_CACHE.put(key, (hierarchy, ladder))
 
 
 # ----------------------------------------------------------------------
@@ -690,7 +648,7 @@ def solve_stencil_system(
         with obs.span("setup.hierarchy") as sp:
             hier_key = _mg_cache_key(mesh, vdim, prec, sysm, device) + (
                 nshard > 1,)
-            cached = _mg_cache_get(hier_key)
+            cached = _MG_CACHE.get(hier_key)
             if cached is not None:
                 hierarchy, ladder_core = cached
                 obs.count("hierarchy_hits")

@@ -10,13 +10,13 @@ exact dense coarsest inverse, a Chebyshev-smoothed V-cycle, flexible MG-PCG
 A float32 level applies through :class:`FlatStencilOperator` (the CUDA
 kernel on the card, its plain torch version on the CPU) while its DOF count
 is at least ``KERNEL_MIN_DOF``: float32 weights for true residuals and,
-from ``BF16_MIN_DOF`` unknowns up, a bfloat16 copy for the smoother
-(``PDE_TPU_BF16_SMOOTHER=0``: the float32 operator smooths too).  With ``PDE_TPU_CS`` on, a level whose stencil is
-constant-interior applies through :class:`CSFlatStencilOperator` instead,
-as the reference routes it.  Smoothing and the PCG state live in the flat
-``[v, N]`` layout; grid layout only at the transfer boundary.  A float64
-level (``dtype=torch.float64``: the f64 static solve :func:`solve_mg` and
-the f64 scans) holds plain per-offset float64 tensors and applies through
+from ``BF16_MIN_DOF`` unknowns up, a bfloat16 copy for the smoother.  With
+``PDE_TPU_CS`` on, a level whose stencil is constant-interior applies
+through :class:`CSFlatStencilOperator` instead, as the reference routes
+it.  Smoothing and the PCG state live in the flat ``[v, N]`` layout; grid
+layout only at the transfer boundary.  A float64 level
+(``dtype=torch.float64``: the f64 static solve :func:`solve_mg` and the
+f64 scans) holds plain per-offset float64 tensors and applies through
 shifted slices, as the JAX package's float64 levels do: no kernel is built
 for it.
 
@@ -36,7 +36,6 @@ one graph each, read once a round.
 from __future__ import annotations
 
 import itertools
-import os
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -140,7 +139,7 @@ class MGLevel(NamedTuple):
     host_Ainv: Optional[np.ndarray] = None
     host_scale: Optional[tuple] = None   # (s,) or (C, Cinv) f64 numpy
     # Preconditioner-grade operator for smoothing (bf16 weights; None on
-    # float64 levels and under PDE_TPU_BF16_SMOOTHER=0).  The V-cycle stays
+    # float64 levels and below BF16_MIN_DOF).  The V-cycle stays
     # a fixed symmetric operator built from w_lo at every level; only
     # mg_pcg's true residual needs the f32 weights.
     w_lo: Optional[object] = None
@@ -226,12 +225,6 @@ class _ShapeOnlyMesh:
 BF16_MIN_DOF = 65_536
 
 
-def bf16_smoother() -> bool:
-    """``PDE_TPU_BF16_SMOOTHER`` as the reference reads it: anything but
-    "0"/"off" smooths dense float32 levels with a bfloat16 weight copy."""
-    return os.environ.get("PDE_TPU_BF16_SMOOTHER", "1") not in ("0", "off")
-
-
 def _to_level(sysm: ScaledSystem, mesh, vdim: int, device,
               dtype=torch.float32, omega: Optional[float] = None,
               pairs: Optional[tuple] = None,
@@ -280,7 +273,7 @@ def _to_level(sysm: ScaledSystem, mesh, vdim: int, device,
         else:
             w = FlatStencilOperator(sysm.offsets, w_src,
                                     mesh.node_shape, vdim=vdim, device=device)
-            if bf16_smoother() and n_dof >= BF16_MIN_DOF:
+            if n_dof >= BF16_MIN_DOF:
                 w_lo = w.as_weight_dtype(torch.bfloat16)
     else:
         w = tuple(torch.tensor(W, dtype=dtype, device=device)

@@ -90,14 +90,14 @@ from pde_solver_tpu_torch.ops.bc import DirichletBC
 from pde_solver_tpu_torch.ops import device_loop
 from pde_solver_tpu_torch.ops.linsolve import (F32_TOL_FLOOR, STEP_BLOCK,
                                                _cg_program, _cg_unit_diag,
-                                               _routing,
-                                               _static_flat_op,
+                                               _mg_cache_key, _static_flat_op,
                                                _stencil_apply,
                                                np_stencil_apply,
                                                prepare_system)
 from pde_solver_tpu_torch.ops.stencil_kernels import (FlatStencilOperator,
                                                       kernel_wins)
 from pde_solver_tpu_torch.utils import observability as obs
+from pde_solver_tpu_torch.utils.kept import Kept
 from pde_solver_tpu_torch.utils.observability import get_logger
 
 
@@ -213,11 +213,16 @@ def _snapshot_every(cfg: SolverConfig, num_steps: int, snap_bytes: int) -> int:
 # operands' ``graphs`` store, and copies each call's values (Dirichlet
 # values and their lift, sources, the explicit operators, the driving and
 # its table) into the kept buffers, as ``device_loop.solve`` copies b and
-# x0.  θ scans and Newmark scans key apart, each an LRU of at most
-# ``_SCAN_CACHE_MAX`` entries; an evicted entry's graphs are released.
+# x0.  θ scans and Newmark scans key apart, each an LRU of two entries;
+# an entry that leaves releases its graphs and its hierarchy's.
 
-_SCAN_CACHE: Dict[str, Dict] = {"theta": {}, "newmark": {}}
-_SCAN_CACHE_MAX = 2
+def _release(entry) -> None:
+    """Free the graphs of a scan cache entry and of its hierarchy."""
+    device_loop.release(entry)
+    device_loop.release(getattr(entry, "h", None))
+
+
+_SCAN_CACHE = {"theta": Kept(2, _release), "newmark": Kept(2, _release)}
 
 
 def _scan_key(kind: str, mesh: StructuredMesh, vdim: int, prec: str, sysm,
@@ -226,45 +231,10 @@ def _scan_key(kind: str, mesh: StructuredMesh, vdim: int, prec: str, sysm,
     its content (``sysm.ckey`` when the system has one, else a hash of
     the scaled weights, free mask and scales), its shape and routing,
     and ``consts``, what else the step programs bake in."""
-    content = sysm.ckey
-    if content is None:
-        h = hashlib.blake2b(digest_size=16)
-        for a in list(sysm.weights) + [sysm.free, sysm.s, sysm.Ct,
-                                       sysm.CinvT]:
-            if a is not None:
-                h.update(np.ascontiguousarray(a))
-        content = h.hexdigest()
-    return (kind, tuple(mesh.node_shape), vdim, prec, sysm.offsets,
-            _routing(), str(device), content) + tuple(consts)
-
-
-def _scan_cache_get(kind: str, key):
-    entry = _SCAN_CACHE[kind].pop(key, None)
-    if entry is not None:
-        _SCAN_CACHE[kind][key] = entry  # LRU refresh
-    return entry
-
-
-def _scan_cache_put(kind: str, key, entry) -> None:
-    cache = _SCAN_CACHE[kind]
-    cache[key] = entry
-    while len(cache) > _SCAN_CACHE_MAX:
-        _release(cache.pop(next(iter(cache))))
-
-
-def _release(entry) -> None:
-    """Free the graphs of a scan cache entry and of its hierarchy."""
-    device_loop.release(entry)
-    if getattr(entry, "h", None) is not None:
-        device_loop.release(entry.h)
-
-
-def clear_scan_cache() -> None:
-    """Empty the scan cache, releasing every entry's graphs (a cold call
-    follows)."""
-    for cache in _SCAN_CACHE.values():
-        while cache:
-            _release(cache.pop(next(iter(cache))))
+    arrays = [a for a in list(sysm.weights) + [sysm.free, sysm.s, sysm.Ct,
+                                               sysm.CinvT] if a is not None]
+    return ((kind,) + _mg_cache_key(mesh, vdim, prec, sysm, device, arrays)
+            + tuple(consts))
 
 
 def _copy_into(dst, src) -> None:
@@ -285,10 +255,10 @@ def _kept(kind: str, key, values: Dict, build):
     """The cached entry of ``key`` with this call's ``values`` copied into
     its buffers, or ``build(values)`` stored under ``key``.  Returns
     (entry, whether it was kept)."""
-    entry = _scan_cache_get(kind, key)
+    entry = _SCAN_CACHE[kind].get(key)
     if entry is None:
         entry = build(values)
-        _scan_cache_put(kind, key, entry)
+        _SCAN_CACHE[kind].put(key, entry)
         return entry, False
     for name, v in values.items():
         _copy_into(getattr(entry, name), v)

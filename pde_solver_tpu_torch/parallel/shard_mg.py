@@ -43,6 +43,7 @@ from pde_solver_tpu_torch.parallel.shard import (ShardMesh, Sharded,
                                                  _true_relres, _where,
                                                  gather, local_stencil_apply,
                                                  pdot, shard)
+from pde_solver_tpu_torch.utils.kept import Kept
 
 
 def _pad_rows(t: torch.Tensor, rows: int) -> torch.Tensor:
@@ -239,8 +240,7 @@ class ShardedMGSolver:
 # linsolve-facing helpers
 # ----------------------------------------------------------------------
 
-_SOLVER_CACHE: dict = {}
-_SOLVER_CACHE_MAX = 4
+_SOLVER_CACHE = Kept(4, lambda entry: device_loop.release(entry[1]))
 
 
 def shard_hierarchy(h: mg.MGHierarchy, mesh_dev: ShardMesh,
@@ -261,10 +261,7 @@ def shard_hierarchy(h: mg.MGHierarchy, mesh_dev: ShardMesh,
         if key is not None or cached_h is h:
             return solver
     solver = ShardedMGSolver(h, mesh_dev)
-    _SOLVER_CACHE[cache_key] = (h, solver)
-    while len(_SOLVER_CACHE) > _SOLVER_CACHE_MAX:
-        # its captured solve loop goes with it
-        device_loop.release(_SOLVER_CACHE.pop(next(iter(_SOLVER_CACHE)))[1])
+    _SOLVER_CACHE.put(cache_key, (h, solver))
     return solver
 
 

@@ -22,6 +22,7 @@ from pde_solver_tpu_torch.ops import stencil_kernels as sk
 from pde_solver_tpu_torch.ops.bc import DirichletBC
 from pde_solver_tpu_torch.ops.timestepping import run_newmark, run_transient
 from pde_solver_tpu_torch.config import config_overrides
+from pde_solver_tpu_torch.utils import kept
 
 pytestmark = pytest.mark.cuda
 
@@ -42,9 +43,7 @@ def card():
 def _cold_scans():
     """Each scan here starts cold: the scan cache (``timestepping.
     _SCAN_CACHE``) is emptied first."""
-    from pde_solver_tpu_torch.ops import timestepping
-
-    timestepping.clear_scan_cache()
+    kept.clear_all()
 
 
 def _cantilever(cells=(16, 8, 8)):
@@ -239,28 +238,24 @@ def test_graphs_are_freed_on_cache_eviction(card):
     loop = next(iter(h.graphs._entries.values()))
     graph = weakref.ref(loop.first)
     del loop
-    saved = dict(linsolve._MG_CACHE)
     linsolve._MG_CACHE.clear()
     try:
         linsolve._mg_cache_put("h", h, None)
-        for i in range(linsolve._MG_CACHE_MAX):
+        for i in range(linsolve._MG_CACHE.size):
             linsolve._mg_cache_put(i, h._replace(graphs=None), None)
-        assert "h" not in linsolve._MG_CACHE
+        assert "h" not in linsolve._MG_CACHE.keys()
         assert len(h.graphs) == 0
         gc.collect()
         assert graph() is None
     finally:
         linsolve._MG_CACHE.clear()
-        linsolve._MG_CACHE.update(saved)
 
 
 def _heat_scan(num_steps, mg_builder=True, per_step=False):
     """run_transient on a 40×6×6 heat box through the step program (or the
     per-step path), from a cold scan cache; returns (result, launches by
     variant)."""
-    from pde_solver_tpu_torch.ops import timestepping
-
-    timestepping.clear_scan_cache()
+    kept.clear_all()
     mesh = box_mesh(40, 6, 6, (0, 0, 0), (1.0, 0.2, 0.2))
     K = assembly.assemble_scalar_stencil(mesh, "stiffness")
     M = assembly.assemble_scalar_stencil(mesh, "mass")

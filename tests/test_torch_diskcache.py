@@ -26,7 +26,7 @@ from pde_solver_tpu_torch.ops import multigrid as mg
 from pde_solver_tpu_torch.ops import stencil_kernels as sk
 from pde_solver_tpu_torch.ops.bc import DirichletBC
 from pde_solver_tpu_torch.ops.linsolve import prepare_system
-from pde_solver_tpu_torch.utils import diskcache
+from pde_solver_tpu_torch.utils import diskcache, kept
 from pde_solver_tpu_torch.utils.observability import get_logger
 
 LAM, MU = 1.2115384615384616e11, 8.076923076923077e10  # E=210e9, ν=0.3
@@ -38,14 +38,11 @@ def cache_dir(tmp_path, monkeypatch):
     monkeypatch.setenv("PDE_TPU_CACHE_DIR", str(tmp_path))
     monkeypatch.setenv("PDE_TPU_DISK_CACHE", "1")
     monkeypatch.delenv("PDE_TPU_CS", raising=False)
-    monkeypatch.delenv("PDE_TPU_BF16_SMOOTHER", raising=False)
-    for cache in (linsolve._PREP_CACHE, linsolve._MG_CACHE,
-                  linsolve._FLAT_OP_CACHE, ref_linsolve._PREP_CACHE):
-        cache.clear()
+    kept.clear_all()
+    ref_linsolve._PREP_CACHE.clear()
     yield tmp_path
-    for cache in (linsolve._PREP_CACHE, linsolve._MG_CACHE,
-                  linsolve._FLAT_OP_CACHE, ref_linsolve._PREP_CACHE):
-        cache.clear()
+    kept.clear_all()
+    ref_linsolve._PREP_CACHE.clear()
 
 
 @pytest.fixture()

@@ -20,7 +20,8 @@ import pytest
 
 from pde_solver_tpu_torch import api, config
 from pde_solver_tpu_torch.fields import load_field
-from pde_solver_tpu_torch.ops import device_loop, timestepping
+from pde_solver_tpu_torch.ops import device_loop
+from pde_solver_tpu_torch.utils import kept
 from portbench.reference import heat_theta
 
 STEPS = 40
@@ -31,9 +32,9 @@ GAP = 1e-4
 
 @pytest.fixture(autouse=True)
 def _cold_scans():
-    timestepping.clear_scan_cache()
+    kept.clear_all()
     yield
-    timestepping.clear_scan_cache()
+    kept.clear_all()
 
 
 def _record_steps(monkeypatch):

@@ -18,6 +18,7 @@ from pde_solver_tpu_torch.ops import assembly as port_asm
 from pde_solver_tpu_torch.ops import bc as port_bc
 from pde_solver_tpu_torch.ops import linsolve as port_ls
 from pde_solver_tpu_torch.ops import surface, timestepping
+from pde_solver_tpu_torch.utils import kept
 from pde_solver_tpu_torch.utils import observability as obs
 
 MESHES = {
@@ -188,7 +189,7 @@ def test_class_grid_keeps_the_prep_content_key(monkeypatch, form):
 @pytest.fixture()
 def states(monkeypatch):
     """An empty memo of stencil hash states for the test."""
-    memo = {}
+    memo = kept.Kept(port_ls._STENCIL_STATES.size)
     monkeypatch.setattr(port_ls, "_STENCIL_STATES", memo)
     return memo
 
@@ -212,10 +213,10 @@ def _keyed(stencil, free, mesh, vdim):
 
 
 def _full_key(stencil, free, mesh, vdim):
-    """The prep key hashed from the full arrays: the port's ``_digest``
-    and the JAX package's key, which must agree."""
+    """The prep key hashed from the full arrays: the port's
+    ``kept.digest`` and the JAX package's key, which must agree."""
     plain = {off: np.array(W) for off, W in stencil.items()}
-    digest = port_ls._digest([plain[off] for off in sorted(plain)] + [free])
+    digest = kept.digest([plain[off] for off in sorted(plain)] + [free])
     ref = ref_ls._prep_cache_key(plain, free, mesh.node_shape, vdim)
     assert ref[3] == digest
     return ref
@@ -305,17 +306,17 @@ def test_expanded_arrays_are_read_only(form):
 
 def test_stencil_memo_stays_within_its_bound(states):
     meshes = [port_mesh.StructuredMesh((n,), (0.0,), (1.0 + 0.1 * n,))
-              for n in range(3, 3 + port_ls._STENCIL_STATES_MAX + 4)]
+              for n in range(3, 3 + states.size + 4)]
     for mesh in meshes:
         _keyed(FORMS["stiffness"](mesh), np.ones(mesh.node_shape), mesh, 1)
-        assert len(states) <= port_ls._STENCIL_STATES_MAX
-    assert len(states) == port_ls._STENCIL_STATES_MAX
+        assert len(states) <= states.size
+    assert len(states) == states.size
     newest, oldest = meshes[-1], meshes[0]
     assert _keyed(FORMS["stiffness"](newest), np.ones(newest.node_shape),
                   newest, 1)[2] == 1
     assert _keyed(FORMS["stiffness"](oldest), np.ones(oldest.node_shape),
                   oldest, 1)[2] == 0
-    assert len(states) == port_ls._STENCIL_STATES_MAX
+    assert len(states) == states.size
 
 
 @pytest.mark.parametrize("name", ["line7", "rect9x4", "box9x4x5"])

@@ -40,6 +40,7 @@ from pde_solver_tpu_torch.ops import multigrid as mg
 from pde_solver_tpu_torch.ops import stencil_kernels as sk
 from pde_solver_tpu_torch.ops import timestepping
 from pde_solver_tpu_torch.ops.bc import DirichletBC
+from pde_solver_tpu_torch.utils.kept import Kept
 from torch_stats import same_keys
 
 TOOLS = ("solve_heat_1D_mixed", "solve_heat_2D_mixed", "solve_heat_3D_mixed",
@@ -408,11 +409,12 @@ def test_nonlinear_prepare_cache_is_bounded_and_never_stale(monkeypatch,
             return heat.solve_heat_nonlinear(p, 1.0, 0.02)
 
     _, v_plain, info = solve()
-    assert info["picard_iterations"] > linsolve._PREP_CACHE_MAX
+    assert info["picard_iterations"] > linsolve._PREP_CACHE.size
     monkeypatch.setattr(linsolve, "_PREP_CACHE_MIN_DOF", 0)
-    monkeypatch.setattr(linsolve, "_PREP_CACHE", {})
+    monkeypatch.setattr(linsolve, "_PREP_CACHE",
+                        Kept(linsolve._PREP_CACHE.size))
     _, v_cached, info_c = solve()
-    assert 0 < len(linsolve._PREP_CACHE) <= linsolve._PREP_CACHE_MAX
+    assert 0 < len(linsolve._PREP_CACHE) <= linsolve._PREP_CACHE.size
     assert np.array_equal(v_cached, v_plain)
     assert info_c["picard_iterations"] == info["picard_iterations"]
 

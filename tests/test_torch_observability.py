@@ -21,6 +21,7 @@ from pde_solver_tpu_torch.ops import (assembly, device_loop, linsolve,
                                       timestepping)
 from pde_solver_tpu_torch.ops.bc import DirichletBC, all_boundary
 from pde_solver_tpu_torch.ops import stencil_kernels as sk
+from pde_solver_tpu_torch.utils import kept
 from pde_solver_tpu_torch.utils import observability as obs
 from pde_solver_tpu_torch.utils.observability import get_logger
 
@@ -40,9 +41,7 @@ PHASES = ("assembly", "solve", "postprocess")
 
 
 def _clear_caches():
-    for cache in (linsolve._PREP_CACHE, linsolve._MG_CACHE,
-                  linsolve._FLAT_OP_CACHE, linsolve._STENCIL_STATES):
-        cache.clear()
+    kept.clear_all()
 
 
 @pytest.fixture()
@@ -214,7 +213,7 @@ def test_a_scan_reports_its_spans_seconds(tmp_path, kind, checkpoint):
     seconds are the request's, and a checkpointed scan's file I/O has its
     own."""
     mesh, K, M, bc, b, u0 = _heat_problem()
-    timestepping.clear_scan_cache()
+    kept.clear_all()
     with config_overrides(device="cpu", transient_checkpoint_every=checkpoint,
                           checkpoint_dir=str(tmp_path)):
         with obs.request() as stats:
@@ -224,7 +223,7 @@ def test_a_scan_reports_its_spans_seconds(tmp_path, kind, checkpoint):
             else:
                 res = timestepping.run_newmark(K, M, mesh, bc, b, u0,
                                                np.zeros_like(u0), 0.01, 10)
-    timestepping.clear_scan_cache()
+    kept.clear_all()
     for key in ("setup", "scan", "fetch"):
         assert stats[key + "_seconds"] == pytest.approx(
             getattr(res, key + "_seconds"), rel=1e-12, abs=1e-12), key
@@ -339,6 +338,8 @@ def test_memo_cold_and_warm_solves_are_bit_equal(small_keys, monkeypatch):
     monkeypatch.setattr(linsolve, "prepare_system", spy_prepare)
     values, reuses = [], []
     for _ in range(2):
+        # every kept cache but the stencil hash states, which the second
+        # request reuses
         for cache in (linsolve._PREP_CACHE, linsolve._MG_CACHE,
                       linsolve._FLAT_OP_CACHE):
             cache.clear()

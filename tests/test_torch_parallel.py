@@ -42,6 +42,7 @@ from pde_solver_tpu_torch.ops import timestepping
 from pde_solver_tpu_torch.ops.bc import DirichletBC, all_boundary
 from pde_solver_tpu_torch.parallel import shard as psh
 from pde_solver_tpu_torch.parallel import shard_mg
+from pde_solver_tpu_torch.utils import kept
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 F64 = 1e-9
@@ -223,8 +224,7 @@ def test_sharded_mg_composes_above_threshold(cpu8, prec, tol, closed,
     if tol is not None:
         kw["tol"] = tol
     m, K, bc, builder = _mg_box(box_mesh, assembly, DirichletBC)
-    linsolve._MG_CACHE.clear()
-    shard_mg._SOLVER_CACHE.clear()
+    kept.clear_all()
     with config.config_overrides(**kw):
         x, st = linsolve.solve_stencil_system(K, m, bc, np.zeros(m.node_shape),
                                               mg_level_builder=builder)
@@ -240,8 +240,7 @@ def test_sharded_mg_composes_above_threshold(cpu8, prec, tol, closed,
             rK, rm, rbc, np.zeros(rm.node_shape), mg_level_builder=rbuilder)
     assert int(st.iterations) == int(st_ref.iterations)
     assert _gap(x, x_ref) <= parity
-    linsolve._MG_CACHE.clear()
-    shard_mg._SOLVER_CACHE.clear()
+    kept.clear_all()
 
 
 def test_shard_hierarchy_cache_never_aliases_stale_solver(cpu8):

@@ -1,9 +1,9 @@
 """The precision scheme of the port against the JAX package: the float64
 and float32 branches of the static solve, ``solve_mg`` on float64
 hierarchies, float64 transient, advection, wave and Newmark scans,
-``set_config`` and the new configuration fields, and the
-bf16-smoother switch; then the cases of the JAX package's
-``test_core_fem.py``, ``test_mixed_precision.py``, ``test_multigrid.py``,
+``set_config`` and the new configuration fields; then the cases of the
+JAX package's ``test_core_fem.py``, ``test_mixed_precision.py``,
+``test_multigrid.py``,
 ``test_thermal.py``, ``test_models.py``, ``test_traction.py``,
 ``test_elasticity.py`` and ``test_convergence.py`` that solve, run through
 the port at the JAX package's precision (the CPU's "auto", float64, unless
@@ -473,40 +473,6 @@ def test_mixed_step_body_is_reached_by_no_run_transient_precision(
 
 
 # ----------------------------------------------------------------------
-# The bf16-smoother switch
-# ----------------------------------------------------------------------
-
-def test_bf16_smoother_switch(monkeypatch, tmp_path):
-    """``PDE_TPU_BF16_SMOOTHER=0``: dense float32 levels smooth with their
-    float32 operator (no bf16 copy), the hierarchy takes its own cache
-    entry, and the answer stays within 1e-6 of the bf16-smoothed one.  The
-    16×8×8 levels lie under the bf16 copy's size gate, lowered here."""
-    monkeypatch.setattr(mg, "BF16_MIN_DOF", 0)
-    kw = dict(E=210e9, nu=0.3, nx=16, ny=8, nz=8, **BEAM)
-    mixed = dict(precision="mixed", **DEVICE_PATH)
-    linsolve._MG_CACHE.clear()
-    fields = {}
-    for switch in ("1", "0"):
-        monkeypatch.setenv("PDE_TPU_BF16_SMOOTHER", switch)
-        with config.config_overrides(**mixed):
-            r = api.solve_elasticity_3D_static(
-                **kw, data_dir=str(tmp_path / switch))
-        assert r.meta["solver_stats"]["converged"]
-        fields[switch] = load_field(r.data_file).values_array()
-        (h, _), = [e for key, e in linsolve._MG_CACHE.items()
-                   if key[4][1] == (switch == "1")]
-        for lv in h.levels:
-            if switch == "1":
-                assert lv.w_lo.W.dtype == torch.bfloat16
-            else:
-                assert lv.w_lo is None and lv.w_smooth is lv.weights
-                assert lv.weights.W.dtype == torch.float32
-    assert len(linsolve._MG_CACHE) == 2
-    linsolve._MG_CACHE.clear()
-    assert _gap(fields["0"], fields["1"]) <= 1e-6
-
-
-# ----------------------------------------------------------------------
 # The service layer with PDE_TPU_DEVICE=cpu alone
 # ----------------------------------------------------------------------
 
@@ -690,7 +656,7 @@ def test_f64_mg_cache_hits_and_stays_correct():
     assert len(linsolve._MG_CACHE) == 2
     np.testing.assert_allclose(v_k, v100, rtol=0, atol=1e-9 * 100)
     v_mixed = solve(100.0, 2.0, "mixed")
-    precs = sorted(key[2] for key in linsolve._MG_CACHE)
+    precs = sorted(key[2] for key in linsolve._MG_CACHE.keys())
     assert precs == ["f64", "mixed"]
     assert _gap(v_mixed, v_k) <= 1e-6
     linsolve._MG_CACHE.clear()

@@ -116,18 +116,16 @@ def test_resync_iteration_count_is_float32_summation_order(case):
                                                             ref_counts)
 
 
-@pytest.mark.parametrize("switch", ["1", "0"])
-def test_bf16_copy_only_from_the_gate(switch, monkeypatch):
+def test_bf16_copy_only_from_the_gate():
     """A dense hierarchy straddling 65,536 DOF (65×33×33 = 70,785 nodes,
-    then 9,537 and below): the bf16 smoother copy on the fine level only,
-    and on none under ``PDE_TPU_BF16_SMOOTHER=0``; every level keeps the
-    flat operator with float32 weights."""
+    then 9,537 and below): the bf16 smoother copy on the fine level only;
+    every level keeps the flat operator with float32 weights, and the
+    levels under the gate smooth with it."""
     from pde_solver_tpu.mesh import box_mesh
     from pde_solver_tpu.ops import assembly
     from pde_solver_tpu.ops.bc import DirichletBC
     from pde_solver_tpu.ops.linsolve import prepare_system
 
-    monkeypatch.setenv("PDE_TPU_BF16_SMOOTHER", switch)
     mesh = box_mesh(64, 32, 32, (0, 0, 0), (2.0, 1.0, 1.0))
 
     def builder(mc):
@@ -145,7 +143,7 @@ def test_bf16_copy_only_from_the_gate(switch, monkeypatch):
     for i, lv in enumerate(h.levels):
         assert isinstance(lv.weights, sk.FlatStencilOperator)
         assert lv.weights.W.dtype == torch.float32
-        if i == 0 and switch == "1":
+        if i == 0:
             assert lv.w_lo.W.dtype == torch.bfloat16
         else:
             assert lv.w_lo is None and lv.w_smooth is lv.weights

@@ -27,6 +27,7 @@ from pde_solver_tpu_torch import config
 from pde_solver_tpu_torch.mesh import box_mesh
 from pde_solver_tpu_torch.ops import assembly, device_loop, timestepping
 from pde_solver_tpu_torch.ops.bc import DirichletBC
+from pde_solver_tpu_torch.utils import kept
 from test_torch_newmark_modal import _newmark_operands
 
 STEPS = 20                    # one chunk of 16 and one of 4 after the first
@@ -38,9 +39,9 @@ NEWMARK_TOL = 2e-5            # package (elasticity blocks: 2e-5)
 
 @pytest.fixture(autouse=True)
 def _cold_scans():
-    timestepping.clear_scan_cache()
+    kept.clear_all()
     yield
-    timestepping.clear_scan_cache()
+    kept.clear_all()
 
 
 def _gap(v, v_ref):
@@ -125,7 +126,7 @@ def _follow_up(first, follow, cfg, monkeypatch, reads="scan"):
     # no first step on its own: one read a chunk of SCAN_CHUNK steps
     assert device_loop.HOST_READS.get(reads, 0) == len(
         device_loop.scan_chunks(STEPS))
-    timestepping.clear_scan_cache()
+    kept.clear_all()
     cold = follow("port", cfg)
     assert not cold.scan_kept and cold.scan_programs_built >= 1
     assert res.total_cg_iterations == cold.total_cg_iterations > 0
@@ -205,7 +206,7 @@ def test_first_step_near_the_cap_starts_its_trajectory_at_the_cap(
     assert cap - block < seen[0] <= cap < seen[0] + block
     assert budgets == [cap] and res1.scan_stepwise_chunks == 1
     assert res1.scan_reruns == 0
-    timestepping.clear_scan_cache()
+    kept.clear_all()
     _follow_up(first, follow, cfg, monkeypatch)
 
 
@@ -228,12 +229,12 @@ def test_changed_operator_misses_and_third_evicts_the_first(monkeypatch):
         assert not res.scan_kept and res.scan_programs_built >= 1
         entries.append(list(timestepping._SCAN_CACHE["theta"].values())[-1])
     theta = timestepping._SCAN_CACHE["theta"]
-    assert len(theta) == timestepping._SCAN_CACHE_MAX == 2
+    assert len(theta) == theta.size == 2
     first, second, third = entries
     assert all(e is not first for e in theta.values())
     assert len(first.graphs) == 0 and len(first.h.graphs) == 0
-    for kept in (second, third):
-        assert len(kept.graphs) > 0
+    for entry in (second, third):
+        assert len(entry.graphs) > 0
     # the least recent is the one a repeat brings back to the front
     assert _heat(8, dt=0.003)("port", cfg).scan_kept
     _heat(8, dt=0.005)("port", cfg)
@@ -253,7 +254,7 @@ def test_checkpointed_follow_up_keeps_its_programs(tmp_path, monkeypatch):
     budgets = _record_programs(monkeypatch)
     res = follow("port", ck)
     assert res.scan_kept and budgets == [] and res.scan_stepwise_chunks == 0
-    timestepping.clear_scan_cache()
+    kept.clear_all()
     cold = follow("port", ck)
     assert np.array_equal(res.values, cold.values)
     assert res.total_cg_iterations == cold.total_cg_iterations

@@ -26,6 +26,7 @@ from pde_solver_tpu_torch import config
 from pde_solver_tpu_torch.mesh import box_mesh
 from pde_solver_tpu_torch.ops import assembly, device_loop, timestepping
 from pde_solver_tpu_torch.ops.bc import DirichletBC
+from pde_solver_tpu_torch.utils import kept
 from test_torch_newmark_modal import _newmark_operands
 
 STEPS = 20                    # two chunks: 16 + 4
@@ -42,7 +43,7 @@ def _cold_scans():
     step programs kept across calls, ``timestepping._SCAN_CACHE``) is
     emptied first; ``tests/test_torch_scan_cache.py`` holds the kept
     programs."""
-    timestepping.clear_scan_cache()
+    kept.clear_all()
 
 
 def _gap(v, v_ref):

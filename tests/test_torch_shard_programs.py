@@ -28,6 +28,7 @@ from pde_solver_tpu_torch.ops import multigrid as mg
 from pde_solver_tpu_torch.ops.bc import DirichletBC
 from pde_solver_tpu_torch.parallel import shard as psh
 from pde_solver_tpu_torch.parallel import shard_mg
+from pde_solver_tpu_torch.utils import kept
 from pde_solver_tpu_torch.utils.observability import get_logger
 
 
@@ -35,10 +36,10 @@ from pde_solver_tpu_torch.utils.observability import get_logger
 def cpu8(monkeypatch):
     """The port on the CPU over 8 virtual shard devices, scans cold."""
     monkeypatch.setenv("PDE_TPU_VIRTUAL_DEVICES", "8")
-    timestepping.clear_scan_cache()
+    kept.clear_all()
     with config.config_overrides(device="cpu"):
         yield
-    timestepping.clear_scan_cache()
+    kept.clear_all()
 
 
 def _host_pcg(apply_A, b, inv_diag, tol, maxiter, x0):
@@ -268,7 +269,7 @@ def test_sharded_scan_programs_match_per_step(cpu8, vdim):
     run = _transient(vdim, steps)
 
     def cold(ctx=None):
-        timestepping.clear_scan_cache()
+        kept.clear_all()
         device_loop.HOST_READS.clear()
         if ctx is None:
             res = run()
