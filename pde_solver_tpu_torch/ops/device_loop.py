@@ -384,7 +384,8 @@ def status_of(active: torch.Tensor, k: torch.Tensor,
 # its prologue and a fixed ``budget`` of masked iterations: a step that
 # converges within it gives the per-step solve's answer bit for bit, since
 # a finished state passes masked iterations unchanged.  The budget is the
-# worst step of the chunk before, rounded up to whole ``STEP_BLOCK`` s.  A
+# smallest of ``STEP_BUDGETS`` above the worst step of the chunk before
+# (one iteration to spare; :func:`step_budget`), at most the cap.  A
 # chunk with no budget runs step by step through the per-step solves (one
 # read a block, the same kernels on the same device, the same answer):
 # a scan's first step when its programs have not learned where a
@@ -397,22 +398,24 @@ def status_of(active: torch.Tensor, k: torch.Tensor,
 # starts from, learned from the first step that was solved on its own with
 # one block to spare where the cap leaves room (a later trajectory's data
 # may make its first steps harder) and run by the chunk after that step.
-# The trajectory that learns them captures a budget when it is wanted and
-# no wider program is kept, or wanted again (a budget's first want runs on
-# the smallest wider program kept); once a trajectory has run
-# (``settled``) a chunk runs on the smallest program at or above its
-# budget and captures only past the widest.  An owner kept across calls (a
-# scan's operands in ``timestepping``'s cache) therefore runs a later
-# trajectory on the programs the first one captured.
+# The trajectory that learns them captures each budget it wants; once a
+# trajectory has run (``settled``) a chunk runs on the smallest program at
+# or above its budget and captures only past the widest.  An owner kept
+# across calls (a scan's operands in ``timestepping``'s cache) therefore
+# runs a later trajectory on the programs the first one captured.
 
 SCAN_CHUNK = 16
 STEP_BLOCK = 8
+# The budgets a step program may have: a short ladder, so that a chunk
+# runs close to what its steps take (a warm-started heat step takes 1–2
+# iterations) and a scan captures at most ten programs.
+STEP_BUDGETS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32)
 # The most masked iterations a step program gives its step solve.  Steps
 # that need more (the first steps of a rod heated from one end take ~250,
 # a 1D thermal wave's 51, a step capped at maxiter thousands) are solved
 # step by step: a program's capture grows with its budget, and a program
 # whose steps outrun it runs every chunk twice.
-STEP_BUDGET_MAX = 4 * STEP_BLOCK
+STEP_BUDGET_MAX = STEP_BUDGETS[-1]
 
 
 class ScanTally(NamedTuple):
@@ -534,12 +537,29 @@ def run_steps(step: Callable, per_step, carry, step0: int, num_steps: int,
     return carry, iters, res, kmax
 
 
+def _on_ladder(k: int, spare: int) -> Optional[int]:
+    """The smallest of ``STEP_BUDGETS`` at or above ``k + spare``, at most
+    ``STEP_BUDGET_MAX``; None past it."""
+    if k > STEP_BUDGET_MAX:
+        return None
+    return min(b for b in STEP_BUDGETS
+               if b >= min(k + spare, STEP_BUDGET_MAX))
+
+
 def step_budget(k) -> Optional[int]:
-    """The budget after a chunk whose worst step took ``k`` iterations:
-    ``k`` rounded up to whole ``STEP_BLOCK`` s, at least one block; None
-    (the next chunk step by step) past ``STEP_BUDGET_MAX``."""
-    budget = max(1, -(-int(k) // STEP_BLOCK)) * STEP_BLOCK
-    return budget if budget <= STEP_BUDGET_MAX else None
+    """The budget after a chunk whose worst step took ``k`` iterations: the
+    smallest of ``STEP_BUDGETS`` above ``k`` (one iteration to spare), at
+    most ``STEP_BUDGET_MAX``; None (the next chunk step by step) past
+    it."""
+    return _on_ladder(int(k), 1)
+
+
+def first_budget(k) -> Optional[int]:
+    """The budget a trajectory's first chunk starts from after a first step
+    of ``k`` iterations: the smallest of ``STEP_BUDGETS`` at or above ``k +
+    STEP_BLOCK`` (a later trajectory's data may make its first steps
+    harder), at most ``STEP_BUDGET_MAX``; None past it."""
+    return _on_ladder(int(k), STEP_BLOCK)
 
 
 def scan_chunks(num_steps: int, first: bool = False) -> list:
@@ -554,36 +574,30 @@ def scan_chunks(num_steps: int, first: bool = False) -> list:
 
 class ScanPrograms:
     """The step programs of one scan in its store: a :class:`StepLoop` a
-    budget (at most ``STEP_BUDGET_MAX // STEP_BLOCK``), the budgets wanted
-    so far, the budget a trajectory's first chunk starts from (None until
-    a first step solved on its own has set it), the budget the last chunk
-    left for the next (None: step by step), and whether a trajectory has
-    run to its end on them (``settled``)."""
+    budget (at most one a rung of ``STEP_BUDGETS``), the budget a
+    trajectory's first chunk starts from (None until a first step solved
+    on its own has set it), the budget the last chunk left for the next
+    (None: step by step), and whether a trajectory has run to its end on
+    them (``settled``)."""
 
     def __init__(self):
         self.loops: Dict[int, StepLoop] = {}
-        self.wanted: set = set()
         self.first: Optional[int] = None
         self.next: Optional[int] = None
         self.settled = False
 
     def loop_for(self, budget: int) -> Optional[StepLoop]:
-        """The program a chunk that wants ``budget`` runs: its own; else
-        the smallest wider one kept, on the budget's first want or once
-        the programs are settled (any budget at or above a step's count
-        gives its answer, and a capture costs about as much as a chunk of
-        masked iterations past convergence); else None (capture it).  So
-        the trajectory that learns the programs captures the budgets its
-        steps keep wanting, and a later one captures only a budget wider
+        """The program a chunk that wants ``budget`` runs: its own; else,
+        once the programs are settled, the smallest wider one kept (any
+        budget at or above a step's count gives its answer); else None
+        (capture it).  So the trajectory that learns the programs captures
+        each budget its steps want (a capture costs less than a chunk run
+        a rung or more wide), and a later one captures only a budget wider
         than every program kept."""
-        wider = [b for b in self.loops if b > budget]
-        first_want = budget not in self.wanted
-        self.wanted.add(budget)
         if budget in self.loops:
             return self.loops[budget]
-        if wider and (first_want or self.settled):
-            return self.loops[min(wider)]
-        return None
+        wider = [b for b in self.loops if b > budget]
+        return self.loops[min(wider)] if wider and self.settled else None
 
 
 def run_scan(store: GraphStore, key, step: Callable, program, per_step,
@@ -620,14 +634,13 @@ def run_scan(store: GraphStore, key, step: Callable, program, per_step,
             carry, k, r, kmax = run_steps(step, per_step, carry, step0, m,
                                           keep, done)
             tally = tally.plus(ScanTally(k, r, stepwise=1))
+            nxt = step_budget(kmax)
             if start and done == 0 and m == 1:
                 # a later trajectory's first steps take more or fewer
                 # iterations than this one's as its data differ: it starts
                 # one block above, within the cap, on the program the next
                 # chunk captures; past the cap, step by step
-                progs.first = step_budget(kmax) and (
-                    step_budget(kmax + STEP_BLOCK) or STEP_BUDGET_MAX)
-                kmax = progs.first or kmax
+                nxt = progs.first = first_budget(kmax)
         else:
             loop = progs.loop_for(budget)
             if loop is None:
@@ -649,8 +662,9 @@ def run_scan(store: GraphStore, key, step: Callable, program, per_step,
                 carry = tuple(t.clone() for t in loop.carry)
             tally = tally.plus(ScanTally(int(k), r, int(over > 0),
                                          past=past))
+            nxt = step_budget(kmax)
         done += m
         # past the cap the next chunk runs step by step, with no program
-        budget = progs.next = step_budget(kmax)
+        budget = progs.next = nxt
     progs.settled = progs.settled or start
     return carry, tally

@@ -16,20 +16,21 @@ by plain CG on the flat operator (dense, or constant-interior with
 budget of masked iterations and the carry update, captured once on the
 card and replayed once a step with no read.  A trajectory's first step is
 solved on its own (a device loop with a read a block) and sets the budget,
-one block above its count, unless the scan's programs learned it in an
-earlier call; the host reads the iterations, the worst relres and an
-overflow count once every ``SCAN_CHUNK`` steps after it, and sets the
-budget for the next chunk from the worst step read
-(``device_loop.step_budget``); a chunk after one whose worst step passed
-the cap runs step by step.  A chunk in which a step
-outran the budget runs again step by step from the carry it started with
-and is counted as a rerun.  The operands, the hierarchy and the step
-programs (one a budget, in the operands' ``graphs`` store) are kept across
-calls in ``_SCAN_CACHE``, keyed by the operator's content, as ``jax.jit``
-keeps the JAX package's compiled scans: a follow-up with the same operator
-copies its values into the kept buffers and replays the kept programs,
-capturing only a budget wider than any kept.  The kept frames are copied
-on the device after their step and come back to the host once, whole.
+the rung of ``device_loop.STEP_BUDGETS`` one block above its count, unless
+the scan's programs learned it in an earlier call; the host reads the
+iterations, the worst relres and an overflow count once every
+``SCAN_CHUNK`` steps after it, and sets the budget for the next chunk at
+the rung above the worst step read (``device_loop.step_budget``); a chunk
+after one whose worst step passed the cap runs step by step.  A chunk in
+which a step outran the budget runs again step by step from the carry it
+started with and is counted as a rerun.  The operands, the hierarchy and
+the step programs (one a budget, in the operands' ``graphs`` store) are
+kept across calls in ``_SCAN_CACHE``, keyed by the operator's content, as
+``jax.jit`` keeps the JAX package's compiled scans: a follow-up with the
+same operator copies its values into the kept buffers and replays the
+kept programs, capturing only a budget wider than any kept.  The kept
+frames are copied on the device after their step and come back to the
+host once, whole.
 
 Like the reference, "mixed" precision runs the scan in float32 (implicit
 stepping is contractive and every step is solved to

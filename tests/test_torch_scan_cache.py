@@ -204,7 +204,8 @@ def test_first_step_near_the_cap_starts_its_trajectory_at_the_cap(
         budgets = _record_programs(m)
         res1 = first("port", cfg)
     assert cap - block < seen[0] <= cap < seen[0] + block
-    assert budgets == [cap] and res1.scan_stepwise_chunks == 1
+    assert budgets == [device_loop.first_budget(seen[0])] == [cap]
+    assert res1.scan_stepwise_chunks == 1
     assert res1.scan_reruns == 0
     kept.clear_all()
     _follow_up(first, follow, cfg, monkeypatch)
@@ -287,16 +288,19 @@ def test_sharded_follow_up_keeps_its_programs(scan, monkeypatch):
 
 
 def test_a_budget_first_wanted_runs_on_a_wider_kept_program():
-    """A chunk whose budget has no program of its own runs, the first time
-    that budget is wanted, on the smallest wider program kept (its answer
-    is the same: any budget at or above a step's count gives it), and
-    captures its own program when wanted again or when none is wider."""
+    """A chunk whose budget has no program of its own: in the trajectory
+    that learns the programs it is captured, the first time that budget is
+    wanted (a capture costs less than a chunk run a rung or more wide);
+    once a trajectory has run (``settled``) it runs on the smallest wider
+    program kept (its answer is the same: any budget at or above a step's
+    count gives it), and captures only when none is wider."""
     progs = device_loop.ScanPrograms()
     wide, wider = object(), object()
     progs.loops = {16: wide, 32: wider}
-    assert progs.loop_for(8) is wide          # first want: the smallest wider
-    assert progs.loop_for(8) is None          # wanted again: capture it
+    assert progs.loop_for(8) is None          # learning: capture it
     assert progs.loop_for(16) is wide and progs.loop_for(32) is wider
+    progs.settled = True
+    assert progs.loop_for(8) is wide          # settled: the smallest wider
     assert progs.loop_for(24) is wider
     progs.loops = {8: wide}
     assert progs.loop_for(24) is None         # none wider: capture it

@@ -219,9 +219,11 @@ def test_cnab2_advection_scan_matches_per_step_and_reference(monkeypatch):
 
 def test_f64_scan_learns_its_budget(monkeypatch):
     """At "f64" a step takes more iterations than one block: the first
-    step, solved on its own, sets the budget to its count rounded up to
-    whole blocks with one block to spare, three blocks, and no chunk
-    needs a rerun; within 1e-9 of the JAX package's float64 scan."""
+    step, solved on its own, sets the budget to the ladder's rung at or
+    above its count with one block to spare, 24 iterations (three
+    blocks); the last chunk runs at the rung above the first chunk's worst
+    step, and no chunk needs a rerun; within 1e-9 of the JAX package's
+    float64 scan."""
     cfg = dict(precision="f64", **MG)
     case = _heat(16, dt=0.01)
     budgets = _record_budgets(monkeypatch)
@@ -231,12 +233,44 @@ def test_f64_scan_learns_its_budget(monkeypatch):
     assert 2 * device_loop.STEP_BLOCK >= first > device_loop.STEP_BLOCK
     assert res.scan_reruns == 0
     block = device_loop.STEP_BLOCK
-    assert budgets == [device_loop.step_budget(first + block)] == [3 * block]
+    worst = max(out["program"][1][j] for j in range(1, 17))
+    assert budgets == [device_loop.first_budget(first),
+                       device_loop.step_budget(worst)]
+    assert budgets[0] == 3 * block > budgets[1]
     ref = _ref_transient(case, cfg)
     assert _gap(res.values, ref.values) <= F64_TOL
     # the port's steps stop on their free rows, the JAX package's on a
     # norm the Dirichlet values fill: the count is the port's per-step one
     assert res.total_cg_iterations == out["per step"][0].total_cg_iterations
+
+
+# The budgets the ladder gives, written out: (the most iterations a chunk's
+# worst step may take, the next chunk's budget); past the last, no budget
+NEXT_BUDGET = ((0, 1), (1, 2), (2, 3), (3, 4), (5, 6), (7, 8), (11, 12),
+               (15, 16), (23, 24), (32, 32))
+# the same for a trajectory's first chunk, after its first step alone
+FIRST_BUDGET = ((0, 8), (4, 12), (8, 16), (16, 24), (32, 32))
+
+
+def _rung(table, k):
+    return next((b for most, b in table if k <= most), None)
+
+
+@pytest.mark.parametrize("k", range(41))
+def test_step_budget_is_the_next_rung_with_a_spare_iteration(k):
+    """The budget after a chunk whose worst step took ``k`` iterations is
+    the ladder's rung at or above k + 1 (k + ``STEP_BLOCK`` for a first
+    chunk), at most the cap; past the cap none (step by step)."""
+    cap = device_loop.STEP_BUDGET_MAX
+    budget, first = device_loop.step_budget(k), device_loop.first_budget(k)
+    assert budget == _rung(NEXT_BUDGET, k)
+    assert first == _rung(FIRST_BUDGET, k)
+    if k > cap:
+        assert budget is first is None
+    else:
+        assert {budget, first} <= set(device_loop.STEP_BUDGETS)
+        assert budget >= min(k + 1, cap) and first >= min(k + 8, cap)
+        assert first >= budget
 
 
 @pytest.mark.parametrize("budget", [1, 2])
@@ -245,7 +279,8 @@ def test_forced_budget_overflows_reruns_and_lands_bit_equal(budget,
     """A budget forced to 1 or 2 iterations: the step program overflows,
     every chunk runs again step by step and is counted, and the scan lands
     bit for bit on the per-step path's."""
-    monkeypatch.setattr(device_loop, "step_budget", lambda k: budget)
+    for rule in ("first_budget", "step_budget"):
+        monkeypatch.setattr(device_loop, rule, lambda k: budget)
     budgets = _record_budgets(monkeypatch)
     case = _heat(12)
     res = _hold_paths(_both(monkeypatch,
@@ -279,12 +314,13 @@ def test_budget_follows_a_decaying_step_count(monkeypatch):
     """The rod's first steps take up to ~170 iterations, then ~26 until its
     field has settled, then none.  Each chunk after one whose worst step
     passed the cap runs step by step and captures nothing; the first chunk
-    within it is run at the cap, and once the steps fall the budget falls
-    to one block; no rerun, and bit-equal to the per-step path all the
-    same.  (At Δt = 0.05 and the default tolerance the rod's steps, stopped
-    on their free rows, hover at 30–42 iterations until they drop to none,
-    so no chunk's worst falls within the cap; Δt = 0.02 and a tolerance of
-    1e-5 put its middle steps at 26–27.)"""
+    within it is run at the cap, and once the steps fall to none the budget
+    falls to one iteration, the ladder's first rung; no rerun, and
+    bit-equal to the per-step path all the same.  (At Δt = 0.05 and the
+    default tolerance the rod's steps, stopped on their free rows, hover
+    at 30–42 iterations until they drop to none, so no chunk's worst falls
+    within the cap; Δt = 0.02 and a tolerance of 1e-5 put its middle steps
+    at 26–27.)"""
     steps = 160
     budgets = _record_budgets(monkeypatch)
     out = _both(monkeypatch, _rod(steps, dt=0.02, transient_inner_tol=1e-5))
@@ -292,14 +328,69 @@ def test_budget_follows_a_decaying_step_count(monkeypatch):
     seen = out["program"][1]
     cap, chunk = device_loop.STEP_BUDGET_MAX, device_loop.SCAN_CHUNK
     assert seen[0] > 4 * cap
-    assert budgets == [cap, device_loop.STEP_BLOCK]
+    assert budgets == [cap, device_loop.step_budget(0)] == [cap, 1]
     worst = [seen[0]] + [max(seen[j] for j in range(j0, min(j0 + chunk,
                                                             steps)))
                          for j0 in range(1, steps, chunk)]
     assert res.scan_reruns == 0
     assert res.scan_stepwise_chunks == 1 + sum(k > cap for k in worst[:-1])
-    # the later steps run one block each, not the cap
+    # the later steps run one iteration each, not the cap
     assert 0 < res.scan_past_iterations < (steps - 1) * cap / 2
+
+
+def _settling_heat(steps):
+    """A 16³ box whose faces hold 50 °C from a start of 25 °C, Δt 0.01,
+    MG-PCG steps at float32 and the default step tolerance, as the 3D heat
+    tool's follow-ups run: its steps take 4–5 iterations, then fewer as
+    the field settles, then 1 or none."""
+    mesh = box_mesh(16, 16, 16, (0, 0, 0), (1.0, 1.0, 1.0))
+
+    def ops(m):
+        return (assembly.assemble_scalar_stencil(m, "stiffness"),
+                assembly.assemble_scalar_stencil(m, "mass"),
+                DirichletBC.from_masks([(m.boundary_mask(), 50.0)],
+                                       m.node_shape))
+
+    K, M, bc = ops(mesh)
+    u0 = np.asarray(bc.apply_values(np.full(mesh.node_shape, 25.0)))
+
+    def run():
+        with config.config_overrides(device="cpu", precision="f32", **MG):
+            return timestepping.run_transient(K, M, mesh, bc,
+                                              np.zeros(u0.shape), u0, 0.01,
+                                              steps, mg_level_builder=ops)
+    return run
+
+
+def test_settling_heat_runs_its_later_chunks_at_their_steps(monkeypatch):
+    """As a heat trajectory settles, each chunk runs at the ladder's rung
+    one above the worst step of the chunk before, not in blocks of 8: the
+    chunks after steps of 1–2 iterations run at a budget of 2 or 3, with
+    no rerun, bit-equal to the per-step path."""
+    steps = 1 + 5 * device_loop.SCAN_CHUNK
+    ran = []
+    run = device_loop.StepLoop.run
+
+    def recorded(self, carry, n, m, keep, j0):
+        ran.append((j0, m, self.budget))
+        return run(self, carry, n, m, keep, j0)
+
+    monkeypatch.setattr(device_loop.StepLoop, "run", recorded)
+    out = _both(monkeypatch, _settling_heat(steps))
+    res = _hold_paths(out, steps=steps)
+    seen = out["program"][1]
+    assert res.scan_reruns == 0 and res.scan_stepwise_chunks == 1
+    assert seen[0] >= 4 and min(seen.values()) <= 1
+    # every chunk at the rung above the worst step of the chunk before
+    worst = [seen[0]] + [max(seen[j] for j in range(j0, j0 + m))
+                         for j0, m, _ in ran]
+    assert [b for _, _, b in ran] == (
+        [device_loop.first_budget(worst[0])]
+        + [device_loop.step_budget(k) for k in worst[1:-1]])
+    later = [b for (_, _, b), k in zip(ran[1:], worst[1:]) if k <= 2]
+    assert later and max(later) <= 3
+    assert res.scan_past_iterations == sum(
+        m * b for _, m, b in ran) - sum(seen[j] for j in range(1, steps))
 
 
 def test_a_step_capped_at_maxiter_captures_no_larger_budget(monkeypatch):
